@@ -1,0 +1,58 @@
+"""Configuration dataclasses for the PyTorch port (same fields and defaults as
+the JAX package's `MelConfig`, `ModelConfig` and `VocosConfig`; reference
+StableTTS config.py:1-50)."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+
+@dataclass(frozen=True)
+class MelConfig:
+    """Log-mel front-end config. `pad` defaults to (n_fft - hop_length) // 2,
+    which gives "same"-style framing: N samples yield ceil(N / hop) frames."""
+
+    sample_rate: int = 44100
+    n_fft: int = 2048
+    win_length: int = 2048
+    hop_length: int = 512
+    f_min: float = 0.0
+    f_max: Optional[float] = None
+    pad: int = 0
+    n_mels: int = 128
+    center: bool = False
+    pad_mode: str = "reflect"
+    mel_scale: str = "slaney"
+
+    def __post_init__(self):
+        if self.pad == 0:
+            object.__setattr__(self, "pad", (self.n_fft - self.hop_length) // 2)
+
+    @property
+    def frames_per_second(self) -> float:
+        return self.sample_rate / self.hop_length
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """StableTTS acoustic model config (flagship: 31M parameters)."""
+
+    hidden_channels: int = 256
+    filter_channels: int = 1024
+    n_heads: int = 4
+    n_enc_layers: int = 3
+    n_dec_layers: int = 6
+    kernel_size: int = 3
+    p_dropout: float = 0.1
+    gin_channels: int = 256
+
+
+@dataclass(frozen=True)
+class VocosConfig:
+    """Vocos generator config (inference default)."""
+
+    input_channels: int = 128
+    dim: int = 512
+    intermediate_dim: int = 1536
+    num_layers: int = 8

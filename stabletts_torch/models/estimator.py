@@ -1,0 +1,83 @@
+"""Flow-matching velocity estimator: DiT U-Net with FiLM timestep
+conditioning and long skip connections (reference: models/estimator.py:8-137)."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from stabletts_torch.nn.blocks import (
+    DiTConVBlock,
+    FiLMLayer,
+    TimestepEmbedding,
+    conv1d_same,
+    sinusoidal_pos_emb,
+)
+
+
+class DitWrapper(nn.Module):
+    """FiLM(t) then DiTConVBlock(speaker c)."""
+
+    def __init__(self, hidden_channels, filter_channels, num_heads, kernel_size, gin_channels, time_channels):
+        super().__init__()
+        self.time_fusion = FiLMLayer(hidden_channels, time_channels)
+        self.block = DiTConVBlock(hidden_channels, filter_channels, num_heads, kernel_size, gin_channels)
+
+    def forward(self, x, c, t, mask):
+        x = self.time_fusion(x, t) * mask.to(x.dtype)[..., None]
+        return self.block(x, c, mask)
+
+
+class Decoder(nn.Module):
+    """Velocity network v(t, x | mu, c). x/mu [B, T, C], t [B], c [B, gin],
+    mask [B, T]. The t-independent mu prenet is exposed as `precompute_mu` so
+    the sampler runs it once per synthesis."""
+
+    def __init__(self, noise_channels, cond_channels, hidden_channels, out_channels, filter_channels,
+                 n_layers=1, n_heads=4, kernel_size=3, gin_channels=0):
+        super().__init__()
+        if n_layers % 2 != 0:
+            raise ValueError(f"n_layers must be even for the U-Net skips (got {n_layers})")
+        pad = kernel_size // 2
+        self.hidden_channels = hidden_channels
+        self.time_mlp = TimestepEmbedding(hidden_channels, hidden_channels, filter_channels)
+        self.cond_proj = nn.Sequential(
+            nn.Conv1d(cond_channels, filter_channels, kernel_size, padding=pad), nn.SiLU(),
+            nn.Conv1d(filter_channels, filter_channels, kernel_size, padding=pad), nn.SiLU(),
+            nn.Conv1d(filter_channels, hidden_channels, kernel_size, padding=pad),
+        )
+        self.in_proj = nn.Conv1d(noise_channels + hidden_channels, hidden_channels, 1)
+        self.final_proj = nn.Conv1d(hidden_channels, out_channels, 1)
+        self.blocks = nn.ModuleList(
+            DitWrapper(hidden_channels, filter_channels, n_heads, kernel_size, gin_channels, hidden_channels)
+            for _ in range(n_layers)
+        )
+        self.lsc_layers = nn.ModuleList(
+            nn.Conv1d(2 * hidden_channels, hidden_channels, kernel_size, padding=pad)
+            for _ in range(n_layers // 2)
+        )
+
+    def precompute_mu(self, mu):
+        """3x (conv k=3) with SiLU between, unmasked, on [B, T, cond]."""
+        c0, _, c2, _, c4 = self.cond_proj
+        h = F.silu(conv1d_same(mu, c0))
+        h = F.silu(conv1d_same(h, c2))
+        return conv1d_same(h, c4)
+
+    def forward(self, t, x, mask, mu, c, mu_is_precomputed: bool = False):
+        t_emb = self.time_mlp(sinusoidal_pos_emb(t, self.hidden_channels, scale=1000.0))
+        h_mu = mu if mu_is_precomputed else self.precompute_mu(mu)
+        h = conv1d_same(torch.cat([x, h_mu], dim=-1), self.in_proj)  # (noise, mu) order
+
+        n_lsc = len(self.lsc_layers)
+        skips = []
+        for idx, block in enumerate(self.blocks):
+            if idx < n_lsc:
+                skips.append(h)
+            else:
+                h = conv1d_same(torch.cat([h, skips.pop()], dim=-1), self.lsc_layers[idx - n_lsc])
+            h = block(h, c, t_emb, mask)
+
+        m = mask.to(h.dtype)[..., None]
+        return conv1d_same(h * m, self.final_proj) * m

@@ -1,0 +1,79 @@
+"""Mel reference (style) encoder for zero-shot timbre cloning
+(reference: models/reference_encoder.py:4-92). Plain tensor code: its
+attention is small (2 heads over the reference mel)."""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from stabletts_torch.nn.blocks import conv1d_same
+
+
+class Conv1dGLU(nn.Module):
+    """Conv1d + gated linear unit with a residual connection."""
+
+    def __init__(self, channels: int, kernel_size: int):
+        super().__init__()
+        self.conv1 = nn.Conv1d(channels, 2 * channels, kernel_size, padding=kernel_size // 2)
+
+    def forward(self, x):
+        x1, x2 = conv1d_same(x, self.conv1).chunk(2, dim=-1)
+        return x + x1 * torch.sigmoid(x2)
+
+
+class SelfAttention(nn.Module):
+    """torch.nn.MultiheadAttention(batch_first=True)'s parameters and math,
+    with key_padding_mask (True = pad) filled by -finfo.max."""
+
+    def __init__(self, embed_dim: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
+        self.out_proj = nn.Linear(embed_dim, embed_dim)
+        nn.init.xavier_uniform_(self.in_proj_weight)
+
+    def forward(self, x, key_padding_mask: Optional[torch.Tensor] = None):
+        b, t, c = x.shape
+        d = c // self.num_heads
+        q, k, v = F.linear(x, self.in_proj_weight, self.in_proj_bias).chunk(3, dim=-1)
+        q, k, v = (z.reshape(b, t, self.num_heads, d) for z in (q, k, v))
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(d)
+        if key_padding_mask is not None:
+            logits = logits.masked_fill(key_padding_mask[:, None, None, :], -torch.finfo(logits.dtype).max)
+        weights = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(b, t, c)
+        return self.out_proj(out)
+
+
+class MelStyleEncoder(nn.Module):
+    """Mel [B, T, n_mels] -> style vector [B, style_vector_dim]."""
+
+    def __init__(self, n_mel_channels: int = 80, style_hidden: int = 128, style_vector_dim: int = 256,
+                 style_kernel_size: int = 5, style_head: int = 2, dropout: float = 0.1):
+        super().__init__()
+        self.spectral = nn.Sequential(
+            nn.Linear(n_mel_channels, style_hidden), nn.Mish(), nn.Dropout(dropout),
+            nn.Linear(style_hidden, style_hidden), nn.Mish(), nn.Dropout(dropout),
+        )
+        self.temporal = nn.Sequential(
+            Conv1dGLU(style_hidden, style_kernel_size),
+            Conv1dGLU(style_hidden, style_kernel_size),
+        )
+        self.slf_attn = SelfAttention(style_hidden, style_head)
+        self.fc = nn.Linear(style_hidden, style_vector_dim)
+
+    def forward(self, x, mask: Optional[torch.Tensor] = None):
+        """mask: [B, T] validity mask (1 = valid) or None."""
+        x = self.temporal(self.spectral(x))
+        x = self.slf_attn(x, None if mask is None else mask <= 0)
+        x = self.fc(x)
+        if mask is None:
+            return x.mean(dim=1)
+        m = mask.to(x.dtype)[..., None]
+        return (x * m).sum(dim=1) / m.sum(dim=1)

@@ -1,0 +1,92 @@
+"""Synthesis pipeline: text -> mel via the flow-matching ODE
+(reference: models/model.py:48-112).
+
+The estimator's t-independent mu prenet runs once per synthesis, and CFG runs
+the conditional and unconditional branches as one [2B] batch.
+"""
+
+from __future__ import annotations
+
+import copy
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from stabletts_torch.models.stabletts import StableTTS
+from stabletts_torch.ops.ode import odeint
+from stabletts_torch.utils.device import resolve_device
+
+
+def _as_tensor(a, device, dtype=None):
+    if a is None:
+        return None
+    t = torch.as_tensor(np.asarray(a)) if not isinstance(a, torch.Tensor) else a
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def cast_model(model: StableTTS, dtype: torch.dtype) -> StableTTS:
+    """The model with float parameters in `dtype` (a copy unless it already is)."""
+    if next(model.parameters()).dtype == dtype:
+        return model
+    return copy.deepcopy(model).to(dtype)
+
+
+@torch.no_grad()
+def synthesise(model: StableTTS, x, x_lengths, noise, y_ref, n_timesteps: int = 10,
+               temperature: float = 1.0, length_scale: float = 1.0, solver: str = "euler",
+               cfg: float = 1.0, max_mel_len: int = 1000, compute_dtype=None, y_ref_mask=None,
+               device=None) -> dict:
+    """x [B, Tx] phoneme ids; noise [B, max_mel_len, n_mels] standard normal;
+    y_ref [B, Tref, n_mels] reference mel. Returns decoder_outputs
+    [B, max_mel_len, n_mels] (float32), y_lengths and y_clamped.
+
+    Runs on `device` (the GPU unless the caller passes "cpu"), where the
+    model's parameters must already be. compute_dtype=torch.bfloat16 runs the
+    network in bf16 (on a bf16 copy of the model, unless it is one)."""
+    device = resolve_device(device)
+    if next(model.parameters()).device.type != device.type:
+        raise ValueError(f"model is on {next(model.parameters()).device}, synthesise asked for {device}")
+    x = _as_tensor(x, device, torch.long)
+    x_lengths = _as_tensor(x_lengths, device, torch.long)
+    noise = _as_tensor(noise, device, torch.float32)
+    y_ref = _as_tensor(y_ref, device, torch.float32)
+    y_ref_mask = _as_tensor(y_ref_mask, device, torch.float32)
+    if compute_dtype is not None:
+        model = cast_model(model, compute_dtype)
+        noise = noise.to(compute_dtype)
+        y_ref = y_ref.to(compute_dtype)
+        if y_ref_mask is not None:
+            y_ref_mask = y_ref_mask.to(compute_dtype)
+
+    # compute at a multiple of 256 frames and trim back: every conv and
+    # attention boundary masks by y_mask, so the extra frames are inert
+    requested_len = max_mel_len
+    max_mel_len = -(-max_mel_len // 256) * 256
+    if max_mel_len != requested_len:
+        noise = F.pad(noise, (0, 0, 0, max_mel_len - requested_len))
+
+    prep = model.prepare_synthesis(x, x_lengths, y_ref, max_mel_len, length_scale, y_ref_mask,
+                                   requested_len)
+    mu_y, c, y_mask = prep["mu_y"], prep["c"], prep["y_mask"]
+    h_mu = model.precompute_mu(mu_y)
+    cfg_on = cfg != 1.0
+    if cfg_on:
+        fake_h_mu = model.precompute_fake_mu(mu_y.shape[0], mu_y.shape[1], requested_len)
+
+    def f(t, xt):
+        tb = t.expand(xt.shape[0]).to(xt.dtype)
+        if cfg_on:
+            return model.cfg_velocity(tb, xt, y_mask, h_mu, c, cfg, fake_h_mu, True)
+        return model.velocity(tb, xt, y_mask, h_mu, c, True)
+
+    t_span = torch.linspace(0.0, 1.0, n_timesteps + 1, dtype=torch.float32, device=device).to(noise.dtype)
+    mel = odeint(f, noise * temperature, t_span, method=solver)
+    return {
+        "encoder_outputs": mu_y[:, :requested_len].float(),
+        "decoder_outputs": mel[:, :requested_len].float(),
+        "attn": prep["attn"][:, :, :requested_len].float(),
+        "y_lengths": prep["y_lengths"],
+        "y_clamped": prep["y_clamped"],
+        "y_mask": y_mask[:, :requested_len].float(),
+    }

@@ -1,0 +1,109 @@
+"""StableTTS top model, inference half: style encoder, text encoder, duration
+predictor and the flow-matching decoder (reference: models/model.py:30-112)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from stabletts_torch.models.duration_predictor import DurationPredictor
+from stabletts_torch.models.flow_matching import CFMDecoder
+from stabletts_torch.models.reference_encoder import MelStyleEncoder
+from stabletts_torch.models.text_encoder import TextEncoder
+from stabletts_torch.ops.mask import sequence_mask
+from stabletts_torch.utils.device import resolve_device
+
+
+def generate_path(duration: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """duration [B, Tx] (possibly fractional), mask [B, Tx, Ty] -> hard
+    monotonic alignment path [B, Tx, Ty] (reference: models/model.py:17-27)."""
+    t_y = mask.shape[2]
+    cum = torch.cumsum(duration, dim=1)
+    pos = torch.arange(t_y, dtype=cum.dtype, device=cum.device)
+    path = (pos[None, None, :] < cum[:, :, None]).to(mask.dtype)
+    path = path - F.pad(path, (0, 0, 1, 0))[:, :-1]
+    return path * mask
+
+
+class StableTTS(nn.Module):
+    def __init__(self, n_vocab: int, mel_channels: int, hidden_channels: int = 256,
+                 filter_channels: int = 1024, n_heads: int = 4, n_enc_layers: int = 3,
+                 n_dec_layers: int = 6, kernel_size: int = 3, gin_channels: int = 256,
+                 device=None):
+        super().__init__()
+        self.mel_channels = mel_channels
+        self.gin_channels = gin_channels
+        self.encoder = TextEncoder(n_vocab, mel_channels, hidden_channels, filter_channels,
+                                   n_heads, n_enc_layers, kernel_size, gin_channels)
+        self.ref_encoder = MelStyleEncoder(n_mel_channels=mel_channels, style_vector_dim=gin_channels,
+                                           style_kernel_size=5, dropout=0.25)
+        self.dp = DurationPredictor(hidden_channels, filter_channels, kernel_size, gin_channels)
+        self.decoder = CFMDecoder(mel_channels, mel_channels, hidden_channels, mel_channels,
+                                  filter_channels, n_heads, n_dec_layers, kernel_size, gin_channels)
+        # learned unconditional embeddings for CFG (reference layouts)
+        self.fake_speaker = nn.Parameter(torch.zeros(1, gin_channels))
+        self.fake_content = nn.Parameter(torch.zeros(1, mel_channels, 1))
+        self.to(resolve_device(device))
+        self.eval()
+
+    def prepare_synthesis(self, x, x_lengths, y_ref, max_mel_len: int, length_scale: float = 1.0,
+                          y_ref_mask=None, clip_len: Optional[int] = None) -> dict:
+        """Text ids [B, Tx] + reference mel [B, Tref, n_mels] -> aligned
+        encoder output mu_y [B, max_mel_len, n_mels], style vector, masks and
+        the (clipped) lengths."""
+        c = self.ref_encoder(y_ref, y_ref_mask)
+        h, mu_x, x_mask = self.encoder(x, c, x_lengths)
+        logw = self.dp(h, x_mask, c)  # [B, Tx, 1]
+
+        # durations and frame positions stay f32 under bf16: above frame 512
+        # bf16's ulp is 4 and would merge consecutive frame positions
+        w = torch.exp(logw.float()) * x_mask[..., None].float()
+        w_ceil = torch.ceil(w) * length_scale
+        raw_lengths = w_ceil.sum(dim=(1, 2))
+        cap = clip_len or max_mel_len
+        y_lengths = raw_lengths.clamp(1, cap).to(torch.int32)
+        y_clamped = raw_lengths > cap
+
+        y_mask = sequence_mask(y_lengths, max_mel_len, dtype=x_mask.dtype)
+        attn_mask = (x_mask[:, :, None] * y_mask[:, None, :]).float()
+        attn = generate_path(w_ceil[..., 0], attn_mask)
+        mu_y = torch.einsum("bxy,bxc->byc", attn.to(mu_x.dtype), mu_x)
+        return {"mu_y": mu_y, "c": c, "y_mask": y_mask, "y_lengths": y_lengths,
+                "y_clamped": y_clamped, "attn": attn}
+
+    def velocity(self, t, xt, y_mask, mu, c, mu_is_precomputed: bool = False):
+        return self.decoder(t, xt, y_mask, mu, c, mu_is_precomputed)
+
+    def precompute_mu(self, mu):
+        return self.decoder.estimator.precompute_mu(mu)
+
+    def precompute_fake_mu(self, b: int, t_len: int, valid_len: Optional[int] = None):
+        """Prenet over the unconditional content embedding. Frames past
+        valid_len are zeroed so the unmasked prenet convs see the boundary an
+        unpadded run sees."""
+        fake_mu = self.fake_content[:, :, 0][:, None, :].expand(b, t_len, self.mel_channels)
+        if valid_len is not None and valid_len < t_len:
+            keep = (torch.arange(t_len, device=fake_mu.device) < valid_len).to(fake_mu.dtype)
+            fake_mu = fake_mu * keep[None, :, None]
+        return self.precompute_mu(fake_mu)
+
+    def cfg_velocity(self, t, xt, y_mask, mu, c, cfg_strength: float, fake_mu=None,
+                     mu_is_precomputed: bool = False):
+        """uncond + s * (cond - uncond), both branches in one [2B] call."""
+        b, t_len = mu.shape[0], mu.shape[1]
+        fake_c = self.fake_speaker.expand(b, self.gin_channels)
+        if fake_mu is None:
+            if mu_is_precomputed:
+                raise ValueError(
+                    "cfg_velocity: mu is precomputed but fake_mu is None; pass "
+                    "precompute_fake_mu(...) output for the unconditional branch"
+                )
+            fake_mu = self.fake_content[:, :, 0][:, None, :].expand(b, t_len, self.mel_channels)
+        cat = lambda a, b_: torch.cat([a, b_], dim=0)
+        out = self.decoder(cat(t, t), cat(xt, xt), cat(y_mask, y_mask), cat(mu, fake_mu),
+                           cat(c, fake_c), mu_is_precomputed)
+        cond, uncond = out[:b], out[b:]
+        return uncond + cfg_strength * (cond - uncond)

@@ -1,0 +1,151 @@
+"""Weights across packages: JAX param trees -> the port's state dicts, and
+reference `.pt` files -> state dicts.
+
+The port's modules use the reference StableTTS / Vocos torch state-dict names
+and layouts, so both routes end in `model.load_state_dict`. The JAX trees are
+nested dicts of numpy arrays (flax layouts):
+
+  flax dense kernel [in, out]    -> torch Linear [out, in] / Conv1d k=1 [out, in, 1]
+  flax conv kernel [k, in, out]  -> torch Conv1d [out, in, k]
+  flax LayerNorm scale/bias      -> weight/bias
+  q/k/v dense kernels            -> packed MHA in_proj_weight [3C, C]
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+# buffers the reference modules register but recompute (rotary caches, the
+# ISTFT window) and BatchNorm counters: not parameters of the port
+_BUFFER_MARKERS = ("rotary", "num_batches", "window")
+
+
+def _t_linear(out: Dict[str, np.ndarray], prefix: str, d: dict):
+    """flax dense {kernel [in,out], bias?} -> torch Linear weight [out,in]."""
+    out[f"{prefix}.weight"] = np.ascontiguousarray(d["kernel"].T)
+    if "bias" in d:
+        out[f"{prefix}.bias"] = d["bias"]
+
+
+def _t_conv1x1(out: Dict[str, np.ndarray], prefix: str, d: dict):
+    """flax dense -> torch Conv1d k=1 weight [out,in,1]."""
+    out[f"{prefix}.weight"] = np.ascontiguousarray(d["kernel"].T)[..., None]
+    if "bias" in d:
+        out[f"{prefix}.bias"] = d["bias"]
+
+
+def _t_conv(out: Dict[str, np.ndarray], prefix: str, d: dict):
+    """flax conv {kernel [k,in,out]} -> torch Conv1d weight [out,in,k]."""
+    out[f"{prefix}.weight"] = np.ascontiguousarray(np.transpose(d["kernel"], (2, 1, 0)))
+    if "bias" in d:
+        out[f"{prefix}.bias"] = d["bias"]
+
+
+def _t_ln(out: Dict[str, np.ndarray], prefix: str, d: dict):
+    out[f"{prefix}.weight"] = d["scale"]
+    out[f"{prefix}.bias"] = d["bias"]
+
+
+def _export_dit_block(out: Dict[str, np.ndarray], p: str, blk: dict):
+    for name in ("conv_q", "conv_k", "conv_v", "conv_o"):
+        _t_conv1x1(out, f"{p}.attn.{name}", blk["attn"][name])
+    _t_conv(out, f"{p}.mlp.conv_1", blk["mlp"]["conv_1"])
+    _t_conv(out, f"{p}.mlp.conv_2", blk["mlp"]["conv_2"])
+    if "adaLN_proj" in blk:
+        _t_linear(out, f"{p}.adaLN_modulation.0", blk["adaLN_proj"])
+    _t_linear(out, f"{p}.adaLN_modulation.2", blk["adaLN_modulation"])
+
+
+def _export_mel_style_encoder(out: Dict[str, np.ndarray], p: str, enc: dict):
+    _t_linear(out, f"{p}.spectral.0", enc["spectral_0"])
+    _t_linear(out, f"{p}.spectral.3", enc["spectral_3"])
+    _t_conv(out, f"{p}.temporal.0.conv1", enc["temporal_0"]["conv1"])
+    _t_conv(out, f"{p}.temporal.1.conv1", enc["temporal_1"]["conv1"])
+    attn = enc["slf_attn"]
+    out[f"{p}.slf_attn.in_proj_weight"] = np.ascontiguousarray(
+        np.concatenate([attn["q_proj"]["kernel"].T, attn["k_proj"]["kernel"].T,
+                        attn["v_proj"]["kernel"].T], axis=0)
+    )
+    out[f"{p}.slf_attn.in_proj_bias"] = np.concatenate(
+        [attn["q_proj"]["bias"], attn["k_proj"]["bias"], attn["v_proj"]["bias"]]
+    )
+    _t_linear(out, f"{p}.slf_attn.out_proj", attn["out_proj"])
+    _t_linear(out, f"{p}.fc", enc["fc"])
+
+
+def state_dict_from_jax_stabletts(params: dict, n_enc_layers=3, n_dec_layers=6) -> Dict[str, torch.Tensor]:
+    """JAX StableTTS params (the `params` collection) -> the port's
+    `StableTTS` state dict (float32 CPU tensors)."""
+    out: Dict[str, np.ndarray] = {}
+    out["fake_speaker"] = np.asarray(params["fake_speaker"])
+    out["fake_content"] = np.asarray(params["fake_content"])[..., None]  # [1,C] -> [1,C,1]
+
+    enc = params["encoder"]
+    out["encoder.emb.weight"] = np.asarray(enc["emb"]["embedding"])
+    _t_conv1x1(out, "encoder.proj", enc["proj"])
+    for i in range(n_enc_layers):
+        _export_dit_block(out, f"encoder.encoder.{i}", enc[f"encoder_{i}"])
+
+    _export_mel_style_encoder(out, "ref_encoder", params["ref_encoder"])
+
+    dp = params["dp"]
+    _t_conv1x1(out, "dp.cond", dp["cond"])
+    _t_conv(out, "dp.conv1", dp["conv1"])
+    _t_ln(out, "dp.norm1", dp["norm1"])
+    _t_conv(out, "dp.conv2", dp["conv2"])
+    _t_ln(out, "dp.norm2", dp["norm2"])
+    _t_conv1x1(out, "dp.proj", dp["proj"])
+
+    est = params["decoder"]["estimator"]
+    _t_linear(out, "decoder.estimator.time_mlp.layer.0", est["time_mlp"]["layer_0"])
+    _t_linear(out, "decoder.estimator.time_mlp.layer.2", est["time_mlp"]["layer_2"])
+    for j in (0, 2, 4):
+        _t_conv(out, f"decoder.estimator.cond_proj.{j}", est[f"cond_proj_{j}"])
+    _t_conv1x1(out, "decoder.estimator.in_proj", est["in_proj"])
+    _t_conv1x1(out, "decoder.estimator.final_proj", est["final_proj"])
+    for i in range(n_dec_layers):
+        blk = est[f"blocks_{i}"]
+        _t_conv1x1(out, f"decoder.estimator.blocks.{i}.time_fusion.film",
+                   blk["time_fusion"]["film"])
+        _export_dit_block(out, f"decoder.estimator.blocks.{i}.block", blk["block"])
+    for j in range(n_dec_layers // 2):
+        _t_conv(out, f"decoder.estimator.lsc_layers.{j}", est[f"lsc_{j}"])
+    return _tensors(out)
+
+
+def state_dict_from_jax_vocos(params: dict, num_layers=8) -> Dict[str, torch.Tensor]:
+    """JAX Vocos params -> the port's `Vocos` state dict (float32 CPU tensors)."""
+    out: Dict[str, np.ndarray] = {}
+    bb = params["backbone"]
+    _t_conv(out, "backbone.embed", bb["embed"])
+    _t_ln(out, "backbone.norm", bb["norm"])
+    _t_ln(out, "backbone.final_layer_norm", bb["final_layer_norm"])
+    for i in range(num_layers):
+        blk = bb[f"convnext_{i}"]
+        p = f"backbone.convnext.{i}"
+        _t_conv(out, f"{p}.dwconv", blk["dwconv"])
+        _t_ln(out, f"{p}.norm", blk["norm"])
+        _t_linear(out, f"{p}.pwconv1", blk["pwconv1"])
+        _t_linear(out, f"{p}.pwconv2", blk["pwconv2"])
+        out[f"{p}.gamma"] = np.asarray(blk["gamma"])
+    _t_linear(out, "head.out", params["head"]["out"])
+    return _tensors(out)
+
+
+def _tensors(state_dict: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32, copy=True)) for k, v in state_dict.items()}
+
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """Reference `.pt` checkpoint -> float32 CPU state dict, unwrapping the
+    common {'state_dict': ...} container and dropping recomputed buffers."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    return {
+        k: v.float() for k, v in sd.items()
+        if not any(marker in k for marker in _BUFFER_MARKERS)
+    }
