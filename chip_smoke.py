@@ -5,8 +5,10 @@
 Phases, one JSON line each; any failure exits nonzero:
   1. environment (torch/CUDA versions, card name and power limit)
   2. kernel build (every csrc/*.cu, one nvcc each, in parallel)
-  3. each kernel against its plain PyTorch version on the card, at the
-     serving path's shapes, f32 and bf16, with times and bounds
+  3. each kernel against its plain PyTorch version on the card, at the main
+     paths' shapes, f32 and bf16, with times and bounds: the serving
+     kernels; the training kernels' forward and every gradient at dropout 0
+     and 0.1 (shared Philox bits); MAS exactly, with the time per mel row
   4. serving: StableTTSAPI at the flagship config (random weights from a
      numpy seed, adaLN randomised): English requests, one batch request and
      a bf16 synthesise + Vocos batch at the bench shape (B=8, 1000 frames),
@@ -14,17 +16,27 @@ Phases, one JSON line each; any failure exits nonzero:
   5. device time by kernel over one request (torch.profiler)
   6. one request on the GPU (kernels) against the same request on the CPU
      (plain versions), same weights and noise
-  7. the `kernels` line (launches: over the `inference` requests of phase 4;
-     times: the bf16 bench shape); then the card line and the result line.
+  7. training: `train()` at the flagship config on a synthetic filelist
+     (B=32, mels of 901-1000 frames, text padded to 512), 2 epochs then a
+     resume, with the launches of each training kernel per step; 8 steps
+     overfitting one batch; device time by kernel over one step; one step at
+     B=2 on the GPU against the CPU path, same weights and draws
+  8. the `kernels` line (launches: over the main paths' runs, the
+     `inference` requests of phase 4 and the `train_steps` run of phase 7;
+     times: the bf16 bench shape for serving kernels; the decoder's shape in
+     the trainer, f32 at B=32, T=1000, dropout 0.1, for the training kernels;
+     [32, 1000, 512] for MAS); then the card line and the result line.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -34,12 +46,24 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # H100 SXM, dense, 
 PEAK_BYTES = 3.35e12
 BARS = {"dit_block": {torch.float32: 5e-3, torch.bfloat16: 2e-2},
         "convnext": {torch.float32: 2e-2, torch.bfloat16: 2e-2},
-        "istft": {torch.float32: 1e-4, torch.bfloat16: 1e-3}}
+        "istft": {torch.float32: 1e-4, torch.bfloat16: 1e-3},
+        # forward and every gradient (tools/tpu_selftest.py:96, 155, 209 in bf16)
+        "ffn_train": {torch.float32: 5e-3, torch.bfloat16: 2e-2},
+        "dit_attention_train": {torch.float32: 5e-3, torch.bfloat16: 2e-2}}
 KERNEL_INFO = {
     "dit_block": ("stabletts_torch/csrc/dit_block.cu", "stabletts_tpu/ops/dit_block_pallas.py:98"),
     "convnext": ("stabletts_torch/csrc/convnext.cu", "stabletts_tpu/ops/convnext_pallas.py:84"),
     "istft": ("stabletts_torch/csrc/istft.cu", "stabletts_tpu/ops/istft_pallas.py:55"),
+    "dit_attention_train_fwd": ("stabletts_torch/csrc/dit_attention_train.cu",
+                                "stabletts_tpu/ops/dit_attention_pallas_train.py:273"),
+    "dit_attention_train_bwd": ("stabletts_torch/csrc/dit_attention_train.cu",
+                                "stabletts_tpu/ops/dit_attention_pallas_train.py:302"),
+    "ffn_train_fwd": ("stabletts_torch/csrc/ffn_train.cu", "stabletts_tpu/ops/ffn_pallas_train.py:189"),
+    "ffn_train_bwd": ("stabletts_torch/csrc/ffn_train.cu", "stabletts_tpu/ops/ffn_pallas_train.py:218"),
+    "mas": ("stabletts_torch/csrc/mas.cu", "stabletts_tpu/ops/mas_pallas.py:174"),
 }
+TRAIN_LAUNCHES_PER_STEP = {"dit_attention_train_fwd": 9, "dit_attention_train_bwd": 9, "ffn_train_fwd": 9,
+                           "ffn_train_bwd": 9, "mas": 1}
 DT_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
 
@@ -184,6 +208,153 @@ def phase_kernels(dev) -> dict:
     return bench_rows
 
 
+def _train_inputs(kind, b, t, dtype, dev):
+    """Inputs of a training kernel at flagship widths (C=256, F=1024, 4 heads
+    of 64): x masked to ragged lengths, mod [B, 3, C], the weights."""
+    rng = np.random.default_rng(b * 7919 + t)
+    c, f = 256, 1024
+    g = lambda *s, scale=1.0: torch.from_numpy((rng.standard_normal(s) * scale).astype(np.float32)).to(dev, dtype)
+    lengths = torch.tensor([t - (i * 37) % max(1, t // 2) for i in range(b)], device=dev)
+    mask = (torch.arange(t, device=dev)[None, :] < lengths[:, None]).float()
+    x = g(b, t, c) * mask[..., None].to(dtype)
+    mod = g(b, 3, c, scale=0.3)
+    if kind == "ffn_train":
+        ws = [g(3, c, f, scale=(3 * c) ** -0.5), g(f, scale=0.05), g(3, f, c, scale=(3 * f) ** -0.5),
+              g(c, scale=0.05)]
+    else:
+        ws = [w for _ in range(4) for w in (g(c, c, scale=c ** -0.5), g(c, scale=0.05))]
+    return x, mod, mask, ws, g(b, t, c)
+
+
+def check_train(kind, b, t, dtype, rate, dev) -> list:
+    """A training kernel pair against autograd through its plain version on
+    the same inputs and the same Philox bits: the forward and every gradient
+    (mod split into shift, scale, gate; 8 gradients for the FFN, 12 for the
+    attention), each as max-abs-err / max-abs-plain. Returns the fwd row (the
+    output's error) and the bwd row (the worst gradient's); each is ok only
+    if all of them are within the bar."""
+    from stabletts_torch.ops import dit_attention_train_cuda as A
+    from stabletts_torch.ops import ffn_train_cuda as F
+    from stabletts_torch.ops import philox
+
+    heads, c, f = 4, 256, 1024
+    x, mod, mask, ws, cot = _train_inputs(kind, b, t, dtype, dev)
+    seed = philox.draw_seed(torch.Generator(device=dev).manual_seed(b + t), dev)
+    if kind == "ffn_train":
+        kern = lambda *a: F.ffn_train(a[0], a[1], mask, *a[2:], rate, seed)
+        plain = lambda *a: F.ffn_train_plain(a[0], a[1], mask, *a[2:], rate, seed)
+        names = ["dw1", "db1", "dw2", "db2"]
+        run_fwd = lambda: F.ffn_train_fwd(x, mod, mask, *ws, rate, seed)
+        run_bwd = lambda: F.ffn_train_bwd(x, mod, mask, *ws, rate, seed, cot)
+        flops = 12 * b * t * c * f
+        keep = philox.ffn_keep(seed, b, t, f, rate) if rate > 0 else None
+    else:
+        kern = lambda *a: A.dit_attention_train(a[0], a[1], mask, *a[2:], heads, rate, seed)
+        plain = lambda *a: A.dit_attention_train_plain(a[0], a[1], mask, *a[2:], heads, rate, seed)
+        names = ["dwq", "dbq", "dwk", "dbk", "dwv", "dbv", "dwo", "dbo"]
+        wqkv, bqkv = torch.cat(ws[0:6:2], dim=1).contiguous(), torch.cat(ws[1:6:2]).contiguous()
+        run_fwd = lambda: A.dit_attention_train_fwd(x, mod, mask, wqkv, bqkv, ws[6], ws[7], heads, rate, seed)
+        _, att, lse = run_fwd()
+        run_bwd = lambda: A.dit_attention_train_bwd(x, mod, mask, wqkv, bqkv, ws[6], ws[7], heads, rate, seed,
+                                                    att, lse, cot)
+        flops = 2 * b * t * c * 4 * c + 4 * b * heads * t * t * (c // heads)
+        keep = philox.attention_keep(seed, b, heads, t, rate) if rate > 0 else None
+    kept = float((keep > 0).float().mean()) if keep is not None else None
+    n_keep = keep.numel() if keep is not None else 0
+    del keep
+
+    leaves = [a.detach().clone().requires_grad_() for a in (x, mod, *ws)]
+    out_k = kern(*leaves)
+    g_k = torch.autograd.grad(out_k, leaves, cot)
+    out_p = plain(*leaves)
+    g_p = torch.autograd.grad(out_p, leaves, cot, retain_graph=True)
+    split = lambda gs: [gs[0], gs[1][:, 0], gs[1][:, 1], gs[1][:, 2], *gs[2:]]
+    errs = {name: rel_err(a, r) for name, a, r in
+            zip(["out", "dx", "dshift", "dscale", "dgate", *names], [out_k, *split(g_k)], [out_p, *split(g_p)])}
+    worst_grad = max((k for k in errs if k != "out"), key=lambda k: errs[k][0])
+    bar = BARS[kind][dtype]
+    all_ok = max(e[0] for e in errs.values()) <= bar
+    # the kept share: within 1e-3 of 0.9 where 3 sigma of the count is under
+    # 1e-3 (over a million weights), within 3 sigma otherwise
+    sigma3 = 3 * (0.09 / n_keep) ** 0.5 if n_keep else 0.0
+    kept_ok = kept is None or abs(kept - 0.9) <= max(1e-3, sigma3)
+
+    w_bytes = nbytes(*ws)
+    fwd_bytes = nbytes(x, mod, mask) + w_bytes + nbytes(x)
+    bwd_bytes = nbytes(x, mod, mask, cot) + w_bytes + nbytes(x) + b * 3 * c * 4 + 2 * w_bytes
+    iters = 5 if b * t > 4096 else 10
+    with torch.no_grad():
+        plain_fwd_ms = time_ms(lambda: plain(x, mod, *ws), iters=iters)
+    plain_bwd_ms = time_ms(lambda: torch.autograd.grad(out_p, leaves, cot, retain_graph=True), iters=iters)
+    rows = []
+    for half, out, run, fl, by, pms in (("fwd", "out", run_fwd, flops, fwd_bytes, plain_fwd_ms),
+                                        ("bwd", worst_grad, run_bwd, 3 * flops, bwd_bytes, plain_bwd_ms)):
+        bound, bound_by = bound_ms(fl, by, dtype)
+        rows.append({"kernel": f"{kind}_{half}", "dtype": DT_NAME[dtype], "B": b, "T": t, "dropout": rate,
+                     "rel_err": errs[out][0], "max_abs_err": errs[out][1], "worst_output": out, "bar": bar,
+                     "kept_share": kept, "ok": all_ok and kept_ok, "ms": time_ms(run, iters=iters),
+                     "plain_ms": pms, "bound_ms": bound, "bound_by": bound_by, "library_ms": None})
+    del out_p, g_p
+    return rows
+
+
+def check_mas(b, ty, tx, t_ys, t_xs, dev) -> dict:
+    """The MAS kernel against the plain DP on the same neg_cent: exact."""
+    from stabletts_torch.ops.mas import maximum_path
+    from stabletts_torch.ops.mas_cuda import maximum_path_cuda
+
+    rng = np.random.default_rng(ty + tx)
+    neg = torch.from_numpy(rng.standard_normal((b, ty, tx)).astype(np.float32)).to(dev)
+    t_ys, t_xs = torch.tensor(t_ys, device=dev), torch.tensor(t_xs, device=dev)
+    mask = ((torch.arange(ty, device=dev)[None, :] < t_ys[:, None])[:, :, None]
+            & (torch.arange(tx, device=dev)[None, :] < t_xs[:, None])[:, None, :]).float()
+    got, want = maximum_path_cuda(neg, mask), maximum_path(neg, mask)
+    cells = int((got != want).sum())
+    ms = time_ms(lambda: maximum_path_cuda(neg, mask))
+    bound, bound_by = bound_ms(0, nbytes(neg, got), torch.float32)  # neg_cent read, path written
+    return {"kernel": "mas", "dtype": "float32", "B": b, "Ty": ty, "Tx": tx, "cells_differing": cells,
+            "max_abs_err": float((got - want).abs().max()), "bar": 0, "ok": cells == 0, "ms": ms,
+            "ms_per_mel_row": ms / ty, "plain_ms": time_ms(lambda: maximum_path(neg, mask), iters=2, warmup=1),
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+
+
+def phase_train_kernels(dev) -> dict:
+    """The training kernels at (B=32, T=1024), (32, 512) and a ragged (2, 97),
+    f32 and bf16, dropout 0 and 0.1, and at the decoder's shape in the
+    trainer, (32, 1000), f32, dropout 0.1; MAS at [32, 1000, 384] and [32,
+    1000, 512] with ragged lengths and at degenerate lengths. Returns the rows
+    of the kernels line: (32, 1000, f32, 0.1); MAS at [32, 1000, 512]."""
+    rows, line_rows = [], {}
+    f32, bf = torch.float32, torch.bfloat16
+    cases = [(b, t, dt, rate) for b, t in ((32, 1024), (32, 512), (2, 97)) for dt in (f32, bf)
+             for rate in (0.0, 0.1)] + [(32, 1000, f32, 0.1)]
+    for kind in ("ffn_train", "dit_attention_train"):
+        for b, t, dt, rate in cases:
+            for row in check_train(kind, b, t, dt, rate, dev):
+                emit({"phase": "kernel_check", **row})
+                rows.append(row)
+                if (b, t) == (32, 1000):
+                    line_rows[row["kernel"]] = row
+            torch.cuda.empty_cache()
+    rng = np.random.default_rng(5)
+    for tx in (384, 512):
+        t_ys = rng.integers(901, 1001, size=32)
+        t_xs = np.minimum(rng.integers(tx // 3, tx + 1, size=32), t_ys)
+        t_xs[0] = tx
+        rows.append(check_mas(32, 1000, tx, t_ys.tolist(), t_xs.tolist(), dev))
+        emit({"phase": "kernel_check", **rows[-1]})
+        if tx == 512:
+            line_rows["mas"] = rows[-1]
+    # tools/tpu_selftest.py:227-237's degenerate lengths (t_x = 1, t_y = t_x = 12, ...)
+    rows.append(check_mas(8, 300, 120, [300, 250, 123, 77, 300, 12, 299, 150],
+                          [120, 100, 120, 50, 1, 12, 64, 120], dev))
+    emit({"phase": "kernel_check", **rows[-1]})
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        fail(f"{len(bad)} training kernel check(s) over their bar: {bad}")
+    return line_rows
+
+
 # ---------------------------------------------------------------- serving --
 
 
@@ -204,12 +375,12 @@ def read_counts() -> dict:
     return {name: fn.launches for name, fn in counters().items()}
 
 
-def randomise(api, seed: int) -> None:
-    """adaLN and the CFG embeddings from a numpy seed (adaLN-Zero would make
-    every DiT block the identity)."""
+def randomise(model, seed: int) -> None:
+    """adaLN and the CFG embeddings of a StableTTS model from a numpy seed
+    (adaLN-Zero would make every DiT block the identity)."""
     rng = np.random.default_rng(seed)
     with torch.no_grad():
-        for name, p in api.tts_model.named_parameters():
+        for name, p in model.named_parameters():
             if "adaLN_modulation" in name or name.startswith("fake_"):
                 scale = 0.1 if "adaLN" in name else 0.5
                 p.copy_(torch.from_numpy((rng.standard_normal(tuple(p.shape)) * scale).astype(np.float32)))
@@ -244,7 +415,7 @@ def phase_serving(dev, card: str) -> tuple:
 
     api_mod.synthesise = counting_synth
     api = StableTTSAPI(device=dev)
-    randomise(api, seed=7)
+    randomise(api.tts_model, seed=7)
     tts_m, voc_m = api.get_params()
     emit({"phase": "serving_model", "tts_params_M": tts_m, "vocoder_params_M": voc_m})
     ref = reference_wave(3)
@@ -364,6 +535,206 @@ def phase_gpu_vs_cpu(api, ref_wave) -> None:
         fail(f"GPU vs CPU end to end: {row}")
 
 
+# --------------------------------------------------------------- training --
+
+
+def train_counters():
+    from stabletts_torch.ops import dit_attention_train_cuda as A
+    from stabletts_torch.ops import ffn_train_cuda as F
+    from stabletts_torch.ops.mas_cuda import mas
+
+    return {"dit_attention_train_fwd": A.dit_attention_train_fwd, "dit_attention_train_bwd": A.dit_attention_train_bwd,
+            "ffn_train_fwd": F.ffn_train_fwd, "ffn_train_bwd": F.ffn_train_bwd, "mas": mas}
+
+
+def reset_train_counts():
+    for fn in train_counters().values():
+        fn.launches = 0
+
+
+def read_train_counts() -> dict:
+    return {name: fn.launches for name, fn in train_counters().items()}
+
+
+def write_filelist(root: str, n: int = 96, seed: int = 0) -> str:
+    """A synthetic training filelist: n random log-mels of 901-1000 frames x
+    128 mels and phone lists of 120-190 symbols of the port's table."""
+    from stabletts_torch.text import symbols
+
+    rng = np.random.default_rng(seed)
+    path = os.path.join(root, "filelist.jsonl")
+    with open(path, "w") as f:
+        for i in range(n):
+            t = int(rng.integers(901, 1001))
+            mel_path = os.path.join(root, f"mel_{i}.npy")
+            np.save(mel_path, rng.standard_normal((t, 128)).astype(np.float32))
+            phones = [symbols[k] for k in rng.integers(1, len(symbols), size=int(rng.integers(120, 191)))]
+            f.write(json.dumps({"mel_path": mel_path, "phone": phones, "mel_length": t}) + "\n")
+    return path
+
+
+def phase_train_steps(dev, card: str, root: str) -> dict:
+    """train() at the flagship config: B=32, 2 epochs of 3 steps with a save
+    per epoch, then a resume for a third epoch. Per step: losses, wall ms,
+    training audio-s/s and the peak memory, and exactly 9/9/9/9/1 launches
+    of the training kernels. Returns the launches over the whole run."""
+    import dataclasses
+
+    from stabletts_torch.config import MelConfig, TrainConfig
+    from stabletts_torch.train.train_tts import train
+
+    mel = MelConfig()
+    cfg = TrainConfig(train_dataset_path=write_filelist(root), batch_size=32, num_epochs=2,
+                      model_save_path=os.path.join(root, "ckpt"), log_interval=1, save_interval=1,
+                      loader_workers=2)
+    audio_s = cfg.batch_size * 1000 * mel.hop_length / mel.sample_rate  # the bucket pads mels to 1000
+    total = {k: 0 for k in TRAIN_LAUNCHES_PER_STEP}
+    rows, last = [], [0.0]
+
+    def log_fn(step, metrics):  # float metrics: the step has ended on the device
+        now = time.time()
+        wall, last[0] = now - last[0], now
+        counts = read_train_counts()
+        reset_train_counts()
+        for k, v in counts.items():
+            total[k] += v
+        mem = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ok = counts == TRAIN_LAUNCHES_PER_STEP and all(math.isfinite(v) for v in metrics.values())
+        rows.append({"phase": "train_step", "step": step, **metrics, "wall_ms": wall * 1e3,
+                     "audio_s_per_s": audio_s / wall, "max_memory_allocated_GB": mem / 1e9, "launches": counts,
+                     "card": card, "ok": ok})
+        emit(rows[-1])
+
+    reset_train_counts()
+    torch.cuda.reset_peak_memory_stats()
+    last[0] = time.time()
+    first = train(cfg, log_fn=log_fn, device=dev)
+    last[0] = time.time()
+    resumed = train(dataclasses.replace(cfg, num_epochs=3), log_fn=log_fn, device=dev)
+    steady = [r["wall_ms"] for r in rows[1:6]]
+    ok = (all(r["ok"] for r in rows) and [r["step"] for r in rows] == list(range(9))
+          and (first.step, first.start_epoch, resumed.start_epoch, resumed.step) == (6, 0, 2, 9))
+    emit({"phase": "train_steps", "steps": len(rows), "first_run": [first.start_epoch, first.step],
+          "resumed_run": [resumed.start_epoch, resumed.step], "launches": total,
+          "steady_wall_ms_median": statistics.median(steady),
+          "steady_audio_s_per_s": audio_s * 1e3 / statistics.median(steady),
+          "card": card, "ok": ok})
+    if not ok:
+        fail(f"train_steps: launches, losses, step indices or the resume are wrong: {rows}")
+    return total
+
+
+def _train_batch(path: str, dev, b: int = 32):
+    """One fixed batch of the synthetic filelist, padded as the trainer pads it."""
+    from stabletts_torch.data.dataset import StableDataset, collate
+
+    batch = collate(StableDataset(path), list(range(b)), 1000, 512, 128, (0, 0)).as_tuple()
+    return tuple(torch.from_numpy(a).to(dev) for a in batch)
+
+
+def phase_train_overfit(dev, card: str, root: str):
+    """8 steps on one fixed B=32 batch at lr 1e-3: the loss must fall.
+    Returns (step function, for the profile)."""
+    from stabletts_torch.config import TrainConfig
+    from stabletts_torch.models import build_stabletts
+    from stabletts_torch.train.scheduler import make_scheduler
+    from stabletts_torch.train.train_tts import make_optimizer, train_step
+
+    batch = _train_batch(os.path.join(root, "filelist.jsonl"), dev)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = build_stabletts(device=dev)
+    model.train()
+    cfg = TrainConfig(learning_rate=1e-3, warmup_steps=2)
+    opt = make_optimizer(model, cfg)
+    sched = make_scheduler(opt, cfg.learning_rate, cfg.warmup_steps, 100)
+    gen = torch.Generator(device=dev)
+    metrics = []
+    for step in range(8):
+        gen.manual_seed(1 + step)
+        metrics.append({k: float(v) for k, v in train_step(model, opt, sched, batch, gen).items()})
+    losses = [m["loss"] for m in metrics]
+    ok = all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]
+    emit({"phase": "train_overfit", "losses": losses,
+          **{f"{k}es": [m[k] for m in metrics] for k in ("dur_loss", "diff_loss", "prior_loss")},
+          "grad_norms": [m["grad_norm"] for m in metrics], "card": card, "ok": ok})
+    if not ok:
+        fail(f"train_overfit: the loss did not fall: {losses}")
+    return lambda: train_step(model, opt, sched, batch, gen)
+
+
+def phase_train_gpu_vs_cpu(dev) -> None:
+    """One training step at the flagship width, B=2, 200 frames, dropout off,
+    the same weights and CFG mask / t / noise on the GPU (kernels) and on the
+    CPU (plain versions). y follows the model's own mu_x along known
+    durations plus noise 0.1, so MAS has one clear optimum on both devices.
+    Bars: the losses rel 1e-3, each gradient rel 2e-2 (max-abs-err /
+    max-abs-cpu). A gradient that is zero in exact arithmetic (the key
+    projections' biases: softmax ignores them) is f32 noise on both devices
+    and is held to the noise level instead."""
+    import copy
+
+    from stabletts_torch.models import build_stabletts
+    from stabletts_torch.ops.mask import sequence_mask
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(3)
+        cpu_model = build_stabletts(device="cpu")
+    randomise(cpu_model, seed=9)
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    rng = np.random.default_rng(21)
+    b, ty, tz = 2, 200, 64
+    xl = np.asarray([60, 45])
+    x = rng.integers(1, cpu_model.encoder.emb.num_embeddings, size=(b, 60)) * (np.arange(60)[None] < xl[:, None])
+    z = rng.standard_normal((b, tz, 128)).astype(np.float32)
+    zl = np.asarray([tz, 50])
+    draws = {"cfg_mask": torch.tensor([[1.0], [0.0]]),
+             "t_rand": torch.from_numpy(rng.uniform(size=b).astype(np.float32)),
+             "noise": torch.from_numpy(rng.standard_normal((b, ty, 128)).astype(np.float32))}
+    with torch.no_grad():
+        zt, xt, xlt = torch.from_numpy(z), torch.from_numpy(x), torch.from_numpy(xl)
+        c = cpu_model.ref_encoder(zt, sequence_mask(torch.from_numpy(zl), tz))
+        c = c * draws["cfg_mask"] + (1 - draws["cfg_mask"]) * cpu_model.fake_speaker
+        mu_x = cpu_model.encoder(xt, c, xlt)[1].numpy()
+    yl = np.asarray([ty, 150])  # frames per item: each text token gets at least one
+    durs = np.stack([np.pad(1 + rng.multinomial(yl[i] - xl[i], np.full(xl[i], 1.0 / xl[i])), (0, 60 - xl[i]))
+                     for i in range(b)])
+    y = np.zeros((b, ty, 128), np.float32)
+    for i in range(b):
+        y[i, :yl[i]] = np.repeat(mu_x[i], durs[i], axis=0) + 0.1 * rng.standard_normal((yl[i], 128))
+    batch = [torch.from_numpy(a) for a in (x, xl, y, yl, z, zl)]
+
+    out = {}
+    for name, model, d in (("cpu", cpu_model, torch.device("cpu")), ("gpu", gpu_model, dev)):
+        model.train()
+        losses = model(*(a.to(d) for a in batch), None, **{k: v.to(d) for k, v in draws.items()})
+        sum(losses[:3]).backward()
+        out[name] = ([float(v.detach()) for v in losses[:3]], losses[3].cpu(),
+                     {k: p.grad.cpu() for k, p in model.named_parameters()})
+    (lc, ac, gc), (lg, ag, gg) = out["cpu"], out["gpu"]
+    loss_rel = max(abs(u - v) / abs(v) for u, v in zip(lg, lc))
+    # f32 rounding of sums over ~1e4 terms, relative to the model's largest gradient
+    noise = 1e-5 * max(float(g.abs().max()) for g in gc.values())
+    grad_rel, noise_only = {}, {}
+    for k in gc:
+        if k.endswith("attn.conv_k.bias"):  # zero in exact arithmetic
+            noise_only[k] = max(float(gc[k].abs().max()), float(gg[k].abs().max()))
+        else:
+            grad_rel[k] = float((gg[k] - gc[k]).abs().max()) / max(float(gc[k].abs().max()), 1e-30)
+    worst = max(grad_rel, key=grad_rel.get)
+    row = {"phase": "train_gpu_vs_cpu", "B": b, "frames": int(yl.max()), "path_cells_differing": int((ag != ac).sum()),
+           "losses_gpu": lg, "losses_cpu": lc, "loss_rel_err": loss_rel, "grad_rel_err_max": grad_rel[worst],
+           "worst_grad": worst, "gradients_compared": len(grad_rel), "noise_only_gradients": len(noise_only),
+           "noise_only_max_abs": max(noise_only.values(), default=0.0), "noise_level": noise,
+           "bars": {"loss": 1e-3, "grad": 2e-2}}
+    row["ok"] = (row["path_cells_differing"] == 0 and loss_rel <= 1e-3 and grad_rel[worst] <= 2e-2
+                 and row["noise_only_max_abs"] <= noise)
+    emit(row)
+    if not row["ok"]:
+        fail(f"training step, GPU vs CPU: {row}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU")
@@ -386,6 +757,7 @@ def main() -> None:
     emit({"phase": "build", "seconds": time.time() - t0, "libraries": sorted(_build._libs)})
 
     bench = phase_kernels(dev)
+    train_rows = phase_train_kernels(dev)
     api, counts, bench_pipeline = phase_serving(dev, card)
     ref = reference_wave(5)
     phase_profile("request_f32", lambda: api.inference(SENTENCES[2], ref, "english", step=10, cfg=3.0), card)
@@ -395,14 +767,25 @@ def main() -> None:
     if missing:
         fail(f"kernels never launched on the serving path: {missing}")
 
+    with tempfile.TemporaryDirectory() as root:
+        train_counts = phase_train_steps(dev, card, root)
+        step_fn = phase_train_overfit(dev, card, root)
+        phase_profile("train_step", step_fn, card)
+    phase_train_gpu_vs_cpu(dev)
+    missing = [k for k, v in train_counts.items() if v == 0]
+    if missing:
+        fail(f"kernels never launched on the training path: {missing}")
+
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
-        r = bench[name]
+        r = bench[name] if name in bench else train_rows[name]
+        shape = {k: r[k] for k in ("B", "T", "Ty", "Tx", "dropout") if k in r}
+        per_step = {"launches_per_step": TRAIN_LAUNCHES_PER_STEP[name]} if name in TRAIN_LAUNCHES_PER_STEP else {}
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": counts[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"], "shape": {"B": r["B"], "T": r["T"]},
-                        "dtype": r["dtype"]})
+                        "launches": counts[name] if name in counts else train_counts[name], **per_step,
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        "shape": shape, "dtype": r["dtype"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

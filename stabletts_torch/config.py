@@ -1,11 +1,11 @@
 """Configuration dataclasses for the PyTorch port (same fields and defaults as
-the JAX package's `MelConfig`, `ModelConfig` and `VocosConfig`; reference
-StableTTS config.py:1-50)."""
+the JAX package's `MelConfig`, `ModelConfig`, `TrainConfig` and
+`VocosConfig`; reference StableTTS config.py:1-50)."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -46,6 +46,32 @@ class ModelConfig:
     kernel_size: int = 3
     p_dropout: float = 0.1
     gin_channels: int = 256
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """TTS training config: the JAX package's `TrainConfig`, field for field
+    (reference StableTTS config.py:32-43 plus seed, buckets, text cap, compute
+    and transfer dtypes and the loader). `compute_dtype="bfloat16"` is not
+    available in the port yet; `transfer_dtype="float16"` ships mels to the
+    device as f16 and widens them there."""
+
+    train_dataset_path: str = "filelists/filelist.json"
+    batch_size: int = 32
+    learning_rate: float = 1e-4
+    num_epochs: int = 10000
+    model_save_path: str = "./checkpoints"
+    log_dir: str = "./runs"
+    log_interval: int = 16
+    save_interval: int = 1
+    warmup_steps: int = 200
+    seed: int = 0
+    bucket_boundaries: Tuple[int, ...] = (32, 300, 400, 500, 600, 700, 800, 900, 1000)
+    max_text_len: int = 512
+    compute_dtype: str = "float32"  # or "bfloat16" (not available in the port yet)
+    loader_workers: int = 4
+    prefetch_depth: int = 8
+    transfer_dtype: str = "float32"  # or "float16"
 
 
 @dataclass(frozen=True)

@@ -1,6 +1,6 @@
 // The Vocos ConvNeXt block on Hopper (sm_90a), one kernel per block.
 //
-// Replaces: stabletts_tpu/ops/convnext_pallas.py::fused_convnext_block, which
+// Replaces: the JAX package's ops/convnext_pallas.py::fused_convnext_block, which
 // keeps one batch element's [T, C] tile and the [T, F] GELU activations in
 // VMEM and runs dwconv k=7 -> LN -> Dense C->F -> GELU -> Dense F->C -> x +
 // gamma*z.

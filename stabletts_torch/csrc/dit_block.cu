@@ -1,6 +1,6 @@
 // The whole inference DiT block on Hopper (sm_90a).
 //
-// Replaces: stabletts_tpu/ops/dit_block_pallas.py::fused_dit_block (one Pallas
+// Replaces: the JAX package's ops/dit_block_pallas.py::fused_dit_block (one Pallas
 // kernel per batch element holding the whole [T, C] tile and a [T, T] score
 // tile per head in VMEM).
 //
@@ -34,66 +34,7 @@ namespace {
 constexpr float kNeg = -0.7f * 3.402823466e38f;  // key bias of padded keys
 constexpr float kLog2e = 1.4426950408889634f;
 
-// ---- 1 and 5: LayerNorm (no affine, f32 stats) + modulate (+ mask) --------
-template <typename Tin, typename Tout>
-__global__ void ln_mod_kernel(const Tin* x, const Tout* mods, int shift_idx, int scale_idx,
-                              const float* mask, Tout* out, int M, int T, int C, float eps) {
-  int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  int lane = threadIdx.x % 32;
-  if (row >= M) return;
-  const Tin* xr = x + (long long)row * C;
-  float s = 0.f;
-  for (int c = lane; c < C; c += 32) s += to_f(xr[c]);
-  float mu = warp_sum(s) / C;
-  float v = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    float d = to_f(xr[c]) - mu;
-    v += d * d;
-  }
-  float rstd = rsqrtf(warp_sum(v) / C + eps);
-  int b = row / T;
-  const Tout* shift = mods + ((long long)b * 6 + shift_idx) * C;
-  const Tout* scale = mods + ((long long)b * 6 + scale_idx) * C;
-  float m = mask ? mask[row] : 1.f;
-  for (int c = lane; c < C; c += 32) {
-    float h = (to_f(xr[c]) - mu) * rstd;
-    h = h * (1.f + to_f(scale[c])) + to_f(shift[c]);
-    if (mask) h *= m;
-    out[(long long)row * C + c] = from_f<Tout>(h);
-  }
-}
-
-// ---- 2: QKV epilogue: bias, q scale, rounding, partial RoPE --------------
-template <typename T>
-struct QkvEpi {
-  const T* bias;
-  T* q;
-  T* k;
-  T* v;
-  const float* cos_t;  // [T, half]
-  const float* sin_t;
-  int C, D, half, T_;
-  float q_scale;
-  __device__ float prep(int m, int n, float acc) const {
-    float val = acc + to_f(bias[n]);
-    if (n < C) val *= q_scale;
-    return round_to<T>(val);
-  }
-  __device__ void store(int m, int n, const float* tile, int r, int c) const {
-    const int ld = GEMM_BN + 1;
-    int which = n / C, nn = n % C, jj = nn % D;
-    float x = tile[r * ld + c];
-    T* dst = which == 0 ? q : (which == 1 ? k : v);
-    if (which < 2 && jj < 2 * half) {
-      int t = m % T_;
-      int i = jj % half;
-      float cs = cos_t[t * half + i], sn = sin_t[t * half + i];
-      float partner = jj < half ? -tile[r * ld + c + half] : tile[r * ld + c - half];
-      x = x * cs + partner * sn;
-    }
-    dst[(long long)m * C + nn] = from_f<T>(x);
-  }
-};
+// Steps 1 and 5 are common.cuh's ln_mod_kernel, step 2's epilogue its QkvEpi.
 
 // ---- 4: out-projection epilogue: x1 = x + (out * gate) * m, f32 ------------
 template <typename T>
@@ -272,10 +213,8 @@ cudaError_t run_block(const T* x, const T* mods, const float* mask, const float*
                       T* att, float* x1, T* h2, T* y, T* out, int B, int Tn, int C, int F, int H,
                       float eps, cudaStream_t stream) {
   const int M = B * Tn, D = C / H;
-  const int ln_rows = 8;  // warps per LN block
-  dim3 ln_grid((M + ln_rows - 1) / ln_rows);
 
-  ln_mod_kernel<T, T><<<ln_grid, 32 * ln_rows, 0, stream>>>(x, mods, 0, 1, nullptr, h, M, Tn, C, eps);
+  launch_ln_mod<T, T>(x, mods, 6, 0, 1, nullptr, h, M, Tn, C, eps, stream);
 
   TapGemm g{};
   g.a0 = h; g.a1 = h; g.k_split = C; g.lda = C; g.t_in = Tn; g.t_out = Tn; g.k_in = C;
@@ -292,7 +231,7 @@ cudaError_t run_block(const T* x, const T* mods, const float* mask, const float*
   OutProjEpi<T> oe{bo, x, mods, mask, x1, C, Tn};
   launch_tap_gemm<T>(g, oe, stream);
 
-  ln_mod_kernel<float, T><<<ln_grid, 32 * ln_rows, 0, stream>>>(x1, mods, 3, 4, mask, h2, M, Tn, C, eps);
+  launch_ln_mod<float, T>(x1, mods, 6, 3, 4, mask, h2, M, Tn, C, eps, stream);
 
   g.a0 = h2; g.a1 = h2; g.taps = 3; g.shift0 = -1; g.shift_step = 1;
   g.w = w1; g.w_tap_stride = (long long)C * F; g.ldw = F; g.N = F;

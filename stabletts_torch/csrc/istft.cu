@@ -1,7 +1,7 @@
 // The Vocos ISTFT head on Hopper (sm_90a): windowed iDFT product +
 // overlap-add + envelope + trim in one kernel.
 //
-// Replaces: stabletts_tpu/ops/istft_pallas.py::istft_same_fused (reached via
+// Replaces: the JAX package's ops/istft_pallas.py::istft_same_fused (reached via
 // istft_same_fused_diff), which keeps a batch element's [T, n_fft] frames in
 // VMEM and overlap-adds them there.
 //

@@ -24,5 +24,6 @@ def build_stabletts(model_cfg: ModelConfig | None = None, mel_cfg: MelConfig | N
         n_dec_layers=model_cfg.n_dec_layers,
         kernel_size=model_cfg.kernel_size,
         gin_channels=model_cfg.gin_channels,
+        p_dropout=model_cfg.p_dropout,
         device=device,
     )

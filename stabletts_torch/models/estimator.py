@@ -19,14 +19,16 @@ from stabletts_torch.nn.blocks import (
 class DitWrapper(nn.Module):
     """FiLM(t) then DiTConVBlock(speaker c)."""
 
-    def __init__(self, hidden_channels, filter_channels, num_heads, kernel_size, gin_channels, time_channels):
+    def __init__(self, hidden_channels, filter_channels, num_heads, kernel_size, gin_channels, time_channels,
+                 p_dropout=0.0):
         super().__init__()
         self.time_fusion = FiLMLayer(hidden_channels, time_channels)
-        self.block = DiTConVBlock(hidden_channels, filter_channels, num_heads, kernel_size, gin_channels)
+        self.block = DiTConVBlock(hidden_channels, filter_channels, num_heads, kernel_size, gin_channels,
+                                  p_dropout)
 
-    def forward(self, x, c, t, mask):
+    def forward(self, x, c, t, mask, gen=None):
         x = self.time_fusion(x, t) * mask.to(x.dtype)[..., None]
-        return self.block(x, c, mask)
+        return self.block(x, c, mask, gen)
 
 
 class Decoder(nn.Module):
@@ -35,7 +37,7 @@ class Decoder(nn.Module):
     the sampler runs it once per synthesis."""
 
     def __init__(self, noise_channels, cond_channels, hidden_channels, out_channels, filter_channels,
-                 n_layers=1, n_heads=4, kernel_size=3, gin_channels=0):
+                 n_layers=1, n_heads=4, kernel_size=3, gin_channels=0, p_dropout=0.0):
         super().__init__()
         if n_layers % 2 != 0:
             raise ValueError(f"n_layers must be even for the U-Net skips (got {n_layers})")
@@ -50,7 +52,8 @@ class Decoder(nn.Module):
         self.in_proj = nn.Conv1d(noise_channels + hidden_channels, hidden_channels, 1)
         self.final_proj = nn.Conv1d(hidden_channels, out_channels, 1)
         self.blocks = nn.ModuleList(
-            DitWrapper(hidden_channels, filter_channels, n_heads, kernel_size, gin_channels, hidden_channels)
+            DitWrapper(hidden_channels, filter_channels, n_heads, kernel_size, gin_channels, hidden_channels,
+                       p_dropout)
             for _ in range(n_layers)
         )
         self.lsc_layers = nn.ModuleList(
@@ -65,7 +68,11 @@ class Decoder(nn.Module):
         h = F.silu(conv1d_same(h, c2))
         return conv1d_same(h, c4)
 
-    def forward(self, t, x, mask, mu, c, mu_is_precomputed: bool = False):
+    def forward(self, t, x, mask, mu, c, mu_is_precomputed: bool = False, gen=None):
+        """`gen` draws the blocks' dropout in training (none when None). The
+        JAX package's training forward pads T to a multiple of 128 for its
+        TPU kernels; the port's kernels take any T, and the block stack is
+        mask-invariant, so it does not pad."""
         t_emb = self.time_mlp(sinusoidal_pos_emb(t, self.hidden_channels, scale=1000.0))
         h_mu = mu if mu_is_precomputed else self.precompute_mu(mu)
         h = conv1d_same(torch.cat([x, h_mu], dim=-1), self.in_proj)  # (noise, mu) order
@@ -77,7 +84,7 @@ class Decoder(nn.Module):
                 skips.append(h)
             else:
                 h = conv1d_same(torch.cat([h, skips.pop()], dim=-1), self.lsc_layers[idx - n_lsc])
-            h = block(h, c, t_emb, mask)
+            h = block(h, c, t_emb, mask, gen)
 
         m = mask.to(h.dtype)[..., None]
         return conv1d_same(h * m, self.final_proj) * m

@@ -1,6 +1,8 @@
 """Mel reference (style) encoder for zero-shot timbre cloning
 (reference: models/reference_encoder.py:4-92). Plain tensor code: its
-attention is small (2 heads over the reference mel)."""
+attention is small (2 heads over the reference mel). In training, dropout
+(0.25 in StableTTS) follows each spectral layer, each GLU and the attention
+weights, drawn from `gen`; `gen=None` means none."""
 
 from __future__ import annotations
 
@@ -11,34 +13,36 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from stabletts_torch.nn.blocks import conv1d_same
+from stabletts_torch.nn.blocks import conv1d_same, dropout
 
 
 class Conv1dGLU(nn.Module):
     """Conv1d + gated linear unit with a residual connection."""
 
-    def __init__(self, channels: int, kernel_size: int):
+    def __init__(self, channels: int, kernel_size: int, p_dropout: float = 0.0):
         super().__init__()
+        self.p_dropout = p_dropout
         self.conv1 = nn.Conv1d(channels, 2 * channels, kernel_size, padding=kernel_size // 2)
 
-    def forward(self, x):
+    def forward(self, x, gen=None):
         x1, x2 = conv1d_same(x, self.conv1).chunk(2, dim=-1)
-        return x + x1 * torch.sigmoid(x2)
+        return x + dropout(x1 * torch.sigmoid(x2), self.p_dropout, gen)
 
 
 class SelfAttention(nn.Module):
     """torch.nn.MultiheadAttention(batch_first=True)'s parameters and math,
     with key_padding_mask (True = pad) filled by -finfo.max."""
 
-    def __init__(self, embed_dim: int, num_heads: int):
+    def __init__(self, embed_dim: int, num_heads: int, p_dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.p_dropout = p_dropout
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
         self.out_proj = nn.Linear(embed_dim, embed_dim)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
-    def forward(self, x, key_padding_mask: Optional[torch.Tensor] = None):
+    def forward(self, x, key_padding_mask: Optional[torch.Tensor] = None, gen=None):
         b, t, c = x.shape
         d = c // self.num_heads
         q, k, v = F.linear(x, self.in_proj_weight, self.in_proj_bias).chunk(3, dim=-1)
@@ -46,7 +50,7 @@ class SelfAttention(nn.Module):
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(d)
         if key_padding_mask is not None:
             logits = logits.masked_fill(key_padding_mask[:, None, None, :], -torch.finfo(logits.dtype).max)
-        weights = torch.softmax(logits, dim=-1)
+        weights = dropout(torch.softmax(logits, dim=-1), self.p_dropout, gen)
         out = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(b, t, c)
         return self.out_proj(out)
 
@@ -57,21 +61,28 @@ class MelStyleEncoder(nn.Module):
     def __init__(self, n_mel_channels: int = 80, style_hidden: int = 128, style_vector_dim: int = 256,
                  style_kernel_size: int = 5, style_head: int = 2, dropout: float = 0.1):
         super().__init__()
+        self.p_dropout = dropout
+        # the reference's layer indices (spectral.0 / .3); its Dropout slots
+        # are applied in forward from the caller's generator
         self.spectral = nn.Sequential(
-            nn.Linear(n_mel_channels, style_hidden), nn.Mish(), nn.Dropout(dropout),
-            nn.Linear(style_hidden, style_hidden), nn.Mish(), nn.Dropout(dropout),
+            nn.Linear(n_mel_channels, style_hidden), nn.Mish(), nn.Identity(),
+            nn.Linear(style_hidden, style_hidden), nn.Mish(), nn.Identity(),
         )
-        self.temporal = nn.Sequential(
-            Conv1dGLU(style_hidden, style_kernel_size),
-            Conv1dGLU(style_hidden, style_kernel_size),
-        )
-        self.slf_attn = SelfAttention(style_hidden, style_head)
+        self.temporal = nn.ModuleList([
+            Conv1dGLU(style_hidden, style_kernel_size, dropout),
+            Conv1dGLU(style_hidden, style_kernel_size, dropout),
+        ])
+        self.slf_attn = SelfAttention(style_hidden, style_head, dropout)
         self.fc = nn.Linear(style_hidden, style_vector_dim)
 
-    def forward(self, x, mask: Optional[torch.Tensor] = None):
+    def forward(self, x, mask: Optional[torch.Tensor] = None, gen=None):
         """mask: [B, T] validity mask (1 = valid) or None."""
-        x = self.temporal(self.spectral(x))
-        x = self.slf_attn(x, None if mask is None else mask <= 0)
+        lin0, act, _, lin3, _, _ = self.spectral
+        x = dropout(act(lin0(x)), self.p_dropout, gen)
+        x = dropout(act(lin3(x)), self.p_dropout, gen)
+        for glu in self.temporal:
+            x = glu(x, gen)
+        x = self.slf_attn(x, None if mask is None else mask <= 0, gen)
         x = self.fc(x)
         if mask is None:
             return x.mean(dim=1)

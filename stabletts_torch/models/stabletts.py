@@ -1,18 +1,22 @@
-"""StableTTS top model, inference half: style encoder, text encoder, duration
-predictor and the flow-matching decoder (reference: models/model.py:30-112)."""
+"""StableTTS top model: style encoder, text encoder, duration predictor and
+the flow-matching decoder, with the training forward (MAS alignment, CFG
+dropout, the duration, diffusion and prior losses)
+(reference: models/model.py:30-178)."""
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from stabletts_torch.models.duration_predictor import DurationPredictor
+from stabletts_torch.models.duration_predictor import DurationPredictor, duration_loss
 from stabletts_torch.models.flow_matching import CFMDecoder
 from stabletts_torch.models.reference_encoder import MelStyleEncoder
 from stabletts_torch.models.text_encoder import TextEncoder
+from stabletts_torch.ops.mas_cuda import mas
 from stabletts_torch.ops.mask import sequence_mask
 from stabletts_torch.utils.device import resolve_device
 
@@ -32,17 +36,18 @@ class StableTTS(nn.Module):
     def __init__(self, n_vocab: int, mel_channels: int, hidden_channels: int = 256,
                  filter_channels: int = 1024, n_heads: int = 4, n_enc_layers: int = 3,
                  n_dec_layers: int = 6, kernel_size: int = 3, gin_channels: int = 256,
-                 device=None):
+                 p_dropout: float = 0.1, cfg_dropout: float = 0.2, device=None):
         super().__init__()
         self.mel_channels = mel_channels
         self.gin_channels = gin_channels
+        self.cfg_dropout = cfg_dropout
         self.encoder = TextEncoder(n_vocab, mel_channels, hidden_channels, filter_channels,
-                                   n_heads, n_enc_layers, kernel_size, gin_channels)
+                                   n_heads, n_enc_layers, kernel_size, gin_channels, p_dropout)
         self.ref_encoder = MelStyleEncoder(n_mel_channels=mel_channels, style_vector_dim=gin_channels,
                                            style_kernel_size=5, dropout=0.25)
-        self.dp = DurationPredictor(hidden_channels, filter_channels, kernel_size, gin_channels)
+        self.dp = DurationPredictor(hidden_channels, filter_channels, kernel_size, gin_channels, 0.5)
         self.decoder = CFMDecoder(mel_channels, mel_channels, hidden_channels, mel_channels,
-                                  filter_channels, n_heads, n_dec_layers, kernel_size, gin_channels)
+                                  filter_channels, n_heads, n_dec_layers, kernel_size, gin_channels, p_dropout)
         # learned unconditional embeddings for CFG (reference layouts)
         self.fake_speaker = nn.Parameter(torch.zeros(1, gin_channels))
         self.fake_content = nn.Parameter(torch.zeros(1, mel_channels, 1))
@@ -107,3 +112,54 @@ class StableTTS(nn.Module):
                            cat(c, fake_c), mu_is_precomputed)
         cond, uncond = out[:b], out[b:]
         return uncond + cfg_strength * (cond - uncond)
+
+    def forward(self, x, x_lengths, y, y_lengths, z, z_lengths, gen: Optional[torch.Generator] = None,
+                cfg_mask=None, t_rand=None, noise=None):
+        """Training forward: returns (dur_loss, diff_loss, prior_loss, attn
+        [B, Ty, Tx]) (reference: models/model.py:114-178).
+
+        x [B, Tx] ids; y [B, Ty, n_mels] target mel; z [B, Tz, n_mels] sliced
+        reference mel. `gen` (a torch.Generator on the model's device) draws
+        every dropout and whichever of cfg_mask [B, 1] (1 = conditional),
+        t_rand [B] and noise (like y) is not passed; gen=None turns dropout
+        off, and then the three draws must be passed."""
+        b = y.shape[0]
+        if gen is None and (cfg_mask is None or t_rand is None or noise is None):
+            raise ValueError("StableTTS.forward: without a generator, pass cfg_mask, t_rand and noise")
+        y_mask = sequence_mask(y_lengths, y.shape[1], dtype=y.dtype)
+        z_mask = sequence_mask(z_lengths, z.shape[1], dtype=z.dtype)
+        if cfg_mask is None:
+            cfg_mask = (torch.rand((b, 1), generator=gen, device=y.device) > self.cfg_dropout).to(y.dtype)
+        if t_rand is None:
+            t_rand = torch.rand((b,), generator=gen, device=y.device, dtype=y.dtype)
+        if noise is None:
+            noise = torch.randn(y.shape, generator=gen, device=y.device, dtype=y.dtype)
+
+        # one CFG mask for speaker and content
+        c = self.ref_encoder(z, z_mask, gen)
+        c = c * cfg_mask + (1 - cfg_mask) * self.fake_speaker
+        h, mu_x, x_mask = self.encoder(x, c, x_lengths, gen)
+        logw = self.dp(h, x_mask, c, gen)  # [B, Tx, 1]
+
+        # MAS target: Gaussian log-likelihood of each (mel, text) pair with unit
+        # variance; the product is left to torch.matmul as the JAX package
+        # leaves it to XLA
+        with torch.no_grad():
+            neg_cent = (-0.5 * math.log(2 * math.pi) * self.mel_channels
+                        - 0.5 * (y ** 2).sum(-1, keepdim=True)
+                        + torch.matmul(y, mu_x.transpose(1, 2))
+                        - 0.5 * (mu_x ** 2).sum(-1)[:, None, :])
+            attn = mas(neg_cent, y_mask[:, :, None] * x_mask[:, None, :]).to(y.dtype)
+
+        logw_ = torch.log(1e-8 + attn.sum(dim=1))[..., None] * x_mask[..., None]
+        dur = duration_loss(logw, logw_, x_lengths)
+
+        mu_y = torch.matmul(attn, mu_x)  # [B, Ty, n_mels]
+        cfg3 = cfg_mask[..., None]
+        mu_y_masked = mu_y * cfg3 + (1 - cfg3) * self.fake_content[:, :, 0][:, None, :]
+        diff, _ = self.decoder.compute_loss(y, y_mask, mu_y_masked, c, t_rand, noise, gen)
+
+        resid = (y - mu_y).float()
+        prior = (0.5 * (resid ** 2 + math.log(2 * math.pi)) * y_mask[..., None].float()).sum()
+        prior = prior / (y_mask.float().sum() * self.mel_channels)
+        return dur, diff, prior, attn

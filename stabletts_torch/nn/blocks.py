@@ -5,17 +5,35 @@ concatenated-halves form, adaLN-Zero 6-way modulation, a k=3 conv FFN and a
 key-padding attention mask. Parameters carry the reference torch names and
 layouts (1x1 projections are Conv1d [out, in, 1]); activations are
 channels-last [B, T, C], conditioning vectors [B, C], masks [B, T].
+
+Training modules take `gen`, the trainer's `torch.Generator` on the
+activations' device: every dropout draws from it, and `gen=None` means no
+dropout (the JAX package's `deterministic=True`).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from stabletts_torch.ops import philox
+from stabletts_torch.ops.dit_attention_train_cuda import dit_attention_train
 from stabletts_torch.ops.dit_block_cuda import DiTWeights, dit_block
+from stabletts_torch.ops.ffn_train_cuda import ffn_train
+
+
+def dropout(x: torch.Tensor, p: float, gen: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout drawing its mask from `gen` (identity when gen is
+    None or p == 0), as flax's nn.Dropout: keep with probability 1 - p and
+    scale kept values by 1 / (1 - p)."""
+    if gen is None or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=gen, device=x.device) >= p
+    return x * keep.to(x.dtype) / (1.0 - p)
 
 
 def conv1d_same(x: torch.Tensor, conv: nn.Conv1d) -> torch.Tensor:
@@ -86,15 +104,24 @@ class FFN(nn.Module):
 
 
 class DiTConVBlock(nn.Module):
-    """DiT block with adaLN-Zero conditioning and a conv FFN. The forward is
-    one call of `ops.dit_block_cuda.dit_block` (the CUDA kernel on the GPU)."""
+    """DiT block with adaLN-Zero conditioning and a conv FFN.
+
+    In training (`self.training` with autograd on) the forward is the
+    attention half `ops.dit_attention_train_cuda.dit_attention_train` (the
+    port of the TPU kernel fused_dit_attention_train) then the FFN half
+    `ops.ffn_train_cuda.ffn_train` (the port of fused_adaln_ffn_train), each
+    a differentiable pair of CUDA kernels on the GPU with attention-weight and
+    FFN dropout `p_dropout` drawn from `gen`. Otherwise it is one call of
+    `ops.dit_block_cuda.dit_block` (the inference kernel on the GPU). Any T
+    works on both paths."""
 
     def __init__(self, hidden_channels: int, filter_channels: int, num_heads: int,
-                 kernel_size: int = 3, gin_channels: int = 0):
+                 kernel_size: int = 3, gin_channels: int = 0, p_dropout: float = 0.0):
         super().__init__()
         if kernel_size != 3:
             raise ValueError("DiTConVBlock: the fused block hard-codes kernel_size 3")
         self.num_heads = num_heads
+        self.p_dropout = p_dropout
         self.attn = MultiHeadAttention(hidden_channels, hidden_channels)
         self.mlp = FFN(hidden_channels, hidden_channels, filter_channels, kernel_size)
         proj = nn.Identity() if gin_channels == hidden_channels else nn.Linear(gin_channels, hidden_channels)
@@ -129,9 +156,19 @@ class DiTConVBlock(nn.Module):
             self._packed = (key, w)
         return self._packed[1]
 
-    def forward(self, x, c, mask):
+    def forward(self, x, c, mask, gen: Optional[torch.Generator] = None):
         """x [B, T, C], c [B, gin], mask [B, T] -> [B, T, C]."""
         b, _, ch = x.shape
         x = x * mask.to(x.dtype)[..., None]
-        mods = self.adaLN_modulation(c).view(b, 6, ch).contiguous()
-        return dit_block(x.contiguous(), mods, mask, self.kernel_weights(), self.num_heads)
+        mods = self.adaLN_modulation(c).view(b, 6, ch)
+        if not (self.training and torch.is_grad_enabled()):
+            return dit_block(x.contiguous(), mods.contiguous(), mask, self.kernel_weights(), self.num_heads)
+        rate = self.p_dropout if gen is not None else 0.0
+        seed = lambda: philox.draw_seed(gen, x.device) if rate > 0.0 else None
+        dense = lambda conv: conv.weight[..., 0].t()
+        a = self.attn
+        x = dit_attention_train(x, mods[:, :3], mask, dense(a.conv_q), a.conv_q.bias, dense(a.conv_k),
+                                a.conv_k.bias, dense(a.conv_v), a.conv_v.bias, dense(a.conv_o), a.conv_o.bias,
+                                self.num_heads, rate, seed())
+        return ffn_train(x, mods[:, 3:], mask, self.mlp.conv_1.weight.permute(2, 1, 0), self.mlp.conv_1.bias,
+                         self.mlp.conv_2.weight.permute(2, 1, 0), self.mlp.conv_2.bias, rate, seed())

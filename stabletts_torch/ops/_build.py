@@ -24,6 +24,10 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
+# f32 workspace of the weight-gradient GEMM's row chunks (common.cuh
+# launch_wgrad): 16 MB, enough for ~1000 CTAs at the flagship widths
+WGRAD_WS_FLOATS = 1 << 22
+
 _lock = threading.Lock()
 _libs: dict = {}
 
@@ -76,15 +80,16 @@ def build_all() -> dict:
         return _libs
 
 
-def load(name: str, fn: str, n_ptr: int, n_int: int, n_float: int = 0):
+def load(name: str, fn: str, n_ptr: int, n_int: int, n_float: int = 0, stream: bool = True):
     """The C entry point `fn` of library `name`, with argtypes set: `n_ptr`
-    pointers, then `n_int` ints, then `n_float` floats, then the stream.
-    It returns the cudaError_t of its launches."""
+    pointers, then `n_int` ints, then `n_float` floats, then the stream
+    (unless `stream` is False). It returns an int: the cudaError_t of its
+    launches, or the value it reports."""
     f = getattr(build_all()[name], fn)
     if not getattr(f, "_stts_bound", False):
         f.argtypes = (
             [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-            + [ctypes.c_float] * n_float + [ctypes.c_void_p]
+            + [ctypes.c_float] * n_float + [ctypes.c_void_p] * int(stream)
         )
         f.restype = ctypes.c_int
         f._stts_bound = True

@@ -6,7 +6,7 @@ plain PyTorch version:
     y = gelu(h @ W1 + b1)              # erf form at f32, tanh form at bf16
     out = x + gamma * (y @ W2 + b2)
 
-Replaces the TPU kernel `stabletts_tpu/ops/convnext_pallas.py::fused_convnext_block`.
+Replaces the JAX package's TPU kernel `ops/convnext_pallas.py::fused_convnext_block`.
 In bf16, h and y are rounded to bf16 where the TPU kernel rounds them; every
 product accumulates in f32.
 

@@ -4,7 +4,7 @@ plain PyTorch version.
     x1 = x + gate_msa * out_proj(attn(rope(qkv(mod(LN(x)))))) * mask
     y  = x1 + gate_mlp * conv2(silu(conv1(mod(LN(x1)) * mask)) * mask) * mask
 
-Replaces the TPU kernel `stabletts_tpu/ops/dit_block_pallas.py::fused_dit_block`
+Replaces the JAX package's TPU kernel `ops/dit_block_pallas.py::fused_dit_block`
 and keeps its numerics: LayerNorm without affine and with f32 statistics;
 log2(e)/sqrt(D) folded into q before partial RoPE (rotary dim D/2, the
 concatenated-halves form); softmax in exp2 with the key bias -0.7*f32max on

@@ -1,6 +1,6 @@
 """The Vocos ISTFT head as one CUDA kernel (csrc/istft.cu).
 
-Replaces the TPU kernel `stabletts_tpu/ops/istft_pallas.py::istft_same_fused`
+Replaces the JAX package's TPU kernel `ops/istft_pallas.py::istft_same_fused`
 (reached through `istft_same_fused_diff`). Output row i (one hop of samples)
 is sum_{j < n_fft/hop} spec[i - j] @ W[:, j*hop:(j+1)*hop] with W the windowed
 iDFT matrix of `ops/istft.py`, so the [B, T, n_fft] frames never reach device

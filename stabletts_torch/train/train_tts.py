@@ -1,0 +1,144 @@
+"""TTS training on one GPU (reference: train.py:39-96).
+
+One step is the training forward of `StableTTS` (MAS alignment on the
+device, the duration, diffusion and prior losses), the backward pass and an
+AdamW update with the cosine-warmup schedule. Loss = dur + diff + prior,
+summed unweighted (train.py:78-79). Data parallelism across cards is not
+ported yet: `train` runs on one device.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from stabletts_torch.config import MelConfig, ModelConfig, TrainConfig
+from stabletts_torch.models import build_stabletts
+from stabletts_torch.train.scheduler import make_scheduler
+from stabletts_torch.train.state import continue_training, optimizer_steps, save_checkpoint
+from stabletts_torch.utils.device import resolve_device
+
+logger = logging.getLogger("stabletts_torch.train")
+
+
+def make_optimizer(model: torch.nn.Module, cfg: TrainConfig) -> torch.optim.AdamW:
+    """AdamW as the JAX package's optax.adamw (reference: train.py:60-61):
+    b1 0.9, b2 0.999, eps 1e-8, decoupled weight decay 0.01 on every
+    parameter; the rate comes from `make_scheduler`."""
+    return torch.optim.AdamW(model.parameters(), lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=0.01)
+
+
+def train_step(model, optimizer, scheduler, batch, gen: Optional[torch.Generator], **draws) -> dict:
+    """One update. batch = (x, x_lengths, y, y_lengths, z, z_lengths) on the
+    model's device (mels in f32, or f16 widened here); `gen` draws dropout,
+    the CFG mask, t and the noise (`draws` may pass cfg_mask / t_rand / noise
+    explicitly). Returns 0-dim tensors loss, dur_loss, diff_loss,
+    prior_loss and grad_norm (the global L2 norm of the gradients)."""
+    x, x_lengths, y, y_lengths, z, z_lengths = batch
+    optimizer.zero_grad(set_to_none=True)
+    dur, diff, prior, _ = model(x, x_lengths, y.float(), y_lengths, z.float(), z_lengths, gen, **draws)
+    loss = dur + diff + prior
+    loss.backward()
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    for p in params:
+        if p.grad is None:  # optax decays every parameter, with or without a gradient
+            p.grad = torch.zeros_like(p)
+    grad_norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(p.grad) for p in params]))
+    optimizer.step()
+    scheduler.step()
+    return {"loss": loss.detach(), "dur_loss": dur.detach(), "diff_loss": diff.detach(),
+            "prior_loss": prior.detach(), "grad_norm": grad_norm}
+
+
+@dataclass
+class TrainState:
+    step: int          # updates taken, counting those before a resume
+    start_epoch: int   # the epoch this run started at (0, or the resumed epoch + 1)
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    scheduler: torch.optim.lr_scheduler.LambdaLR
+
+
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    t = torch.from_numpy(a)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def train(train_cfg: Optional[TrainConfig] = None, model_cfg: Optional[ModelConfig] = None,
+          mel_cfg: Optional[MelConfig] = None, log_fn: Callable[[int, dict], None] = None,
+          device=None) -> TrainState:
+    """Full training entry point (reference: train.py:39-96), on `device`:
+    the GPU unless the caller passes "cpu". Resumes from
+    `train_cfg.model_save_path` as `train.state.continue_training` says;
+    `log_fn(step, metrics)` gets float metrics every `log_interval` steps."""
+    from stabletts_torch.data.dataset import StableDataset, collate
+    from stabletts_torch.data.prefetch import prefetch
+    from stabletts_torch.data.sampler import DistributedBucketSampler
+
+    train_cfg = train_cfg or TrainConfig()
+    model_cfg = model_cfg or ModelConfig()
+    mel_cfg = mel_cfg or MelConfig()
+    device = resolve_device(device)
+    if train_cfg.compute_dtype != "float32":
+        raise NotImplementedError("the port trains in float32 only; bf16 compute_dtype is not ported yet")
+
+    dataset = StableDataset(train_cfg.train_dataset_path)
+    sampler = DistributedBucketSampler(dataset.lengths, train_cfg.batch_size, list(train_cfg.bucket_boundaries))
+    steps_per_epoch = len(sampler)
+    total_steps = train_cfg.num_epochs * max(steps_per_epoch, 1)
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(train_cfg.seed)
+        model = build_stabletts(model_cfg, mel_cfg, device=device)
+    model.train()
+    optimizer = make_optimizer(model, train_cfg)
+    start_epoch = continue_training(train_cfg.model_save_path, model, optimizer)
+    scheduler = make_scheduler(optimizer, train_cfg.learning_rate, train_cfg.warmup_steps, total_steps,
+                               optimizer_steps(optimizer))
+    gen = torch.Generator(device=device)
+    step = start_epoch * steps_per_epoch
+
+    for epoch in range(start_epoch, train_cfg.num_epochs):
+        sampler.set_epoch(epoch)
+        t_start = time.time()
+        metrics = {}
+
+        def make_device_batch(work):
+            # on loader threads: disk reads, padding, pinned copy and H2D.
+            # The z-slice PRNG is seeded per (seed, epoch, item) inside
+            # collate, so batches do not depend on worker scheduling.
+            _, (bucket, indices) = work
+            batch = collate(dataset, indices, sampler.bucket_mel_len(bucket), train_cfg.max_text_len,
+                            mel_cfg.n_mels, (train_cfg.seed, epoch))
+            tup = batch.as_tuple()
+            if train_cfg.transfer_dtype == "float16":
+                tup = tuple(a.astype(np.float16) if a.dtype == np.float32 else a for a in tup)
+            return tuple(_to_device(a, device) for a in tup)
+
+        if train_cfg.loader_workers > 0:
+            batches = prefetch(enumerate(sampler), make_device_batch, n_workers=train_cfg.loader_workers,
+                               depth=train_cfg.prefetch_depth)
+        else:
+            batches = map(make_device_batch, enumerate(sampler))
+        for batch_idx, batch in enumerate(batches):
+            # the step's random streams depend on (seed, step) only, so a
+            # resumed run draws what an uninterrupted one would
+            gen.manual_seed((train_cfg.seed + 1) * 2 ** 32 + step)
+            metrics = train_step(model, optimizer, scheduler, batch, gen)
+            if log_fn is not None and batch_idx % train_cfg.log_interval == 0:
+                log_fn(step, {k: float(v) for k, v in metrics.items()})
+            step += 1
+
+        if epoch % train_cfg.save_interval == 0:
+            save_checkpoint(train_cfg.model_save_path, epoch, model, optimizer)
+        if metrics:
+            logger.info("epoch %d loss %.4f (%.1fs)", epoch, float(metrics["loss"]), time.time() - t_start)
+    return TrainState(step, start_epoch, model, optimizer, scheduler)

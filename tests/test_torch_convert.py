@@ -145,15 +145,19 @@ def test_importing_builds_no_kernel():
     from stabletts_torch.ops import _build
     from stabletts_torch.ops.convnext_cuda import convnext_block
     from stabletts_torch.ops.dit_block_cuda import dit_block
+    from stabletts_torch.ops.dit_attention_train_cuda import dit_attention_train_bwd, dit_attention_train_fwd
+    from stabletts_torch.ops.ffn_train_cuda import ffn_train_bwd, ffn_train_fwd
     from stabletts_torch.ops.istft_cuda import istft_head
+    from stabletts_torch.ops.mas_cuda import mas
 
     # importing builds nothing; the CPU path never touches the kernels
     assert not _build._libs
-    for fn in (dit_block, convnext_block, istft_head):
+    for fn in (dit_block, convnext_block, istft_head, dit_attention_train_fwd, dit_attention_train_bwd,
+               ffn_train_fwd, ffn_train_bwd, mas):
         assert isinstance(fn.launches, int)
 
 
-@pytest.mark.parametrize("name", ["MelConfig", "ModelConfig", "VocosConfig"])
+@pytest.mark.parametrize("name", ["MelConfig", "ModelConfig", "TrainConfig", "VocosConfig"])
 def test_config_defaults_match_jax(name):
     from stabletts_tpu import config as jc
 

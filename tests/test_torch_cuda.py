@@ -64,6 +64,76 @@ def test_convnext_kernel(dev, dtype, t_len):
     assert _rel(convnext_block(x, w), convnext_block_plain(x, w)) <= 2e-2
 
 
+def _train_case(kind, dev, dtype, b, t_len, rate):
+    """Inputs of a training kernel at flagship widths; returns
+    (kernel_fn, plain_fn, args) where args are leaf tensors needing grads."""
+    from stabletts_torch.ops import philox
+    from stabletts_torch.ops.dit_attention_train_cuda import dit_attention_train, dit_attention_train_plain
+    from stabletts_torch.ops.ffn_train_cuda import ffn_train, ffn_train_plain
+
+    rng = np.random.default_rng(3)
+    c, f, heads = 256, 1024, 4
+    lengths = torch.tensor([t_len - (i * 13) % max(1, t_len // 2) for i in range(b)], device=dev)
+    mask = (torch.arange(t_len, device=dev)[None, :] < lengths[:, None]).float()
+    x = _rand(rng, dev, dtype, b, t_len, c) * mask[..., None].to(dtype)
+    mod = _rand(rng, dev, dtype, b, 3, c, scale=0.3)
+    seed = philox.draw_seed(torch.Generator(device=dev).manual_seed(5), dev)
+    if kind == "ffn":
+        ws = [_rand(rng, dev, dtype, *s, scale=sc) for s, sc in
+              [((3, c, f), (3 * c) ** -0.5), ((f,), 0.05), ((3, f, c), (3 * f) ** -0.5), ((c,), 0.05)]]
+        kern = lambda *a: ffn_train(a[0], a[1], mask, *a[2:], rate, seed)
+        plain = lambda *a: ffn_train_plain(a[0], a[1], mask, *a[2:], rate, seed)
+    else:
+        ws = [_rand(rng, dev, dtype, *s, scale=sc) for s, sc in [((c, c), c ** -0.5), ((c,), 0.05)] * 4]
+        kern = lambda *a: dit_attention_train(a[0], a[1], mask, *a[2:], heads, rate, seed)
+        plain = lambda *a: dit_attention_train_plain(a[0], a[1], mask, *a[2:], heads, rate, seed)
+    args = [a.requires_grad_() for a in (x, mod, *ws)]
+    return kern, plain, args
+
+
+@pytest.mark.parametrize("kind", ["ffn", "attention"])
+@pytest.mark.parametrize("dtype,bar", [(torch.float32, 5e-3), (BF16, 2e-2)])
+@pytest.mark.parametrize("b,t_len,rate", [(2, 128, 0.0), (2, 97, 0.0), (2, 97, 0.1)])
+def test_train_kernels(dev, kind, dtype, bar, b, t_len, rate):
+    """Forward and every gradient of a training kernel pair against autograd
+    through its plain version, with the same Philox bits at rate > 0."""
+    from stabletts_torch.ops import dit_attention_train_cuda as att
+    from stabletts_torch.ops import ffn_train_cuda as ffn
+
+    kern, plain, args = _train_case(kind, dev, dtype, b, t_len, rate)
+    fwd, bwd = (ffn.ffn_train_fwd, ffn.ffn_train_bwd) if kind == "ffn" else \
+        (att.dit_attention_train_fwd, att.dit_attention_train_bwd)
+    cot = torch.from_numpy(np.random.default_rng(9).standard_normal(tuple(args[0].shape)).astype(np.float32))
+    cot = cot.to(dev, dtype)
+    n_fwd, n_bwd = fwd.launches, bwd.launches
+    got = kern(*args)
+    g_got = torch.autograd.grad(got, args, cot)
+    assert (fwd.launches, bwd.launches) == (n_fwd + 1, n_bwd + 1)
+    ref = plain(*args)
+    g_ref = torch.autograd.grad(ref, args, cot)
+    assert _rel(got, ref) <= bar
+    for a, r in zip(g_got, g_ref):
+        assert _rel(a, r) <= bar
+
+
+@pytest.mark.parametrize("lens", [[300, 250, 123, 77, 300, 12, 299, 150], None])
+def test_mas_kernel(dev, lens):
+    from stabletts_torch.ops.mas import maximum_path
+    from stabletts_torch.ops.mas_cuda import mas
+
+    rng = np.random.default_rng(4)
+    b, ty, tx = 8, 300, 120
+    t_ys = torch.tensor(lens if lens else [ty] * b, device=dev)
+    t_xs = torch.tensor([120, 100, 120, 50, 1, 12, 64, 120], device=dev)
+    mask = ((torch.arange(ty, device=dev)[None, :] < t_ys[:, None])[:, :, None]
+            & (torch.arange(tx, device=dev)[None, :] < t_xs[:, None])[:, None, :]).float()
+    neg = torch.from_numpy(rng.standard_normal((b, ty, tx)).astype(np.float32)).to(dev)
+    before = mas.launches
+    got = mas(neg, mask)
+    assert mas.launches == before + 1
+    assert torch.equal(got, maximum_path(neg, mask))
+
+
 @pytest.mark.parametrize("dtype,bar", [(torch.float32, 1e-4), (BF16, 1e-3)])
 @pytest.mark.parametrize("lengths", [None, [13, 6]])
 def test_istft_kernel(dev, dtype, bar, lengths):
