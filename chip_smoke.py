@@ -7,12 +7,21 @@ Phases, one JSON line each; any failure exits nonzero:
   2. kernel build (every csrc/*.cu, one nvcc each, in parallel)
   3. each kernel against its plain PyTorch version on the card, at the main
      paths' shapes, f32 and bf16, with times and bounds: the serving
-     kernels; the training kernels' forward and every gradient at dropout 0
-     and 0.1 (shared Philox bits); MAS exactly, with the time per mel row
+     kernels (the whole DiT block, its attention half and FFN half, packed
+     attention in both layouts beside one scaled_dot_product_attention call,
+     ConvNeXt, ISTFT); the training kernels' forward and every gradient at
+     dropout 0 and 0.1 (shared Philox bits); MAS exactly, with the time per
+     mel row
   4. serving: StableTTSAPI at the flagship config (random weights from a
      numpy seed, adaLN randomised): English requests, one batch request and
      a bf16 synthesise + Vocos batch at the bench shape (B=8, 1000 frames),
-     with the launch counts of each kernel on that path
+     with the launch counts of each kernel on that path; then the same
+     request under each block configuration (the STABLETTS_* variables: two
+     kernels, composed attention in both layouts and through the flash
+     adapter, the all-library block), each against the default's mel with
+     its exact launch counts, and the bench batch under two of them; one
+     request per ODE solver with its estimator calls; one request through
+     the FireflyGAN vocoder, and that vocoder on the GPU against the CPU
   5. device time by kernel over one request (torch.profiler)
   6. one request on the GPU (kernels) against the same request on the CPU
      (plain versions), same weights and noise
@@ -22,14 +31,16 @@ Phases, one JSON line each; any failure exits nonzero:
      overfitting one batch; device time by kernel over one step; one step at
      B=2 on the GPU against the CPU path, same weights and draws
   8. the `kernels` line (launches: over the main paths' runs, the
-     `inference` requests of phase 4 and the `train_steps` run of phase 7;
-     times: the bf16 bench shape for serving kernels; the decoder's shape in
-     the trainer, f32 at B=32, T=1000, dropout 0.1, for the training kernels;
-     [32, 1000, 512] for MAS); then the card line and the result line.
+     `inference` requests of phase 4, the requests of phase 4's block
+     configurations that run the kernel, and the `train_steps` run of phase
+     7; times: the bf16 bench shape for serving kernels; the decoder's shape
+     in the trainer, f32 at B=32, T=1000, dropout 0.1, for the training
+     kernels; [32, 1000, 512] for MAS); then the card line and the result line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -45,6 +56,11 @@ import torch
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # H100 SXM, dense, no tensor-core f32
 PEAK_BYTES = 3.35e12
 BARS = {"dit_block": {torch.float32: 5e-3, torch.bfloat16: 2e-2},
+        "dit_attention": {torch.float32: 5e-3, torch.bfloat16: 2e-2},
+        "adaln_ffn": {torch.float32: 5e-3, torch.bfloat16: 2e-2},
+        # tools/tpu_selftest.py:68 in bf16
+        "attention_packed": {torch.float32: 5e-3, torch.bfloat16: 2e-2},
+        "attention_packed_t": {torch.float32: 5e-3, torch.bfloat16: 2e-2},
         "convnext": {torch.float32: 2e-2, torch.bfloat16: 2e-2},
         "istft": {torch.float32: 1e-4, torch.bfloat16: 1e-3},
         # forward and every gradient (tools/tpu_selftest.py:96, 155, 209 in bf16)
@@ -52,6 +68,10 @@ BARS = {"dit_block": {torch.float32: 5e-3, torch.bfloat16: 2e-2},
         "dit_attention_train": {torch.float32: 5e-3, torch.bfloat16: 2e-2}}
 KERNEL_INFO = {
     "dit_block": ("stabletts_torch/csrc/dit_block.cu", "stabletts_tpu/ops/dit_block_pallas.py:98"),
+    "dit_attention": ("stabletts_torch/csrc/dit_attention.cu", "stabletts_tpu/ops/dit_attention_pallas.py:122"),
+    "adaln_ffn": ("stabletts_torch/csrc/adaln_ffn.cu", "stabletts_tpu/ops/ffn_pallas.py:74"),
+    "attention_packed": ("stabletts_torch/csrc/attention_packed.cu", "stabletts_tpu/ops/attention_pallas.py:67"),
+    "attention_packed_t": ("stabletts_torch/csrc/attention_packed.cu", "stabletts_tpu/ops/attention_pallas_t.py:64"),
     "convnext": ("stabletts_torch/csrc/convnext.cu", "stabletts_tpu/ops/convnext_pallas.py:84"),
     "istft": ("stabletts_torch/csrc/istft.cu", "stabletts_tpu/ops/istft_pallas.py:55"),
     "dit_attention_train_fwd": ("stabletts_torch/csrc/dit_attention_train.cu",
@@ -113,15 +133,28 @@ def nbytes(*ts) -> int:
 # ---------------------------------------------------------------- kernels --
 
 
-def measure(kernel: str, dtype, shape: dict, run, run_plain, flops: float, io_bytes: float) -> dict:
-    """One kernel case: error against the plain version on the same inputs,
-    median times of both, and the bound of the work."""
-    rel, ab = rel_err(run(), run_plain())
+def measure(kernel: str, dtype, shape: dict, run, run_plain, flops: float, io_bytes: float, select=None,
+            library=None) -> dict:
+    """One kernel case: error against the plain version on the same inputs
+    (on `select`'s part of the outputs, the rest held to be finite), median
+    times of both, the bound of the work, and the time of `library`, one
+    PyTorch call that computes the same function (a yardstick only)."""
+    got, want = run(), run_plain()
+    finite = bool(torch.isfinite(got).all())
+    if select is not None:
+        got, want = select(got), select(want)
+    rel, ab = rel_err(got, want)
     bar = BARS[kernel][dtype]
     bound, bound_by = bound_ms(flops, io_bytes, dtype)
     return {"kernel": kernel, "dtype": DT_NAME[dtype], **shape, "rel_err": rel, "max_abs_err": ab,
-            "bar": bar, "ok": rel <= bar, "ms": time_ms(run), "plain_ms": time_ms(run_plain, iters=5),
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+            "bar": bar, "ok": finite and rel <= bar, "ms": time_ms(run), "plain_ms": time_ms(run_plain, iters=5),
+            "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": None if library is None else time_ms(library)}
+
+
+def _ragged_mask(b, t, dev):
+    lengths = torch.tensor([t - (i * 37) % max(1, t // 2) for i in range(b)], device=dev)
+    return (torch.arange(t, device=dev)[None, :] < lengths[:, None]).float()
 
 
 def check_dit(rng, b, t, dtype, dev):
@@ -132,13 +165,93 @@ def check_dit(rng, b, t, dtype, dev):
     w = DiTWeights(g(c, 3 * c, scale=c ** -0.5), g(3 * c, scale=0.02), g(c, c, scale=c ** -0.5),
                    g(c, scale=0.02), g(3, c, f, scale=(3 * c) ** -0.5), g(f, scale=0.02),
                    g(3, f, c, scale=(3 * f) ** -0.5), g(c, scale=0.02))
-    lengths = torch.tensor([t - (i * 37) % max(1, t // 2) for i in range(b)], device=dev)
-    mask = (torch.arange(t, device=dev)[None, :] < lengths[:, None]).float()
+    mask = _ragged_mask(b, t, dev)
     x = g(b, t, c) * mask[..., None].to(dtype)
     mods = g(b, 6, c, scale=0.1)
     flops = 2 * b * t * c * 4 * c + 4 * b * heads * t * t * (c // heads) + 4 * b * t * 3 * c * f
     return measure("dit_block", dtype, {"B": b, "T": t}, lambda: dit_block(x, mods, mask, w, heads),
                    lambda: dit_block_plain(x, mods, mask, w, heads), flops, nbytes(x, mods, mask, *w, x))
+
+
+def check_dit_attention(rng, b, t, dtype, dev):
+    from stabletts_torch.ops.dit_attention_cuda import dit_attention, dit_attention_plain
+
+    c, heads = 256, 4
+    g = lambda *s, scale=1.0: torch.from_numpy((rng.standard_normal(s) * scale).astype(np.float32)).to(dev, dtype)
+    w = [g(c, 3 * c, scale=c ** -0.5), g(3 * c, scale=0.02), g(c, c, scale=c ** -0.5), g(c, scale=0.02)]
+    mask = _ragged_mask(b, t, dev)
+    x = g(b, t, c) * mask[..., None].to(dtype)
+    mods = g(b, 3, c, scale=0.1)
+    flops = 2 * b * t * c * 4 * c + 4 * b * heads * t * t * (c // heads)
+    return measure("dit_attention", dtype, {"B": b, "T": t}, lambda: dit_attention(x, mods, mask, *w, heads),
+                   lambda: dit_attention_plain(x, mods, mask, *w, heads), flops, nbytes(x, mods, mask, *w, x))
+
+
+def check_adaln_ffn(rng, b, t, dtype, dev):
+    from stabletts_torch.ops.adaln_ffn_cuda import adaln_ffn, adaln_ffn_plain
+
+    c, f = 256, 1024
+    g = lambda *s, scale=1.0: torch.from_numpy((rng.standard_normal(s) * scale).astype(np.float32)).to(dev, dtype)
+    w = [g(3, c, f, scale=(3 * c) ** -0.5), g(f, scale=0.02), g(3, f, c, scale=(3 * f) ** -0.5), g(c, scale=0.02)]
+    mask = _ragged_mask(b, t, dev)
+    x = g(b, t, c) * mask[..., None].to(dtype)
+    mods = g(b, 3, c, scale=0.1)
+    return measure("adaln_ffn", dtype, {"B": b, "T": t}, lambda: adaln_ffn(x, mods, mask, *w),
+                   lambda: adaln_ffn_plain(x, mods, mask, *w), 4 * b * t * 3 * c * f, nbytes(x, mods, mask, *w, x))
+
+
+def check_attention_packed(rng, b, t, dtype, dev, masked, tminor):
+    """Packed-head attention ([B, T, C], or channel-major [B, C, T] with
+    tminor) against its plain version on the valid query rows; padded rows
+    must be finite. The library yardstick is one
+    scaled_dot_product_attention call with the same key mask, with the
+    layout changes it needs from and to the kernel's layout counted."""
+    import torch.nn.functional as F
+
+    from stabletts_torch.ops import attention_packed_cuda as ap
+
+    c, heads, d = 256, 4, 64
+    g = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev, dtype)
+    q, k, v = g(b, t, c), g(b, t, c), g(b, t, c)
+    mask = _ragged_mask(b, t, dev) if masked else None
+    rows = torch.ones(b, t, dtype=torch.bool, device=dev) if mask is None else mask > 0
+    key_mask = None if mask is None else (mask > 0)[:, None, None, :]
+    if tminor:
+        q, k, v = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        fn, plain, name = ap.attention_packed_t, ap.attention_packed_t_plain, "attention_packed_t"
+        select = lambda o: o.transpose(1, 2)[rows]
+        to_bhtd = lambda a: a.view(b, heads, d, t).transpose(2, 3)
+        from_bhtd = lambda o: o.transpose(2, 3).reshape(b, c, t)
+    else:
+        fn, plain, name = ap.attention_packed, ap.attention_packed_plain, "attention_packed"
+        select = lambda o: o[rows]
+        to_bhtd = lambda a: a.view(b, t, heads, d).transpose(1, 2)
+        from_bhtd = lambda o: o.transpose(1, 2).reshape(b, t, c)
+    library = lambda: from_bhtd(F.scaled_dot_product_attention(to_bhtd(q), to_bhtd(k), to_bhtd(v),
+                                                               attn_mask=key_mask))
+    row = measure(name, dtype, {"B": b, "T": t, "masked": masked}, lambda: fn(q, k, v, mask, n_heads=heads),
+                  lambda: plain(q, k, v, mask, n_heads=heads), 4 * b * heads * t * t * d,
+                  nbytes(q, k, v, q) + (0 if mask is None else nbytes(mask)), select=select, library=library)
+    row["library_rel_err"] = rel_err(select(library()), select(plain(q, k, v, mask, n_heads=heads)))[0]
+    return row
+
+
+def check_flash_adapter(rng, b, t, dev) -> dict:
+    """`masked_attention(impl="flash")`, the adapter onto the packed-head
+    kernel, against the plain `xla` path after masking the padded rows."""
+    from stabletts_torch.ops.attention import masked_attention
+    from stabletts_torch.ops.attention_packed_cuda import attention_packed
+
+    g = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+    q, k, v = g(b, t, 4, 64), g(b, t, 4, 64), g(b, t, 4, 64)
+    mask = _ragged_mask(b, t, dev)
+    before = attention_packed.launches
+    got = masked_attention(q, k, v, mask=mask, impl="flash") * mask[:, :, None, None]
+    launched = attention_packed.launches - before
+    want = masked_attention(q, k, v, mask=mask, impl="xla") * mask[:, :, None, None]
+    rel, ab = rel_err(got, want)
+    return {"kernel": "flash_adapter", "dtype": "float32", "B": b, "T": t, "rel_err": rel, "max_abs_err": ab,
+            "bar": 5e-3, "launches_of_attention_packed": launched, "ok": rel <= 5e-3 and launched == 1}
 
 
 def check_convnext(rng, b, t, dtype, dev):
@@ -186,13 +299,19 @@ def _istft_plain_on(re, im, n_fft, hop, md, lengths):
 
 
 def phase_kernels(dev) -> dict:
-    """Every kernel against its plain version at the path's shapes, f32 and
-    bf16; returns the bench-shape rows (bf16; DiT at 2B=16, T=1024;
-    ConvNeXt/ISTFT at B=8, T=1000) keyed by kernel, for the kernels line."""
+    """Every serving kernel against its plain version at the path's shapes,
+    f32 and bf16; returns the bench-shape rows (bf16; the DiT kernels and
+    packed attention, with a mask, at 2B=16, T=1024; ConvNeXt/ISTFT at B=8,
+    T=1000) keyed by kernel, for the kernels line."""
     rng = np.random.default_rng(1234)
     rows, bench_rows = [], {}
     f32, bf = torch.float32, torch.bfloat16
     cases = [(check_dit, dict(b=b, t=t, dtype=dt)) for b, t in ((2, 1024), (16, 1024), (2, 97)) for dt in (f32, bf)]
+    halves = [(16, 1024, f32), (16, 1024, bf), (2, 1000, f32), (2, 97, f32), (2, 97, bf)]
+    cases += [(fn, dict(b=b, t=t, dtype=dt)) for fn in (check_dit_attention, check_adaln_ffn) for b, t, dt in halves]
+    cases += [(check_attention_packed, dict(b=b, t=t, dtype=dt, masked=masked, tminor=tminor))
+              for tminor in (False, True) for b, t in ((16, 1024), (2, 1000), (2, 97)) for dt in (f32, bf)
+              for masked in (True, False)]
     cases += [(fn, dict(b=b, t=t, dtype=dt)) for fn in (check_convnext, check_istft)
               for b, t in ((1, 1000), (8, 1000), (1, 333)) for dt in (f32, bf)]
     cases.append((check_istft, dict(b=8, t=1000, dtype=f32, with_lengths=True)))
@@ -200,8 +319,11 @@ def phase_kernels(dev) -> dict:
         row = fn(rng, dev=dev, **kw)
         emit({"phase": "kernel_check", **row})
         rows.append(row)
-        if kw["dtype"] == bf and kw["b"] == (16 if fn is check_dit else 8) and kw["t"] >= 1000:
+        at_bench = kw["b"] == (8 if fn in (check_convnext, check_istft) else 16) and kw["t"] >= 1000
+        if kw["dtype"] == bf and at_bench and kw.get("masked", True):
             bench_rows[row["kernel"]] = row
+    rows.append(check_flash_adapter(rng, 2, 1000, dev))
+    emit({"phase": "kernel_check", **rows[-1]})
     bad = [r for r in rows if not r["ok"]]
     if bad:
         fail(f"{len(bad)} kernel check(s) over their bar: {bad}")
@@ -359,11 +481,20 @@ def phase_train_kernels(dev) -> dict:
 
 
 def counters():
+    from stabletts_torch.ops.adaln_ffn_cuda import adaln_ffn
+    from stabletts_torch.ops.attention_packed_cuda import attention_packed, attention_packed_t
     from stabletts_torch.ops.convnext_cuda import convnext_block
+    from stabletts_torch.ops.dit_attention_cuda import dit_attention
     from stabletts_torch.ops.dit_block_cuda import dit_block
     from stabletts_torch.ops.istft_cuda import istft_head
 
-    return {"dit_block": dit_block, "convnext": convnext_block, "istft": istft_head}
+    return {"dit_block": dit_block, "dit_attention": dit_attention, "adaln_ffn": adaln_ffn,
+            "attention_packed": attention_packed, "attention_packed_t": attention_packed_t,
+            "convnext": convnext_block, "istft": istft_head}
+
+
+def expected_counts(**nonzero) -> dict:
+    return {**{name: 0 for name in counters()}, **nonzero}
 
 
 def reset_counts():
@@ -423,7 +554,7 @@ def phase_serving(dev, card: str) -> tuple:
 
     api.inference(SENTENCES[0], ref, "english", step=10, cfg=3.0)  # warm: allocator, cuDNN plans
     torch.cuda.synchronize()
-    main_counts = {"dit_block": 0, "convnext": 0, "istft": 0}  # over the inference requests
+    main_counts = expected_counts()  # summed over the inference requests
     for i, text in enumerate(SENTENCES):
         reset_counts()
         n_synth[0] = 0
@@ -433,7 +564,7 @@ def phase_serving(dev, card: str) -> tuple:
         counts = read_counts()
         for k, v in counts.items():
             main_counts[k] += v
-        expect = {"dit_block": 63 * n_synth[0], "convnext": 8, "istft": 1}
+        expect = expected_counts(dit_block=63 * n_synth[0], convnext=8, istft=1)
         ok = counts == expect and np.isfinite(wav).all() and wav.shape[1] == mel.shape[2] * hop
         emit({"phase": "serving_request", "text_chars": len(text), "frames": int(mel.shape[2]),
               "wall_ms": wall * 1e3, "audio_s_per_s": wav.shape[1] / sr / wall, "launches": counts,
@@ -447,7 +578,7 @@ def phase_serving(dev, card: str) -> tuple:
     wavs = api.batch_inference([(s, "english") for s in SENTENCES], ref, step=10, cfg=3.0)
     wall = time.time() - t0
     counts = read_counts()
-    expect = {"dit_block": 63 * n_synth[0], "convnext": 8, "istft": 1}
+    expect = expected_counts(dit_block=63 * n_synth[0], convnext=8, istft=1)
     ok = counts == expect and len(wavs) == len(SENTENCES) and all(np.isfinite(w).all() for w in wavs)
     emit({"phase": "serving_batch", "items": len(wavs), "wall_ms": wall * 1e3,
           "audio_s_per_s": sum(w.shape[0] for w in wavs) / sr / wall, "launches": counts,
@@ -481,7 +612,7 @@ def phase_serving(dev, card: str) -> tuple:
     torch.cuda.synchronize()
     wall = (time.time() - t0) / iters
     counts = read_counts()
-    expect = {"dit_block": 63 * iters, "convnext": 8 * iters, "istft": iters}
+    expect = expected_counts(dit_block=63 * iters, convnext=8 * iters, istft=iters)
     ok = counts == expect and tuple(wav.shape) == (b, frames * hop) and bool(torch.isfinite(wav).all())
     emit({"phase": "serving_bench_bf16", "B": b, "frames": frames, "steps": 10, "cfg": 3.0,
           "wall_ms": wall * 1e3, "audio_s_per_s": b * frames * hop / sr / wall, "launches": counts,
@@ -489,6 +620,164 @@ def phase_serving(dev, card: str) -> tuple:
     if not ok:
         fail(f"bf16 bench batch: launches {counts} vs {expect}, or bad output")
     return api, main_counts, pipeline
+
+
+BLOCK_VARIABLES = ("STABLETTS_DIT_BLOCK", "STABLETTS_DIT_FUSED", "STABLETTS_FFN_IMPL", "STABLETTS_ATTN_IMPL",
+                   "STABLETTS_ATTN_LAYOUT")
+# the DiT block's serving configurations and the kernels each launches, per block
+BLOCK_CONFIGS = {
+    "a_default": ({}, ("dit_block",)),
+    "b_two_kernels": ({"STABLETTS_DIT_BLOCK": "0"}, ("dit_attention", "adaln_ffn")),
+    "c_composed_attention": ({"STABLETTS_DIT_FUSED": "0"}, ("attention_packed", "adaln_ffn")),
+    "d_composed_attention_tminor": ({"STABLETTS_DIT_FUSED": "0", "STABLETTS_ATTN_LAYOUT": "tminor"},
+                                    ("attention_packed_t", "adaln_ffn")),
+    "e_composed_attention_flash": ({"STABLETTS_DIT_FUSED": "0", "STABLETTS_ATTN_IMPL": "flash"},
+                                   ("attention_packed", "adaln_ffn")),
+    "f_all_library": ({"STABLETTS_DIT_FUSED": "0", "STABLETTS_FFN_IMPL": "xla", "STABLETTS_ATTN_IMPL": "xla"}, ()),
+}
+
+
+@contextlib.contextmanager
+def block_config(name: str):
+    """The environment of one block configuration, restored on exit."""
+    saved = {v: os.environ.pop(v, None) for v in BLOCK_VARIABLES}
+    os.environ.update(BLOCK_CONFIGS[name][0])
+    try:
+        yield
+    finally:
+        for v, old in saved.items():
+            os.environ.pop(v, None)
+            if old is not None:
+                os.environ[v] = old
+
+
+def phase_serving_configs(api, bench_pipeline, card: str) -> dict:
+    """The same English request (f32, 10 Euler steps, CFG 3, mel cap 1024,
+    the same noise) under each block configuration: its mel within 5e-3 of
+    the default's, exactly 63 launches of each kernel of the configuration
+    and none of the others, wall ms as the median of 5. Then the bf16 bench
+    batch under the two-kernel and the all-library configurations. Returns
+    the launches of every DiT kernel summed over the measured requests."""
+    ref = reference_wave(3)
+    sr, hop = api.mel_config.sample_rate, api.mel_config.hop_length
+    request = lambda: api.inference(SENTENCES[0], ref, "english", step=10, cfg=3.0, seed=0)
+    total = expected_counts()
+    base_mel = None
+    for name, (env, kernels) in BLOCK_CONFIGS.items():
+        with block_config(name):
+            request()  # warm: cuDNN plans of the composed paths
+            torch.cuda.synchronize()
+            walls, ok = [], True
+            expect = expected_counts(convnext=8, istft=1, **{k: 63 for k in kernels})
+            for _ in range(5):
+                reset_counts()
+                t0 = time.time()
+                wav, mel = request()
+                walls.append(time.time() - t0)
+                counts = read_counts()
+                ok = ok and counts == expect
+                for k, v in counts.items():
+                    total[k] += v
+        if base_mel is None:
+            base_mel = mel
+        same_shape = mel.shape == base_mel.shape
+        rel = float(np.abs(mel - base_mel).max() / np.abs(base_mel).max()) if same_shape else math.inf
+        ok = bool(ok and rel <= 5e-3 and np.isfinite(wav).all() and wav.shape[1] == mel.shape[2] * hop)
+        wall = statistics.median(walls)
+        emit({"phase": "serving_config", "config": name, "env": env, "frames": int(mel.shape[2]),
+              "wall_ms": wall * 1e3, "wall_ms_all": [w * 1e3 for w in walls],
+              "audio_s_per_s": wav.shape[1] / sr / wall, "mel_rel_err_vs_default": rel, "bar": 5e-3,
+              "launches": counts, "expected_launches": expect, "card": card, "ok": ok})
+        if not ok:
+            fail(f"serving_config {name}: launches {counts} vs {expect}, mel rel err {rel}, or bad output")
+
+    b, frames, iters = 8, 1000, 2
+    for name in ("b_two_kernels", "f_all_library"):
+        with block_config(name):
+            bench_pipeline()
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.time()
+            for _ in range(iters):
+                wav = bench_pipeline()
+            torch.cuda.synchronize()
+            wall = (time.time() - t0) / iters
+            counts = read_counts()
+        expect = expected_counts(convnext=8 * iters, istft=iters, **{k: 63 * iters for k in BLOCK_CONFIGS[name][1]})
+        ok = counts == expect and tuple(wav.shape) == (b, frames * hop) and bool(torch.isfinite(wav).all())
+        emit({"phase": "serving_bench_bf16_config", "config": name, "B": b, "frames": frames, "steps": 10, "cfg": 3.0,
+              "wall_ms": wall * 1e3, "audio_s_per_s": b * frames * hop / sr / wall, "launches": counts,
+              "expected_launches": expect, "card": card, "ok": ok})
+        if not ok:
+            fail(f"bf16 bench batch under {name}: launches {counts} vs {expect}, or bad output")
+    return total
+
+
+def phase_serving_solvers(api, card: str) -> None:
+    """One f32 request per solver: finite output and the estimator calls it
+    took (CFG is one [2B] call; each call runs the decoder's 6 blocks, and
+    the text encoder's 3 run once): Euler 10, midpoint 20, rk4 40; for dopri5
+    whatever its step control takes, with its accepted and rejected steps."""
+    import stabletts_torch.models.sampler as sampler_mod
+
+    ref = reference_wave(3)
+    real_odeint = sampler_mod.odeint
+    stats: dict = {}
+
+    def odeint_with_stats(f, y0, t_span, method="euler", **kw):
+        if method in sampler_mod.ADAPTIVE_SOLVERS:
+            kw["stats"] = stats
+        return real_odeint(f, y0, t_span, method=method, **kw)
+
+    sampler_mod.odeint = odeint_with_stats
+    try:
+        for solver, calls in (("euler", 10), ("midpoint", 20), ("rk4", 40), ("dopri5", None)):
+            stats.clear()
+            reset_counts()
+            t0 = time.time()
+            wav, mel = api.inference(SENTENCES[0], ref, "english", step=10, cfg=3.0, solver=solver, seed=0)
+            wall = time.time() - t0
+            blocks = read_counts()["dit_block"]
+            got_calls = (blocks - 3) / 6
+            ok = bool(np.isfinite(wav).all() and np.isfinite(mel).all() and got_calls == int(got_calls)
+                      and (got_calls == calls if calls is not None else got_calls == stats.get("f_evals")))
+            emit({"phase": "serving_solver", "solver": solver, "estimator_calls": got_calls,
+                  "expected_estimator_calls": calls, **({"ode": dict(stats)} if stats else {}),
+                  "frames": int(mel.shape[2]), "wall_ms": wall * 1e3, "card": card, "ok": ok})
+            if not ok:
+                fail(f"serving_solver {solver}: {got_calls} estimator calls (expected {calls}, ode {stats})")
+    finally:
+        sampler_mod.odeint = real_odeint
+
+
+def phase_serving_ffgan(dev, card: str) -> None:
+    """One request through StableTTSAPI(vocoder_name="ffgan") (random weights
+    from the seed): waveform length = frames * 512, finite, within [-1, 1];
+    then the FireflyGAN waveform on the GPU against the CPU for the same mel."""
+    import copy
+
+    from stabletts_torch.api import StableTTSAPI
+
+    api = StableTTSAPI(vocoder_name="ffgan", device=dev)
+    randomise(api.tts_model, seed=7)
+    ref = reference_wave(3)
+    api.inference(SENTENCES[0], ref, "english", step=10, cfg=3.0)  # warm
+    torch.cuda.synchronize()
+    t0 = time.time()
+    wav, mel = api.inference(SENTENCES[0], ref, "english", step=10, cfg=3.0)
+    wall = time.time() - t0
+    mel_t = torch.from_numpy(np.ascontiguousarray(mel.transpose(0, 2, 1)))
+    voc_ms = time_ms(lambda: api.vocoder_model(mel_t.to(dev)), iters=5)
+    wav_gpu = api.vocoder_model(mel_t.to(dev)).cpu()
+    wav_cpu = copy.deepcopy(api.vocoder_model).to("cpu")(mel_t)
+    rel = rel_err(wav_gpu, wav_cpu)[0]
+    ok = bool(wav.shape == (1, mel.shape[2] * 512) and np.isfinite(wav).all() and np.abs(wav).max() <= 1.0
+              and rel <= 5e-3)
+    emit({"phase": "serving_ffgan", "frames": int(mel.shape[2]), "samples": int(wav.shape[1]), "wall_ms": wall * 1e3,
+          "vocoder_ms": voc_ms, "vocoder_params_M": api.get_params()[1], "wav_abs_max": float(np.abs(wav).max()),
+          "gpu_vs_cpu_rel_err": rel, "bar": 5e-3, "card": card, "ok": ok})
+    if not ok:
+        fail(f"serving_ffgan: shape {wav.shape} for {mel.shape[2]} frames, GPU vs CPU rel err {rel}, or bad values")
 
 
 def phase_profile(label: str, fn, card: str) -> None:
@@ -759,13 +1048,21 @@ def main() -> None:
     bench = phase_kernels(dev)
     train_rows = phase_train_kernels(dev)
     api, counts, bench_pipeline = phase_serving(dev, card)
+    # the host-clock phases come before the profiler's: once torch.profiler has
+    # traced, every later launch costs the host more
+    config_counts = phase_serving_configs(api, bench_pipeline, card)
+    phase_serving_solvers(api, card)
+    phase_serving_ffgan(dev, card)
     ref = reference_wave(5)
     phase_profile("request_f32", lambda: api.inference(SENTENCES[2], ref, "english", step=10, cfg=3.0), card)
     phase_profile("bench_bf16", bench_pipeline, card)
     phase_gpu_vs_cpu(api, reference_wave(3))
+    # the default path's launches from its `inference` requests, the other DiT
+    # kernels' from the requests of the configurations that run them
+    counts = {k: (v if k in ("dit_block", "convnext", "istft") else config_counts[k]) for k, v in counts.items()}
     missing = [k for k, v in counts.items() if v == 0]
     if missing:
-        fail(f"kernels never launched on the serving path: {missing}")
+        fail(f"kernels never launched on the serving paths: {missing}")
 
     with tempfile.TemporaryDirectory() as root:
         train_counts = phase_train_steps(dev, card, root)
@@ -779,7 +1076,7 @@ def main() -> None:
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         r = bench[name] if name in bench else train_rows[name]
-        shape = {k: r[k] for k in ("B", "T", "Ty", "Tx", "dropout") if k in r}
+        shape = {k: r[k] for k in ("B", "T", "Ty", "Tx", "dropout", "masked") if k in r}
         per_step = {"launches_per_step": TRAIN_LAUNCHES_PER_STEP[name]} if name in TRAIN_LAUNCHES_PER_STEP else {}
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": counts[name] if name in counts else train_counts[name], **per_step,

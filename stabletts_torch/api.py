@@ -1,8 +1,10 @@
 """High-level inference API (reference: api.py:38-83).
 
-StableTTSAPI(tts_ckpt, vocoder_ckpt).inference(text, ref_audio, language, ...)
--> (waveform, mel). Checkpoints are reference PyTorch `.pt` state dicts; with
-no path the models hold random weights (seeded), which serves smoke runs.
+StableTTSAPI(tts_ckpt, vocoder_ckpt, vocoder_name).inference(text, ref_audio,
+language, ...) -> (waveform, mel). The vocoder is Vocos ("vocos") or FireflyGAN
+("ffgan"). Checkpoints are reference PyTorch state dicts (FireflyGAN's with its
+weight norm, folded on load); with no path the models hold random weights
+(seeded), which serves smoke runs.
 """
 
 from __future__ import annotations
@@ -17,12 +19,13 @@ import torch
 
 from stabletts_torch.config import MelConfig, ModelConfig, VocosConfig
 from stabletts_torch.models import build_stabletts
+from stabletts_torch.models.ffgan import FireflyGANBase
 from stabletts_torch.models.sampler import synthesise
 from stabletts_torch.models.vocos import Vocos
 from stabletts_torch.ops.stft import log_mel_spectrogram
 from stabletts_torch.text import cleaned_text_to_sequence, intersperse
 from stabletts_torch.text.english import english_to_ipa2
-from stabletts_torch.utils.convert import load_torch_state_dict
+from stabletts_torch.utils.convert import load_ffgan_state_dict, load_torch_state_dict
 from stabletts_torch.utils.device import resolve_device
 
 logger = logging.getLogger("stabletts_torch.api")
@@ -49,8 +52,8 @@ class StableTTSAPI:
         """Runs on `device`: the GPU unless the caller passes "cpu".
         warmup_lengths, e.g. (1024, 2048), turns on the shape ladder and runs
         each mel cap once up front."""
-        if vocoder_name != "vocos":
-            raise NotImplementedError(f"vocoder {vocoder_name!r} is not available; use 'vocos'")
+        if vocoder_name not in ("vocos", "ffgan"):
+            raise ValueError(f"vocoder {vocoder_name!r} is not one of 'vocos', 'ffgan'")
         self.device = resolve_device(device)
         self.mel_config = mel_config or MelConfig()
         self.tts_model_config = model_config or ModelConfig()
@@ -61,11 +64,18 @@ class StableTTSAPI:
             torch.manual_seed(0)
             self.tts_model = build_stabletts(self.tts_model_config, self.mel_config, device="cpu")
             torch.manual_seed(1)
-            self.vocoder_model = Vocos(self._vocos_config, self.mel_config, device="cpu")
+            if vocoder_name == "ffgan":
+                self.vocoder_model = FireflyGANBase(device="cpu")
+            else:
+                self.vocoder_model = Vocos(self._vocos_config, self.mel_config, device="cpu")
+        # Vocos takes per-item lengths (the fixed-shape serving mode);
+        # FireflyGAN callers trim the mel instead
+        self._vocoder_supports_lengths = vocoder_name == "vocos"
         if tts_model_path is not None:
             self.tts_model.load_state_dict(load_torch_state_dict(tts_model_path))
         if vocoder_model_path is not None:
-            self.vocoder_model.load_state_dict(load_torch_state_dict(vocoder_model_path))
+            sd = load_torch_state_dict(vocoder_model_path)
+            self.vocoder_model.load_state_dict(load_ffgan_state_dict(sd) if vocoder_name == "ffgan" else sd)
         self.tts_model.to(self.device)
         self.vocoder_model.to(self.device)
 
@@ -117,6 +127,13 @@ class StableTTSAPI:
             max_mel_len *= 2
             logger.warning("predicted length exceeded the mel cap; regrowing to %d", max_mel_len)
 
+    def _vocode(self, mel: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        """The whole padded mel through the vocoder, with the per-item lengths
+        where the vocoder takes them."""
+        if self._vocoder_supports_lengths:
+            return self.vocoder_model(mel, lengths)
+        return self.vocoder_model(mel)
+
     def warmup(self, lengths: Sequence[int] = (1024, 2048), text_buckets: Sequence[int] = (64, 128),
                ref_buckets: Sequence[int] = (512,), step: int = 10, solver: str = "euler",
                cfg: float = 3.0) -> float:
@@ -136,7 +153,7 @@ class StableTTSAPI:
                         ref_mel, n_timesteps=step, solver=solver, cfg=cfg, max_mel_len=cap,
                         y_ref_mask=ref_mask, device=self.device,
                     )
-                    self.vocoder_model(out["decoder_outputs"], out["y_lengths"])
+                    self._vocode(out["decoder_outputs"], out["y_lengths"])
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return time.time() - t0
@@ -158,7 +175,7 @@ class StableTTSAPI:
             temperature=temperature, length_scale=length_scale, solver=solver, cfg=cfg,
         )
         y_len = int(out["y_lengths"][0])
-        if self._shape_ladder:
+        if self._shape_ladder and self._vocoder_supports_lengths:
             # fixed shape: the full cap with a length mask (exact, see Vocos)
             audio = self.vocoder_model(out["decoder_outputs"], out["y_lengths"])
             audio = audio[:, : y_len * self.mel_config.hop_length]
@@ -190,7 +207,7 @@ class StableTTSAPI:
             torch.from_numpy(x).to(self.device), x_lengths, ref_mel, ref_mask, max_mel_len, seed,
             n_timesteps=step, temperature=temperature, length_scale=length_scale, solver=solver, cfg=cfg,
         )
-        audio = self.vocoder_model(out["decoder_outputs"], out["y_lengths"]).cpu().numpy()
+        audio = self._vocode(out["decoder_outputs"], out["y_lengths"]).cpu().numpy()
         y_lengths = out["y_lengths"].cpu().numpy()
         hop = self.mel_config.hop_length
         return [audio[i, : y_lengths[i] * hop] for i in range(b)]

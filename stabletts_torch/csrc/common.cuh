@@ -3,7 +3,9 @@
 // convolutions along time (and the ISTFT overlap-add) run as one product
 // without materialising shifted copies; its transposed product for weight
 // gradients; LayerNorm + adaLN modulate forward and backward; deterministic
-// column sums; the QKV epilogue with partial RoPE; Philox4x32-10 dropout.
+// column sums; the epilogues of the inference DiT block (QKV with partial RoPE,
+// out-projection and the two FFN convs), shared by the whole-block kernel and
+// its two halves; Philox4x32-10 dropout.
 //
 // Arithmetic is fp32 FMA throughout (no tensor cores): f32 inputs get true-f32
 // products, bf16 inputs are widened exactly to f32. The tile is 64x64 with a
@@ -266,6 +268,64 @@ struct QkvEpi {
       x = x * cs + partner * sn;
     }
     dst[(long long)m * C + nn] = from_f<T>(x);
+  }
+};
+
+// ---- out-projection epilogue: out = x + ((acc + bo) * gate) * m -----------
+// mods [B, n_mods, C] holds the gate row at gate_idx. Tout is float where the
+// caller keeps the residual stream in f32 (the whole block's x1), T where the
+// result is rounded to the activation type (the attention half alone).
+template <typename T, typename Tout>
+struct OutProjEpi {
+  const T* bias;
+  const T* x;
+  const T* mods;
+  int n_mods, gate_idx;
+  const float* mask;
+  Tout* out;
+  int C, T_;
+  __device__ float prep(int m, int n, float acc) const { return acc + to_f(bias[n]); }
+  __device__ void store(int m, int n, const float* tile, int r, int c) const {
+    int b = m / T_;
+    float gate = to_f(mods[((long long)b * n_mods + gate_idx) * C + n]);
+    float o = tile[r * (GEMM_BN + 1) + c];
+    out[(long long)m * C + n] = from_f<Tout>(to_f(x[(long long)m * C + n]) + o * gate * mask[m]);
+  }
+};
+
+// ---- FFN conv1 epilogue: y = silu(acc + b1) * m ----------------------------
+template <typename T>
+struct Conv1Epi {
+  const T* bias;
+  const float* mask;
+  T* y;
+  int N;
+  __device__ float prep(int m, int n, float acc) const { return acc + to_f(bias[n]); }
+  __device__ void store(int m, int n, const float* tile, int r, int c) const {
+    float v = tile[r * (GEMM_BN + 1) + c];
+    float s = v / (1.f + expf(-v));
+    y[(long long)m * N + n] = from_f<T>(s * mask[m]);
+  }
+};
+
+// ---- FFN conv2 epilogue: out = res + gate * ((acc + b2) * m) ---------------
+// res is the residual stream: f32 x1 inside the whole block, the activation
+// type where the FFN half runs alone.
+template <typename T, typename Tres>
+struct Conv2Epi {
+  const T* bias;
+  const T* mods;
+  int n_mods, gate_idx;
+  const float* mask;
+  const Tres* res;
+  T* out;
+  int C, T_;
+  __device__ float prep(int m, int n, float acc) const { return acc + to_f(bias[n]); }
+  __device__ void store(int m, int n, const float* tile, int r, int c) const {
+    int b = m / T_;
+    float gate = to_f(mods[((long long)b * n_mods + gate_idx) * C + n]);
+    float z = tile[r * (GEMM_BN + 1) + c] * mask[m];
+    out[(long long)m * C + n] = from_f<T>(to_f(res[(long long)m * C + n]) + gate * z);
   }
 };
 

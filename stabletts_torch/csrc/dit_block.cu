@@ -23,188 +23,15 @@
 //   7. conv k=3 F->C + mask + gated residual                 (tap GEMM, 3 taps)
 // Every product is computed here with fp32 FMAs; bf16 values are rounded at
 // the TPU kernel's points. Any T works (ragged tiles are masked).
-#include "common.cuh"
-
-#include <math.h>
+#include "attention.cuh"
 
 using namespace stts;
 
 namespace {
 
-constexpr float kNeg = -0.7f * 3.402823466e38f;  // key bias of padded keys
-constexpr float kLog2e = 1.4426950408889634f;
-
-// Steps 1 and 5 are common.cuh's ln_mod_kernel, step 2's epilogue its QkvEpi.
-
-// ---- 4: out-projection epilogue: x1 = x + (out * gate) * m, f32 ------------
-template <typename T>
-struct OutProjEpi {
-  const T* bias;
-  const T* x;
-  const T* mods;
-  const float* mask;
-  float* x1;
-  int C, T_;
-  __device__ float prep(int m, int n, float acc) const { return acc + to_f(bias[n]); }
-  __device__ void store(int m, int n, const float* tile, int r, int c) const {
-    int b = m / T_;
-    float gate = to_f(mods[((long long)b * 6 + 2) * C + n]);
-    float out = tile[r * (GEMM_BN + 1) + c];
-    x1[(long long)m * C + n] = to_f(x[(long long)m * C + n]) + out * gate * mask[m];
-  }
-};
-
-// ---- 6: conv1 epilogue: silu(acc + b1) * m --------------------------------
-template <typename T>
-struct Conv1Epi {
-  const T* bias;
-  const float* mask;
-  T* y;
-  int N;
-  __device__ float prep(int m, int n, float acc) const { return acc + to_f(bias[n]); }
-  __device__ void store(int m, int n, const float* tile, int r, int c) const {
-    float v = tile[r * (GEMM_BN + 1) + c];
-    float s = v / (1.f + expf(-v));
-    y[(long long)m * N + n] = from_f<T>(s * mask[m]);
-  }
-};
-
-// ---- 7: conv2 epilogue: out = x1 + gate * ((acc + b2) * m) -----------------
-template <typename T>
-struct Conv2Epi {
-  const T* bias;
-  const T* mods;
-  const float* mask;
-  const float* x1;
-  T* out;
-  int C, T_;
-  __device__ float prep(int m, int n, float acc) const { return acc + to_f(bias[n]); }
-  __device__ void store(int m, int n, const float* tile, int r, int c) const {
-    int b = m / T_;
-    float gate = to_f(mods[((long long)b * 6 + 5) * C + n]);
-    float z = tile[r * (GEMM_BN + 1) + c] * mask[m];
-    out[(long long)m * C + n] = from_f<T>(x1[(long long)m * C + n] + gate * z);
-  }
-};
-
-// ---- 3: attention, one CTA per (64-query tile, head, batch) ----------------
-// q is pre-scaled by log2(e)/sqrt(D); scores get the key bias (0 or kNeg) and
-// keys past T are excluded. Online softmax in exp2; the weights are rounded
-// to T before the PV product, the normaliser sums the unrounded f32 weights.
-constexpr int ATT_D = 64, ATT_BQ = 64, ATT_BK = 64, ATT_LD = 68;
-constexpr int ATT_SMEM = (4 * ATT_D * ATT_LD + ATT_BK) * (int)sizeof(float);
-
-template <typename T>
-__global__ void __launch_bounds__(256) attention_kernel(const T* q, const T* k, const T* v,
-                                                        const float* mask, T* out, int Tn, int C) {
-  extern __shared__ __align__(16) float sm[];
-  float* Qt = sm;                   // [D][LD]   Qt[d][query]
-  float* Kt = Qt + ATT_D * ATT_LD;  // [D][LD]   Kt[d][key]
-  float* Vs = Kt + ATT_D * ATT_LD;  // [BK][LD]  Vs[key][d]
-  float* Pt = Vs + ATT_BK * ATT_LD; // [BK][LD]  Pt[key][query]
-  float* kb = Pt + ATT_BK * ATT_LD; // [BK]      key bias
-
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * ATT_BQ;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const long long base = (long long)b * Tn * C + h * ATT_D;
-
-  for (int e = tid; e < ATT_BQ * ATT_D; e += 256) {
-    int r = e / ATT_D, d = e % ATT_D;
-    int t = q0 + r;
-    Qt[d * ATT_LD + r] = t < Tn ? to_f(q[base + (long long)t * C + d]) : 0.f;
-  }
-
-  float m_i[4], l_i[4], o[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_i[i] = -INFINITY;
-    l_i[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < Tn; k0 += ATT_BK) {
-    __syncthreads();  // the previous tile's Kt/Vs/Pt are consumed
-    for (int e = tid; e < ATT_BK * ATT_D; e += 256) {
-      int r = e / ATT_D, d = e % ATT_D;
-      int t = k0 + r;
-      bool ok = t < Tn;
-      Kt[d * ATT_LD + r] = ok ? to_f(k[base + (long long)t * C + d]) : 0.f;
-      Vs[r * ATT_LD + d] = ok ? to_f(v[base + (long long)t * C + d]) : 0.f;
-    }
-    if (tid < ATT_BK) {
-      int t = k0 + tid;
-      kb[tid] = t < Tn ? (mask[(long long)b * Tn + t] > 0.f ? 0.f : kNeg) : -INFINITY;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < ATT_D; ++d) {
-      float4 a4 = *reinterpret_cast<const float4*>(&Qt[d * ATT_LD + ty * 4]);
-      float4 b4 = *reinterpret_cast<const float4*>(&Kt[d * ATT_LD + tx * 4]);
-      float a[4] = {a4.x, a4.y, a4.z, a4.w};
-      float bb[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bb[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] += kb[tx * 4 + j];
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      float m_new = fmaxf(m_i[i], mx);
-      float corr = exp2f(m_i[i] - m_new);  // 0 on the first tile (m_i = -inf)
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float p = exp2f(s[i][j] - m_new);
-        rs += p;
-        Pt[(tx * 4 + j) * ATT_LD + ty * 4 + i] = round_to<T>(p);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l_i[i] = l_i[i] * corr + rs;
-      m_i[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) o[i][j] *= corr;
-    }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int kk = 0; kk < ATT_BK; ++kk) {
-      float4 a4 = *reinterpret_cast<const float4*>(&Pt[kk * ATT_LD + ty * 4]);
-      float4 b4 = *reinterpret_cast<const float4*>(&Vs[kk * ATT_LD + tx * 4]);
-      float a[4] = {a4.x, a4.y, a4.z, a4.w};
-      float bb[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) o[i][j] = fmaf(a[i], bb[j], o[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int t = q0 + ty * 4 + i;
-    if (t >= Tn) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      out[base + (long long)t * C + tx * 4 + j] = from_f<T>(o[i][j] / l_i[i]);
-  }
-}
+// Steps 1 and 5 are common.cuh's ln_mod_kernel; the epilogues of steps 2, 4, 6
+// and 7 are its QkvEpi, OutProjEpi, Conv1Epi and Conv2Epi; step 3 is
+// attention.cuh's attention_kernel on the pre-scaled q (score scale 1).
 
 template <typename T>
 cudaError_t run_block(const T* x, const T* mods, const float* mask, const float* cos_t,
@@ -223,12 +50,10 @@ cudaError_t run_block(const T* x, const T* mods, const float* mask, const float*
   QkvEpi<T> qe{bqkv, q, k, v, cos_t, sin_t, C, D, D / 4, Tn, kLog2e / sqrtf((float)D)};
   launch_tap_gemm<T>(g, qe, stream);
 
-  cudaFuncSetAttribute(attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, ATT_SMEM);
-  dim3 att_grid((Tn + ATT_BQ - 1) / ATT_BQ, H, B);
-  attention_kernel<T><<<att_grid, 256, ATT_SMEM, stream>>>(q, k, v, mask, att, Tn, C);
+  launch_attention<T, false>(q, k, v, mask, att, B, Tn, H, 1.f, stream);
 
   g.a0 = att; g.a1 = att; g.w = wo; g.ldw = C; g.N = C;
-  OutProjEpi<T> oe{bo, x, mods, mask, x1, C, Tn};
+  OutProjEpi<T, float> oe{bo, x, mods, 6, 2, mask, x1, C, Tn};
   launch_tap_gemm<T>(g, oe, stream);
 
   launch_ln_mod<float, T>(x1, mods, 6, 3, 4, mask, h2, M, Tn, C, eps, stream);
@@ -240,7 +65,7 @@ cudaError_t run_block(const T* x, const T* mods, const float* mask, const float*
 
   g.a0 = y; g.a1 = y; g.k_split = F; g.lda = F; g.k_in = F;
   g.w = w2; g.w_tap_stride = (long long)F * C; g.ldw = C; g.N = C;
-  Conv2Epi<T> c2{b2, mods, mask, x1, out, C, Tn};
+  Conv2Epi<T, float> c2{b2, mods, 6, 5, mask, x1, out, C, Tn};
   launch_tap_gemm<T>(g, c2, stream);
   return cudaGetLastError();
 }

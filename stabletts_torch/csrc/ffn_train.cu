@@ -48,7 +48,7 @@ namespace {
 // conv1 epilogue (forward and its recompute): y = acc + b1 kept in f32 when
 // y_out is given; sd = round(silu(y) * keep * m)
 template <typename T>
-struct Conv1Epi {
+struct Conv1DropEpi {
   const T* bias;
   const float* mask;
   Dropout drop;
@@ -66,23 +66,7 @@ struct Conv1Epi {
   }
 };
 
-// conv2 epilogue, forward: out = x + gate * (acc + b2) * m
-template <typename T>
-struct Conv2FwdEpi {
-  const T* bias;
-  const T* x;
-  const T* mod;  // [B, 3, C]
-  const float* mask;
-  T* out;
-  int C, T_;
-  __device__ float prep(int m, int n, float acc) const { return acc + to_f(bias[n]); }
-  __device__ void store(int m, int n, const float* tile, int r, int c) const {
-    float gate = to_f(mod[((long long)(m / T_) * 3 + 2) * C + n]);
-    float z = tile[r * (GEMM_BN + 1) + c] * mask[m];
-    const long long i = (long long)m * C + n;
-    out[i] = from_f<T>(to_f(x[i]) + gate * z);
-  }
-};
+// The forward conv2 epilogue is common.cuh's Conv2Epi: out = x + gate * (acc + b2) * m.
 
 // conv2 recompute, backward: pz = do * z (summed into dgate), dz = do * gate * m
 template <typename T>
@@ -147,8 +131,8 @@ cudaError_t forward(const T* x, const T* mod, const float* mask, const T* w1, co
                     cudaStream_t s) {
   const int M = B * Tn;
   launch_ln_mod<T, T>(x, mod, 3, 0, 1, mask, h, M, Tn, C, eps, s);
-  launch_tap_gemm<T>(conv_gemm(h, C, w1, F, M, Tn, 3, false), Conv1Epi<T>{b1, mask, drop, nullptr, sd, F, Tn}, s);
-  launch_tap_gemm<T>(conv_gemm(sd, F, w2, C, M, Tn, 3, false), Conv2FwdEpi<T>{b2, x, mod, mask, out, C, Tn}, s);
+  launch_tap_gemm<T>(conv_gemm(h, C, w1, F, M, Tn, 3, false), Conv1DropEpi<T>{b1, mask, drop, nullptr, sd, F, Tn}, s);
+  launch_tap_gemm<T>(conv_gemm(sd, F, w2, C, M, Tn, 3, false), Conv2Epi<T, T>{b2, mod, 3, 2, mask, x, out, C, Tn}, s);
   return cudaGetLastError();
 }
 
@@ -161,7 +145,7 @@ cudaError_t backward(const T* x, const T* mod, const float* mask, const T* w1, c
   const int M = B * Tn;
   // recompute h, y and sd; recompute conv2 for dgate and form dz
   launch_ln_mod<T, T>(x, mod, 3, 0, 1, mask, h, M, Tn, C, eps, s);
-  launch_tap_gemm<T>(conv_gemm(h, C, w1, F, M, Tn, 3, false), Conv1Epi<T>{b1, mask, drop, y, sd, F, Tn}, s);
+  launch_tap_gemm<T>(conv_gemm(h, C, w1, F, M, Tn, 3, false), Conv1DropEpi<T>{b1, mask, drop, y, sd, F, Tn}, s);
   launch_tap_gemm<T>(conv_gemm(sd, F, w2, C, M, Tn, 3, false),
                      Conv2BwdEpi<T>{b2, dout, mod, mask, pz, dzf, dzc, C, Tn}, s);
   // conv2 backward: dsd -> dy (dropout + SiLU derivative); dW2, db2

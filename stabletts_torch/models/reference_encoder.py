@@ -14,6 +14,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from stabletts_torch.nn.blocks import conv1d_same, dropout
+from stabletts_torch.ops.attention import masked_attention
 
 
 class Conv1dGLU(nn.Module):
@@ -75,16 +76,47 @@ class MelStyleEncoder(nn.Module):
         self.slf_attn = SelfAttention(style_hidden, style_head, dropout)
         self.fc = nn.Linear(style_hidden, style_vector_dim)
 
-    def forward(self, x, mask: Optional[torch.Tensor] = None, gen=None):
-        """mask: [B, T] validity mask (1 = valid) or None."""
+    def _trunk(self, x, gen=None):
+        """The spectral and temporal layers: [B, T, n_mels] -> [B, T, hidden]."""
         lin0, act, _, lin3, _, _ = self.spectral
         x = dropout(act(lin0(x)), self.p_dropout, gen)
         x = dropout(act(lin3(x)), self.p_dropout, gen)
         for glu in self.temporal:
             x = glu(x, gen)
+        return x
+
+    def forward(self, x, mask: Optional[torch.Tensor] = None, gen=None):
+        """mask: [B, T] validity mask (1 = valid) or None."""
+        x = self._trunk(x, gen)
         x = self.slf_attn(x, None if mask is None else mask <= 0, gen)
         x = self.fc(x)
         if mask is None:
             return x.mean(dim=1)
         m = mask.to(x.dtype)[..., None]
         return (x * m).sum(dim=1) / m.sum(dim=1)
+
+
+class AttnMelStyleEncoder(MelStyleEncoder):
+    """Attention-pool variant of MelStyleEncoder (same parameters): the masked
+    mean of the trunk's output is prepended as a query token that every item
+    may attend, and its attention output becomes the style vector. Inference
+    only (no dropout); the attention core is `ops.attention.masked_attention`,
+    so on the GPU it is the packed-head kernel (head width 64, as the default
+    128 / 2 gives)."""
+
+    def forward(self, x, mask: Optional[torch.Tensor] = None):
+        x = self._trunk(x)
+        if mask is None:
+            avg = x.mean(dim=1, keepdim=True)
+            key_mask = None
+        else:
+            m = mask.to(x.dtype)[..., None]
+            avg = ((x * m).sum(dim=1) / m.sum(dim=1))[:, None, :]
+            key_mask = torch.cat([torch.ones_like(mask[:, :1]), mask], dim=1)
+        x = torch.cat([avg, x], dim=1)
+        b, t, c = x.shape
+        attn = self.slf_attn
+        q, k, v = (z.reshape(b, t, attn.num_heads, c // attn.num_heads)
+                   for z in F.linear(x, attn.in_proj_weight, attn.in_proj_bias).chunk(3, dim=-1))
+        out = masked_attention(q, k, v, mask=key_mask).reshape(b, t, c)
+        return self.fc(attn.out_proj(out)[:, 0, :])

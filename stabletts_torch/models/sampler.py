@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from stabletts_torch.models.stabletts import StableTTS
-from stabletts_torch.ops.ode import odeint
+from stabletts_torch.ops.ode import ADAPTIVE_SOLVERS, odeint
 from stabletts_torch.utils.device import resolve_device
 
 
@@ -81,7 +81,13 @@ def synthesise(model: StableTTS, x, x_lengths, noise, y_ref, n_timesteps: int = 
         return model.velocity(tb, xt, y_mask, h_mu, c, True)
 
     t_span = torch.linspace(0.0, 1.0, n_timesteps + 1, dtype=torch.float32, device=device).to(noise.dtype)
-    mel = odeint(f, noise * temperature, t_span, method=solver)
+    ode_kwargs = {}
+    if solver in ADAPTIVE_SOLVERS:
+        # the adaptive error norm covers the requested frames only: the frames
+        # added for the 256 multiple have zero velocity and would deflate it
+        frame_valid = (torch.arange(max_mel_len, device=device) < requested_len)[None, :, None]
+        ode_kwargs = dict(err_weight=frame_valid, err_count=noise.shape[0] * requested_len * noise.shape[2])
+    mel = odeint(f, noise * temperature, t_span, method=solver, **ode_kwargs)
     return {
         "encoder_outputs": mu_y[:, :requested_len].float(),
         "decoder_outputs": mel[:, :requested_len].float(),

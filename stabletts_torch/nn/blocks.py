@@ -14,6 +14,7 @@ dropout (the JAX package's `deterministic=True`).
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
@@ -21,8 +22,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from stabletts_torch.ops import philox
+from stabletts_torch.ops.adaln_ffn_cuda import adaln_ffn
+from stabletts_torch.ops.attention import masked_attention
+from stabletts_torch.ops.attention_packed_cuda import attention_packed_t
+from stabletts_torch.ops.dit_attention_cuda import dit_attention
 from stabletts_torch.ops.dit_attention_train_cuda import dit_attention_train
-from stabletts_torch.ops.dit_block_cuda import DiTWeights, dit_block
+from stabletts_torch.ops.dit_block_cuda import DiTWeights, apply_rope, dit_block, rope_tables
 from stabletts_torch.ops.ffn_train_cuda import ffn_train
 
 
@@ -82,25 +87,60 @@ class FiLMLayer(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    """The attention half's 1x1-conv projections. Its math (partial RoPE,
-    key-padding mask, exp2 softmax) runs inside `dit_block`."""
+    """Self-attention with 1x1-conv projections and partial RoPE (rotary dim
+    = head_dim / 2). The fused kernels (`dit_block`, `dit_attention`) read the
+    weights and do this math themselves; `forward` is the composed inference
+    path in plain PyTorch around the attention core, which is
+    `ops.attention.masked_attention` (the packed-head kernel on the GPU) or,
+    with STABLETTS_ATTN_LAYOUT=tminor, `attention_packed_t` on channel-major
+    [B, C, T] operands."""
 
-    def __init__(self, channels: int, out_channels: int):
+    def __init__(self, channels: int, out_channels: int, n_heads: int):
         super().__init__()
+        self.n_heads = n_heads
         self.conv_q = nn.Conv1d(channels, channels, 1)
         self.conv_k = nn.Conv1d(channels, channels, 1)
         self.conv_v = nn.Conv1d(channels, channels, 1)
         self.conv_o = nn.Conv1d(channels, out_channels, 1)
 
+    def forward(self, x, mask: Optional[torch.Tensor] = None):
+        """x [B, T, C], mask [B, T] (keys only) -> [B, T, out_channels]; no
+        dropout (inference)."""
+        b, t, c = x.shape
+        d = c // self.n_heads
+        heads = lambda z: z.reshape(b, t, self.n_heads, d)
+        cos, sin = rope_tables(t, d, x.device)
+        q = apply_rope(heads(conv1d_same(x, self.conv_q)), cos, sin)
+        k = apply_rope(heads(conv1d_same(x, self.conv_k)), cos, sin)
+        v = heads(conv1d_same(x, self.conv_v))
+        if os.environ.get("STABLETTS_ATTN_LAYOUT") == "tminor":
+            to_t = lambda z: z.reshape(b, t, c).transpose(1, 2).contiguous()
+            out = attention_packed_t(to_t(q), to_t(k), to_t(v), mask, n_heads=self.n_heads).transpose(1, 2)
+        else:
+            out = masked_attention(q, k, v, mask=mask).reshape(b, t, c)
+        return conv1d_same(out, self.conv_o)
+
 
 class FFN(nn.Module):
-    """The conv FFN's weights (k=3 conv -> SiLU -> k=3 conv, masked at every
-    conv boundary); its math runs inside `dit_block`."""
+    """Conv FFN: conv -> SiLU -> conv, masked at every conv boundary. The
+    fused kernels read the weights and do this math themselves (3 taps only);
+    `forward` is the composed inference path in plain PyTorch, for any odd
+    kernel size."""
 
     def __init__(self, in_channels: int, out_channels: int, filter_channels: int, kernel_size: int = 3):
         super().__init__()
         self.conv_1 = nn.Conv1d(in_channels, filter_channels, kernel_size, padding=kernel_size // 2)
         self.conv_2 = nn.Conv1d(filter_channels, out_channels, kernel_size, padding=kernel_size // 2)
+
+    def forward(self, x, mask):
+        """x [B, T, C], mask [B, T] -> [B, T, out_channels]; no dropout."""
+        m = mask.to(x.dtype)[..., None]
+        x = F.silu(conv1d_same(x * m, self.conv_1))
+        return conv1d_same(x * m, self.conv_2) * m
+
+
+def _modulate(x, shift, scale):
+    return x * (1 + scale) + shift
 
 
 class DiTConVBlock(nn.Module):
@@ -111,18 +151,32 @@ class DiTConVBlock(nn.Module):
     port of the TPU kernel fused_dit_attention_train) then the FFN half
     `ops.ffn_train_cuda.ffn_train` (the port of fused_adaln_ffn_train), each
     a differentiable pair of CUDA kernels on the GPU with attention-weight and
-    FFN dropout `p_dropout` drawn from `gen`. Otherwise it is one call of
-    `ops.dit_block_cuda.dit_block` (the inference kernel on the GPU). Any T
-    works on both paths."""
+    FFN dropout `p_dropout` drawn from `gen`.
+
+    Otherwise the block takes one of the JAX package's inference
+    configurations, chosen by the same environment variables with the same
+    values and precedence, read at every call:
+
+      default                  one `dit_block` call (the whole-block kernel)
+      STABLETTS_DIT_BLOCK=0    `dit_attention` then `adaln_ffn` (two kernels)
+      STABLETTS_DIT_FUSED=0    the attention half composed in plain PyTorch
+                               around `masked_attention` (STABLETTS_ATTN_IMPL
+                               = auto | fused | flash | xla picks its core;
+                               STABLETTS_ATTN_LAYOUT=tminor takes
+                               `attention_packed_t`), then the FFN half
+      STABLETTS_FFN_IMPL=xla   the FFN half composed in plain PyTorch convs
+
+    A kernel size other than 3 takes the composed FFN (the FFN kernels have 3
+    taps). Every wrapper runs its plain version on a CPU tensor. Any T works
+    on every path."""
 
     def __init__(self, hidden_channels: int, filter_channels: int, num_heads: int,
                  kernel_size: int = 3, gin_channels: int = 0, p_dropout: float = 0.0):
         super().__init__()
-        if kernel_size != 3:
-            raise ValueError("DiTConVBlock: the fused block hard-codes kernel_size 3")
         self.num_heads = num_heads
+        self.kernel_size = kernel_size
         self.p_dropout = p_dropout
-        self.attn = MultiHeadAttention(hidden_channels, hidden_channels)
+        self.attn = MultiHeadAttention(hidden_channels, hidden_channels, num_heads)
         self.mlp = FFN(hidden_channels, hidden_channels, filter_channels, kernel_size)
         proj = nn.Identity() if gin_channels == hidden_channels else nn.Linear(gin_channels, hidden_channels)
         self.adaLN_modulation = nn.Sequential(proj, nn.SiLU(), nn.Linear(hidden_channels, 6 * hidden_channels))
@@ -156,13 +210,36 @@ class DiTConVBlock(nn.Module):
             self._packed = (key, w)
         return self._packed[1]
 
+    def _inference(self, x, mods, mask):
+        """x [B, T, C] (masked), mods [B, 6, C] -> [B, T, C] under the
+        configuration the environment names (see the class docstring)."""
+        env = os.environ.get
+        ch = x.shape[-1]
+        fuse_halves = env("STABLETTS_DIT_FUSED", "1") == "1"
+        three_taps = self.kernel_size == 3
+        if fuse_halves and env("STABLETTS_DIT_BLOCK", "1") == "1" and three_taps:
+            return dit_block(x, mods, mask, self.kernel_weights(), self.num_heads)
+        m = mask.to(x.dtype)[..., None]
+        shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mods[:, :, None, :].unbind(1)
+        if fuse_halves:
+            w = self.kernel_weights()
+            x = dit_attention(x, mods[:, :3].contiguous(), mask, w.wqkv, w.bqkv, w.wo, w.bo, self.num_heads)
+        else:
+            h = _modulate(F.layer_norm(x, (ch,), eps=1e-5), shift_msa, scale_msa)
+            x = x + gate_msa * self.attn(h, mask) * m
+        if env("STABLETTS_FFN_IMPL", "fused") == "fused" and three_taps:
+            w = self.kernel_weights()
+            return adaln_ffn(x, mods[:, 3:].contiguous(), mask, w.w1, w.b1, w.w2, w.b2)
+        h = _modulate(F.layer_norm(x, (ch,), eps=1e-5), shift_mlp, scale_mlp)
+        return x + gate_mlp * self.mlp(h, mask)
+
     def forward(self, x, c, mask, gen: Optional[torch.Generator] = None):
         """x [B, T, C], c [B, gin], mask [B, T] -> [B, T, C]."""
         b, _, ch = x.shape
         x = x * mask.to(x.dtype)[..., None]
         mods = self.adaLN_modulation(c).view(b, 6, ch)
         if not (self.training and torch.is_grad_enabled()):
-            return dit_block(x.contiguous(), mods.contiguous(), mask, self.kernel_weights(), self.num_heads)
+            return self._inference(x.contiguous(), mods.contiguous(), mask)
         rate = self.p_dropout if gen is not None else 0.0
         seed = lambda: philox.draw_seed(gen, x.device) if rate > 0.0 else None
         dense = lambda conv: conv.weight[..., 0].t()

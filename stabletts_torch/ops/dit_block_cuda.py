@@ -104,20 +104,17 @@ def conv3(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return h @ w[1] + down @ w[0] + up @ w[2] + b.float()
 
 
-def dit_block_plain(x, mods, mask, w: DiTWeights, n_heads: int, eps: float = 1e-5):
-    """x [B, T, C] (pre-masked); mods [B, 6, C] (shift/scale/gate msa, then
-    mlp); mask [B, T]. Returns [B, T, C] in x's dtype."""
+def attention_half_plain(x, mods, mask, wqkv, bqkv, wo, bo, n_heads: int, eps: float = 1e-5) -> torch.Tensor:
+    """The block's attention half, x + gate * out_proj(attention) * mask, as
+    f32 (the whole block keeps it so; the half alone rounds it to x's dtype).
+    x [B, T, C]; mods [B, 3, C] (shift, scale, gate); mask [B, T]."""
     dt = x.dtype
     b, t, c = x.shape
     d = c // n_heads
-    m = mask.float()[..., None]
     mo = mods.float()
-    shift_msa, scale_msa, gate_msa = mo[:, 0:1], mo[:, 1:2], mo[:, 2:3]
-    shift_mlp, scale_mlp, gate_mlp = mo[:, 3:4], mo[:, 4:5], mo[:, 5:6]
-
     xf = x.float()
-    h = (layer_norm(xf, eps) * (1.0 + scale_msa) + shift_msa).to(dt)
-    qkv = h.float() @ w.wqkv.float() + w.bqkv.float()
+    h = (layer_norm(xf, eps) * (1.0 + mo[:, 1:2]) + mo[:, 0:1]).to(dt)
+    qkv = h.float() @ wqkv.float() + bqkv.float()
     q = (qkv[..., :c] * (_LOG2E / math.sqrt(d))).to(dt).view(b, t, n_heads, d)
     k = qkv[..., c:2 * c].to(dt).view(b, t, n_heads, d)
     v = qkv[..., 2 * c:].to(dt).view(b, t, n_heads, d)
@@ -125,13 +122,28 @@ def dit_block_plain(x, mods, mask, w: DiTWeights, n_heads: int, eps: float = 1e-
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     att = attention_exp2(q, k, v, mask).reshape(b, t, c).to(dt)
-    out = att.float() @ w.wo.float() + w.bo.float()
-    x1 = xf + out * gate_msa * m
+    out = att.float() @ wo.float() + bo.float()
+    return xf + out * mo[:, 2:3] * mask.float()[..., None]
 
-    h2 = ((layer_norm(x1, eps) * (1.0 + scale_mlp) + shift_mlp) * m).to(dt)
-    y = (F.silu(conv3(h2, w.w1, w.b1)) * m).to(dt)
-    z = conv3(y, w.w2, w.b2) * m
-    return (x1 + gate_mlp * z).to(dt)
+
+def ffn_half_plain(x, mods, mask, w1, b1, w2, b2, dtype, eps: float = 1e-5) -> torch.Tensor:
+    """The block's FFN half, x + gate * conv2(silu(conv1(mod(LN(x)) * m)) * m) * m,
+    with the activations rounded to `dtype`. x [B, T, C] in f32 or `dtype`;
+    mods [B, 3, C] (shift, scale, gate); w1 [3, C, F], w2 [3, F, C]."""
+    m = mask.float()[..., None]
+    mo = mods.float()
+    xf = x.float()
+    h = ((layer_norm(xf, eps) * (1.0 + mo[:, 1:2]) + mo[:, 0:1]) * m).to(dtype)
+    y = (F.silu(conv3(h, w1, b1)) * m).to(dtype)
+    z = conv3(y, w2, b2) * m
+    return (xf + mo[:, 2:3] * z).to(dtype)
+
+
+def dit_block_plain(x, mods, mask, w: DiTWeights, n_heads: int, eps: float = 1e-5):
+    """x [B, T, C] (pre-masked); mods [B, 6, C] (shift/scale/gate msa, then
+    mlp); mask [B, T]. Returns [B, T, C] in x's dtype."""
+    x1 = attention_half_plain(x, mods[:, :3], mask, w.wqkv, w.bqkv, w.wo, w.bo, n_heads, eps)
+    return ffn_half_plain(x1, mods[:, 3:], mask, w.w1, w.b1, w.w2, w.b2, x.dtype, eps)
 
 
 def _dit_block_cuda(x, mods, mask, w: DiTWeights, n_heads: int, eps: float):

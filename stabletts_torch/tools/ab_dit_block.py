@@ -1,0 +1,36 @@
+"""Time the whole-block DiT kernel of the tree in the current directory, for
+comparing two commits on one GPU, one after the other:
+
+    cd <parent checkout> && python <this file> parent
+    cd <changed checkout> && python <this file> change     (then change, parent)
+
+Each run builds that tree's kernels, runs `chip_smoke.check_dit` three times
+at (2B=16, T=1024) bf16 and f32 and at (2, 1024) f32 on the same seeded
+inputs, and prints one JSON line: the median ms of each run and the rel err
+against the plain version (equal rel errs mean the same bits).
+"""
+
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+
+def main() -> None:
+    sys.path.insert(0, os.getcwd())
+    import chip_smoke as cs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    out = {"tree": sys.argv[1] if len(sys.argv) > 1 else os.getcwd()}
+    for b, t, dtype in ((16, 1024, torch.bfloat16), (16, 1024, torch.float32), (2, 1024, torch.float32)):
+        rows = [cs.check_dit(np.random.default_rng(1234), b=b, t=t, dtype=dtype, dev=dev) for _ in range(3)]
+        out[f"{b}x{t} {rows[0]['dtype']}"] = {"ms": [r["ms"] for r in rows], "rel_err": rows[0]["rel_err"]}
+    print(json.dumps(out), flush=True)
+
+
+if __name__ == "__main__":
+    main()

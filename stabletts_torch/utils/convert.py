@@ -9,6 +9,11 @@ nested dicts of numpy arrays (flax layouts):
   flax conv kernel [k, in, out]  -> torch Conv1d [out, in, k]
   flax LayerNorm scale/bias      -> weight/bias
   q/k/v dense kernels            -> packed MHA in_proj_weight [3C, C]
+  transposed-conv kernel [k, in, out] -> torch ConvTranspose1d [in, out, k]
+
+FireflyGAN checkpoints store weight-normed convs as (weight_g, weight_v) or as
+parametrizations.weight.original0/1; `load_ffgan_state_dict` folds them into
+plain weights, which is what the port's `FireflyGANBase` holds.
 """
 
 from __future__ import annotations
@@ -133,6 +138,74 @@ def state_dict_from_jax_vocos(params: dict, num_layers=8) -> Dict[str, torch.Ten
         out[f"{p}.gamma"] = np.asarray(blk["gamma"])
     _t_linear(out, "head.out", params["head"]["out"])
     return _tensors(out)
+
+
+_FFGAN_DEPTHS = (3, 3, 9, 3)
+
+
+def state_dict_from_jax_ffgan(params: dict) -> Dict[str, torch.Tensor]:
+    """JAX FireflyGANBase params -> the port's `FireflyGANBase` state dict
+    (float32 CPU tensors; reference names, weight norm folded)."""
+    out: Dict[str, np.ndarray] = {}
+    bb = params["backbone"]
+    _t_conv(out, "backbone.downsample_layers.0.0", bb["stem_conv"])
+    _t_ln(out, "backbone.downsample_layers.0.1", bb["stem_norm"])
+    _t_ln(out, "backbone.norm", bb["norm"])
+    for i in range(1, len(_FFGAN_DEPTHS)):
+        _t_ln(out, f"backbone.downsample_layers.{i}.0", bb[f"mid_norm_{i}"])
+        _t_conv1x1(out, f"backbone.downsample_layers.{i}.1", bb[f"mid_conv_{i}"])
+    for i, depth in enumerate(_FFGAN_DEPTHS):
+        for j in range(depth):
+            blk, p = bb[f"stages_{i}_{j}"], f"backbone.stages.{i}.{j}"
+            _t_conv(out, f"{p}.dwconv", blk["dwconv"])
+            _t_ln(out, f"{p}.norm", blk["norm"])
+            _t_linear(out, f"{p}.pwconv1", blk["pwconv1"])
+            _t_linear(out, f"{p}.pwconv2", blk["pwconv2"])
+            out[f"{p}.gamma"] = np.asarray(blk["gamma"])
+    head = params["head"]
+    _t_conv(out, "head.conv_pre", head["conv_pre"])
+    _t_conv(out, "head.conv_post", head["conv_post"])
+    for i in range(5):
+        # [k, C_in, C_out] -> ConvTranspose1d [C_in, C_out, k]
+        out[f"head.ups.{i}.weight"] = np.ascontiguousarray(np.transpose(head[f"ups_{i}_kernel"], (1, 2, 0)))
+        out[f"head.ups.{i}.bias"] = head[f"ups_{i}_bias"]
+        for j in range(3):
+            blk = head[f"resblocks_{i}"][f"blocks_{j}"]
+            for name in ("convs1", "convs2"):
+                for m in range(3):
+                    _t_conv(out, f"head.resblocks.{i}.blocks.{j}.{name}.{m}",
+                            {"kernel": blk[f"{name}_{m}_kernel"], "bias": blk[f"{name}_{m}_bias"]})
+    return _tensors(out)
+
+
+def fold_weight_norm(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """w = g * v / ||v||, the norm over every dim but 0 (torch weight_norm's
+    default dim=0)."""
+    norm = v.float().square().sum(dim=tuple(range(1, v.ndim)), keepdim=True).sqrt()
+    return (g.float() * v.float() / norm).float()
+
+
+def load_ffgan_state_dict(state_dict: dict) -> Dict[str, torch.Tensor]:
+    """A FireflyGAN generator state dict in the reference format -> the port's
+    `FireflyGANBase` state dict: every weight-normed conv, stored as
+    (`weight_g`, `weight_v`) or as `parametrizations.weight.original0/1`, is
+    folded into a plain `weight`; BatchNorm counters are dropped."""
+    pairs = ((".weight_g", ".weight_v"), (".parametrizations.weight.original0", ".parametrizations.weight.original1"))
+    sd = {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v) for k, v in state_dict.items()}
+    out: Dict[str, torch.Tensor] = {}
+    for key, value in sd.items():
+        if "num_batches" in key:
+            continue
+        for g_suffix, v_suffix in pairs:
+            if key.endswith(g_suffix):
+                prefix = key[: -len(g_suffix)]
+                out[f"{prefix}.weight"] = fold_weight_norm(value, sd[prefix + v_suffix])
+                break
+            if key.endswith(v_suffix):
+                break
+        else:
+            out[key] = value.float()
+    return out
 
 
 def _tensors(state_dict: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:

@@ -110,8 +110,6 @@ def test_api_rejects_what_this_port_lacks(apis):
         ours.inference("x", _wave(0.1), "klingon")
     with pytest.raises(NotImplementedError):
         ours.inference("hello", "/some/file.wav", "english")
-    with pytest.raises(NotImplementedError):
-        StableTTSAPI(vocoder_name="ffgan", device="cpu")
     tts_m, voc_m = StableTTSAPI(device="cpu").get_params()
     assert 31 < tts_m < 33  # the 31M flagship
     if not torch.cuda.is_available():

@@ -51,6 +51,80 @@ def test_dit_block_kernel(dev, dtype, bar, t_len):
     assert _rel(got, dit_block_plain(x, mods, mask, w, heads)) <= bar
 
 
+def _masked_inputs(rng, dev, dtype, b, t_len, c):
+    lengths = torch.tensor([t_len - (i * 9) % max(1, t_len // 2) for i in range(b)], device=dev)
+    mask = (torch.arange(t_len, device=dev)[None, :] < lengths[:, None]).float()
+    return _rand(rng, dev, dtype, b, t_len, c) * mask[..., None].to(dtype), mask
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float32, 5e-3), (BF16, 2e-2)])
+@pytest.mark.parametrize("t_len", [64, 77])
+def test_dit_attention_kernel(dev, dtype, bar, t_len):
+    from stabletts_torch.ops.dit_attention_cuda import dit_attention, dit_attention_plain
+
+    rng = np.random.default_rng(5)
+    b, c, heads = 2, 256, 4
+    w = [_rand(rng, dev, dtype, *s, scale=0.05) for s in [(c, 3 * c), (3 * c,), (c, c), (c,)]]
+    x, mask = _masked_inputs(rng, dev, dtype, b, t_len, c)
+    mods = _rand(rng, dev, dtype, b, 3, c, scale=0.1)
+    before = dit_attention.launches
+    got = dit_attention(x, mods, mask, *w, heads)
+    assert dit_attention.launches == before + 1
+    assert _rel(got, dit_attention_plain(x, mods, mask, *w, heads)) <= bar
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float32, 5e-3), (BF16, 2e-2)])
+@pytest.mark.parametrize("t_len", [64, 77])
+def test_adaln_ffn_kernel(dev, dtype, bar, t_len):
+    from stabletts_torch.ops.adaln_ffn_cuda import adaln_ffn, adaln_ffn_plain
+
+    rng = np.random.default_rng(6)
+    b, c, f = 2, 256, 1024
+    w = [_rand(rng, dev, dtype, *s, scale=0.05) for s in [(3, c, f), (f,), (3, f, c), (c,)]]
+    x, mask = _masked_inputs(rng, dev, dtype, b, t_len, c)
+    mods = _rand(rng, dev, dtype, b, 3, c, scale=0.1)
+    before = adaln_ffn.launches
+    got = adaln_ffn(x, mods, mask, *w)
+    assert adaln_ffn.launches == before + 1
+    assert _rel(got, adaln_ffn_plain(x, mods, mask, *w)) <= bar
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float32, 5e-3), (BF16, 2e-2)])
+@pytest.mark.parametrize("t_len,masked", [(64, True), (77, True), (77, False)])
+@pytest.mark.parametrize("tminor", [False, True])
+def test_attention_packed_kernels(dev, dtype, bar, t_len, masked, tminor):
+    """Both layouts against the plain version on the valid query rows; the
+    padded rows must be finite."""
+    from stabletts_torch.ops import attention_packed_cuda as ap
+
+    rng = np.random.default_rng(7)
+    b, c, heads = 2, 256, 4
+    q, k, v = (_rand(rng, dev, dtype, b, t_len, c) for _ in range(3))
+    _, mask = _masked_inputs(rng, dev, dtype, b, t_len, c)
+    mask = mask if masked else None
+    fn, plain = (ap.attention_packed_t, ap.attention_packed_t_plain) if tminor else \
+        (ap.attention_packed, ap.attention_packed_plain)
+    args = [a.transpose(1, 2).contiguous() for a in (q, k, v)] if tminor else [q, k, v]
+    before = fn.launches
+    got, ref = fn(*args, mask, n_heads=heads), plain(*args, mask, n_heads=heads)
+    assert fn.launches == before + 1 and torch.isfinite(got).all()
+    if tminor:
+        got, ref = got.transpose(1, 2), ref.transpose(1, 2)
+    rows = torch.ones(b, t_len, dtype=torch.bool, device=dev) if mask is None else mask > 0
+    assert _rel(got[rows], ref[rows]) <= bar
+
+
+def test_kernels_raise_on_what_they_do_not_take(dev):
+    from stabletts_torch.ops.attention_packed_cuda import attention_packed
+
+    q = torch.zeros(1, 8, 96, device=dev)  # head width 48
+    with pytest.raises(ValueError, match="head_dim 64"):
+        attention_packed(q, q, q, None, n_heads=2)
+    q = torch.zeros(1, 8, 128, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        attention_packed(q.transpose(1, 2).contiguous().transpose(1, 2), q, q, None, n_heads=2)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, BF16])
 @pytest.mark.parametrize("t_len", [32, 45])
 def test_convnext_kernel(dev, dtype, t_len):

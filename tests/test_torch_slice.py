@@ -66,8 +66,8 @@ def test_euler_matches_jax_grid():
         ours = n(odeint(f, t(y0), span))
         want = np.asarray(odeint_fixed(f, jnp.asarray(y0), jnp.linspace(0.0, 1.0, steps + 1)))
         np.testing.assert_allclose(ours, want, rtol=1e-6)
-    with pytest.raises(NotImplementedError):
-        odeint(f, t(y0), torch.linspace(0.0, 1.0, 3), method="rk4")
+    with pytest.raises(ValueError, match="unknown solver"):
+        odeint(f, t(y0), torch.linspace(0.0, 1.0, 3), method="rk5")
 
 
 def test_synthesise_bf16_runs_and_trims(models):
