@@ -29,18 +29,37 @@ Phases, one JSON line each; any failure exits nonzero:
      (B=32, mels of 901-1000 frames, text padded to 512), 2 epochs then a
      resume, with the launches of each training kernel per step; 8 steps
      overfitting one batch; device time by kernel over one step; one step at
-     B=2 on the GPU against the CPU path, same weights and draws
-  8. the `kernels` line (launches: over the main paths' runs, the
+     B=2 on the GPU against the CPU path, same weights and draws, and the
+     same step in bf16 against f32 on the GPU (`train_bf16_vs_f32`)
+  8. the opt-in training kernels against their plain versions (packed
+     attention with dropout beside one scaled_dot_product_attention call,
+     forward and backward; the mu prenet; the MPD period stack, five
+     periods), then `train_config`: one trainer batch under each training
+     configuration (the STABLETTS_ATTN_TRAIN / STABLETTS_PRENET_TRAIN
+     variables) with its exact launch counts, its losses and gradients
+     against the default's with dropout off, wall ms and peak memory; and
+     `train_bf16`: `train()` with compute_dtype="bfloat16"
+  9. Vocos GAN training: `train_vocos()` at the flagship Vocos on WAV files
+     written from a seed (B=16, segment 20480, f32), a checkpoint and a
+     resume; one bf16 step; device time by kernel over one step; `mpd_stack`
+     on the trainer's folded MPD weights and a real and a generated batch
+     against the trainer's `DiscriminatorP`; one step on the GPU against the
+     CPU from the same state
+ 10. the `kernels` line (launches: over the main paths' runs, the
      `inference` requests of phase 4, the requests of phase 4's block
-     configurations that run the kernel, and the `train_steps` run of phase
-     7; times: the bf16 bench shape for serving kernels; the decoder's shape
-     in the trainer, f32 at B=32, T=1000, dropout 0.1, for the training
-     kernels; [32, 1000, 512] for MAS); then the card line and the result line.
+     configurations that run the kernel, the `train_steps` run of phase 7,
+     the `train_config` runs that run the kernel and the `mpd_in_gan` run;
+     times: the bf16 bench shape for serving kernels; the decoder's shape in
+     the trainer, f32 at B=32, T=1000, dropout 0.1, for the training kernels;
+     [32, 1000, 512] for MAS; [16, 20480], period 2, for the MPD stack); then
+     the card line and the result line.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
+import dataclasses
 import json
 import math
 import os
@@ -65,7 +84,10 @@ BARS = {"dit_block": {torch.float32: 5e-3, torch.bfloat16: 2e-2},
         "istft": {torch.float32: 1e-4, torch.bfloat16: 1e-3},
         # forward and every gradient (tools/tpu_selftest.py:96, 155, 209 in bf16)
         "ffn_train": {torch.float32: 5e-3, torch.bfloat16: 2e-2},
-        "dit_attention_train": {torch.float32: 5e-3, torch.bfloat16: 2e-2}}
+        "dit_attention_train": {torch.float32: 5e-3, torch.bfloat16: 2e-2},
+        "attention_train": {torch.float32: 5e-3, torch.bfloat16: 2e-2},
+        "prenet_train": {torch.float32: 5e-3, torch.bfloat16: 2e-2}}
+MPD_BAR = 2e-4  # max-abs, f32 (tests/test_mpd_pallas.py:29)
 KERNEL_INFO = {
     "dit_block": ("stabletts_torch/csrc/dit_block.cu", "stabletts_tpu/ops/dit_block_pallas.py:98"),
     "dit_attention": ("stabletts_torch/csrc/dit_attention.cu", "stabletts_tpu/ops/dit_attention_pallas.py:122"),
@@ -81,6 +103,13 @@ KERNEL_INFO = {
     "ffn_train_fwd": ("stabletts_torch/csrc/ffn_train.cu", "stabletts_tpu/ops/ffn_pallas_train.py:189"),
     "ffn_train_bwd": ("stabletts_torch/csrc/ffn_train.cu", "stabletts_tpu/ops/ffn_pallas_train.py:218"),
     "mas": ("stabletts_torch/csrc/mas.cu", "stabletts_tpu/ops/mas_pallas.py:174"),
+    "attention_train_fwd": ("stabletts_torch/csrc/attention_train.cu",
+                            "stabletts_tpu/ops/attention_pallas_train.py:167"),
+    "attention_train_bwd": ("stabletts_torch/csrc/attention_train.cu",
+                            "stabletts_tpu/ops/attention_pallas_train.py:191"),
+    "prenet_train_fwd": ("stabletts_torch/csrc/prenet_train.cu", "stabletts_tpu/ops/prenet_pallas_train.py:119"),
+    "prenet_train_bwd": ("stabletts_torch/csrc/prenet_train.cu", "stabletts_tpu/ops/prenet_pallas_train.py:145"),
+    "mpd_stack": ("stabletts_torch/csrc/mpd_stack.cu", "stabletts_tpu/ops/mpd_pallas.py:227"),
 }
 TRAIN_LAUNCHES_PER_STEP = {"dit_attention_train_fwd": 9, "dit_attention_train_bwd": 9, "ffn_train_fwd": 9,
                            "ffn_train_bwd": 9, "mas": 1}
@@ -376,9 +405,9 @@ def check_train(kind, b, t, dtype, rate, dev) -> list:
         names = ["dwq", "dbq", "dwk", "dbk", "dwv", "dbv", "dwo", "dbo"]
         wqkv, bqkv = torch.cat(ws[0:6:2], dim=1).contiguous(), torch.cat(ws[1:6:2]).contiguous()
         run_fwd = lambda: A.dit_attention_train_fwd(x, mod, mask, wqkv, bqkv, ws[6], ws[7], heads, rate, seed)
-        _, att, lse = run_fwd()
+        _, att, lse, att_lo = run_fwd()
         run_bwd = lambda: A.dit_attention_train_bwd(x, mod, mask, wqkv, bqkv, ws[6], ws[7], heads, rate, seed,
-                                                    att, lse, cot)
+                                                    att, lse, cot, att_lo=att_lo)
         flops = 2 * b * t * c * 4 * c + 4 * b * heads * t * t * (c // heads)
         keep = philox.attention_keep(seed, b, heads, t, rate) if rate > 0 else None
     kept = float((keep > 0).float().mean()) if keep is not None else None
@@ -474,6 +503,262 @@ def phase_train_kernels(dev) -> dict:
     bad = [r for r in rows if not r["ok"]]
     if bad:
         fail(f"{len(bad)} training kernel check(s) over their bar: {bad}")
+    return line_rows
+
+
+def _grad_rows(kind, dtype, shape, errs, run_fwd, run_bwd, plain_fwd_ms, plain_bwd_ms, fwd, bwd, extra=None,
+               library=(None, None)) -> list:
+    """The fwd and bwd `kernel_check` rows of a differentiable kernel pair:
+    `errs` maps each output ("out", then the gradients) to (rel, abs) error
+    against autograd through the plain version; fwd and bwd are (flops,
+    bytes) of the two passes. Both rows are ok only if every output is
+    within the bar."""
+    bar = BARS[kind][dtype]
+    worst_grad = max((k for k in errs if k != "out"), key=lambda k: errs[k][0])
+    all_ok = max(e[0] for e in errs.values()) <= bar
+    iters = 5 if shape["B"] * shape["T"] > 4096 else 10
+    rows = []
+    for half, out, run, (fl, by), pms, lib in (("fwd", "out", run_fwd, fwd, plain_fwd_ms, library[0]),
+                                               ("bwd", worst_grad, run_bwd, bwd, plain_bwd_ms, library[1])):
+        bound, bound_by = bound_ms(fl, by, dtype)
+        rows.append({"kernel": f"{kind}_{half}", "dtype": DT_NAME[dtype], **shape, "rel_err": errs[out][0],
+                     "max_abs_err": errs[out][1], "worst_output": out, "bar": bar, "ok": all_ok,
+                     "ms": time_ms(run, iters=iters), "plain_ms": pms, "bound_ms": bound, "bound_by": bound_by,
+                     "library_ms": None if lib is None else time_ms(lib, iters=iters), **(extra or {})})
+    return rows
+
+
+def check_attention_train(b, t, dtype, rate, dev, offset: float = 0.0) -> list:
+    """Packed-head attention with dropout, forward and dq, dk, dv, against
+    autograd through the plain version on the same inputs and Philox bits, on
+    the valid query rows (the padded rows get no cotangent and must be
+    finite). With `offset`, every key and value shares a mean of that size
+    and q is small, as behind a projection with a bias: the true dq and dk
+    then cancel over the keys, and an error in a row's D = rowsum(d_o * o)
+    does not. In bf16 that case also runs the backward without the output's
+    rounding remainder and reports what the remainder buys. The library
+    yardstick is one scaled_dot_product_attention call
+    with `dropout_p` and the same key mask (its own dropout bits), forward,
+    and forward plus backward minus forward for the bwd row."""
+    import torch.nn.functional as F
+
+    from stabletts_torch.ops import attention_train_cuda as A
+    from stabletts_torch.ops import philox
+
+    c, heads, d = 256, 4, 64
+    rng = np.random.default_rng(b * 131 + t)
+    g = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev, dtype)
+    mask = _ragged_mask(b, t, dev)
+    rows_valid = (mask > 0)[..., None].to(dtype)
+    q, k, v = g(b, t, c), g(b, t, c), g(b, t, c)
+    if offset:
+        q, k, v = q * 0.3, k + offset * g(1, 1, c), v + offset * g(1, 1, c)
+    cot = g(b, t, c) * rows_valid
+    seed = philox.draw_seed(torch.Generator(device=dev).manual_seed(b + t), dev)
+
+    leaves = [a.detach().clone().requires_grad_() for a in (q, k, v)]
+    out_k = A.attention_train(*leaves, mask, rate, seed, heads)
+    g_k = torch.autograd.grad(out_k, leaves, cot)
+    finite = bool(torch.isfinite(out_k).all())
+    out_p = A.attention_train_plain(*leaves, mask, rate, seed, heads)
+    g_p = torch.autograd.grad(out_p, leaves, cot, retain_graph=True)
+    errs = {name: rel_err(a, r) for name, a, r in
+            zip(["out", "dq", "dk", "dv"], [out_k * rows_valid, *g_k], [out_p * rows_valid, *g_p])}
+    if not finite:
+        errs["out"] = (math.inf, math.inf)
+
+    iters = 5 if b * t > 4096 else 10
+    with torch.no_grad():
+        plain_fwd_ms = time_ms(lambda: A.attention_train_plain(q, k, v, mask, rate, seed, heads), iters=iters)
+    plain_bwd_ms = time_ms(lambda: torch.autograd.grad(out_p, leaves, cot, retain_graph=True), iters=iters)
+    o, lse, o_lo = A.attention_train_fwd(q, k, v, mask, heads, rate, seed)
+    run_fwd = lambda: A.attention_train_fwd(q, k, v, mask, heads, rate, seed)
+    run_bwd = lambda: A.attention_train_bwd(q, k, v, mask, heads, rate, seed, o, lse, cot, o_lo)
+
+    key_mask = (mask > 0)[:, None, None, :]
+    bhtd = lambda a: a.view(b, t, heads, d).transpose(1, 2)
+    lq, lk, lv = (bhtd(a).detach().requires_grad_() for a in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=key_mask, dropout_p=rate)
+    with torch.no_grad():
+        lib_fwd_ms = time_ms(sdpa, iters=iters)
+    lib_both_ms = time_ms(lambda: torch.autograd.grad(sdpa(), (lq, lk, lv), bhtd(cot)), iters=iters)
+    flops = 4 * b * heads * t * t * d
+    lo = [] if o_lo is None else [o_lo]  # bf16: the output's rounding remainder, written forward, read backward
+    fwd_bytes = nbytes(q, k, v, mask, q, *lo)
+    shape = {"B": b, "T": t, "dropout": rate, **({"kv_offset": offset} if offset else {})}
+    rows = _grad_rows("attention_train", dtype, shape, errs, run_fwd, run_bwd,
+                      plain_fwd_ms, plain_bwd_ms, (flops, fwd_bytes),
+                      (2.5 * flops, nbytes(q, k, v, mask, cot, q, k, v, *lo)))
+    rows[0]["library_ms"] = lib_fwd_ms
+    rows[1]["library_ms"] = max(lib_both_ms - lib_fwd_ms, 0.0)
+    rows[1]["library_fwd_and_bwd_ms"] = lib_both_ms
+    if offset and o_lo is not None:
+        # the kernel rounds ds to bf16 before its products, as the TPU kernel does and autograd through the plain
+        # version does not; where dq cancels over the keys that rounding shows (0.023 seen at offset 2)
+        for row in rows:
+            row["bar"], row["ok"] = 5e-2, max(e[0] for e in errs.values()) <= 5e-2
+        bare = A.attention_train_bwd(q, k, v, mask, heads, rate, seed, o, lse, cot, torch.zeros_like(o_lo))
+        rows[1]["rel_err_dq_dk_dv"] = [errs[n][0] for n in ("dq", "dk", "dv")]
+        rows[1]["rel_err_dq_dk_dv_without_remainder"] = [rel_err(a, r)[0] for a, r in zip(bare, g_p)]
+    del out_p, g_p
+    return rows
+
+
+def check_prenet_train(b, t, dtype, dev) -> list:
+    """The mu prenet, forward, dmu and the six parameter gradients, against
+    autograd through the plain version (flagship widths 128 -> 1024 -> 1024
+    -> 256)."""
+    from stabletts_torch.ops import prenet_train_cuda as P
+
+    cin, f, cout = 128, 1024, 256
+    rng = np.random.default_rng(b * 257 + t)
+    g = lambda *s, scale=1.0: torch.from_numpy((rng.standard_normal(s) * scale).astype(np.float32)).to(dev, dtype)
+    mu = g(b, t, cin)
+    ws = [g(3, cin, f, scale=(3 * cin) ** -0.5), g(f, scale=0.05), g(3, f, f, scale=(3 * f) ** -0.5), g(f, scale=0.05),
+          g(3, f, cout, scale=(3 * f) ** -0.5), g(cout, scale=0.05)]
+    cot = g(b, t, cout)
+    leaves = [a.detach().clone().requires_grad_() for a in (mu, *ws)]
+    out_k = P.prenet_train(*leaves)
+    g_k = torch.autograd.grad(out_k, leaves, cot)
+    out_p = P.prenet_train_plain(*leaves)
+    g_p = torch.autograd.grad(out_p, leaves, cot, retain_graph=True)
+    names = ["out", "dmu", "dwa", "dba", "dwb", "dbb", "dwc", "dbc"]
+    errs = {name: rel_err(a, r) for name, a, r in zip(names, [out_k, *g_k], [out_p, *g_p])}
+    iters = 5 if b * t > 4096 else 10
+    with torch.no_grad():
+        plain_fwd_ms = time_ms(lambda: P.prenet_train_plain(mu, *ws), iters=iters)
+    plain_bwd_ms = time_ms(lambda: torch.autograd.grad(out_p, leaves, cot, retain_graph=True), iters=iters)
+    flops = 6 * b * t * (cin * f + f * f + f * cout)
+    # the backward: an input gradient and a weight gradient for each conv, and conv_a and conv_b again (conv_c's
+    # output is not needed)
+    bwd_flops = 2 * flops + 6 * b * t * (cin * f + f * f)
+    w_bytes = nbytes(*ws)
+    rows = _grad_rows("prenet_train", dtype, {"B": b, "T": t}, errs, lambda: P.prenet_train_fwd(mu, *ws),
+                      lambda: P.prenet_train_bwd(mu, *ws, cot), plain_fwd_ms, plain_bwd_ms,
+                      (flops, nbytes(mu, cot) + w_bytes),
+                      (bwd_flops, nbytes(mu, cot, mu) + w_bytes + 4 * sum(w.numel() for w in ws)))
+    del out_p, g_p
+    return rows
+
+
+def check_istft_diff(b, t, dtype, dev) -> dict:
+    """`istft_head_diff` (the ISTFT kernel forward, the transposed plain ISTFT
+    as its backward) against autograd through the plain ISTFT: the waveform
+    at the ISTFT kernel's bar, d(re) and d(im) at 1e-4 (both backwards are the
+    same f32 transpose). One `istft_head` launch per forward."""
+    from stabletts_torch.ops.istft import istft_same_real
+    from stabletts_torch.ops.istft_cuda import istft_head, istft_head_diff
+
+    n_fft, hop = 2048, 512
+    nf = n_fft // 2 + 1
+    rng = np.random.default_rng(b + t)
+    g = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+    re, im, cot = g(b, t, nf), g(b, t, nf), g(b, t * hop)
+    md = None if dtype == torch.float32 else dtype
+    outs = {}
+    before = istft_head.launches
+    for name, fn in (("kernel", lambda r, i: istft_head_diff(r, i, n_fft, hop, md)),
+                     ("plain", lambda r, i: istft_same_real(r, i, n_fft, hop, n_fft, md))):
+        leaves = [re.clone().requires_grad_(), im.clone().requires_grad_()]
+        out = fn(*leaves)
+        outs[name] = [out.detach(), *torch.autograd.grad(out, leaves, cot)]
+    launched = istft_head.launches - before
+    errs = [rel_err(a, r) for a, r in zip(outs["kernel"], outs["plain"])]
+    bar = BARS["istft"][dtype]
+    # in bf16 the plain backward differentiates its quantised matmul; the kernel's is the f32 transpose
+    grad_bar = 1e-4 if dtype == torch.float32 else 2e-2
+    ok = launched == 1 and errs[0][0] <= bar and max(errs[1][0], errs[2][0]) <= grad_bar
+    leaves = [re.clone().requires_grad_(), im.clone().requires_grad_()]
+    both = lambda: torch.autograd.grad(istft_head_diff(*leaves, n_fft, hop, md), leaves, cot)
+    return {"kernel": "istft_diff", "dtype": DT_NAME[dtype], "B": b, "T": t, "rel_err": errs[0][0],
+            "max_abs_err": errs[0][1], "grad_rel_err": max(errs[1][0], errs[2][0]), "bar": bar, "grad_bar": grad_bar,
+            "launches_of_istft_head": launched, "fwd_and_bwd_ms": time_ms(both), "ok": ok}
+
+
+def mpd_flops(bsz: int, t: int, period: int) -> float:
+    """Multiply-adds x 2 of convs 1-4 and conv_post (what the kernel runs)."""
+    from stabletts_torch.ops.mpd_cuda import layer_lens
+
+    lens = layer_lens(-(-t // period))
+    ch = (32, 128, 512, 1024, 1024)
+    fl = sum(2 * bsz * period * lens[i + 1] * 5 * ch[i - 1] * ch[i] for i in range(1, 5))
+    return fl + 2 * bsz * period * lens[6] * 3 * 1024
+
+
+def check_mpd_stack(x, folded, period, disc=None) -> dict:
+    """`mpd_stack` against its plain version on x [B, T] (and against
+    `disc`, a DiscriminatorP holding the same weights): the logits and the
+    five feature maps, max-abs 2e-4."""
+    from stabletts_torch.ops.mpd_cuda import mpd_stack, mpd_stack_plain
+
+    logits, fmap = mpd_stack(x, folded, period)
+    with torch.no_grad():
+        p_logits, p_fmap = mpd_stack_plain(x, folded, period)
+        errs = [rel_err(a, r) for a, r in zip([logits, *fmap], [p_logits, *p_fmap])]
+        shapes_ok = all(a.shape == r.shape for a, r in zip([logits, *fmap], [p_logits, *p_fmap]))
+        disc_abs = None
+        if disc is not None:
+            d_logits, d_fmap = disc(x, folded)
+            disc_abs = max(float((a - r).abs().max()) for a, r in zip([logits, *fmap], [d_logits, *d_fmap]))
+    worst = max(range(6), key=lambda i: errs[i][1])
+    b, t = x.shape
+    io = nbytes(x, *(w for pair in folded for w in pair), logits, *fmap)
+    bound, bound_by = bound_ms(mpd_flops(b, t, period), io, torch.float32)
+    max_abs = errs[worst][1]
+    ok = shapes_ok and max_abs <= MPD_BAR and (disc_abs is None or disc_abs <= MPD_BAR)
+    with torch.no_grad():
+        plain_ms = time_ms(lambda: mpd_stack_plain(x, folded, period), iters=5)
+    return {"kernel": "mpd_stack", "dtype": "float32", "B": b, "T": t, "period": period, "rel_err": errs[worst][0],
+            "max_abs_err": max_abs, "worst_output": ["logits", "f1", "f2", "f3", "f4", "f5"][worst],
+            "max_abs_err_vs_discriminator": disc_abs, "bar": MPD_BAR, "ok": ok,
+            "ms": time_ms(lambda: mpd_stack(x, folded, period), iters=5), "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": None, "gflop": mpd_flops(b, t, period) / 1e9}
+
+
+def phase_opt_in_train_kernels(dev) -> dict:
+    """The kernels of the opt-in training paths and of GAN training at the
+    trainers' shapes and one small odd shape each: `attention_train` and
+    `prenet_train` at (32, 1000), (32, 1024) and (2, 97), f32 and bf16
+    (`attention_train` also at (32, 512), the encoder blocks' shape);
+    `mpd_stack` at [16, 20480] and [2, 8190] for the five periods; the ISTFT
+    head's gradient. Returns the rows of the kernels line."""
+    from stabletts_torch.models.discriminators import DiscriminatorP
+
+    rows, line_rows = [], {}
+    f32, bf = torch.float32, torch.bfloat16
+    for b, t, dt, rate in [(32, 1000, f32, 0.1), (32, 1000, bf, 0.1), (32, 1024, f32, 0.1), (32, 1024, bf, 0.1),
+                           (32, 512, f32, 0.1), (32, 512, bf, 0.1), (32, 1000, f32, 0.0), (2, 97, f32, 0.1),
+                           (2, 97, bf, 0.1), (4, 200, bf, 0.1), (4, 200, f32, 0.1)]:
+        # the last two: keys and values with a common mean (see check_attention_train)
+        for row in check_attention_train(b, t, dt, rate, dev, offset=2.0 if (b, t) == (4, 200) else 0.0):
+            rows.append(row)
+            if (b, t, dt, rate) == (32, 1000, f32, 0.1):
+                line_rows[row["kernel"]] = row
+        torch.cuda.empty_cache()
+    for b, t, dt in [(32, 1000, f32), (32, 1000, bf), (32, 1024, f32), (32, 1024, bf), (2, 97, f32), (2, 97, bf)]:
+        for row in check_prenet_train(b, t, dt, dev):
+            rows.append(row)
+            if (b, t, dt) == (32, 1000, f32):
+                line_rows[row["kernel"]] = row
+        torch.cuda.empty_cache()
+    for b, t in ((16, 20480), (2, 8190)):
+        x = torch.from_numpy((np.random.default_rng(t).standard_normal((b, t)) * 0.3).astype(np.float32)).to(dev)
+        for period in (2, 3, 5, 7, 11):
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(period)
+                disc = DiscriminatorP(period).to(dev)
+            with torch.no_grad():
+                folded = disc.fold()
+            rows.append(check_mpd_stack(x, folded, period, disc))
+            if (b, period) == (16, 2):
+                line_rows["mpd_stack"] = rows[-1]
+    # the ISTFT head's gradient at the GAN trainer's shape (B=16, 40 frames) and one odd shape
+    rows += [check_istft_diff(b, t, dt, dev) for b, t, dt in ((16, 40, f32), (16, 40, bf), (3, 77, f32))]
+    for row in rows:
+        emit({"phase": "kernel_check", **row})
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        fail(f"{len(bad)} opt-in training kernel check(s) over their bar: {bad}")
     return line_rows
 
 
@@ -862,13 +1147,12 @@ def write_filelist(root: str, n: int = 96, seed: int = 0) -> str:
     return path
 
 
-def phase_train_steps(dev, card: str, root: str) -> dict:
+def phase_train_steps(dev, card: str, root: str) -> tuple:
     """train() at the flagship config: B=32, 2 epochs of 3 steps with a save
     per epoch, then a resume for a third epoch. Per step: losses, wall ms,
     training audio-s/s and the peak memory, and exactly 9/9/9/9/1 launches
-    of the training kernels. Returns the launches over the whole run."""
-    import dataclasses
-
+    of the training kernels. Returns the launches over the whole run, the
+    first step's loss and the steady steps' median wall ms (for `train_bf16`)."""
     from stabletts_torch.config import MelConfig, TrainConfig
     from stabletts_torch.train.train_tts import train
 
@@ -911,7 +1195,7 @@ def phase_train_steps(dev, card: str, root: str) -> dict:
           "card": card, "ok": ok})
     if not ok:
         fail(f"train_steps: launches, losses, step indices or the resume are wrong: {rows}")
-    return total
+    return total, rows[0]["loss"], statistics.median(steady)
 
 
 def _train_batch(path: str, dev, b: int = 32):
@@ -953,6 +1237,14 @@ def phase_train_overfit(dev, card: str, root: str):
     return lambda: train_step(model, opt, sched, batch, gen)
 
 
+# one bf16 step against the f32 step on the same device, same weights and draws (rel). A single tensor's gradient
+# (max-abs-err over the f32 tensor's max-abs) is bf16 rounding noise over its own size where the true sum cancels, so
+# the kernels' path on the GPU is held, tensor by tensor, to a multiple of what the plain bf16 path on the CPU shows
+# against f32: grad_gpu <= grad_ratio_to_cpu * (grad_cpu + grad_floor)
+# Seen: loss 1.7e-3, gradient norm 5.9e-4, worst ratio 1.05 (1.14 under STABLETTS_ATTN_TRAIN=xla).
+BF16_STEP_BARS = {"loss": 5e-3, "grad_norm": 5e-3, "grad_ratio_to_cpu": 3.0, "grad_floor": 0.02}
+
+
 def phase_train_gpu_vs_cpu(dev) -> None:
     """One training step at the flagship width, B=2, 200 frames, dropout off,
     the same weights and CFG mask / t / noise on the GPU (kernels) and on the
@@ -961,10 +1253,13 @@ def phase_train_gpu_vs_cpu(dev) -> None:
     Bars: the losses rel 1e-3, each gradient rel 2e-2 (max-abs-err /
     max-abs-cpu). A gradient that is zero in exact arithmetic (the key
     projections' biases: softmax ignores them) is f32 noise on both devices
-    and is held to the noise level instead."""
+    and is held to the noise level instead. Then `train_bf16_vs_f32`: the
+    same step with compute_dtype bfloat16 on both devices, each against its
+    f32 step, within BF16_STEP_BARS."""
     import copy
 
     from stabletts_torch.models import build_stabletts
+    from stabletts_torch.train.train_tts import model_losses
     from stabletts_torch.ops.mask import sequence_mask
 
     with torch.random.fork_rng(devices=[]):
@@ -1023,6 +1318,388 @@ def phase_train_gpu_vs_cpu(dev) -> None:
     if not row["ok"]:
         fail(f"training step, GPU vs CPU: {row}")
 
+    # the same step in bf16: on the GPU (the training kernels' bf16 paths) and on the CPU (the plain versions, which
+    # round where the kernels round), each against its device's f32 step
+    bf = {}
+    for name, model, d, (l32, a32, g32) in (("cpu", cpu_model, torch.device("cpu"), out["cpu"]),
+                                             ("gpu", gpu_model, dev, out["gpu"])):
+        model.zero_grad(set_to_none=True)
+        t0 = time.time()
+        losses = model_losses(model, [a.to(d) for a in batch], None, torch.bfloat16,
+                              **{k: v.to(d) for k, v in draws.items()})
+        sum(losses[:3]).backward()
+        grads = {k: p.grad.cpu() for k, p in model.named_parameters()}
+        norm = lambda gs: float(torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in gs.values()])))
+        bf[name] = {"seconds": time.time() - t0, "losses": [float(v.detach()) for v in losses[:3]],
+                    "cells": int((losses[3].cpu() != a32).sum()),
+                    "f32": all(g.dtype == torch.float32 for g in grads.values()),
+                    "norm_rel": abs(norm(grads) / norm(g32) - 1.0),
+                    "grad_rel": {k: float((grads[k] - g32[k]).abs().max()) / max(float(g32[k].abs().max()), 1e-30)
+                                 for k in grad_rel}}
+        bf[name]["loss_rel"] = max(abs(u - v) / abs(v) for u, v in zip(bf[name]["losses"], l32))
+    ratio = {k: e / (bf["cpu"]["grad_rel"][k] + BF16_STEP_BARS["grad_floor"]) for k, e in bf["gpu"]["grad_rel"].items()}
+    worst = max(ratio, key=ratio.get)
+    med = lambda name: statistics.median(bf[name]["grad_rel"].values())
+    row = {"phase": "train_bf16_vs_f32", "B": b, "frames": int(yl.max()), "losses_bf16": bf["gpu"]["losses"],
+           "losses_f32": lg, "path_cells_differing": bf["gpu"]["cells"], "loss_rel_err": bf["gpu"]["loss_rel"],
+           "grad_norm_rel_err": bf["gpu"]["norm_rel"], "grad_rel_err_median": med("gpu"),
+           "grad_rel_err_max": max(bf["gpu"]["grad_rel"].values()), "cpu_loss_rel_err": bf["cpu"]["loss_rel"],
+           "cpu_grad_norm_rel_err": bf["cpu"]["norm_rel"], "cpu_grad_rel_err_median": med("cpu"),
+           "cpu_grad_rel_err_max": max(bf["cpu"]["grad_rel"].values()), "cpu_path_cells_differing": bf["cpu"]["cells"],
+           "gradients_compared": len(ratio), "worst_ratio_to_cpu": ratio[worst], "worst_grad": worst,
+           "worst_grad_rel_errs_gpu_cpu": [bf["gpu"]["grad_rel"][worst], bf["cpu"]["grad_rel"][worst]],
+           "gradients_f32": bf["gpu"]["f32"], "cpu_bf16_step_seconds": bf["cpu"]["seconds"], "bars": BF16_STEP_BARS}
+    row["ok"] = bool(bf["gpu"]["f32"] and bf["gpu"]["cells"] == 0 and bf["gpu"]["loss_rel"] <= BF16_STEP_BARS["loss"]
+                     and bf["gpu"]["norm_rel"] <= BF16_STEP_BARS["grad_norm"]
+                     and ratio[worst] <= BF16_STEP_BARS["grad_ratio_to_cpu"])
+    emit(row)
+    if not row["ok"]:
+        fail(f"training step, bf16 vs f32: {row}")
+
+
+# ----------------------------------------- training configurations, bf16 --
+
+
+def opt_in_counters():
+    from stabletts_torch.ops import attention_train_cuda as A
+    from stabletts_torch.ops import prenet_train_cuda as P
+
+    return {**train_counters(), "attention_train_fwd": A.attention_train_fwd,
+            "attention_train_bwd": A.attention_train_bwd, "prenet_train_fwd": P.prenet_train_fwd,
+            "prenet_train_bwd": P.prenet_train_bwd}
+
+
+TRAIN_VARIABLES = ("STABLETTS_ATTN_TRAIN", "STABLETTS_FFN_TRAIN", "STABLETTS_PRENET_TRAIN", "STABLETTS_ATTN_IMPL")
+_NEW_ZERO = {"attention_train_fwd": 0, "attention_train_bwd": 0, "prenet_train_fwd": 0, "prenet_train_bwd": 0}
+# the TTS trainer's configurations and the launches of one step under each
+TRAIN_CONFIGS = {
+    "default": ({}, {**TRAIN_LAUNCHES_PER_STEP, **_NEW_ZERO}),
+    "attn_xla": ({"STABLETTS_ATTN_TRAIN": "xla"},
+                 {**TRAIN_LAUNCHES_PER_STEP, **_NEW_ZERO, "dit_attention_train_fwd": 0, "dit_attention_train_bwd": 0,
+                  "attention_train_fwd": 9, "attention_train_bwd": 9}),
+    "prenet_fused": ({"STABLETTS_PRENET_TRAIN": "fused"},
+                     {**TRAIN_LAUNCHES_PER_STEP, **_NEW_ZERO, "prenet_train_fwd": 1, "prenet_train_bwd": 1}),
+    "attn_xla_prenet_fused": ({"STABLETTS_ATTN_TRAIN": "xla", "STABLETTS_PRENET_TRAIN": "fused"},
+                              {**TRAIN_LAUNCHES_PER_STEP, "dit_attention_train_fwd": 0, "dit_attention_train_bwd": 0,
+                               "attention_train_fwd": 9, "attention_train_bwd": 9, "prenet_train_fwd": 1,
+                               "prenet_train_bwd": 1}),
+}
+
+
+@contextlib.contextmanager
+def train_config(name: str):
+    """The environment of one training configuration, restored on exit."""
+    saved = {v: os.environ.pop(v, None) for v in TRAIN_VARIABLES}
+    os.environ.update(TRAIN_CONFIGS[name][0])
+    try:
+        yield
+    finally:
+        for v, old in saved.items():
+            os.environ.pop(v, None)
+            if old is not None:
+                os.environ[v] = old
+
+
+def phase_train_configs(dev, card: str, root: str) -> dict:
+    """One trainer batch (B=32, mels padded to 1000, f32) under each training
+    configuration, from the same weights (seeded, adaLN randomised so every
+    block matters). With dropout off and the same CFG mask, t and noise: the
+    three losses within 1e-3 (rel) and every gradient within 2e-2
+    (max-abs-err / max-abs) of the default configuration's. With dropout 0.1:
+    three optimizer steps on a copy of the model, the launches of each
+    training kernel per step held to the configuration's exact counts, the
+    wall ms (median of the last two) and the peak memory. Returns the
+    launches summed over the timed steps of all configurations."""
+    from stabletts_torch.config import TrainConfig
+    from stabletts_torch.models import build_stabletts
+    from stabletts_torch.train.scheduler import make_scheduler
+    from stabletts_torch.train.train_tts import make_optimizer, model_losses, train_step
+
+    batch = _train_batch(os.path.join(root, "filelist.jsonl"), dev)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = build_stabletts(device=dev)
+    randomise(model, seed=9)
+    model.train()
+    rng = np.random.default_rng(31)
+    b, ty = batch[2].shape[0], batch[2].shape[1]
+    draws = {"cfg_mask": torch.from_numpy((rng.uniform(size=(b, 1)) > 0.2).astype(np.float32)).to(dev),
+             "t_rand": torch.from_numpy(rng.uniform(size=b).astype(np.float32)).to(dev),
+             "noise": torch.from_numpy(rng.standard_normal((b, ty, 128)).astype(np.float32)).to(dev)}
+    audio_s = b * ty * 512 / 44100
+    total = {k: 0 for k in opt_in_counters()}
+    base = None
+    for name, (env, expect) in TRAIN_CONFIGS.items():
+        with train_config(name):
+            model.zero_grad(set_to_none=True)
+            dur, diff, prior, attn = model_losses(model, batch, None, None, **draws)
+            (dur + diff + prior).backward()
+            losses = [float(v.detach()) for v in (dur, diff, prior)]
+            grads = {k: p.grad.detach().clone() for k, p in model.named_parameters() if p.grad is not None}
+            model.zero_grad(set_to_none=True)
+            if base is None:
+                base = (losses, grads, attn)
+            loss_rel = max(abs(u - v) / abs(v) for u, v in zip(losses, base[0]))
+            grad_rel = {k: float((g - base[1][k]).abs().max()) / max(float(base[1][k].abs().max()), 1e-30)
+                        for k, g in grads.items()}
+            worst = max(grad_rel, key=grad_rel.get)
+            cells = int((attn != base[2]).sum())
+            del grads
+
+            trained = copy.deepcopy(model)
+            cfg = TrainConfig(learning_rate=1e-4, warmup_steps=2)
+            opt = make_optimizer(trained, cfg)
+            sched = make_scheduler(opt, cfg.learning_rate, cfg.warmup_steps, 100)
+            gen = torch.Generator(device=dev)
+            walls, counts_ok, counts, finite = [], True, {}, True
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for step in range(3):
+                for fn in opt_in_counters().values():
+                    fn.launches = 0
+                gen.manual_seed(100 + step)
+                t0 = time.time()
+                metrics = {k: float(v) for k, v in train_step(trained, opt, sched, batch, gen).items()}
+                walls.append(time.time() - t0)
+                counts = {k: fn.launches for k, fn in opt_in_counters().items()}
+                counts_ok = counts_ok and counts == expect
+                finite = finite and all(math.isfinite(v) for v in metrics.values())
+                for k, v in counts.items():
+                    total[k] += v
+            mem = torch.cuda.max_memory_allocated()
+            del trained, opt, sched
+            torch.cuda.empty_cache()
+        wall = statistics.median(walls[1:])
+        ok = bool(counts_ok and finite and loss_rel <= 1e-3 and grad_rel[worst] <= 2e-2)
+        emit({"phase": "train_config", "config": name, "env": env, "B": b, "frames": ty, "wall_ms": wall * 1e3,
+              "wall_ms_all": [w * 1e3 for w in walls], "audio_s_per_s": audio_s / wall,
+              "max_memory_allocated_GB": mem / 1e9, "launches": counts, "expected_launches": expect,
+              "losses_dropout_off": losses, "loss_rel_err_vs_default": loss_rel, "grad_rel_err_vs_default": grad_rel[worst],
+              "worst_grad": worst, "path_cells_differing": cells, "bars": {"loss": 1e-3, "grad": 2e-2}, "loss": metrics["loss"],
+              "card": card, "ok": ok})
+        if not ok:
+            fail(f"train_config {name}: launches {counts} vs {expect}, loss rel {loss_rel}, grad rel "
+                 f"{grad_rel[worst]} at {worst}, or a loss that is not finite")
+    return total
+
+
+def phase_train_bf16(dev, card: str, root: str, f32_step0_loss: float, f32_wall_ms: float) -> None:
+    """`train()` with compute_dtype="bfloat16" on the same filelist and seed
+    as `train_steps`: one epoch of 3 steps at B=32, the default configuration's
+    launches per step, finite losses, f32 master parameters. The first
+    step's loss is held to 0.1 (rel) of the f32 run's first step: the data
+    and the weights are the same, the draws (made in bf16) are not."""
+    from stabletts_torch.config import TrainConfig
+    from stabletts_torch.train.train_tts import train
+
+    cfg = TrainConfig(train_dataset_path=os.path.join(root, "filelist.jsonl"), batch_size=32, num_epochs=1,
+                      model_save_path=os.path.join(root, "ckpt_bf16"), log_interval=1, save_interval=1,
+                      loader_workers=2, compute_dtype="bfloat16")
+    audio_s = cfg.batch_size * 1000 * 512 / 44100
+    rows, last = [], [0.0]
+
+    def log_fn(step, metrics):
+        now = time.time()
+        wall, last[0] = now - last[0], now
+        counts = read_train_counts()
+        reset_train_counts()
+        mem = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        rows.append({"step": step, **metrics, "wall_ms": wall * 1e3, "max_memory_allocated_GB": mem / 1e9,
+                     "launches": counts,
+                     "ok": counts == TRAIN_LAUNCHES_PER_STEP and all(math.isfinite(v) for v in metrics.values())})
+
+    reset_train_counts()
+    torch.cuda.reset_peak_memory_stats()
+    last[0] = time.time()
+    state = train(cfg, log_fn=log_fn, device=dev)
+    wall = statistics.median([r["wall_ms"] for r in rows[1:]])
+    loss_rel = abs(rows[0]["loss"] - f32_step0_loss) / abs(f32_step0_loss)
+    master_f32 = all(p.dtype == torch.float32 for p in state.model.parameters())
+    ok = bool(all(r["ok"] for r in rows) and len(rows) == 3 and master_f32 and loss_rel <= 0.1)
+    emit({"phase": "train_bf16", "steps": rows, "steady_wall_ms_median": wall, "steady_audio_s_per_s": audio_s * 1e3 / wall,
+          "f32_steady_wall_ms_median": f32_wall_ms, "speedup_vs_f32": f32_wall_ms / wall,
+          "first_loss": rows[0]["loss"], "f32_first_loss": f32_step0_loss, "first_loss_rel_err_vs_f32": loss_rel,
+          "bar": 0.1, "master_parameters_f32": master_f32, "card": card, "ok": ok})
+    if not ok:
+        fail(f"train_bf16: {rows}, first loss rel err {loss_rel}")
+
+
+# ------------------------------------------------------------ GAN training --
+
+
+def write_wavs(root: str, count: int = 48, seconds: float = 1.0, sr: int = 44100, seed: int = 0) -> str:
+    """A synthetic vocoder corpus: `count` 16-bit WAV files of a few harmonics
+    with a slow envelope plus noise, from a numpy seed."""
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    t = np.arange(int(seconds * sr)) / sr
+    for i in range(count):
+        f0 = rng.uniform(90, 320)
+        wav = sum(rng.uniform(0.05, 0.3) * np.sin(2 * np.pi * f0 * h * t + rng.uniform(0, 6.28)) for h in range(1, 6))
+        wav = wav * (0.6 + 0.4 * np.sin(2 * np.pi * rng.uniform(1, 4) * t)) + 0.02 * rng.standard_normal(t.size)
+        wavfile.write(os.path.join(root, f"clip_{i:03d}.wav"), sr, (np.clip(wav, -1, 1) * 32767).astype(np.int16))
+    return root
+
+
+def phase_gan(dev, card: str, root: str):
+    """`train_vocos()` at the flagship Vocos (512 / 1536 / 8 layers), B=16,
+    segment 20480, f32, on 48 one-second WAV files: one epoch of 3 steps with
+    a checkpoint, then a resume for a second epoch (it must start at epoch 1,
+    step 3). Per step: the 11 metrics (all finite), wall ms, segments/s,
+    audio-s/s and the peak memory. Then one step in bf16 on the resumed state, and one
+    f32 step with STABLETTS_ISTFT_IMPL=fused (one `istft_head` launch).
+    Returns (the state, a real batch, the config) for the phases that follow."""
+    from stabletts_torch.config import MelConfig, VocosTrainConfig
+    from stabletts_torch.train.train_vocos import train_vocos, vocos_train_step
+
+    cfg = VocosTrainConfig(train_dataset_path=write_wavs(os.path.join(root, "wavs")), model_save_path=os.path.join(
+        root, "ckpt_vocos"), num_epochs=1, log_interval=1, save_interval=1, loader_workers=2, warmup_steps=2)
+    audio_s = cfg.batch_size * cfg.segment_size / 44100
+    rows, last = [], [0.0]
+
+    def log_fn(step, metrics):  # float metrics: the step has ended on the device
+        now = time.time()
+        wall, last[0] = now - last[0], now
+        mem = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ok = len(metrics) == 11 and all(math.isfinite(v) for v in metrics.values())
+        rows.append({"phase": "gan_train_step", "step": step, **metrics, "wall_ms": wall * 1e3,
+                     "segments_per_s": cfg.batch_size / wall, "audio_s_per_s": audio_s / wall,
+                     "max_memory_allocated_GB": mem / 1e9, "card": card, "ok": ok})
+        emit(rows[-1])
+
+    torch.cuda.reset_peak_memory_stats()
+    last[0] = time.time()
+    first = train_vocos(cfg, log_fn=log_fn, device=dev)
+    files = sorted(os.listdir(cfg.model_save_path))
+    last[0] = time.time()
+    resumed = train_vocos(dataclasses.replace(cfg, num_epochs=2), log_fn=log_fn, device=dev)
+    steady = [r["wall_ms"] for r in rows[1:3] + rows[4:]]
+    parts_ok = files == sorted(f"{p}_0.pt" for p in ("generator", "mpd", "mrd", "optimizerg", "optimizerd"))
+    ok = (all(r["ok"] for r in rows) and [r["step"] for r in rows] == list(range(6)) and parts_ok
+          and (first.start_epoch, first.step, resumed.start_epoch, resumed.step) == (0, 3, 1, 6)
+          and resumed.sched_g.last_epoch == 6)
+    wall = statistics.median(steady)
+    emit({"phase": "gan_step", "B": cfg.batch_size, "segment": cfg.segment_size, "steps": len(rows),
+          "first_run": [first.start_epoch, first.step], "resumed_run": [resumed.start_epoch, resumed.step],
+          "checkpoint_files": files, "steady_wall_ms_median": wall, "steady_segments_per_s": cfg.batch_size * 1e3 / wall,
+          "steady_audio_s_per_s": audio_s * 1e3 / wall,
+          "max_memory_allocated_GB": max(r["max_memory_allocated_GB"] for r in rows),
+          "generator_params_M": sum(p.numel() for p in resumed.gen.parameters()) / 1e6,
+          "mpd_params_M": sum(p.numel() for p in resumed.mpd.parameters()) / 1e6,
+          "mrd_params_M": sum(p.numel() for p in resumed.mrd.parameters()) / 1e6, "card": card, "ok": ok})
+    if not ok:
+        fail(f"gan_step: metrics, step indices, checkpoint files {files} or the resume are wrong: {rows}")
+
+    from stabletts_torch.data.vocos_dataset import VocosDataset
+
+    batch = VocosDataset(cfg.train_dataset_path, cfg.segment_size, 44100).batch(range(16), np.random.default_rng(1))
+    audio = torch.from_numpy(batch).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    m = {k: float(v) for k, v in vocos_train_step(resumed, audio, MelConfig(), cfg.mel_loss_coeff, cfg.grad_clip,
+                                                  torch.bfloat16).items()}
+    wall = time.time() - t0
+    masters = all(p.dtype == torch.float32 for mod in (resumed.gen, resumed.mpd, resumed.mrd) for p in mod.parameters())
+    ok = all(math.isfinite(v) for v in m.values()) and masters
+    emit({"phase": "gan_step_bf16", **m, "wall_ms_first_call": wall * 1e3, "master_parameters_f32": masters,
+          "card": card, "ok": ok})
+    if not ok:
+        fail(f"gan_step_bf16: {m}")
+
+    # one f32 step whose generator goes through the ISTFT kernel and its transposed backward
+    from stabletts_torch.ops.istft_cuda import istft_head
+
+    saved = os.environ.get("STABLETTS_ISTFT_IMPL")
+    os.environ["STABLETTS_ISTFT_IMPL"] = "fused"
+    try:
+        istft_head.launches = 0
+        m = {k: float(v) for k, v in vocos_train_step(resumed, audio, MelConfig(), cfg.mel_loss_coeff,
+                                                      cfg.grad_clip).items()}
+        launched = istft_head.launches
+    finally:
+        os.environ.pop("STABLETTS_ISTFT_IMPL")
+        if saved is not None:
+            os.environ["STABLETTS_ISTFT_IMPL"] = saved
+    ok = launched == 1 and all(math.isfinite(v) for v in m.values())
+    emit({"phase": "gan_step_istft_fused", **m, "launches_of_istft_head": launched, "card": card, "ok": ok})
+    if not ok:
+        fail(f"gan_step_istft_fused: {launched} istft_head launches, {m}")
+    return resumed, audio, cfg
+
+
+def vocos_step_for_profile(state, audio, cfg):
+    from stabletts_torch.config import MelConfig
+    from stabletts_torch.train.train_vocos import vocos_train_step
+
+    return vocos_train_step(state, audio, MelConfig(), cfg.mel_loss_coeff, cfg.grad_clip)
+
+
+def phase_mpd_in_gan(state, audio, card: str) -> int:
+    """`mpd_stack` as a user scores audio with a trained MPD: on the
+    trainer's own folded weights, a real batch and the generator's batch for
+    its mels, five periods each (10 launches, counted from 0). Then those
+    results against the trainer's `DiscriminatorP` on the same audio, max-abs
+    2e-4. Returns the launches of the scoring run."""
+    from stabletts_torch.config import MelConfig
+    from stabletts_torch.ops.mpd_cuda import mpd_stack
+    from stabletts_torch.ops.stft import log_mel_spectrogram
+
+    with torch.no_grad():
+        fake = state.gen(log_mel_spectrogram(audio, MelConfig()))
+        folded = state.mpd.fold()
+    mpd_stack.launches = 0
+    t0 = time.time()
+    scored = [[mpd_stack(x, f, d.period) for d, f in zip(state.mpd.discriminators, folded)] for x in (audio, fake)]
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = mpd_stack.launches
+    worst = 0.0
+    with torch.no_grad():
+        for x, outs in zip((audio, fake), scored):
+            for d, f, (logits, fmap) in zip(state.mpd.discriminators, folded, outs):
+                d_logits, d_fmap = d(x, f)
+                worst = max(worst, *(float((a - r).abs().max()) for a, r in zip([logits, *fmap], [d_logits, *d_fmap])))
+        real_score = float(sum(((1 - lo) ** 2).mean() for lo, _ in scored[0]))
+        fake_score = float(sum((lo ** 2).mean() for lo, _ in scored[1]))
+    ok = launches == 10 and worst <= MPD_BAR and math.isfinite(real_score + fake_score)
+    emit({"phase": "mpd_in_gan", "launches": launches, "periods": [d.period for d in state.mpd.discriminators],
+          "max_abs_err_vs_discriminator": worst, "bar": MPD_BAR, "disc_loss_mpd_from_kernel": real_score + fake_score,
+          "wall_ms": wall * 1e3, "card": card, "ok": ok})
+    if not ok:
+        fail(f"mpd_in_gan: {launches} launches, max abs err {worst}")
+    return launches
+
+
+def phase_gan_gpu_vs_cpu(state, audio, cfg) -> None:
+    """One GAN step on the GPU against the same step on the CPU
+    (`device="cpu"`) from the same state (f32, the first 4 items of the
+    batch): every loss within 1e-3 (rel), the gradient norms within 2e-2."""
+    from stabletts_torch.config import MelConfig, VocosConfig
+    from stabletts_torch.train.train_vocos import init_vocos_training, vocos_train_step
+
+    out = {}
+    for name, device in (("gpu", audio.device), ("cpu", torch.device("cpu"))):
+        st = init_vocos_training(VocosConfig(), MelConfig(), cfg, 100, device=device)
+        for mine, theirs in ((st.gen, state.gen), (st.mpd, state.mpd), (st.mrd, state.mrd)):
+            mine.load_state_dict({k: v.to(device) for k, v in theirs.state_dict().items()})
+        t0 = time.time()
+        m = vocos_train_step(st, audio[:4].to(device), MelConfig(), cfg.mel_loss_coeff, cfg.grad_clip)
+        out[name] = ({k: float(v) for k, v in m.items()}, time.time() - t0)
+    (mg, tg), (mc, tc) = out["gpu"], out["cpu"]
+    rel = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-30) for k in mc}
+    loss_rel = max(v for k, v in rel.items() if not k.startswith("grad_norm"))
+    norm_rel = max(v for k, v in rel.items() if k.startswith("grad_norm"))
+    ok = loss_rel <= 1e-3 and norm_rel <= 2e-2
+    emit({"phase": "gan_gpu_vs_cpu", "B": 4, "metrics_gpu": mg, "metrics_cpu": mc, "loss_rel_err_max": loss_rel,
+          "grad_norm_rel_err_max": norm_rel, "bars": {"loss": 1e-3, "grad_norm": 2e-2}, "wall_s_gpu": tg,
+          "wall_s_cpu": tc, "ok": ok})
+    if not ok:
+        fail(f"GAN step, GPU vs CPU: {rel}")
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -1047,6 +1724,7 @@ def main() -> None:
 
     bench = phase_kernels(dev)
     train_rows = phase_train_kernels(dev)
+    train_rows.update(phase_opt_in_train_kernels(dev))
     api, counts, bench_pipeline = phase_serving(dev, card)
     # the host-clock phases come before the profiler's: once torch.profiler has
     # traced, every later launch costs the host more
@@ -1064,20 +1742,31 @@ def main() -> None:
     if missing:
         fail(f"kernels never launched on the serving paths: {missing}")
 
+    # host-clock training phases first, then the profiler's (see above)
     with tempfile.TemporaryDirectory() as root:
-        train_counts = phase_train_steps(dev, card, root)
+        train_counts, f32_first_loss, f32_wall_ms = phase_train_steps(dev, card, root)
+        config_train_counts = phase_train_configs(dev, card, root)
+        phase_train_bf16(dev, card, root, f32_first_loss, f32_wall_ms)
         step_fn = phase_train_overfit(dev, card, root)
-        phase_profile("train_step", step_fn, card)
+        gan_state, gan_audio, gan_cfg = phase_gan(dev, card, root)
+    train_counts["mpd_stack"] = phase_mpd_in_gan(gan_state, gan_audio, card)
+    phase_profile("train_step", step_fn, card)
+    phase_profile("gan_step", lambda: vocos_step_for_profile(gan_state, gan_audio, gan_cfg), card)
     phase_train_gpu_vs_cpu(dev)
+    phase_gan_gpu_vs_cpu(gan_state, gan_audio, gan_cfg)
+    # the opt-in kernels' launches come from the `train_config` runs that run them
+    train_counts.update({k: v for k, v in config_train_counts.items() if k not in train_counts})
     missing = [k for k, v in train_counts.items() if v == 0]
     if missing:
-        fail(f"kernels never launched on the training path: {missing}")
+        fail(f"kernels never launched on the training paths: {missing}")
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         r = bench[name] if name in bench else train_rows[name]
-        shape = {k: r[k] for k in ("B", "T", "Ty", "Tx", "dropout", "masked") if k in r}
+        shape = {k: r[k] for k in ("B", "T", "Ty", "Tx", "dropout", "masked", "period") if k in r}
         per_step = {"launches_per_step": TRAIN_LAUNCHES_PER_STEP[name]} if name in TRAIN_LAUNCHES_PER_STEP else {}
+        if name in _NEW_ZERO:  # under the configuration that runs the kernel
+            per_step = {"launches_per_step": TRAIN_CONFIGS["attn_xla_prenet_fused"][1][name]}
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": counts[name] if name in counts else train_counts[name], **per_step,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],

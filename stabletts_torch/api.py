@@ -96,10 +96,15 @@ class StableTTSAPI:
         return intersperse(cleaned_text_to_sequence(phonemizer(text)), 0)
 
     def _reference_mel(self, ref_audio) -> tuple:
-        """numpy waveform -> ([1, Tref, n_mels] mel, mask or None), bucketed
-        in ladder mode."""
+        """numpy waveform, or the path of a WAV file (resampled to the mel
+        config's rate) -> ([1, Tref, n_mels] mel, mask or None), bucketed in
+        ladder mode."""
         if isinstance(ref_audio, str):
-            raise NotImplementedError("ref_audio must be a numpy waveform; audio files are not read yet")
+            from stabletts_torch.utils.audio_io import load_and_resample_audio
+
+            ref_audio = load_and_resample_audio(ref_audio, self.mel_config.sample_rate)
+            if ref_audio is None:
+                raise ValueError("could not load the reference audio file (only WAV is decodable here)")
         wav = torch.from_numpy(np.asarray(ref_audio, dtype=np.float32)).to(self.device)
         ref_mel = log_mel_spectrogram(wav[None, :], self.mel_config)
         if not self._shape_ladder:

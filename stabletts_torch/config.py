@@ -1,6 +1,6 @@
 """Configuration dataclasses for the PyTorch port (same fields and defaults as
-the JAX package's `MelConfig`, `ModelConfig`, `TrainConfig` and
-`VocosConfig`; reference StableTTS config.py:1-50)."""
+the JAX package's `MelConfig`, `ModelConfig`, `TrainConfig`, `VocosConfig` and
+`VocosTrainConfig`; reference StableTTS config.py:1-50)."""
 
 from __future__ import annotations
 
@@ -52,9 +52,10 @@ class ModelConfig:
 class TrainConfig:
     """TTS training config: the JAX package's `TrainConfig`, field for field
     (reference StableTTS config.py:32-43 plus seed, buckets, text cap, compute
-    and transfer dtypes and the loader). `compute_dtype="bfloat16"` is not
-    available in the port yet; `transfer_dtype="float16"` ships mels to the
-    device as f16 and widens them there."""
+    and transfer dtypes and the loader). `compute_dtype="bfloat16"` runs the
+    forward and backward in bf16 against f32 master parameters and optimizer
+    state; `transfer_dtype="float16"` ships mels to the device as f16 and
+    widens them there."""
 
     train_dataset_path: str = "filelists/filelist.json"
     batch_size: int = 32
@@ -68,7 +69,7 @@ class TrainConfig:
     seed: int = 0
     bucket_boundaries: Tuple[int, ...] = (32, 300, 400, 500, 600, 700, 800, 900, 1000)
     max_text_len: int = 512
-    compute_dtype: str = "float32"  # or "bfloat16" (not available in the port yet)
+    compute_dtype: str = "float32"  # or "bfloat16"
     loader_workers: int = 4
     prefetch_depth: int = 8
     transfer_dtype: str = "float32"  # or "float16"
@@ -82,3 +83,30 @@ class VocosConfig:
     dim: int = 512
     intermediate_dim: int = 1536
     num_layers: int = 8
+
+
+@dataclass(frozen=True)
+class VocosTrainConfig:
+    """Vocos GAN training config (reference: vocoders/vocos/config.py:28-47):
+    the JAX package's `VocosTrainConfig`, field for field.
+    `compute_dtype="bfloat16"` runs the generator and both discriminators in
+    bf16 against f32 master parameters; the mel-loss STFTs, the loss
+    reductions, the gradients and the optimizers stay f32."""
+
+    train_dataset_path: str = "filelists/filelist.txt"
+    segment_size: int = 20480
+    batch_size: int = 16
+    learning_rate: float = 1e-4
+    num_epochs: int = 10000
+    model_save_path: str = "./checkpoints_vocos"
+    log_dir: str = "./runs_vocos"
+    log_interval: int = 64
+    save_interval: int = 1
+    warmup_steps: int = 200
+    mel_loss_coeff: float = 15.0
+    grad_clip: float = 1000.0
+    seed: int = 0
+    compute_dtype: str = "float32"  # or "bfloat16"
+    loader_workers: int = 4
+    prefetch_depth: int = 8
+    transfer_dtype: str = "float32"  # or "float16"

@@ -1,21 +1,31 @@
 """Vocos vocoder: ConvNeXt backbone + ISTFT head, mel -> waveform in one
 forward pass (reference: vocoders/vocos/models/{model,backbone,module,head}.py).
 
-The forward is the inference path of the JAX package's `vocos_apply_fused`:
-each ConvNeXt block is one `ops.convnext_cuda.convnext_block` call and the
-head one `ops.istft_cuda.istft_head` call (the CUDA kernels on the GPU).
+In eval mode the forward is the inference path of the JAX package's
+`vocos_apply_fused`: each ConvNeXt block is one
+`ops.convnext_cuda.convnext_block` call and the head one
+`ops.istft_cuda.istft_head` call (the CUDA kernels on the GPU), under
+`torch.no_grad()`. In train mode it is the differentiable composed path GAN
+training needs, as the JAX generator trains through `model.apply`: library
+convs and linears in the blocks and the plain linear ISTFT (or, with
+STABLETTS_ISTFT_IMPL=fused, `istft_head_diff`: the kernel forward with the
+transpose of the plain ISTFT as its backward).
 Layout: mel [B, T, n_mels] -> waveform [B, T * hop].
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from stabletts_torch.config import MelConfig, VocosConfig
 from stabletts_torch.nn.blocks import conv1d_same
 from stabletts_torch.ops.convnext_cuda import ConvNeXtWeights, convnext_block
-from stabletts_torch.ops.istft_cuda import istft_head
+from stabletts_torch.ops.istft import istft_same_real
+from stabletts_torch.ops.istft_cuda import istft_head, istft_head_diff
 from stabletts_torch.utils.device import resolve_device
 
 
@@ -50,7 +60,12 @@ class ConvNeXtBlock(nn.Module):
         return self._packed[1]
 
     def forward(self, x):
-        return convnext_block(x.contiguous(), self.kernel_weights())
+        if not self.training:
+            return convnext_block(x.contiguous(), self.kernel_weights())
+        # differentiable composed path; GELU as the JAX package: erf form at f32, tanh form at bf16
+        h = self.norm(self.dwconv(x.transpose(1, 2)).transpose(1, 2))
+        h = F.gelu(self.pwconv1(h), approximate="tanh" if h.dtype == torch.bfloat16 else "none")
+        return x + self.gamma * self.pwconv2(h)
 
 
 class VocosBackbone(nn.Module):
@@ -89,8 +104,14 @@ class ISTFTHead(nn.Module):
         mag, p = self.out(x).float().chunk(2, dim=-1)
         mag = torch.clamp(torch.exp(mag), max=1e2)
         matmul_dtype = x.dtype if x.dtype != torch.float32 else None
-        return istft_head(mag * torch.cos(p), mag * torch.sin(p), self.n_fft, self.hop_length,
-                          matmul_dtype, lengths)
+        re, im = mag * torch.cos(p), mag * torch.sin(p)
+        if not self.training:
+            return istft_head(re, im, self.n_fft, self.hop_length, matmul_dtype, lengths)
+        if lengths is not None:
+            raise ValueError("Vocos: the fixed-shape `lengths` mode is a serving mode (eval)")
+        if os.environ.get("STABLETTS_ISTFT_IMPL", "auto") == "fused":
+            return istft_head_diff(re, im, self.n_fft, self.hop_length, matmul_dtype)
+        return istft_same_real(re, im, self.n_fft, self.hop_length, self.n_fft, matmul_dtype)
 
 
 class Vocos(nn.Module):
@@ -106,14 +127,21 @@ class Vocos(nn.Module):
         self.to(resolve_device(device))
         self.eval()
 
-    @torch.no_grad()
     def forward(self, mel, lengths=None):
-        """mel [B, T, n_mels] log-mel -> waveform [B, T * hop].
+        """mel [B, T, n_mels] log-mel -> waveform [B, T * hop]. Eval mode runs
+        under `torch.no_grad()` through the kernels; train mode is
+        differentiable (see the module docstring).
 
         lengths [B] (optional): fixed-shape serving mode. Frames >= lengths[i]
         are treated as absent: the input and every block's output are zeroed
         there and the ISTFT envelope covers the valid frames only, so the
         result equals vocoding the trimmed mel and zero-padding the waveform."""
+        if self.training:
+            return self._forward(mel, lengths)
+        with torch.no_grad():
+            return self._forward(mel, lengths)
+
+    def _forward(self, mel, lengths):
         rowmask = None
         if lengths is not None:
             t = mel.shape[1]
@@ -122,4 +150,3 @@ class Vocos(nn.Module):
             mel = mel * rowmask
         x = self.backbone(mel, rowmask)
         return self.head(x, lengths)
-

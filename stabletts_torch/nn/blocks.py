@@ -23,8 +23,9 @@ import torch.nn.functional as F
 
 from stabletts_torch.ops import philox
 from stabletts_torch.ops.adaln_ffn_cuda import adaln_ffn
-from stabletts_torch.ops.attention import masked_attention
+from stabletts_torch.ops.attention import attn_bias_from_mask, masked_attention, resolve_impl
 from stabletts_torch.ops.attention_packed_cuda import attention_packed_t
+from stabletts_torch.ops.attention_train_cuda import attention_train
 from stabletts_torch.ops.dit_attention_cuda import dit_attention
 from stabletts_torch.ops.dit_attention_train_cuda import dit_attention_train
 from stabletts_torch.ops.dit_block_cuda import DiTWeights, apply_rope, dit_block, rope_tables
@@ -88,12 +89,15 @@ class FiLMLayer(nn.Module):
 
 class MultiHeadAttention(nn.Module):
     """Self-attention with 1x1-conv projections and partial RoPE (rotary dim
-    = head_dim / 2). The fused kernels (`dit_block`, `dit_attention`) read the
-    weights and do this math themselves; `forward` is the composed inference
-    path in plain PyTorch around the attention core, which is
-    `ops.attention.masked_attention` (the packed-head kernel on the GPU) or,
-    with STABLETTS_ATTN_LAYOUT=tminor, `attention_packed_t` on channel-major
-    [B, C, T] operands."""
+    = head_dim / 2). The fused kernels (`dit_block`, `dit_attention`,
+    `dit_attention_train`) read the weights and do this math themselves;
+    `forward` is the composed path in plain PyTorch around the attention core.
+    Inference: `ops.attention.masked_attention` (the packed-head kernel on the
+    GPU) or, with STABLETTS_ATTN_LAYOUT=tminor, `attention_packed_t` on
+    channel-major [B, C, T] operands. Training (`train=True`): the
+    differentiable `ops.attention_train_cuda.attention_train` with dropout on
+    the softmax weights when `ops.attention.resolve_impl` says `fused`, else
+    einsum, softmax and dropout in plain PyTorch, as in the JAX package."""
 
     def __init__(self, channels: int, out_channels: int, n_heads: int):
         super().__init__()
@@ -103,9 +107,11 @@ class MultiHeadAttention(nn.Module):
         self.conv_v = nn.Conv1d(channels, channels, 1)
         self.conv_o = nn.Conv1d(channels, out_channels, 1)
 
-    def forward(self, x, mask: Optional[torch.Tensor] = None):
-        """x [B, T, C], mask [B, T] (keys only) -> [B, T, out_channels]; no
-        dropout (inference)."""
+    def forward(self, x, mask: Optional[torch.Tensor] = None, train: bool = False, p_dropout: float = 0.0,
+                gen: Optional[torch.Generator] = None):
+        """x [B, T, C], mask [B, T] (keys only) -> [B, T, out_channels].
+        `train` takes the differentiable core; its dropout `p_dropout` draws
+        from `gen` (none when gen is None)."""
         b, t, c = x.shape
         d = c // self.n_heads
         heads = lambda z: z.reshape(b, t, self.n_heads, d)
@@ -113,7 +119,19 @@ class MultiHeadAttention(nn.Module):
         q = apply_rope(heads(conv1d_same(x, self.conv_q)), cos, sin)
         k = apply_rope(heads(conv1d_same(x, self.conv_k)), cos, sin)
         v = heads(conv1d_same(x, self.conv_v))
-        if os.environ.get("STABLETTS_ATTN_LAYOUT") == "tminor":
+        if train:
+            rate = p_dropout if gen is not None else 0.0
+            if resolve_impl(None, x.device) == "fused":
+                seed = philox.draw_seed(gen, x.device) if rate > 0.0 else None
+                out = attention_train(q.reshape(b, t, c), k.reshape(b, t, c), v.reshape(b, t, c), mask, rate, seed,
+                                      self.n_heads)
+            else:
+                logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(d))
+                if mask is not None:
+                    logits = logits + attn_bias_from_mask(mask.to(x.dtype), dtype=x.dtype)
+                weights = dropout(torch.softmax(logits, dim=-1), rate, gen)
+                out = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(b, t, c)
+        elif os.environ.get("STABLETTS_ATTN_LAYOUT") == "tminor":
             to_t = lambda z: z.reshape(b, t, c).transpose(1, 2).contiguous()
             out = attention_packed_t(to_t(q), to_t(k), to_t(v), mask, n_heads=self.n_heads).transpose(1, 2)
         else:
@@ -122,20 +140,21 @@ class MultiHeadAttention(nn.Module):
 
 
 class FFN(nn.Module):
-    """Conv FFN: conv -> SiLU -> conv, masked at every conv boundary. The
-    fused kernels read the weights and do this math themselves (3 taps only);
-    `forward` is the composed inference path in plain PyTorch, for any odd
-    kernel size."""
+    """Conv FFN: conv -> SiLU -> dropout -> conv, masked at every conv
+    boundary. The fused kernels read the weights and do this math themselves
+    (3 taps only); `forward` is the composed path in plain PyTorch, for any
+    odd kernel size, in inference and in training."""
 
     def __init__(self, in_channels: int, out_channels: int, filter_channels: int, kernel_size: int = 3):
         super().__init__()
         self.conv_1 = nn.Conv1d(in_channels, filter_channels, kernel_size, padding=kernel_size // 2)
         self.conv_2 = nn.Conv1d(filter_channels, out_channels, kernel_size, padding=kernel_size // 2)
 
-    def forward(self, x, mask):
-        """x [B, T, C], mask [B, T] -> [B, T, out_channels]; no dropout."""
+    def forward(self, x, mask, p_dropout: float = 0.0, gen: Optional[torch.Generator] = None):
+        """x [B, T, C], mask [B, T] -> [B, T, out_channels]; dropout
+        `p_dropout` after the SiLU draws from `gen` (none when gen is None)."""
         m = mask.to(x.dtype)[..., None]
-        x = F.silu(conv1d_same(x * m, self.conv_1))
+        x = dropout(F.silu(conv1d_same(x * m, self.conv_1)), p_dropout, gen)
         return conv1d_same(x * m, self.conv_2) * m
 
 
@@ -146,14 +165,32 @@ def _modulate(x, shift, scale):
 class DiTConVBlock(nn.Module):
     """DiT block with adaLN-Zero conditioning and a conv FFN.
 
-    In training (`self.training` with autograd on) the forward is the
-    attention half `ops.dit_attention_train_cuda.dit_attention_train` (the
-    port of the TPU kernel fused_dit_attention_train) then the FFN half
-    `ops.ffn_train_cuda.ffn_train` (the port of fused_adaln_ffn_train), each
-    a differentiable pair of CUDA kernels on the GPU with attention-weight and
-    FFN dropout `p_dropout` drawn from `gen`.
+    In training (`self.training`) the block takes one of the JAX package's
+    training configurations, chosen by the same variables with the same values,
+    defaults and precedence, read at every call; attention-weight and FFN
+    dropout `p_dropout` draw from `gen`:
 
-    Otherwise the block takes one of the JAX package's inference
+      default                     the attention half `dit_attention_train`
+                                  (the port of fused_dit_attention_train) then
+                                  the FFN half `ffn_train` (the port of
+                                  fused_adaln_ffn_train), each a differentiable
+                                  pair of CUDA kernels on the GPU
+      STABLETTS_ATTN_TRAIN=xla    the attention half composed in plain PyTorch
+                                  around `attention_train` (the port of
+                                  fused_attention_train; with
+                                  STABLETTS_ATTN_IMPL=xla or flash, or on the
+                                  CPU under auto, einsum + softmax + dropout)
+      STABLETTS_FFN_TRAIN=xla     the FFN half composed in plain PyTorch convs
+                                  with dropout (also for a kernel size other
+                                  than 3: the FFN kernels have 3 taps)
+
+    The gate is `self.training` alone, as the JAX gate is `deterministic`
+    alone: a forward in train mode under `torch.no_grad()` (a validation pass
+    that keeps dropout on) takes the training path and its dropout, not the
+    inference kernels. The JAX gates `_on_tpu()` and `T % 8 == 0` exist for
+    the TPU kernels' tiles and have no counterpart here.
+
+    In eval mode the block takes one of the JAX package's inference
     configurations, chosen by the same environment variables with the same
     values and precedence, read at every call:
 
@@ -238,14 +275,23 @@ class DiTConVBlock(nn.Module):
         b, _, ch = x.shape
         x = x * mask.to(x.dtype)[..., None]
         mods = self.adaLN_modulation(c).view(b, 6, ch)
-        if not (self.training and torch.is_grad_enabled()):
+        if not self.training:
             return self._inference(x.contiguous(), mods.contiguous(), mask)
+        env = os.environ.get
         rate = self.p_dropout if gen is not None else 0.0
         seed = lambda: philox.draw_seed(gen, x.device) if rate > 0.0 else None
-        dense = lambda conv: conv.weight[..., 0].t()
-        a = self.attn
-        x = dit_attention_train(x, mods[:, :3], mask, dense(a.conv_q), a.conv_q.bias, dense(a.conv_k),
-                                a.conv_k.bias, dense(a.conv_v), a.conv_v.bias, dense(a.conv_o), a.conv_o.bias,
-                                self.num_heads, rate, seed())
-        return ffn_train(x, mods[:, 3:], mask, self.mlp.conv_1.weight.permute(2, 1, 0), self.mlp.conv_1.bias,
-                         self.mlp.conv_2.weight.permute(2, 1, 0), self.mlp.conv_2.bias, rate, seed())
+        shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mods[:, :, None, :].unbind(1)
+        if env("STABLETTS_ATTN_TRAIN", "fused") == "fused":
+            dense = lambda conv: conv.weight[..., 0].t()
+            a = self.attn
+            x = dit_attention_train(x, mods[:, :3], mask, dense(a.conv_q), a.conv_q.bias, dense(a.conv_k),
+                                    a.conv_k.bias, dense(a.conv_v), a.conv_v.bias, dense(a.conv_o), a.conv_o.bias,
+                                    self.num_heads, rate, seed())
+        else:
+            h = _modulate(F.layer_norm(x, (ch,), eps=1e-5), shift_msa, scale_msa)
+            x = x + gate_msa * self.attn(h, mask, True, self.p_dropout, gen) * mask.to(x.dtype)[..., None]
+        if env("STABLETTS_FFN_TRAIN", "fused") == "fused" and self.kernel_size == 3:
+            return ffn_train(x, mods[:, 3:], mask, self.mlp.conv_1.weight.permute(2, 1, 0), self.mlp.conv_1.bias,
+                             self.mlp.conv_2.weight.permute(2, 1, 0), self.mlp.conv_2.bias, rate, seed())
+        h = _modulate(F.layer_norm(x, (ch,), eps=1e-5), shift_mlp, scale_mlp)
+        return x + gate_mlp * self.mlp(h, mask, self.p_dropout, gen)

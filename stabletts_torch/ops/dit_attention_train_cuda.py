@@ -80,7 +80,9 @@ def _check(x, mod, mask, ws, n_heads):
 
 def dit_attention_train_fwd(x, mod, mask, wqkv, bqkv, wo, bo, n_heads, rate, seed, eps: float = 1e-5):
     """One launch of the forward kernel. wqkv [C, 3C] (q | k | v), bqkv [3C].
-    Returns (out [B, T, C], att [B, T, C], lse [B, H, T] f32)."""
+    Returns (out [B, T, C], att [B, T, C], lse [B, H, T] f32, att_lo: in
+    bf16 the f32 attention output minus att, rounded to bf16, which keeps the
+    backward's row sums D = rowsum(datt * att) at f32's error; None in f32)."""
     from stabletts_torch.ops import _build
 
     _check(x, mod, mask, (wqkv, bqkv, wo, bo), n_heads)
@@ -88,26 +90,29 @@ def dit_attention_train_fwd(x, mod, mask, wqkv, bqkv, wo, bo, n_heads, rate, see
     seed_ptr, thresh, keep_scale = philox.kernel_args(rate, seed, "dit_attention_train")
     cos, sin = rope_tables(t, c // n_heads, x.device)
     h, q, k, v, att, out = (torch.empty_like(x) for _ in range(6))
+    att_lo = torch.empty_like(x) if x.dtype == torch.bfloat16 else None
     lse = torch.empty(b, n_heads, t, device=x.device, dtype=torch.float32)
-    fn = _build.load("dit_attention_train", "dit_attention_train_forward", 17, 6, 2)
+    fn = _build.load("dit_attention_train", "dit_attention_train_forward", 18, 6, 2)
     err = fn(x.data_ptr(), mod.data_ptr(), mask.data_ptr(), cos.data_ptr(), sin.data_ptr(), wqkv.data_ptr(),
              bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(), seed_ptr, h.data_ptr(), q.data_ptr(), k.data_ptr(),
-             v.data_ptr(), att.data_ptr(), lse.data_ptr(), out.data_ptr(),
-             b, t, c, n_heads, int(x.dtype == torch.bfloat16), thresh, keep_scale, eps,
+             v.data_ptr(), att.data_ptr(), None if att_lo is None else att_lo.data_ptr(), lse.data_ptr(),
+             out.data_ptr(), b, t, c, n_heads, int(x.dtype == torch.bfloat16), thresh, keep_scale, eps,
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "dit_attention_train_fwd")
     dit_attention_train_fwd.launches += 1
-    return out, att, lse
+    return out, att, lse, att_lo
 
 
 def dit_attention_train_bwd(x, mod, mask, wqkv, bqkv, wo, bo, n_heads, rate, seed, att, lse, dout,
-                            eps: float = 1e-5):
-    """One launch of the backward kernel; returns (dx, dmod [B, 3, C],
+                            eps: float = 1e-5, att_lo=None):
+    """One launch of the backward kernel on the forward's (att, lse, att_lo); returns (dx, dmod [B, 3, C],
     dwqkv [C, 3C], dbqkv [3C], dwo [C, C], dbo [C]), all but dx in f32."""
     from stabletts_torch.ops import _build
 
     _check(x, mod, mask, (wqkv, bqkv, wo, bo), n_heads)
-    for ten, shape in ((att, x.shape), (dout, x.shape)):
+    if (att_lo is None) != (x.dtype == torch.float32):
+        raise ValueError("dit_attention_train_bwd: att_lo is the forward's fourth result (bf16 only)")
+    for ten, shape in ((att, x.shape), (dout, x.shape), (x if att_lo is None else att_lo, x.shape)):
         if ten.shape != shape or ten.dtype != x.dtype or not ten.is_contiguous():
             raise ValueError("dit_attention_train_bwd: att and dout must be contiguous tensors like x")
     b, t, c = x.shape
@@ -121,10 +126,10 @@ def dit_attention_train_bwd(x, mod, mask, wqkv, bqkv, wo, bo, n_heads, rate, see
     dv_rows = e32(b, n_heads, t)
     dmod, dwqkv, dbqkv, dwo, dbo = e32(b, 3, c), e32(c, 3 * c), e32(3 * c), e32(c, c), e32(c)
     ws = e32(_build.WGRAD_WS_FLOATS)
-    fn = _build.load("dit_attention_train", "dit_attention_train_backward", 33, 7, 2)
+    fn = _build.load("dit_attention_train", "dit_attention_train_backward", 34, 7, 2)
     err = fn(x.data_ptr(), mod.data_ptr(), mask.data_ptr(), cos.data_ptr(), sin.data_ptr(), wqkv.data_ptr(),
-             bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(), seed_ptr, att.data_ptr(), lse.data_ptr(),
-             dout.data_ptr(), h.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), pz.data_ptr(),
+             bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(), seed_ptr, att.data_ptr(),
+             None if att_lo is None else att_lo.data_ptr(), lse.data_ptr(), dout.data_ptr(), h.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), pz.data_ptr(),
              dzc.data_ptr(), datt.data_ptr(), dv_rows.data_ptr(), dq_r.data_ptr(), dk_r.data_ptr(),
              dqkv.data_ptr(), dh0.data_ptr(), dh0n.data_ptr(), dx.data_ptr(), dmod.data_ptr(),
              dwqkv.data_ptr(), dbqkv.data_ptr(), dwo.data_ptr(), dbo.data_ptr(), ws.data_ptr(),
@@ -149,16 +154,17 @@ class DiTAttentionTrainFn(torch.autograd.Function):
         wqkv = torch.cat([wq, wk, wv], dim=1).contiguous()
         bqkv = torch.cat([bq, bk, bv]).contiguous()
         maskf = mask.float().contiguous()
-        out, att, lse = dit_attention_train_fwd(x, mod, maskf, wqkv, bqkv, wo, bo, n_heads, rate, seed, eps)
-        ctx.save_for_backward(x, mod, maskf, wqkv, bqkv, wo, bo, seed, att, lse)
+        out, att, lse, att_lo = dit_attention_train_fwd(x, mod, maskf, wqkv, bqkv, wo, bo, n_heads, rate, seed, eps)
+        ctx.save_for_backward(x, mod, maskf, wqkv, bqkv, wo, bo, seed, att, lse, att_lo)
         ctx.n_heads, ctx.rate, ctx.eps = n_heads, rate, eps
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        x, mod, maskf, wqkv, bqkv, wo, bo, seed, att, lse = ctx.saved_tensors
+        x, mod, maskf, wqkv, bqkv, wo, bo, seed, att, lse, att_lo = ctx.saved_tensors
         dx, dmod, dwqkv, dbqkv, dwo, dbo = dit_attention_train_bwd(
-            x, mod, maskf, wqkv, bqkv, wo, bo, ctx.n_heads, ctx.rate, seed, att, lse, dout.contiguous(), ctx.eps)
+            x, mod, maskf, wqkv, bqkv, wo, bo, ctx.n_heads, ctx.rate, seed, att, lse, dout.contiguous(), ctx.eps,
+            att_lo)
         wdt = wqkv.dtype
         dwq, dwk, dwv = (g.to(wdt) for g in dwqkv.chunk(3, dim=1))
         dbq, dbk, dbv = (g.to(wdt) for g in dbqkv.chunk(3))

@@ -13,6 +13,10 @@ frame_mask mode for prefix masks (Vocos's fixed-shape serving mode).
 
 `istft_head` dispatches on the tensor's device: the plain `istft_same_real`
 on the CPU, the kernel on the GPU. `istft_head.launches` counts launches.
+`istft_head_diff` is `istft_head` with a gradient, the counterpart of the JAX
+package's `istft_same_fused_diff`: the ISTFT is linear in (re, im), so its
+backward is the transpose of the plain ISTFT, in f32 whatever the forward's
+`matmul_dtype` (gradient noise does not average out as forward noise does).
 """
 
 from __future__ import annotations
@@ -91,3 +95,27 @@ def istft_head(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop_length: int,
 
 
 istft_head.launches = 0
+
+
+class _ISTFTHeadFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, re, im, n_fft, hop_length, matmul_dtype):
+        ctx.meta = (n_fft, hop_length, re.shape, re.dtype, im.dtype)
+        return istft_head(re.detach(), im.detach(), n_fft, hop_length, matmul_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        n_fft, hop_length, shape, re_dtype, im_dtype = ctx.meta
+        # the transpose of a linear map is its vector-Jacobian product at any point
+        with torch.enable_grad():
+            re0 = torch.zeros(shape, device=g.device, dtype=torch.float32, requires_grad=True)
+            im0 = torch.zeros(shape, device=g.device, dtype=torch.float32, requires_grad=True)
+            out = istft_same_real(re0, im0, n_fft, hop_length, n_fft)
+            dre, dim = torch.autograd.grad(out, (re0, im0), g.float())
+        return dre.to(re_dtype), dim.to(im_dtype), None, None, None
+
+
+def istft_head_diff(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop_length: int,
+                    matmul_dtype=None) -> torch.Tensor:
+    """`istft_head` (static envelope) with a gradient with respect to re and im."""
+    return _ISTFTHeadFn.apply(re, im, n_fft, hop_length, matmul_dtype)

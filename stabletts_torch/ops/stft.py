@@ -53,9 +53,22 @@ def mel_filterbank(sample_rate: int, n_fft: int, n_mels: int, f_min: float = 0.0
     return (fb * enorm[None, :]).astype(dtype)
 
 
+_const_cache: dict = {}
+
+
+def _device_constant(key: tuple, device, make) -> torch.Tensor:
+    """A constant tensor (window, filterbank) built once per key and device:
+    a GAN step takes 15 log-mels, and building each filterbank on the host
+    and copying it over would be paid every time."""
+    key = (*key, str(device))
+    if key not in _const_cache:
+        _const_cache[key] = torch.from_numpy(make()).to(device)
+    return _const_cache[key]
+
+
 def stft_magnitude(x: torch.Tensor, n_fft: int, hop_length: int, win_length: int, pad: int) -> torch.Tensor:
     """[B, L] waveform -> [B, T, n_freqs] magnitude, T = 1 + (L + 2*pad - n_fft) // hop."""
-    window = torch.from_numpy(hann_window(win_length)).to(x.device)
+    window = _device_constant(("hann", win_length), x.device, lambda: hann_window(win_length))
     x = F.pad(x[:, None, :], (pad, pad), mode="reflect")[:, 0, :]
     frames = x.unfold(-1, n_fft, hop_length) * window
     spec = torch.fft.rfft(frames, n=n_fft, dim=-1)
@@ -65,5 +78,7 @@ def stft_magnitude(x: torch.Tensor, n_fft: int, hop_length: int, win_length: int
 def log_mel_spectrogram(x: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
     """[B, L] float32 waveform -> [B, T, n_mels] log-mel spectrogram."""
     mag = stft_magnitude(x, cfg.n_fft, cfg.hop_length, cfg.win_length, cfg.pad)
-    fb = torch.from_numpy(mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.f_min, cfg.f_max))
-    return torch.log(torch.clamp(mag @ fb.to(x.device), min=1e-5))
+    key = ("mel", cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.f_min, cfg.f_max)
+    fb = _device_constant(key, x.device,
+                          lambda: mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.f_min, cfg.f_max))
+    return torch.log(torch.clamp(mag @ fb, min=1e-5))

@@ -6,6 +6,9 @@ reference StableTTS names, so `StableTTSAPI(tts_model_path=...)` loads it)
 and `optimizer_{epoch}.pt` (the optimizer's state dict). On resume the
 newest epoch present with both is loaded and training starts at epoch + 1;
 a model-only checkpoint is a pretrained init and training starts at epoch 0.
+Vocos GAN training saves five parts per epoch under the reference's names
+(`generator_`, `mpd_`, `mrd_`, `optimizerg_`, `optimizerd_{epoch}.pt`) and
+resumes at the newest epoch that has all five.
 """
 
 from __future__ import annotations
@@ -54,4 +57,36 @@ def optimizer_steps(optimizer: torch.optim.Optimizer) -> int:
     for state in optimizer.state.values():
         if "step" in state:
             return int(state["step"])
+    return 0
+
+
+_VOCOS_PARTS = ("generator", "mpd", "mrd", "optimizerd", "optimizerg")
+
+
+def save_checkpoint_named(ckpt_dir: str, epoch: int, parts: dict) -> None:
+    """Save named state dicts as `{name}_{epoch}.pt` (the Vocos protocol,
+    reference vocoders/vocos/train.py:150-155)."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    for name, state_dict in parts.items():
+        torch.save(state_dict, os.path.join(ckpt_dir, f"{name}_{epoch}.pt"))
+
+
+def continue_training_vocos(ckpt_dir: str, parts: dict) -> int:
+    """Vocos resume semantics (reference: vocoders/vocos/utils/load.py:7-53).
+    `parts` maps the five names (generator, mpd, mrd, optimizerd, optimizerg)
+    to the modules and optimizers to load into, in place. The newest epoch
+    that has all five files is restored and training starts at epoch + 1; a
+    generator alone is a pretrained start at epoch 0. Returns the epoch to
+    start at."""
+    per_part = {p: _epochs(ckpt_dir, re.compile(rf"^{p}_(\d+)\.pt$")) for p in _VOCOS_PARTS}
+    dev = next(parts["generator"].parameters()).device
+    load = lambda name, e: torch.load(os.path.join(ckpt_dir, f"{name}_{e}.pt"), map_location=dev, weights_only=True)
+    common = set.intersection(*per_part.values())
+    if common:
+        e = max(common)
+        for name in _VOCOS_PARTS:
+            parts[name].load_state_dict(load(name, e))
+        return e + 1
+    if per_part["generator"]:
+        parts["generator"].load_state_dict(load("generator", max(per_part["generator"])))
     return 0

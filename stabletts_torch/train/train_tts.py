@@ -3,8 +3,14 @@
 One step is the training forward of `StableTTS` (MAS alignment on the
 device, the duration, diffusion and prior losses), the backward pass and an
 AdamW update with the cosine-warmup schedule. Loss = dur + diff + prior,
-summed unweighted (train.py:78-79). Data parallelism across cards is not
-ported yet: `train` runs on one device.
+summed unweighted (train.py:78-79). With `compute_dtype="bfloat16"` the
+forward and backward run in bf16 against f32 master parameters, as the JAX
+package's `make_train_step` does it: every floating parameter and the mels
+are cast to bf16 through a differentiable cast (so the gradients arrive in
+f32 on the master parameters), the loss reductions and MAS stay f32 where the
+model keeps them so, and the optimizer state is f32. It is not
+`torch.autocast`, whose per-op casting list differs from that cast. Data
+parallelism across cards is not ported yet: `train` runs on one device.
 """
 
 from __future__ import annotations
@@ -34,15 +40,43 @@ def make_optimizer(model: torch.nn.Module, cfg: TrainConfig) -> torch.optim.Adam
                              weight_decay=0.01)
 
 
-def train_step(model, optimizer, scheduler, batch, gen: Optional[torch.Generator], **draws) -> dict:
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+def resolve_compute_dtype(name: str):
+    """`TrainConfig.compute_dtype` -> None (f32) or torch.bfloat16."""
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, got {name!r}")
+    return COMPUTE_DTYPES[name]
+
+
+def cast_params(module: torch.nn.Module, dtype) -> dict:
+    """{name: parameter cast to `dtype`} for every floating parameter, as a
+    differentiable cast: gradients flow back to the f32 parameters."""
+    return {name: p.to(dtype) for name, p in module.named_parameters() if p.is_floating_point()}
+
+
+def model_losses(model, batch, gen: Optional[torch.Generator], compute_dtype=None, **draws):
+    """The training forward: (dur, diff, prior, attn). The mels arrive in f32
+    or f16 and are widened (or cast to `compute_dtype`) here."""
+    x, x_lengths, y, y_lengths, z, z_lengths = batch
+    if compute_dtype is None:
+        return model(x, x_lengths, y.float(), y_lengths, z.float(), z_lengths, gen, **draws)
+    draws = {k: v.to(compute_dtype) for k, v in draws.items()}
+    args = (x, x_lengths, y.to(compute_dtype), y_lengths, z.to(compute_dtype), z_lengths, gen)
+    return torch.func.functional_call(model, cast_params(model, compute_dtype), args, draws)
+
+
+def train_step(model, optimizer, scheduler, batch, gen: Optional[torch.Generator], compute_dtype=None,
+               **draws) -> dict:
     """One update. batch = (x, x_lengths, y, y_lengths, z, z_lengths) on the
     model's device (mels in f32, or f16 widened here); `gen` draws dropout,
     the CFG mask, t and the noise (`draws` may pass cfg_mask / t_rand / noise
-    explicitly). Returns 0-dim tensors loss, dur_loss, diff_loss,
-    prior_loss and grad_norm (the global L2 norm of the gradients)."""
-    x, x_lengths, y, y_lengths, z, z_lengths = batch
+    explicitly); `compute_dtype=torch.bfloat16` runs forward and backward in
+    bf16 against the f32 parameters. Returns 0-dim tensors loss, dur_loss,
+    diff_loss, prior_loss and grad_norm (the global L2 norm of the gradients)."""
     optimizer.zero_grad(set_to_none=True)
-    dur, diff, prior, _ = model(x, x_lengths, y.float(), y_lengths, z.float(), z_lengths, gen, **draws)
+    dur, diff, prior, _ = model_losses(model, batch, gen, compute_dtype, **draws)
     loss = dur + diff + prior
     loss.backward()
     params = [p for group in optimizer.param_groups for p in group["params"]]
@@ -87,8 +121,7 @@ def train(train_cfg: Optional[TrainConfig] = None, model_cfg: Optional[ModelConf
     model_cfg = model_cfg or ModelConfig()
     mel_cfg = mel_cfg or MelConfig()
     device = resolve_device(device)
-    if train_cfg.compute_dtype != "float32":
-        raise NotImplementedError("the port trains in float32 only; bf16 compute_dtype is not ported yet")
+    compute_dtype = resolve_compute_dtype(train_cfg.compute_dtype)
 
     dataset = StableDataset(train_cfg.train_dataset_path)
     sampler = DistributedBucketSampler(dataset.lengths, train_cfg.batch_size, list(train_cfg.bucket_boundaries))
@@ -132,7 +165,7 @@ def train(train_cfg: Optional[TrainConfig] = None, model_cfg: Optional[ModelConf
             # the step's random streams depend on (seed, step) only, so a
             # resumed run draws what an uninterrupted one would
             gen.manual_seed((train_cfg.seed + 1) * 2 ** 32 + step)
-            metrics = train_step(model, optimizer, scheduler, batch, gen)
+            metrics = train_step(model, optimizer, scheduler, batch, gen, compute_dtype)
             if log_fn is not None and batch_idx % train_cfg.log_interval == 0:
                 log_fn(step, {k: float(v) for k, v in metrics.items()})
             step += 1

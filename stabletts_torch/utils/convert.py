@@ -11,6 +11,12 @@ nested dicts of numpy arrays (flax layouts):
   q/k/v dense kernels            -> packed MHA in_proj_weight [3C, C]
   transposed-conv kernel [k, in, out] -> torch ConvTranspose1d [in, out, k]
 
+The GAN discriminators keep weight norm apart, as the reference does: flax
+`WeightNorm_*/<conv>/kernel/scale` -> `<conv>.parametrizations.weight.original0`
+(g, [out, 1, 1, 1]) and the conv's kernel [kh, kw, in, out] ->
+`.original1` (v, [out, in, kh, kw]); `jax_params_from_discriminator` is the
+inverse.
+
 FireflyGAN checkpoints store weight-normed convs as (weight_g, weight_v) or as
 parametrizations.weight.original0/1; `load_ffgan_state_dict` folds them into
 plain weights, which is what the port's `FireflyGANBase` holds.
@@ -176,6 +182,100 @@ def state_dict_from_jax_ffgan(params: dict) -> Dict[str, torch.Tensor]:
                     _t_conv(out, f"head.resblocks.{i}.blocks.{j}.{name}.{m}",
                             {"kernel": blk[f"{name}_{m}_kernel"], "bias": blk[f"{name}_{m}_bias"]})
     return _tensors(out)
+
+
+def _conv_names(name: str) -> str:
+    """flax conv name -> the port's module path: convs_3 -> convs.3,
+    band_convs_2_4 -> band_convs.2.4, conv_post -> conv_post."""
+    if name == "conv_post":
+        return name
+    head, *idx = name.rsplit("_", 2 if name.startswith("band_convs") else 1)
+    return ".".join([head, *idx])
+
+
+def _export_discriminator(out: Dict[str, np.ndarray], prefix: str, d: dict) -> None:
+    """One flax DiscriminatorP / DiscriminatorR (built with weight norm)."""
+    scales = {}
+    for key, entry in d.items():
+        if key.startswith("WeightNorm_"):
+            for path, scale in entry.items():
+                conv_name, _, _ = path.rsplit("/", 2)
+                scales[conv_name] = np.asarray(scale)
+    for name, conv in d.items():
+        if name.startswith("WeightNorm_"):
+            continue
+        p = f"{prefix}{_conv_names(name)}"
+        out[f"{p}.bias"] = np.asarray(conv["bias"])
+        out[f"{p}.parametrizations.weight.original0"] = scales[name].reshape(-1, 1, 1, 1)
+        out[f"{p}.parametrizations.weight.original1"] = np.ascontiguousarray(
+            np.transpose(np.asarray(conv["kernel"]), (3, 2, 0, 1)))
+
+
+def _state_dict_from_jax_discriminators(params: dict) -> Dict[str, torch.Tensor]:
+    out: Dict[str, np.ndarray] = {}
+    for key, d in params.items():
+        _export_discriminator(out, f"discriminators.{key.rsplit('_', 1)[1]}.", d)
+    return _tensors(out)
+
+
+def state_dict_from_jax_mpd(params: dict) -> Dict[str, torch.Tensor]:
+    """JAX MultiPeriodDiscriminator params -> the port's state dict (the
+    reference Vocos names; g and v kept apart)."""
+    return _state_dict_from_jax_discriminators(params)
+
+
+def state_dict_from_jax_mrd(params: dict) -> Dict[str, torch.Tensor]:
+    """JAX MultiResolutionDiscriminator params -> the port's state dict."""
+    return _state_dict_from_jax_discriminators(params)
+
+
+def jax_params_from_discriminator(state_dict: dict) -> dict:
+    """The inverse of `state_dict_from_jax_mpd` / `_mrd`: the port's MPD or
+    MRD state dict -> the flax param tree (numpy), with the WeightNorm_i
+    entries numbered in the modules' conv order."""
+    tree: dict = {}
+    order: dict = {}
+    for key, value in state_dict.items():
+        parts = key.split(".")
+        disc = f"discriminators_{parts[1]}"
+        if parts[2] == "conv_post":
+            conv, rest = "conv_post", parts[3:]
+        elif parts[2] == "convs":
+            conv, rest = f"convs_{parts[3]}", parts[4:]
+        else:
+            conv, rest = f"band_convs_{parts[3]}_{parts[4]}", parts[5:]
+        value = np.asarray(value)
+        node = tree.setdefault(disc, {})
+        order.setdefault(disc, [])
+        if conv not in order[disc]:
+            order[disc].append(conv)
+        if rest == ["bias"]:
+            node.setdefault(conv, {})["bias"] = value
+        elif rest[-1] == "original1":
+            node.setdefault(conv, {})["kernel"] = np.ascontiguousarray(np.transpose(value, (2, 3, 1, 0)))
+        else:
+            node.setdefault("_scales", {})[conv] = value.reshape(-1)
+    for disc, node in tree.items():
+        scales = node.pop("_scales")
+        convs = sorted((c for c in order[disc] if c != "conv_post"),
+                       key=lambda c: tuple(int(i) for i in c.split("_")[-2:] if i.isdigit())) + ["conv_post"]
+        for i, conv in enumerate(convs):
+            node[f"WeightNorm_{i}"] = {f"{conv}/kernel/scale": scales[conv]}
+    return tree
+
+
+def load_discriminator_state_dict(state_dict: dict) -> Dict[str, torch.Tensor]:
+    """A reference MPD / MRD state dict -> the port's: weight norm stored the
+    old way (`weight_g`, `weight_v`) is renamed to
+    `parametrizations.weight.original0/1`; nothing is folded."""
+    rename = {".weight_g": ".parametrizations.weight.original0", ".weight_v": ".parametrizations.weight.original1"}
+    out: Dict[str, torch.Tensor] = {}
+    for key, value in state_dict.items():
+        for old, new in rename.items():
+            if key.endswith(old):
+                key = key[: -len(old)] + new
+        out[key] = torch.as_tensor(np.asarray(value) if not isinstance(value, torch.Tensor) else value).float()
+    return out
 
 
 def fold_weight_norm(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

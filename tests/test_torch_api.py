@@ -108,13 +108,29 @@ def test_api_rejects_what_this_port_lacks(apis):
     _, ours = apis
     with pytest.raises(ValueError, match="english"):
         ours.inference("x", _wave(0.1), "klingon")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="could not load"):  # a path is read as a WAV file; this one is missing
         ours.inference("hello", "/some/file.wav", "english")
     tts_m, voc_m = StableTTSAPI(device="cpu").get_params()
     assert 31 < tts_m < 33  # the 31M flagship
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             StableTTSAPI()
+
+
+def test_api_reads_a_wav_path_as_the_reference(apis, tmp_path):
+    """A WAV path as `ref_audio` gives what the decoded waveform gives, as in
+    the JAX API."""
+    from stabletts_torch.utils.audio_io import load_audio, save_wav
+
+    _, ours = apis
+    path = str(tmp_path / "ref.wav")
+    save_wav(path, _wave(seed=5), ours.mel_config.sample_rate)
+    decoded, sr = load_audio(path)
+    assert sr == ours.mel_config.sample_rate
+    kw = dict(step=1, cfg=1.0, seed=2)
+    wav_path, mel_path = ours.inference(SENTENCES[0], path, "english", **kw)
+    wav_arr, mel_arr = ours.inference(SENTENCES[0], decoded, "english", **kw)
+    assert np.array_equal(mel_path, mel_arr) and np.array_equal(wav_path, wav_arr)
 
 
 def test_shape_ladder_pads_and_keeps_lengths(apis):

@@ -129,6 +129,13 @@ def test_port_imports_nothing_of_jax():
                           if m.split(".")[0] in FORBIDDEN]
     assert not offenders, offenders
     assert len(_port_files()) > 20
+    # the training slices' files are among those searched
+    searched = {os.path.relpath(p, REPO) for p in _port_files()}
+    assert {"chip_smoke.py", "stabletts_torch/ops/attention_train_cuda.py", "stabletts_torch/ops/prenet_train_cuda.py",
+            "stabletts_torch/ops/mpd_cuda.py", "stabletts_torch/models/discriminators.py",
+            "stabletts_torch/models/gan_losses.py", "stabletts_torch/train/train_vocos.py",
+            "stabletts_torch/data/vocos_dataset.py", "stabletts_torch/utils/audio_io.py",
+            "stabletts_torch/tools/ab_dit_attention_train.py"} <= searched
 
 
 def _port_modules():
@@ -149,15 +156,19 @@ def test_importing_builds_no_kernel():
     from stabletts_torch.ops.ffn_train_cuda import ffn_train_bwd, ffn_train_fwd
     from stabletts_torch.ops.istft_cuda import istft_head
     from stabletts_torch.ops.mas_cuda import mas
+    from stabletts_torch.ops.attention_train_cuda import attention_train_bwd, attention_train_fwd
+    from stabletts_torch.ops.mpd_cuda import mpd_stack
+    from stabletts_torch.ops.prenet_train_cuda import prenet_train_bwd, prenet_train_fwd
 
     # importing builds nothing; the CPU path never touches the kernels
     assert not _build._libs
     for fn in (dit_block, convnext_block, istft_head, dit_attention_train_fwd, dit_attention_train_bwd,
-               ffn_train_fwd, ffn_train_bwd, mas):
+               ffn_train_fwd, ffn_train_bwd, mas, attention_train_fwd, attention_train_bwd, prenet_train_fwd,
+               prenet_train_bwd, mpd_stack):
         assert isinstance(fn.launches, int)
 
 
-@pytest.mark.parametrize("name", ["MelConfig", "ModelConfig", "TrainConfig", "VocosConfig"])
+@pytest.mark.parametrize("name", ["MelConfig", "ModelConfig", "TrainConfig", "VocosConfig", "VocosTrainConfig"])
 def test_config_defaults_match_jax(name):
     from stabletts_tpu import config as jc
 

@@ -220,3 +220,105 @@ def test_istft_kernel(dev, dtype, bar, lengths):
     got = istft_head(re, im, 2048, 512, md, None if lens is None else lens.to(dev))
     ref = istft_head(re.cpu(), im.cpu(), 2048, 512, md, lens)
     assert _rel(got.cpu(), ref) <= bar
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float32, 5e-3), (BF16, 2e-2)])
+@pytest.mark.parametrize("t_len,rate", [(64, 0.0), (97, 0.1)])
+def test_attention_train_kernel(dev, dtype, bar, t_len, rate):
+    """Forward and dq, dk, dv against autograd through the plain version, on
+    the valid query rows, with the same Philox bits."""
+    from stabletts_torch.ops import attention_train_cuda as A
+    from stabletts_torch.ops import philox
+
+    rng = np.random.default_rng(11)
+    b, c, heads = 2, 256, 4
+    _, mask = _masked_inputs(rng, dev, dtype, b, t_len, c)
+    rows = (mask > 0)[..., None].to(dtype)
+    q, k, v, cot = (_rand(rng, dev, dtype, b, t_len, c) for _ in range(4))
+    cot = cot * rows  # padded query rows are garbage by contract: give them no cotangent
+    seed = philox.draw_seed(torch.Generator(device=dev).manual_seed(3), dev)
+    outs = {}
+    for name, fn in (("kernel", A.attention_train), ("plain", A.attention_train_plain)):
+        leaves = [a.detach().clone().requires_grad_() for a in (q, k, v)]
+        before = (A.attention_train_fwd.launches, A.attention_train_bwd.launches)
+        out = fn(*leaves, mask, rate, seed, heads)
+        grads = torch.autograd.grad(out, leaves, cot)
+        launched = (A.attention_train_fwd.launches - before[0], A.attention_train_bwd.launches - before[1])
+        assert launched == ((1, 1) if name == "kernel" else (0, 0))
+        outs[name] = [out * rows, *grads]
+    for got, want in zip(outs["kernel"], outs["plain"]):
+        assert _rel(got, want) <= bar
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float32, 5e-3), (BF16, 2e-2)])
+@pytest.mark.parametrize("t_len", [64, 97])
+def test_prenet_train_kernel(dev, dtype, bar, t_len):
+    """Forward, dmu and the six parameter gradients against autograd through
+    the plain version."""
+    from stabletts_torch.ops import prenet_train_cuda as P
+
+    rng = np.random.default_rng(13)
+    b, cin, f, cout = 2, 128, 1024, 256
+    mu = _rand(rng, dev, dtype, b, t_len, cin)
+    ws = [_rand(rng, dev, dtype, *s, scale=sc) for s, sc in
+          [((3, cin, f), (3 * cin) ** -0.5), ((f,), 0.05), ((3, f, f), (3 * f) ** -0.5), ((f,), 0.05),
+           ((3, f, cout), (3 * f) ** -0.5), ((cout,), 0.05)]]
+    cot = _rand(rng, dev, dtype, b, t_len, cout)
+    outs = {}
+    for name, fn in (("kernel", P.prenet_train), ("plain", P.prenet_train_plain)):
+        leaves = [a.detach().clone().requires_grad_() for a in (mu, *ws)]
+        before = (P.prenet_train_fwd.launches, P.prenet_train_bwd.launches)
+        out = fn(*leaves)
+        grads = torch.autograd.grad(out, leaves, cot)
+        launched = (P.prenet_train_fwd.launches - before[0], P.prenet_train_bwd.launches - before[1])
+        assert launched == ((1, 1) if name == "kernel" else (0, 0))
+        outs[name] = [out, *grads]
+    for got, want in zip(outs["kernel"], outs["plain"]):
+        assert got.dtype == want.dtype and _rel(got, want) <= bar
+
+
+@pytest.mark.parametrize("period", [2, 3, 5, 7, 11])
+@pytest.mark.parametrize("t_len", [8190, 4096])
+def test_mpd_stack_kernel(dev, period, t_len):
+    """Logits and the five feature maps against the plain version and the
+    port's DiscriminatorP, 2e-4 max-abs."""
+    from stabletts_torch.models.discriminators import DiscriminatorP
+    from stabletts_torch.ops.mpd_cuda import mpd_stack, mpd_stack_plain
+
+    torch.manual_seed(period)
+    disc = DiscriminatorP(period).to(dev)
+    x = torch.from_numpy(np.random.default_rng(17).standard_normal((2, t_len)).astype(np.float32) * 0.3).to(dev)
+    with torch.no_grad():
+        folded = disc.fold()
+        want_logits, want_fmap = disc(x, folded)
+    before = mpd_stack.launches
+    logits, fmap = mpd_stack(x, folded, period)
+    assert mpd_stack.launches == before + 1
+    plain_logits, plain_fmap = mpd_stack_plain(x, folded, period)
+    for got, plain, want in zip([logits, *fmap], [plain_logits, *plain_fmap], [want_logits, *want_fmap]):
+        assert got.shape == want.shape == plain.shape
+        assert (got - plain).abs().max().item() <= 2e-4
+        assert (got - want).abs().max().item() <= 2e-4
+
+
+@pytest.mark.parametrize("t_len", [40, 77])
+def test_istft_head_gradient(dev, t_len):
+    """`istft_head_diff`: the kernel's waveform and the transposed plain ISTFT
+    as its backward, against autograd through the plain ISTFT."""
+    from stabletts_torch.ops.istft import istft_same_real
+    from stabletts_torch.ops.istft_cuda import istft_head, istft_head_diff
+
+    rng = np.random.default_rng(19)
+    n_fft, hop = 2048, 512
+    re, im = (_rand(rng, dev, torch.float32, 2, t_len, n_fft // 2 + 1) for _ in range(2))
+    cot = _rand(rng, dev, torch.float32, 2, t_len * hop)
+    outs = {}
+    before = istft_head.launches
+    for name, fn in (("kernel", lambda r, i: istft_head_diff(r, i, n_fft, hop)),
+                     ("plain", lambda r, i: istft_same_real(r, i, n_fft, hop, n_fft))):
+        leaves = [re.clone().requires_grad_(), im.clone().requires_grad_()]
+        out = fn(*leaves)
+        outs[name] = [out.detach(), *torch.autograd.grad(out, leaves, cot)]
+    assert istft_head.launches == before + 1
+    for got, want in zip(outs["kernel"], outs["plain"]):
+        assert _rel(got, want) <= 1e-4

@@ -205,9 +205,89 @@ def test_forward_without_generator_needs_every_draw(setup):
 
 
 def test_bf16_compute_dtype_is_not_available(tmp_path):
-    with pytest.raises(NotImplementedError):
-        train(TrainConfig(compute_dtype="bfloat16", train_dataset_path=str(tmp_path / "none")), TINY, TINY_MEL,
-              device="cpu")
+    """What is not available is any compute dtype but float32 and bfloat16:
+    `compute_dtype="bfloat16"` trains (f32 master parameters, finite losses),
+    "float16" is refused. (The test is older than bf16 training, when it held
+    the refusal of bfloat16 itself, and keeps its name.)"""
+    path = _filelist(tmp_path, 4, TINY_MEL.n_mels)
+    cfg = TrainConfig(train_dataset_path=path, batch_size=4, num_epochs=1, model_save_path=str(tmp_path / "ck"),
+                      warmup_steps=1, bucket_boundaries=(32, 64, 128), max_text_len=16, log_interval=1,
+                      loader_workers=0, compute_dtype="bfloat16")
+    logged = []
+    state = train(cfg, TINY, TINY_MEL, log_fn=lambda step, m: logged.append(m), device="cpu")
+    assert state.step == 1 and all(np.isfinite(list(m.values())).all() for m in logged)
+    assert all(p.dtype == torch.float32 for p in state.model.parameters())
+    with pytest.raises(ValueError):
+        train(dataclasses.replace(cfg, compute_dtype="float16"), TINY, TINY_MEL, device="cpu")
+
+
+# ---- two faults of the training block, each shown against the JAX package ----------
+
+def _flax_block(ksize, p_dropout):
+    from stabletts_tpu.nn import blocks as jb
+    from torch_port_utils import randomise_tree
+
+    b, t_len, c, f, heads = 2, 30, 32, 48, 2
+    rng = np.random.default_rng(ksize)
+    mask = (np.arange(t_len)[None, :] < np.asarray([t_len, t_len - 7])[:, None]).astype(np.float32)
+    x = rng.standard_normal((b, t_len, c)).astype(np.float32) * mask[..., None]
+    cond = rng.standard_normal((b, c)).astype(np.float32)
+    blk = jb.DiTConVBlock(c, f, heads, ksize, p_dropout, c)
+    args = (jnp.asarray(x), jnp.asarray(cond), jnp.asarray(mask))
+    pv = randomise_tree(blk.init(jax.random.PRNGKey(0), *args)["params"], seed=3)
+    return blk, pv, args, (x, cond, mask), (c, f, heads)
+
+
+def _port_block(pv, c, f, heads, ksize, p_dropout):
+    from stabletts_torch.nn import blocks as tb
+    from stabletts_torch.utils.convert import _export_dit_block
+
+    sd = {}
+    _export_dit_block(sd, "b", pv)
+    block = tb.DiTConVBlock(c, f, heads, ksize, c, p_dropout)
+    block.load_state_dict({k[2:]: torch.from_numpy(np.asarray(v, np.float32)) for k, v in sd.items()})
+    return block
+
+
+def test_training_block_with_kernel_size_5_matches_jax():
+    """A training forward with kernel_size != 3 takes the composed FFN, as the
+    flax block does (its fused FFN half needs 3 taps), and never hands the
+    5-tap weights to the 3-tap `ffn_train`."""
+    blk, pv, args, (x, cond, mask), (c, f, heads) = _flax_block(5, 0.0)
+    want = np.asarray(blk.apply({"params": pv}, *args, False))
+    block = _port_block(pv, c, f, heads, 5, 0.0).train()
+    got = block(torch.from_numpy(x), torch.from_numpy(cond), torch.from_numpy(mask), None)
+    valid = mask > 0
+    np.testing.assert_allclose(got.detach().numpy()[valid], want[valid], rtol=2e-4, atol=2e-4)
+    got.sum().backward()
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in block.parameters())
+
+
+def test_train_mode_without_autograd_keeps_dropout():
+    """The JAX block's gate is `deterministic` alone: with deterministic=False
+    it drops, whether or not anything is differentiated. So the port's gate
+    is `self.training` alone: a train-mode forward under torch.no_grad() (a
+    validation pass that keeps dropout) draws the same dropout as the same
+    forward with autograd on, and differs from the eval-mode forward, which
+    is the inference path and drops nothing."""
+    blk, pv, args, (x, cond, mask), (c, f, heads) = _flax_block(3, 0.5)
+    det = np.asarray(blk.apply({"params": pv}, *args, True))
+    drop = np.asarray(blk.apply({"params": pv}, *args, False, rngs={"dropout": jax.random.PRNGKey(1)}))
+    valid = mask > 0
+    assert np.abs(drop - det)[valid].max() > 1e-2  # nothing is differentiated here, and it drops
+
+    block = _port_block(pv, c, f, heads, 3, 0.5)
+    xt, ct, mt = torch.from_numpy(x), torch.from_numpy(cond), torch.from_numpy(mask)
+    gen = torch.Generator()
+    block.train()
+    with_grad = block(xt, ct, mt, gen.manual_seed(7)).detach()
+    with torch.no_grad():
+        without_grad = block(xt, ct, mt, gen.manual_seed(7))
+        assert torch.equal(with_grad, without_grad)
+        block.eval()
+        evaluated = block(xt, ct, mt, gen.manual_seed(7))
+    np.testing.assert_allclose(evaluated.numpy()[valid], det[valid], rtol=2e-4, atol=2e-4)
+    assert (without_grad - evaluated).abs()[torch.from_numpy(valid)].max() > 1e-2
 
 
 # ---- data ---------------------------------------------------------------------
