@@ -12,6 +12,13 @@ Phases, one JSON line each; any failure exits nonzero:
      ConvNeXt, ISTFT); the training kernels' forward and every gradient at
      dropout 0 and 0.1 (shared Philox bits); MAS exactly, with the time per
      mel row
+     the attention microbenchmark variants (attention_variants.cu: v2, RoPE
+     on load, channel-major K, the three softmax decompositions) against
+     their plain versions at (2, 97), (16, 1024) and the tools' (64, 1000),
+     f32 and bf16, beside one scaled_dot_product_attention call where one
+     computes the same function; the three adapters onto the packed kernels;
+     then the port's attention tools (stabletts_torch/tools/attn_bench.py and
+     attn_exp.py) at (64, 1000) bf16 with the launches of each kernel
   4. serving: StableTTSAPI at the flagship config (random weights from a
      numpy seed, adaLN randomised): English requests, one batch request and
      a bf16 synthesise + Vocos batch at the bench shape (B=8, 1000 frames),
@@ -51,7 +58,9 @@ Phases, one JSON line each; any failure exits nonzero:
      the `train_config` runs that run the kernel and the `mpd_in_gan` run;
      times: the bf16 bench shape for serving kernels; the decoder's shape in
      the trainer, f32 at B=32, T=1000, dropout 0.1, for the training kernels;
-     [32, 1000, 512] for MAS; [16, 20480], period 2, for the MPD stack); then
+     [32, 1000, 512] for MAS; [16, 20480], period 2, for the MPD stack;
+     the attention tools' (64, 1000) bf16 for the attention variants, whose
+     launches are those of the two tools' runs); then
      the card line and the result line.
 """
 
@@ -87,6 +96,11 @@ BARS = {"dit_block": {torch.float32: 5e-3, torch.bfloat16: 2e-2},
         "dit_attention_train": {torch.float32: 5e-3, torch.bfloat16: 2e-2},
         "attention_train": {torch.float32: 5e-3, torch.bfloat16: 2e-2},
         "prenet_train": {torch.float32: 5e-3, torch.bfloat16: 2e-2}}
+VARIANT_KERNELS = ("attention_packed_v2", "attention_packed_rope", "attention_packed_kt",
+                   "attention_decompose_matmul", "attention_decompose_nomax", "attention_decompose_bf16")
+# the attention bar for every variant (tools/tpu_selftest.py:68); the matmul-only
+# mode's error is relative to its own output's largest value like the others'
+BARS.update({name: {torch.float32: 5e-3, torch.bfloat16: 2e-2} for name in VARIANT_KERNELS})
 MPD_BAR = 2e-4  # max-abs, f32 (tests/test_mpd_pallas.py:29)
 KERNEL_INFO = {
     "dit_block": ("stabletts_torch/csrc/dit_block.cu", "stabletts_tpu/ops/dit_block_pallas.py:98"),
@@ -110,7 +124,19 @@ KERNEL_INFO = {
     "prenet_train_fwd": ("stabletts_torch/csrc/prenet_train.cu", "stabletts_tpu/ops/prenet_pallas_train.py:119"),
     "prenet_train_bwd": ("stabletts_torch/csrc/prenet_train.cu", "stabletts_tpu/ops/prenet_pallas_train.py:145"),
     "mpd_stack": ("stabletts_torch/csrc/mpd_stack.cu", "stabletts_tpu/ops/mpd_pallas.py:227"),
+    "attention_packed_v2": ("stabletts_torch/csrc/attention_variants.cu",
+                            "stabletts_tpu/ops/attention_pallas_v2.py:67"),
+    "attention_packed_rope": ("stabletts_torch/csrc/attention_variants.cu",
+                              "stabletts_tpu/ops/attention_pallas.py:220"),
+    "attention_packed_kt": ("stabletts_torch/csrc/attention_variants.cu", "tools/attn_exp4.py:71"),
+    "attention_decompose_matmul": ("stabletts_torch/csrc/attention_variants.cu", "tools/attn_exp2.py:104"),
+    "attention_decompose_nomax": ("stabletts_torch/csrc/attention_variants.cu", "tools/attn_exp2.py:104"),
+    "attention_decompose_bf16": ("stabletts_torch/csrc/attention_variants.cu", "tools/attn_exp2.py:104"),
 }
+# the experiments that run as adapters onto a kernel of the line, by that kernel
+ADAPTERS = {"attention_packed_v2": [("attention_head_pair", "tools/attn_exp.py:94"),
+                                    ("attention_flash_chunks", "tools/attn_exp3.py:86")],
+            "attention_packed": [("attention_batch_pair", "tools/attn_exp5.py:103")]}
 TRAIN_LAUNCHES_PER_STEP = {"dit_attention_train_fwd": 9, "dit_attention_train_bwd": 9, "ffn_train_fwd": 9,
                            "ffn_train_bwd": 9, "mas": 1}
 DT_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
@@ -357,6 +383,131 @@ def phase_kernels(dev) -> dict:
     if bad:
         fail(f"{len(bad)} kernel check(s) over their bar: {bad}")
     return bench_rows
+
+
+def check_attention_variant(rng, name, b, t, dtype, dev, masked) -> dict:
+    """One kernel of attention_variants.cu against its plain version on the
+    valid query rows (padded rows must be finite); the library yardstick is
+    one scaled_dot_product_attention call with the same key mask where it
+    computes the same function (v2, the channel-major K as a view, no copy,
+    and the no-max softmax, which is the softmax)."""
+    import torch.nn.functional as F
+
+    from stabletts_torch.ops import attention_variants_cuda as av
+
+    c, heads, d = 256, 4, 64
+    g = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev, dtype)
+    q, k, v = g(b, t, c), g(b, t, c), g(b, t, c)
+    mask = _ragged_mask(b, t, dev) if masked else None
+    rows = torch.ones(b, t, dtype=torch.bool, device=dev) if mask is None else mask > 0
+    key_mask = None if mask is None else (mask > 0)[:, None, None, :]
+    bhtd = lambda a: a.view(b, t, heads, d).transpose(1, 2)
+    sdpa = lambda kh: F.scaled_dot_product_attention(bhtd(q), kh, bhtd(v), attn_mask=key_mask).transpose(1, 2)
+    flops, library = 4 * b * heads * t * t * d, None
+    if name == "attention_packed_v2":
+        run, plain = (lambda: av.attention_packed_v2(q, k, v, mask)), (lambda: av.attention_packed_v2_plain(q, k, v, mask))
+        library = lambda: sdpa(bhtd(k))
+    elif name == "attention_packed_rope":
+        run = lambda: av.attention_packed_rope(q, k, v, mask)
+        plain = lambda: av.attention_packed_rope_plain(q, k, v, mask)
+        flops += 6 * b * t * c  # x*cos + neg_half(x)*sin on q and k
+    elif name == "attention_packed_kt":
+        k = k.transpose(1, 2).contiguous()
+        run, plain = (lambda: av.attention_packed_kt(q, k, v, mask)), (lambda: av.attention_packed_kt_plain(q, k, v, mask))
+        library = lambda: sdpa(k.view(b, heads, d, t).transpose(2, 3))
+    else:
+        which = name.rsplit("_", 1)[1]
+        run = lambda: av.attention_decompose(q, k, v, which)
+        plain = lambda: av.attention_decompose_plain(q, k, v, which)
+        if which == "nomax":
+            library = lambda: sdpa(bhtd(k))
+    row = measure(name, dtype, {"B": b, "T": t, "masked": masked}, run, plain, flops,
+                  nbytes(q, k, v, q) + (0 if mask is None else nbytes(mask)), select=lambda o: o[rows],
+                  library=None if library is None else lambda: library().reshape(b, t, c))
+    if library is not None:
+        row["library_rel_err"] = rel_err(library().reshape(b, t, c)[rows], plain()[rows])[0]
+    return row
+
+
+def check_variant_adapters(rng, b, t, dev) -> list:
+    """The three experiments that run as adapters (head pairs, key chunks,
+    batch pairs) against the plain version of the function they compute,
+    with one launch of the kernel they map onto."""
+    from stabletts_torch.ops import attention_packed_cuda as ap
+    from stabletts_torch.ops import attention_variants_cuda as av
+
+    g = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+    q, k, v = g(b, t, 256), g(b, t, 256), g(b, t, 256)
+    mask = _ragged_mask(b, t, dev)
+    kbias = torch.where(mask > 0, 0.0, -0.7 * torch.finfo(torch.float32).max)[:, None, :]
+    rows, out = mask > 0, []
+    for name, fn, want, kernel in (
+            ("attention_head_pair", lambda: av.attention_head_pair(q, k, v), av.attention_packed_v2_plain(q, k, v),
+             av.attention_packed_v2),
+            ("attention_flash_chunks", lambda: av.attention_flash_chunks(q, k, v, mask),
+             av.attention_packed_v2_plain(q, k, v, mask), av.attention_packed_v2),
+            ("attention_batch_pair", lambda: av.attention_batch_pair(q, k, v, kbias),
+             ap.attention_packed_plain(q, k, v, mask), ap.attention_packed)):
+        before = kernel.launches
+        got = fn()
+        launched = kernel.launches - before
+        rel, ab = rel_err(got[rows], want[rows])
+        out.append({"kernel": name, "dtype": "float32", "B": b, "T": t, "rel_err": rel, "max_abs_err": ab,
+                    "bar": 5e-3, "launches_of": {kernel.__name__: launched}, "ok": rel <= 5e-3 and launched == 1})
+    return out
+
+
+def reset_variant_counts() -> None:
+    from stabletts_torch.ops import attention_packed_cuda as ap
+    from stabletts_torch.ops import attention_variants_cuda as av
+
+    ap.attention_packed.launches = 0
+    av.attention_packed_v2.launches = av.attention_packed_rope.launches = av.attention_packed_kt.launches = 0
+    av.attention_decompose.launches = {m: 0 for m in av.DECOMPOSE_MODES}
+
+
+def phase_attention_variants(dev) -> tuple:
+    """The variant kernels against their plain versions at (2, 97),
+    (16, 1024) and the tools' (64, 1000), f32 and bf16, ragged mask and none
+    where the function has a mask; the adapters; then the port's attention
+    tools on the card at (64, 1000) bf16, a few iterations each, with the
+    launches of every kernel per tool run. Returns the tools'-shape rows
+    (bf16, no mask) keyed by kernel and the launches {kernel: {tool: n}}."""
+    from stabletts_torch.tools import attn_bench, attn_exp
+
+    rng = np.random.default_rng(4321)
+    rows, line_rows = [], {}
+    for name in VARIANT_KERNELS:
+        masks = (False,) if name.startswith("attention_decompose") else (True, False)
+        for b, t in ((2, 97), (16, 1024), (64, 1000)):
+            for dtype in (torch.float32, torch.bfloat16):
+                for masked in masks:
+                    row = check_attention_variant(rng, name, b, t, dtype, dev, masked)
+                    emit({"phase": "attention_variants", **row})
+                    rows.append(row)
+                    if (b, t, dtype, masked) == (64, 1000, torch.bfloat16, False):
+                        line_rows[name] = row
+    for row in check_variant_adapters(rng, 2, 97, dev):
+        emit({"phase": "attention_variants", **row})
+        rows.append(row)
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        fail(f"{len(bad)} attention variant check(s) over their bar: {bad}")
+
+    launches, tool_rows = {}, []
+    for tool, run in (("attn_bench", lambda: attn_bench.main(dev, 64, 1000, list(attn_bench.VARIANTS), iters=3)),
+                      ("attn_exp", lambda: attn_exp.main(dev, 64, 1000, iters=3))):
+        reset_variant_counts()
+        tool_rows += run()
+        torch.cuda.synchronize()
+        for name, n in attn_bench.launch_counts().items():
+            launches.setdefault(name, {})[tool] = n
+    emit({"phase": "attention_tools", "launches": launches})
+    bad = [r for r in tool_rows if "rel_err" in r and (not r["finite"] or (r["rel_err"] or 0.0) > r["bar"])]
+    missing = [name for name in VARIANT_KERNELS if sum(launches[name].values()) == 0]
+    if bad or missing:
+        fail(f"attention tools: rows over their bar {bad}; kernels never launched {missing}")
+    return line_rows, launches
 
 
 def _train_inputs(kind, b, t, dtype, dev):
@@ -1723,6 +1874,7 @@ def main() -> None:
     emit({"phase": "build", "seconds": time.time() - t0, "libraries": sorted(_build._libs)})
 
     bench = phase_kernels(dev)
+    variant_rows, variant_launches = phase_attention_variants(dev)
     train_rows = phase_train_kernels(dev)
     train_rows.update(phase_opt_in_train_kernels(dev))
     api, counts, bench_pipeline = phase_serving(dev, card)
@@ -1762,13 +1914,22 @@ def main() -> None:
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
-        r = bench[name] if name in bench else train_rows[name]
+        r = bench.get(name) or variant_rows.get(name) or train_rows[name]
         shape = {k: r[k] for k in ("B", "T", "Ty", "Tx", "dropout", "masked", "period") if k in r}
         per_step = {"launches_per_step": TRAIN_LAUNCHES_PER_STEP[name]} if name in TRAIN_LAUNCHES_PER_STEP else {}
         if name in _NEW_ZERO:  # under the configuration that runs the kernel
             per_step = {"launches_per_step": TRAIN_CONFIGS["attn_xla_prenet_fused"][1][name]}
+        if name in variant_launches and name != "attention_packed":
+            per_step = {"launches_per_tool_run": variant_launches[name]}
+            launched = sum(variant_launches[name].values())
+        else:
+            launched = counts[name] if name in counts else train_counts[name]
+        if name in ADAPTERS:
+            per_step["adapters"] = [{"entry": entry, "replaces": rep} for entry, rep in ADAPTERS[name]]
+        if name == "attention_packed":
+            per_step["launches_per_tool_run"] = variant_launches[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": counts[name] if name in counts else train_counts[name], **per_step,
+                        "launches": launched, **per_step,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "shape": shape, "dtype": r["dtype"]})

@@ -322,3 +322,65 @@ def test_istft_head_gradient(dev, t_len):
     assert istft_head.launches == before + 1
     for got, want in zip(outs["kernel"], outs["plain"]):
         assert _rel(got, want) <= 1e-4
+
+
+def _variant_case(av, kind, q, k, v, mask):
+    """(kernel call, plain call, counter read) of one attention variant."""
+    if kind == "kt":
+        kt = k.transpose(1, 2).contiguous()
+        return (lambda: av.attention_packed_kt(q, kt, v, mask), lambda: av.attention_packed_kt_plain(q, kt, v, mask),
+                lambda: av.attention_packed_kt.launches)
+    if kind.startswith("rope"):
+        rot = int(kind[4:])
+        return (lambda: av.attention_packed_rope(q, k, v, mask, rotary_dim=rot),
+                lambda: av.attention_packed_rope_plain(q, k, v, mask, rotary_dim=rot),
+                lambda: av.attention_packed_rope.launches)
+    if kind == "v2":
+        return (lambda: av.attention_packed_v2(q, k, v, mask), lambda: av.attention_packed_v2_plain(q, k, v, mask),
+                lambda: av.attention_packed_v2.launches)
+    return (lambda: av.attention_decompose(q, k, v, kind), lambda: av.attention_decompose_plain(q, k, v, kind),
+            lambda: av.attention_decompose.launches[kind])
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float32, 5e-3), (BF16, 2e-2)])
+@pytest.mark.parametrize("b,t_len", [(2, 97), (4, 200)])
+@pytest.mark.parametrize("kind,masked", [("v2", True), ("v2", False), ("rope32", True), ("rope16", False),
+                                         ("kt", True), ("kt", False), ("matmul", False), ("nomax", False),
+                                         ("bf16", False)])
+def test_attention_variant_kernels(dev, dtype, bar, b, t_len, kind, masked):
+    """Each kernel of attention_variants.cu against its plain version on the
+    valid query rows (padded rows finite), one launch counted per call; the
+    matmul-only mode relative to its own output's largest value."""
+    from stabletts_torch.ops import attention_variants_cuda as av
+
+    rng = np.random.default_rng(11)
+    q, k, v = (_rand(rng, dev, dtype, b, t_len, 256) for _ in range(3))
+    _, mask = _masked_inputs(rng, dev, dtype, b, t_len, 256)
+    mask = mask if masked else None
+    run, plain, count = _variant_case(av, kind, q, k, v, mask)
+    before = count()
+    got = run()
+    assert count() == before + 1 and torch.isfinite(got).all()
+    rows = torch.ones(b, t_len, dtype=torch.bool, device=dev) if mask is None else mask > 0
+    assert _rel(got[rows], plain()[rows]) <= bar
+
+
+def test_attention_variant_adapters_launch_their_kernels(dev):
+    from stabletts_torch.ops import attention_packed_cuda as ap
+    from stabletts_torch.ops import attention_variants_cuda as av
+
+    rng = np.random.default_rng(12)
+    q, k, v = (_rand(rng, dev, torch.float32, 2, 97, 256) for _ in range(3))
+    _, mask = _masked_inputs(rng, dev, torch.float32, 2, 97, 256)
+    kbias = torch.where(mask > 0, 0.0, -0.7 * torch.finfo(torch.float32).max)[:, None, :]
+    rows = mask > 0
+    for fn, want, counter in ((lambda: av.attention_head_pair(q, k, v), av.attention_packed_v2_plain(q, k, v),
+                               av.attention_packed_v2),
+                              (lambda: av.attention_flash_chunks(q, k, v, mask),
+                               av.attention_packed_v2_plain(q, k, v, mask), av.attention_packed_v2),
+                              (lambda: av.attention_batch_pair(q, k, v, kbias), ap.attention_packed_plain(q, k, v, mask),
+                               ap.attention_packed)):
+        before = counter.launches
+        got = fn()
+        assert counter.launches == before + 1
+        assert _rel(got[rows], want[rows]) <= 5e-3
