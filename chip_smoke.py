@@ -4,9 +4,13 @@
 
 Phases, one JSON line each; any failure exits nonzero:
   1. environment (torch/CUDA versions, card name and power limit)
-  2. kernel build (every csrc/*.cu, one nvcc each, in parallel)
+  2. kernel build (every csrc/*.cu, one nvcc each, in parallel), then the
+     `sass` line: HGMMA (wgmma) instructions per library by cuobjdump; every
+     library with attention.cuh's bf16 core must have them in that core
   3. each kernel against its plain PyTorch version on the card, at the main
-     paths' shapes, f32 and bf16, with times and bounds: the serving
+     paths' shapes, f32 and bf16, with times and bounds and the unit of
+     each kernel's products ("core": "wgmma" for attention.cuh's bf16 core,
+     else "fma"): the serving
      kernels (the whole DiT block, its attention half and FFN half, packed
      attention in both layouts beside one scaled_dot_product_attention call,
      ConvNeXt, ISTFT); the training kernels' forward and every gradient at
@@ -102,6 +106,10 @@ VARIANT_KERNELS = ("attention_packed_v2", "attention_packed_rope", "attention_pa
 # mode's error is relative to its own output's largest value like the others'
 BARS.update({name: {torch.float32: 5e-3, torch.bfloat16: 2e-2} for name in VARIANT_KERNELS})
 MPD_BAR = 2e-4  # max-abs, f32 (tests/test_mpd_pallas.py:29)
+# the kernels built on csrc/attention.cuh's core: bf16 runs it on wgmma, f32 on FMA
+ATTENTION_CORE_KERNELS = ("dit_block", "dit_attention", "attention_packed", "attention_packed_t", *VARIANT_KERNELS)
+# the libraries that instantiate that core
+ATTENTION_LIBS = ("attention_packed", "attention_variants", "dit_attention", "dit_block")
 KERNEL_INFO = {
     "dit_block": ("stabletts_torch/csrc/dit_block.cu", "stabletts_tpu/ops/dit_block_pallas.py:98"),
     "dit_attention": ("stabletts_torch/csrc/dit_attention.cu", "stabletts_tpu/ops/dit_attention_pallas.py:122"),
@@ -173,6 +181,14 @@ def bound_ms(flops: float, nbytes: float, dtype) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def with_core(row: dict) -> dict:
+    """The row with the unit its products run on: "wgmma" for a bf16 kernel
+    on attention.cuh's core, else "fma" (every other product is fp32 FMA)."""
+    wgmma = row.get("kernel") in ATTENTION_CORE_KERNELS and row.get("dtype") == "bfloat16"
+    row["core"] = "wgmma" if wgmma else "fma"
+    return row
+
+
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple:
     got, ref = got.float(), ref.float()
     if not torch.isfinite(got).all():
@@ -186,6 +202,45 @@ def nbytes(*ts) -> int:
 
 
 # ---------------------------------------------------------------- kernels --
+
+
+def phase_sass() -> None:
+    """The HGMMA (wgmma) instructions in each built library's SASS
+    (cuobjdump -sass), in total and in each function of attention.cuh's bf16
+    core (`attention_kernel_wgmma`). Fails if a library that instantiates the
+    core has no such function, if one of them has no HGMMA, or if any
+    library holds the FMA core (`attention_kernel`) for bf16."""
+    import re
+    import shutil
+
+    from stabletts_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    libs, bad = {}, []
+    for name in sorted(_build._libs):
+        sass = subprocess.run([tool, "-sass", os.path.join(_build.BUILD_DIR, f"lib{name}.so")], capture_output=True,
+                              text=True, check=False).stdout
+        fn, per_fn, total = None, {}, 0
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                per_fn.setdefault(fn, 0)
+            elif "HGMMA" in line:
+                total += 1
+                if fn is not None:
+                    per_fn[fn] += 1
+        core = {f: n for f, n in per_fn.items() if "attention_kernel_wgmma" in f}
+        fma_bf16 = [f for f in per_fn if "attention_kernelI13__nv_bfloat16" in f]
+        libs[name] = {"hgmma": total, "wgmma_attention_functions": len(core),
+                      "hgmma_per_attention_function": sorted(set(core.values())),
+                      "fma_bf16_attention_functions": len(fma_bf16)}
+        if (name in ATTENTION_LIBS and not core) or any(n == 0 for n in core.values()) or fma_bf16:
+            bad.append(name)
+    ok = not bad and all(name in libs for name in ATTENTION_LIBS)
+    emit({"phase": "sass", "tool": tool, "libraries": libs, "ok": ok})
+    if not ok:
+        fail(f"sass: libraries without wgmma in attention.cuh's bf16 core, or with its FMA core in bf16: {bad}")
 
 
 def measure(kernel: str, dtype, shape: dict, run, run_plain, flops: float, io_bytes: float, select=None,
@@ -372,13 +427,13 @@ def phase_kernels(dev) -> dict:
     cases.append((check_istft, dict(b=8, t=1000, dtype=f32, with_lengths=True)))
     for fn, kw in cases:
         row = fn(rng, dev=dev, **kw)
-        emit({"phase": "kernel_check", **row})
+        emit({"phase": "kernel_check", **with_core(row)})
         rows.append(row)
         at_bench = kw["b"] == (8 if fn in (check_convnext, check_istft) else 16) and kw["t"] >= 1000
         if kw["dtype"] == bf and at_bench and kw.get("masked", True):
             bench_rows[row["kernel"]] = row
     rows.append(check_flash_adapter(rng, 2, 1000, dev))
-    emit({"phase": "kernel_check", **rows[-1]})
+    emit({"phase": "kernel_check", **with_core(rows[-1])})
     bad = [r for r in rows if not r["ok"]]
     if bad:
         fail(f"{len(bad)} kernel check(s) over their bar: {bad}")
@@ -483,12 +538,12 @@ def phase_attention_variants(dev) -> tuple:
             for dtype in (torch.float32, torch.bfloat16):
                 for masked in masks:
                     row = check_attention_variant(rng, name, b, t, dtype, dev, masked)
-                    emit({"phase": "attention_variants", **row})
+                    emit({"phase": "attention_variants", **with_core(row)})
                     rows.append(row)
                     if (b, t, dtype, masked) == (64, 1000, torch.bfloat16, False):
                         line_rows[name] = row
     for row in check_variant_adapters(rng, 2, 97, dev):
-        emit({"phase": "attention_variants", **row})
+        emit({"phase": "attention_variants", **with_core(row)})
         rows.append(row)
     bad = [r for r in rows if not r["ok"]]
     if bad:
@@ -633,7 +688,7 @@ def phase_train_kernels(dev) -> dict:
     for kind in ("ffn_train", "dit_attention_train"):
         for b, t, dt, rate in cases:
             for row in check_train(kind, b, t, dt, rate, dev):
-                emit({"phase": "kernel_check", **row})
+                emit({"phase": "kernel_check", **with_core(row)})
                 rows.append(row)
                 if (b, t) == (32, 1000):
                     line_rows[row["kernel"]] = row
@@ -644,13 +699,13 @@ def phase_train_kernels(dev) -> dict:
         t_xs = np.minimum(rng.integers(tx // 3, tx + 1, size=32), t_ys)
         t_xs[0] = tx
         rows.append(check_mas(32, 1000, tx, t_ys.tolist(), t_xs.tolist(), dev))
-        emit({"phase": "kernel_check", **rows[-1]})
+        emit({"phase": "kernel_check", **with_core(rows[-1])})
         if tx == 512:
             line_rows["mas"] = rows[-1]
     # tools/tpu_selftest.py:227-237's degenerate lengths (t_x = 1, t_y = t_x = 12, ...)
     rows.append(check_mas(8, 300, 120, [300, 250, 123, 77, 300, 12, 299, 150],
                           [120, 100, 120, 50, 1, 12, 64, 120], dev))
-    emit({"phase": "kernel_check", **rows[-1]})
+    emit({"phase": "kernel_check", **with_core(rows[-1])})
     bad = [r for r in rows if not r["ok"]]
     if bad:
         fail(f"{len(bad)} training kernel check(s) over their bar: {bad}")
@@ -906,7 +961,7 @@ def phase_opt_in_train_kernels(dev) -> dict:
     # the ISTFT head's gradient at the GAN trainer's shape (B=16, 40 frames) and one odd shape
     rows += [check_istft_diff(b, t, dt, dev) for b, t, dt in ((16, 40, f32), (16, 40, bf), (3, 77, f32))]
     for row in rows:
-        emit({"phase": "kernel_check", **row})
+        emit({"phase": "kernel_check", **with_core(row)})
     bad = [r for r in rows if not r["ok"]]
     if bad:
         fail(f"{len(bad)} opt-in training kernel check(s) over their bar: {bad}")
@@ -1187,14 +1242,23 @@ def phase_serving_solvers(api, card: str) -> None:
 
 
 def phase_serving_ffgan(dev, card: str) -> None:
-    """One request through StableTTSAPI(vocoder_name="ffgan") (random weights
-    from the seed): waveform length = frames * 512, finite, within [-1, 1];
-    then the FireflyGAN waveform on the GPU against the CPU for the same mel."""
+    """One request through StableTTSAPI(vocoder_model_path=..., vocoder_name="ffgan")
+    from a FireflyGAN state dict with random weights from a seed, written to
+    a temporary directory: waveform length = frames * 512, finite, within
+    [-1, 1]; then the FireflyGAN waveform on the GPU against the CPU for the
+    same mel."""
     import copy
 
     from stabletts_torch.api import StableTTSAPI
+    from stabletts_torch.models.ffgan import FireflyGANBase
 
-    api = StableTTSAPI(vocoder_name="ffgan", device=dev)
+    with torch.random.fork_rng(devices=[]), tempfile.TemporaryDirectory() as root:
+        torch.manual_seed(1)
+        path = os.path.join(root, "ffgan.pt")
+        torch.save(FireflyGANBase(device="cpu").state_dict(), path)
+        api = StableTTSAPI(vocoder_model_path=path, vocoder_name="ffgan", device=dev)
+    if not isinstance(api.vocoder_model, FireflyGANBase):
+        fail(f"serving_ffgan: the checkpoint loaded as {type(api.vocoder_model).__name__}")
     randomise(api.tts_model, seed=7)
     ref = reference_wave(3)
     api.inference(SENTENCES[0], ref, "english", step=10, cfg=3.0)  # warm
@@ -1872,6 +1936,7 @@ def main() -> None:
     t0 = time.time()
     _build.build_all()
     emit({"phase": "build", "seconds": time.time() - t0, "libraries": sorted(_build._libs)})
+    phase_sass()
 
     bench = phase_kernels(dev)
     variant_rows, variant_launches = phase_attention_variants(dev)
@@ -1932,7 +1997,7 @@ def main() -> None:
                         "launches": launched, **per_step,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        "shape": shape, "dtype": r["dtype"]})
+                        "shape": shape, "dtype": r["dtype"], "core": r.get("core")})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

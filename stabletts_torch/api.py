@@ -1,10 +1,12 @@
 """High-level inference API (reference: api.py:38-83).
 
 StableTTSAPI(tts_ckpt, vocoder_ckpt, vocoder_name).inference(text, ref_audio,
-language, ...) -> (waveform, mel). The vocoder is Vocos ("vocos") or FireflyGAN
-("ffgan"). Checkpoints are reference PyTorch state dicts (FireflyGAN's with its
-weight norm, folded on load); with no path the models hold random weights
-(seeded), which serves smoke runs.
+language, ...) -> (waveform, mel). A vocoder checkpoint is read as the named
+vocoder, FireflyGAN ("ffgan", the default) or Vocos ("vocos"); with no path the
+vocoder is a random Vocos whatever the name, as in the JAX package. Checkpoints
+are reference PyTorch state dicts (FireflyGAN's with its weight norm, folded on
+load); with no path the models hold random weights (seeded), which serves smoke
+runs.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ class StableTTSAPI:
         self,
         tts_model_path: Optional[str] = None,
         vocoder_model_path: Optional[str] = None,
-        vocoder_name: str = "vocos",
+        vocoder_name: str = "ffgan",
         model_config: Optional[ModelConfig] = None,
         mel_config: Optional[MelConfig] = None,
         vocos_config: Optional[VocosConfig] = None,
@@ -64,13 +66,14 @@ class StableTTSAPI:
             torch.manual_seed(0)
             self.tts_model = build_stabletts(self.tts_model_config, self.mel_config, device="cpu")
             torch.manual_seed(1)
-            if vocoder_name == "ffgan":
+            # the named vocoder only from a checkpoint; else a random Vocos
+            if vocoder_model_path is not None and vocoder_name == "ffgan":
                 self.vocoder_model = FireflyGANBase(device="cpu")
             else:
                 self.vocoder_model = Vocos(self._vocos_config, self.mel_config, device="cpu")
         # Vocos takes per-item lengths (the fixed-shape serving mode);
         # FireflyGAN callers trim the mel instead
-        self._vocoder_supports_lengths = vocoder_name == "vocos"
+        self._vocoder_supports_lengths = isinstance(self.vocoder_model, Vocos)
         if tts_model_path is not None:
             self.tts_model.load_state_dict(load_torch_state_dict(tts_model_path))
         if vocoder_model_path is not None:
@@ -104,7 +107,7 @@ class StableTTSAPI:
 
             ref_audio = load_and_resample_audio(ref_audio, self.mel_config.sample_rate)
             if ref_audio is None:
-                raise ValueError("could not load the reference audio file (only WAV is decodable here)")
+                raise ValueError("could not load the reference audio file (WAV and FLAC are decodable here)")
         wav = torch.from_numpy(np.asarray(ref_audio, dtype=np.float32)).to(self.device)
         ref_mel = log_mel_spectrogram(wav[None, :], self.mel_config)
         if not self._shape_ladder:

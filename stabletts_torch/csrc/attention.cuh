@@ -1,6 +1,21 @@
 // Packed-head attention for head width 64, shared by the whole DiT block, its
 // attention half and the packed-attention kernels (both layouts).
 //
+// Replaces the attention of the JAX package's TPU kernels
+// ops/dit_block_pallas.py:98 fused_dit_block (and dit_attention_pallas.py),
+// ops/attention_pallas.py:67 fused_attention_packed and :186
+// fused_attention_packed_rope, ops/attention_pallas_t.py:64
+// fused_attention_packed_t, ops/attention_pallas_v2.py:47, and the
+// experiments tools/attn_exp*.py.
+//
+// What bounds it on the H100: its two products, 4*B*H*T^2*64 operations
+// (6.6e10 at B=64, T=1000, H=4: 0.066 ms at the 989 TFLOP/s of bf16 tensor
+// cores, ~1 ms at the 67 TFLOP/s of fp32 FMA) against 4*B*T*H*64 elements
+// moved. So the products must run on the tensor cores: the bf16 kernel
+// (attention_kernel_wgmma, below) issues both as wgmma from shared-memory
+// tiles; f32 stays on fp32 FMA (attention_kernel), since no TF32 form has
+// been shown to hold the f32 bars.
+//
 // One CTA per (64-query tile, head, batch item). Online softmax in exp2 over
 // 64-key tiles, so no score tile larger than 64 x 64 exists and any T works
 // (ragged tiles are masked). scores = (q . k) * score_scale + key bias, in
@@ -36,8 +51,10 @@
 #pragma once
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 #include <math.h>
+#include <type_traits>
 
 namespace stts {
 
@@ -332,17 +349,372 @@ __global__ void __launch_bounds__(256) attention_kernel(const T* q, const T* k, 
   }
 }
 
+// ------------------------------------------------------------ bf16: wgmma --
+//
+// The bf16 kernel: the same function, grid and options as attention_kernel,
+// with both products on the tensor cores (wgmma.cuh). One warpgroup (128
+// threads) per CTA. Shared memory holds bf16 tiles of 64 rows x 64 values in
+// the 128-byte swizzle (wgmma.cuh): Q once, K and V double-buffered. A tile's
+// rows run along the operand's contiguous axis in device memory (t for
+// [B, T, C], the feature for [B, C, T]), so every tile is copied as 128-byte
+// rows by cp.async and the layouts are met by wgmma's transpose bits:
+//   S = Q K^T   A = Q: K-major for [B, T, C], MN-major for [B, C, T] (TMINOR)
+//               B = K: K-major for [B, T, C], MN-major for [B, C, T] (KTMINOR)
+//   O += P V    A = P: registers (S's accumulator layout is wgmma's A layout)
+//               B = V: MN-major for [B, T, C], K-major for [B, C, T]
+// Each product is four m64n64k16 steps over the 64-deep contraction, f32
+// accumulate. The softmax runs on S's accumulator fragment: each row lies on
+// the 4 threads of a quad, so its max and sum take two shuffles. P is rounded
+// to bf16 on its way into the A fragment, and the normaliser sums the
+// unrounded f32 weights, the rounding points of the FMA kernel. QPRE and ROPE
+// transform the tiles in shared memory in f32 and round to bf16 in place.
+// Ragged tiles: rows and keys past T are zero-filled by the copy (cp.async's
+// src-size, or the scalar loader) and their key bias is -inf. The epilogue
+// stages O / l as bf16 in Q's buffer so that the store runs along the
+// contiguous axis. Where a 128-byte row is not 16-byte aligned ([B, C, T] with
+// T % 8 != 0, or an unaligned pointer) the tiles are copied element by
+// element instead.
+
+constexpr int ATT_WG_THREADS = 128;
+constexpr int ATT_TILE_BYTES = ATT_BQ * ATT_D * 2;
+constexpr int ATT_WG_SMEM = 1024 + 5 * ATT_TILE_BYTES;  // 1024-byte alignment slack, Q, K x 2, V x 2
+
+__device__ __forceinline__ float ld_tile(const uint8_t* tile, int r, int c) {
+  return __bfloat162float(*reinterpret_cast<const bf16*>(tile + swz(r, c)));
+}
+__device__ __forceinline__ void st_tile(uint8_t* tile, int r, int c, float x) {
+  *reinterpret_cast<bf16*>(tile + swz(r, c)) = __float2bfloat16(x);
+}
+
+// Tile element (row i, column c) = src[i * rs + c] for i < rows and c < cols,
+// else 0. vec: 16-byte cp.async per chunk (src and rs multiples of 8 values,
+// 16-byte aligned), committed by the caller; else plain loads and stores.
+__device__ __forceinline__ void load_tile(uint8_t* tile, const bf16* src, long long rs, int rows, int cols,
+                                          bool vec) {
+  const int tid = threadIdx.x;
+  if (vec) {
+    const uint32_t base = smem_addr(tile);
+#pragma unroll
+    for (int kk = 0; kk < ATT_BQ * 8 / ATT_WG_THREADS; ++kk) {
+      const int e = tid + kk * ATT_WG_THREADS, i = e >> 3, c = e & 7;
+      const int n = i < rows ? min(max(cols - c * 8, 0), 8) : 0;
+      cp_async16(base + i * 128 + (((c ^ i) & 7) << 4), n > 0 ? src + i * rs + c * 8 : src, n * 2);
+    }
+  } else {
+    for (int e = tid; e < ATT_BQ * ATT_D; e += ATT_WG_THREADS) {
+      const int i = e >> 6, c = e & 63;
+      *reinterpret_cast<bf16*>(tile + swz(i, c)) = (i < rows && c < cols) ? src[i * rs + c] : __ushort_as_bfloat16(0);
+    }
+  }
+}
+
+// dst[i * rs + c] = tile element (i, c) for i < rows and c < cols (vec as in
+// load_tile, where cols is then a multiple of 8)
+__device__ __forceinline__ void store_tile(const uint8_t* tile, bf16* dst, long long rs, int rows, int cols,
+                                           bool vec) {
+  const int tid = threadIdx.x;
+  if (vec) {
+#pragma unroll
+    for (int kk = 0; kk < ATT_BQ * 8 / ATT_WG_THREADS; ++kk) {
+      const int e = tid + kk * ATT_WG_THREADS, i = e >> 3, c = e & 7;
+      if (i < rows && c * 8 < cols)
+        *reinterpret_cast<uint4*>(dst + i * rs + c * 8) =
+            *reinterpret_cast<const uint4*>(tile + i * 128 + (((c ^ i) & 7) << 4));
+    }
+  } else {
+    for (int e = tid; e < ATT_BQ * ATT_D; e += ATT_WG_THREADS) {
+      const int i = e >> 6, c = e & 63;
+      if (i < rows && c < cols) dst[i * rs + c] = *reinterpret_cast<const bf16*>(tile + swz(i, c));
+    }
+  }
+}
+
+// One operand tile: 64 positions from t0 of (item, head) at `base`; MINOR =
+// [B, C, T] (rows are features, t runs along a row), else rows are positions.
+template <bool MINOR>
+__device__ __forceinline__ void load_operand(uint8_t* tile, const bf16* base, int t0, int Tn, int C, bool vec) {
+  if (MINOR) load_tile(tile, base + t0, Tn, ATT_D, min(ATT_BK, Tn - t0), vec);
+  else load_tile(tile, base + (long long)t0 * C, C, min(ATT_BK, Tn - t0), ATT_D, vec);
+}
+
+// RoPE of a swizzled [B, T, C] tile in place (rows t0.., head h), rounded op
+// by op as rope_tile does. The tile must be complete (caller syncs before);
+// the caller fences and syncs after.
+__device__ __forceinline__ void rope_tile_bf16(uint8_t* X, int t0, int Tn, int C, int h, const bf16* cosv,
+                                               const bf16* sinv, int rot) {
+  const int half = rot / 2;
+  float y[ATT_BQ * ATT_D / ATT_WG_THREADS];
+#pragma unroll
+  for (int kk = 0; kk < ATT_BQ * ATT_D / ATT_WG_THREADS; ++kk) {
+    const int e = threadIdx.x + kk * ATT_WG_THREADS, r = e >> 6, d = e & 63, t = t0 + r;
+    const float x = ld_tile(X, r, d);
+    float xp = 0.f;
+    if (d < half) xp = -ld_tile(X, r, d + half);
+    else if (d < rot) xp = ld_tile(X, r, d - half);
+    y[kk] = x;
+    if (t < Tn) {
+      const long long o = (long long)t * C + h * ATT_D + d;
+      const float a = round_to<bf16>(__fmul_rn(x, to_f(cosv[o])));
+      const float b = round_to<bf16>(__fmul_rn(xp, to_f(sinv[o])));
+      y[kk] = round_to<bf16>(__fadd_rn(a, b));
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int kk = 0; kk < ATT_BQ * ATT_D / ATT_WG_THREADS; ++kk) {
+    const int e = threadIdx.x + kk * ATT_WG_THREADS;
+    st_tile(X, e >> 6, e & 63, y[kk]);
+  }
+}
+
+// keeps the compiler from moving accesses of a wgmma's registers across the
+// asynchronous product (accumulators are read only after wgmma_wait)
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <bool TMINOR, bool QPRE, bool ROPE, bool KTMINOR, int MODE>
+__global__ void __launch_bounds__(ATT_WG_THREADS) attention_kernel_wgmma(const bf16* q, const bf16* k, const bf16* v,
+                                                                        const float* mask, bf16* out, int Tn, int C,
+                                                                        float score_scale, const bf16* rope_cos,
+                                                                        const bf16* rope_sin, int rot) {
+  static_assert(!(ROPE && (TMINOR || KTMINOR)), "RoPE on load takes [B, T, C] operands");
+  extern __shared__ uint8_t sm_raw[];
+  // every tile 1024-byte aligned: the swizzle XORs absolute address bits
+  uint8_t* sm = sm_raw + ((1024 - (smem_addr(sm_raw) & 1023)) & 1023);
+  uint8_t* Qs = sm;
+  // the K and V buffers of key tile j
+  const auto Ks = [&](int j) { return sm + (1 + (j & 1)) * ATT_TILE_BYTES; };
+  const auto Vs = [&](int j) { return sm + (3 + (j & 1)) * ATT_TILE_BYTES; };
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * ATT_BQ;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int cq = 2 * (lane % 4);  // this thread's columns of each 8-wide block of S and O: cq, cq + 1
+  const long long item = (long long)b * Tn * C;
+  const bf16* qb = q + item + (long long)h * ATT_D * (TMINOR ? Tn : 1);
+  const bf16* kb = k + item + (long long)h * ATT_D * (KTMINOR ? Tn : 1);
+  const bf16* vb = v + item + (long long)h * ATT_D * (TMINOR ? Tn : 1);
+  bf16* ob = out + item + (long long)h * ATT_D * (TMINOR ? Tn : 1);
+  // 16-byte chunks need aligned rows: [B, C, T] rows start at multiples of T
+  const auto aligned = [&](const void* p, bool minor) { return ((uintptr_t)p & 15) == 0 && (!minor || Tn % 8 == 0); };
+  const bool vq = aligned(q, TMINOR), vk = aligned(k, KTMINOR), vv = aligned(v, TMINOR), vo = aligned(out, TMINOR);
+
+  const int nt = (Tn + ATT_BK - 1) / ATT_BK;
+  auto issue = [&](int j, bool with_v) {
+    load_operand<KTMINOR>(Ks(j), kb, j * ATT_BK, Tn, C, vk);
+    if (with_v) load_operand<TMINOR>(Vs(j), vb, j * ATT_BK, Tn, C, vv);
+  };
+  // tile j's copies have landed (the next tile's stay in flight) and, after
+  // RoPE on K, every thread's shared-memory writes are visible to wgmma's
+  // async proxy: a missing fence.proxy.async here would let wgmma read stale
+  // shared memory
+  auto arrive = [&](int j) {
+    cp_async_wait<1>();
+    if constexpr (ROPE) {
+      __syncthreads();
+      rope_tile_bf16(Ks(j), j * ATT_BK, Tn, C, h, rope_cos, rope_sin, rot);
+    }
+    fence_proxy_async();
+    __syncthreads();
+  };
+
+  load_operand<TMINOR>(Qs, qb, q0, Tn, C, vq);
+  cp_async_commit();
+  issue(0, MODE != SM_SCORE_LOWP);
+  cp_async_commit();
+  cp_async_wait<1>();  // Q
+  if constexpr (QPRE || ROPE) {
+    __syncthreads();
+    if constexpr (QPRE) {
+      for (int e = tid; e < ATT_BQ * ATT_D; e += ATT_WG_THREADS)
+        st_tile(Qs, e >> 6, e & 63, __fmul_rn(ld_tile(Qs, e >> 6, e & 63), kLog2e / sqrtf((float)ATT_D)));
+    }
+    if constexpr (ROPE) {
+      __syncthreads();
+      rope_tile_bf16(Qs, q0, Tn, C, h, rope_cos, rope_sin, rot);
+    }
+  }
+  const uint64_t dq = make_desc<TMINOR>(smem_addr(Qs));
+
+  // S = Q K_j^T, four 16-deep steps over the features; wgmma.fence first,
+  // since the softmax wrote S's registers after the last product
+  float s[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  auto qk = [&](int j) {
+    const uint64_t dk = make_desc<KTMINOR>(smem_addr(Ks(j)));
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n64k16_ss<TMINOR, KTMINOR>(s, desc_k<TMINOR>(dq, kk), desc_k<KTMINOR>(dk, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+  };
+  // key bias of this thread's 16 columns of tile j: 0, kNeg (padded) or -inf (past T)
+  float kbias[16];
+  auto key_bias = [&](int j) {
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      const int t = j * ATT_BK + 8 * (c / 2) + cq + c % 2;
+      kbias[c] = t < Tn ? ((mask == nullptr || mask[(long long)b * Tn + t] > 0.f) ? 0.f : kNeg) : -INFINITY;
+    }
+  };
+
+  // m, l: this thread's rows r0 and r0 + 8; l sums this thread's columns
+  // (the quad's sum is taken at the end: every rescale is common to the quad)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  if constexpr (MODE == SM_SCORE_LOWP) {
+    // each row's max of the bf16 scores over every key tile first
+    for (int j = 0; j < nt; ++j) {
+      if (j + 1 < nt) issue(j + 1, false);
+      cp_async_commit();
+      arrive(j);
+      key_bias(j);
+      qk(j);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int c = 0; c < 16; ++c)
+          mx = fmaxf(mx, round_to<bf16>(round_to<bf16>(s[4 * (c / 2) + 2 * hh + c % 2] * score_scale) +
+                                        round_to<bf16>(kbias[c])));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        m[hh] = fmaxf(m[hh], mx);
+      }
+      __syncthreads();  // K_j's buffer is free for tile j + 2
+    }
+    issue(0, true);
+    cp_async_commit();
+  }
+
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int j = 0; j < nt; ++j) {
+    if (j + 1 < nt) issue(j + 1, true);
+    cp_async_commit();
+    arrive(j);
+    if constexpr (MODE != SM_NONE) key_bias(j);
+    qk(j);
+
+    // s[4 * (c / 2) + 2 * hh + c % 2]: row r0 + 8 hh, column 8 (c / 2) + cq + c % 2
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float rs = 0.f;
+      if constexpr (MODE == SM_ONLINE) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int c = 0; c < 16; ++c) {
+          float& x = s[4 * (c / 2) + 2 * hh + c % 2];
+          x = x * score_scale + kbias[c];
+          mx = fmaxf(mx, x);
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[hh], mx);
+        const float corr = exp2f(m[hh] - m_new);  // 0 on the first tile (m = -inf)
+#pragma unroll
+        for (int c = 0; c < 16; ++c) {
+          float& x = s[4 * (c / 2) + 2 * hh + c % 2];
+          x = exp2f(x - m_new);
+          rs += x;
+          o[4 * (c / 2) + 2 * hh + c % 2] *= corr;
+        }
+        l[hh] = l[hh] * corr + rs;
+        m[hh] = m_new;
+      } else {
+#pragma unroll
+        for (int c = 0; c < 16; ++c) {
+          float& x = s[4 * (c / 2) + 2 * hh + c % 2];
+          if constexpr (MODE == SM_NOMAX) {
+            x = exp2f(x * score_scale + kbias[c]);
+          } else if constexpr (MODE == SM_SCORE_LOWP) {
+            const float sv = round_to<bf16>(round_to<bf16>(x * score_scale) + round_to<bf16>(kbias[c]));
+            x = round_to<bf16>(exp2f(sv - m[hh]));
+          } else {
+            x = x * score_scale;  // SM_NONE: the product alone
+          }
+          rs += x;
+        }
+        l[hh] += rs;
+      }
+    }
+
+    // O += P V_j: P rounded to bf16 as the A fragment of each 16-key step;
+    // wgmma.fence first, since the rescale and the packing wrote O's and P's
+    // registers
+    const uint64_t dv = make_desc<!TMINOR>(smem_addr(Vs(j)));
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pa[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_m64n64k16_rs<!TMINOR>(o, pa[kk], desc_k<!TMINOR>(dv, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    __syncthreads();  // K_j and V_j's buffers are free for tile j + 2
+  }
+
+  // O / l, rounded to bf16, staged in Q's buffer (no wgmma reads it any
+  // more) in the output's layout, then stored along the contiguous axis
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float inv = 1.f;
+    if constexpr (MODE != SM_NONE) {
+      float lt = l[hh] + __shfl_xor_sync(0xffffffffu, l[hh], 1);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+      inv = 1.f / lt;
+    }
+    const int r = 16 * (tid / 32) + lane / 4 + 8 * hh;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int c = 8 * jj + cq;
+      const float x0 = o[4 * jj + 2 * hh] * inv, x1 = o[4 * jj + 2 * hh + 1] * inv;
+      if (TMINOR) {
+        st_tile(Qs, c, r, x0);
+        st_tile(Qs, c + 1, r, x1);
+      } else {
+        *reinterpret_cast<uint32_t*>(Qs + swz(r, c)) = pack_bf16(x0, x1);
+      }
+    }
+  }
+  __syncthreads();
+  if (TMINOR) store_tile(Qs, ob + q0, Tn, ATT_D, min(ATT_BQ, Tn - q0), vo);
+  else store_tile(Qs, ob + (long long)q0 * C, C, min(ATT_BQ, Tn - q0), ATT_D, vo);
+}
+
 // q/k/v/out [B, T, H*64] (or [B, H*64, T] with TMINOR; K alone per KTMINOR);
 // mask [B, T] f32 or nullptr (every key valid); rope_cos/rope_sin [T, H*64]
-// in T with ROPE, else unread.
+// in T with ROPE, else unread. bf16 runs attention_kernel_wgmma, f32
+// attention_kernel (fp32 FMA: the f32 bars hold no TF32 form).
 template <typename T, bool TMINOR, bool QPRE = false, bool ROPE = false, bool KTMINOR = TMINOR, int MODE = SM_ONLINE>
 void launch_attention(const T* q, const T* k, const T* v, const float* mask, T* out, int B, int Tn, int H,
                       float score_scale, cudaStream_t stream, const T* rope_cos = nullptr,
                       const T* rope_sin = nullptr, int rot = 0) {
-  auto kernel = attention_kernel<T, TMINOR, QPRE, ROPE, KTMINOR, MODE>;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ATT_SMEM);
   dim3 grid((Tn + ATT_BQ - 1) / ATT_BQ, H, B);
-  kernel<<<grid, 256, ATT_SMEM, stream>>>(q, k, v, mask, out, Tn, H * ATT_D, score_scale, rope_cos, rope_sin, rot);
+  if constexpr (std::is_same<T, bf16>::value) {
+    auto kernel = attention_kernel_wgmma<TMINOR, QPRE, ROPE, KTMINOR, MODE>;
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ATT_WG_SMEM);
+    kernel<<<grid, ATT_WG_THREADS, ATT_WG_SMEM, stream>>>(q, k, v, mask, out, Tn, H * ATT_D, score_scale, rope_cos,
+                                                          rope_sin, rot);
+  } else {
+    auto kernel = attention_kernel<T, TMINOR, QPRE, ROPE, KTMINOR, MODE>;
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ATT_SMEM);
+    kernel<<<grid, 256, ATT_SMEM, stream>>>(q, k, v, mask, out, Tn, H * ATT_D, score_scale, rope_cos, rope_sin, rot);
+  }
 }
 
 }  // namespace stts

@@ -19,7 +19,7 @@
 // 3 operations per element of q and k, the bf16-score mode a second QK^T.
 //
 // Design: attention.cuh's kernel, one CTA per (64-query tile, head, batch
-// item), 64-key tiles, fp32 FMA; q is pre-scaled and rounded on load (QPRE),
+// item), 64-key tiles, wgmma in bf16 and fp32 FMA in f32; q is pre-scaled and rounded on load (QPRE),
 // so scores are in log2 units and the key bias is added unscaled. RoPE
 // rotates the q tile once and every K tile once per q tile, from [T, C]
 // cos/sin tables in q's dtype, rounding each product and the sum through the

@@ -1,0 +1,128 @@
+// Hopper warpgroup matrix-multiply primitives (sm_90a only: `wgmma` does not
+// exist on plain sm_90, and _build.py compiles for arch=compute_90a).
+//
+// One warpgroup (4 consecutive warps, 128 threads) issues each product
+// together: D[64 x 64] (+)= A[64 x 16] * B[16 x 64] in f32, bf16 operands.
+// B always comes from shared memory through a 64-bit matrix descriptor; A from
+// a descriptor or from registers.
+//
+// Shared-memory tiles here are always 64 rows of 64 bf16 (128 bytes a row) in
+// the 128-byte swizzle: the 16-byte chunk c of row r is stored at chunk
+// c ^ (r % 8) of that row, and a tile starts on a 1024-byte boundary because
+// the hardware applies the XOR to address bits [4:6] from bits [7:9] of the
+// absolute shared-memory address. The contiguous dimension of a tile's rows is
+// either the product's depth K ("K-major", no transpose) or its M / N
+// ("MN-major", transposed; allowed for 16-bit types only).
+#pragma once
+
+#include <stdint.h>
+
+namespace stts {
+
+// byte offset of element (row r, column c) of a swizzled 64 x 64 bf16 tile
+__device__ __forceinline__ int swz(int r, int c) { return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2; }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The matrix descriptor of a swizzled 64 x 64 bf16 tile at `tile` (1024-byte
+// aligned):
+//   bits [0, 14)  start address >> 4
+//   bits [16, 30) leading byte offset >> 4 (LBO)
+//   bits [32, 46) stride byte offset >> 4 (SBO)
+//   bits [49, 52) base offset: 0, since every tile starts 1024-byte aligned
+//   bits [62, 64) layout: 1 = 128-byte swizzle
+// K-major: SBO is the step between groups of 8 rows along M/N (8 rows of 128
+// bytes = 1024); the 16-deep K slice (32 bytes) lies inside one swizzled row,
+// so LBO is unused and set to 1 as the ISA asks. MN-major: the 64 M/N values
+// of a row are one swizzle atom, so the step to a next atom along M/N is never
+// taken; the step between groups of 8 rows along K is 1024 bytes. The ISA
+// names that step SBO; LBO is given the same value, so the descriptor reads
+// the same whichever of the two the hardware takes for the unused one.
+template <bool MN_MAJOR>
+__device__ __forceinline__ uint64_t make_desc(uint32_t tile) {
+  const uint64_t lbo = MN_MAJOR ? (1024 >> 4) : 1, sbo = 1024 >> 4;
+  return (uint64_t)((tile & 0x3FFFF) >> 4) | (lbo << 16) | (sbo << 32) | (1ull << 62);
+}
+
+// The descriptor of the k-th 16-deep slice. K-major: +32 bytes inside each
+// 128-byte row; the hardware swizzles the computed address, so the start
+// address simply advances and the XOR with the row still finds each chunk.
+// MN-major: 16 rows down, +2048 bytes, a whole number of swizzle atoms.
+template <bool MN_MAJOR>
+__device__ __forceinline__ uint64_t desc_k(uint64_t desc, int k) {
+  return desc + (uint64_t)(MN_MAJOR ? (k * 2048) >> 4 : (k * 32) >> 4);
+}
+
+// wgmma.fence: orders this warpgroup's register accesses (the accumulators,
+// and A fragments in registers) before the asynchronous products that follow.
+// Needed before the first wgmma and again whenever the accumulators or A
+// fragments were written by ordinary instructions since the last one.
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Makes this thread's ordinary (generic-proxy) shared-memory writes visible to
+// the async proxy that wgmma reads through. Every writing thread runs it after
+// its writes and before the barrier that precedes the wgmma.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The accumulator of one m64n64 product: thread t of the warpgroup holds rows
+// r0 = 16 * (t / 32) + (t % 32) / 4 and r0 + 8; d[4j + 2h + e] is
+// (row r0 + 8h, column 8j + 2 (t % 4) + e).
+#define STTS_ACC32(d)                                                                                            \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]),    \
+      "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),     \
+      "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),    \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+// d (+)= A B, A and B from shared-memory descriptors; accumulate = 0 ignores d.
+// TA / TB: the transpose bits (1 = MN-major tile).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : STTS_ACC32(d)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// d += A B, A from registers: a[0..3] hold the thread's bf16 pairs of the
+// 64 x 16 A tile in the accumulator's row layout (a[0] row r0, columns
+// 2 (t % 4) + {0, 1}; a[1] row r0 + 8, same columns; a[2] and a[3] the same at
+// columns + 8), the lower column in the low half. B from a descriptor.
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : STTS_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+}
+
+#undef STTS_ACC32
+
+// cp.async of 16 bytes into shared memory; the bytes past `src_bytes` (0-16)
+// are zero-filled, so a chunk past the end of the data reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+}  // namespace stts

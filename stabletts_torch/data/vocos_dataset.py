@@ -3,7 +3,7 @@
 
 The dataset yields raw audio segments; the train step computes the mel on
 the device. The port's copy of the JAX package's `data/vocos_dataset.py`,
-without its native C++ segment loader (not ported yet).
+with the port's native segment loader for WAV files.
 """
 
 from __future__ import annotations
@@ -56,9 +56,18 @@ class VocosDataset:
         return len(self.filelist)
 
     def get_segment(self, idx: int, rng: np.random.Generator) -> np.ndarray:
-        """[segment_size] float32 random crop, zero-padded if too short."""
+        """[segment_size] float32 random crop, zero-padded if too short.
+
+        Fast path: the native C++ segment loader (decode + resample + crop
+        without materialising the whole file on the Python side)."""
         path = self.filelist[idx]
         start_frac = float(rng.random())
+        if path.lower().endswith(".wav"):
+            from stabletts_torch.native import load_segment_native
+
+            seg = load_segment_native(path, self.sample_rate, self.segment_size, start_frac)
+            if seg is not None:
+                return seg
         wav = load_and_resample_audio(path, self.sample_rate)
         if wav is None:
             # substitute the next decodable clip instead of training the GAN

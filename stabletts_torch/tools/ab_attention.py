@@ -8,9 +8,11 @@ one after the other:
 Each run builds that tree's kernels and runs, three times each on the same
 seeded inputs, `chip_smoke.check_attention_packed` (#6, and #8 with
 tminor) at (2B=16, T=1024) bf16 and f32 with a ragged mask and at (2, 97)
-bf16, and `chip_smoke.check_dit` (#1) at (16, 1024) bf16 and f32. It prints
-one JSON line: the median ms of each run and the rel err against the plain
-version (equal rel errs mean the same bits).
+bf16, `chip_smoke.check_dit` (#1) at (16, 1024) bf16 and f32, and
+`chip_smoke.check_attention_variant` for #9 (`attention_packed_v2`) and #7
+(`attention_packed_rope`) at the attention tools' (B=64, T=1000), every key
+valid, bf16 and f32. It prints one JSON line: the median ms of each run and
+the rel err against the plain version (equal rel errs mean the same bits).
 """
 
 import json
@@ -32,9 +34,13 @@ def main() -> None:
     cases = [("attention_packed", tminor, b, t, dtype) for tminor in (False, True)
              for b, t, dtype in ((16, 1024, torch.bfloat16), (16, 1024, torch.float32), (2, 97, torch.bfloat16))]
     cases += [("dit_block", False, 16, 1024, dtype) for dtype in (torch.bfloat16, torch.float32)]
+    cases += [(kind, False, 64, 1000, dtype) for kind in ("attention_packed_v2", "attention_packed_rope")
+              for dtype in (torch.bfloat16, torch.float32)]
     for kind, tminor, b, t, dtype in cases:
         if kind == "dit_block":
             run = lambda: cs.check_dit(np.random.default_rng(1234), b=b, t=t, dtype=dtype, dev=dev)
+        elif kind != "attention_packed":
+            run = lambda: cs.check_attention_variant(np.random.default_rng(1234), kind, b, t, dtype, dev, False)
         else:
             run = lambda: cs.check_attention_packed(np.random.default_rng(1234), b=b, t=t, dtype=dtype, dev=dev,
                                                     masked=True, tminor=tminor)

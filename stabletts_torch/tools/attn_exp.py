@@ -37,8 +37,9 @@ def decompose(x, ref, device, iters) -> list:
     (`matmul`: no softmax), what the running max costs (`nomax`; its
     `nomax_bf16` body is the same math) and what bf16 scores buy (`bf16`:
     here a first pass over the keys for the max, then the weights). On the
-    H100 the kernels are fp32 FMA whatever the dtype, so the answer splits
-    the FMA-bound core into its products and its softmax."""
+    H100 the bf16 kernels run both products on wgmma and the f32 ones on
+    fp32 FMA, so the answer splits the core into its products and its
+    softmax."""
     return [variant_row(w, VARIANTS[w], x, ref, device, iters, replaces="tools/attn_exp2.py:104")
             for w in ("matmul", "nomax", "bf16")]
 

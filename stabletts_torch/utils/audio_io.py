@@ -1,8 +1,12 @@
-"""Host-side audio IO: WAV decode and polyphase resampling (scipy).
+"""Host-side audio IO: WAV and FLAC decode with resampling.
 
-The port's copy of the WAV path of the JAX package's `utils/audio_io.py`
-(reference: utils/audio.py:59-74). The other containers the JAX package
-decodes (FLAC, mp3, ogg) are not ported yet and raise.
+The port's copy of the JAX package's `utils/audio_io.py` (reference:
+utils/audio.py:59-74). `load_and_resample_audio` takes the port's native
+loader first (`stabletts_torch/native`: WAV and FLAC decode, windowed-sinc
+resampling), as the JAX package does, and scipy's WAV reader with polyphase
+resampling where the library cannot be built. `load_audio` reads WAV only:
+the Python FLAC decoder and the mp3 and ogg decoders are not ported yet and
+raise.
 """
 
 from __future__ import annotations
@@ -55,7 +59,18 @@ def resample(wav: np.ndarray, sr: int, target_sr: int) -> np.ndarray:
 
 def load_and_resample_audio(path: str, target_sr: int) -> Optional[np.ndarray]:
     """Load + mono + resample; returns None on failure
-    (reference: utils/audio.py:59-74 returns None on load errors)."""
+    (reference: utils/audio.py:59-74 returns None on load errors).
+
+    Uses the native C++ loader (WAV or FLAC parse + windowed-sinc resample)
+    when it builds; falls back to scipy."""
+    try:
+        from stabletts_torch.native import load_wav_native
+
+        result = load_wav_native(path, target_sr)
+        if result is not None:
+            return result[0]
+    except Exception:
+        pass
     try:
         wav, sr = load_audio(path)
     except Exception as e:  # noqa: BLE001 - mirrors the reference

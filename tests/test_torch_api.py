@@ -145,3 +145,38 @@ def test_shape_ladder_pads_and_keeps_lengths(apis):
     wav_l, mel_l = ladder.inference(SENTENCES[2], ref, "english", step=1, cfg=1.0)
     assert wav.shape == wav_l.shape and mel.shape == mel_l.shape
     assert dataclasses.asdict(ladder.mel_config) == dataclasses.asdict(MEL_CFG)
+
+
+@pytest.fixture(scope="module")
+def ffgan_checkpoint(tmp_path_factory):
+    from torch_port_utils import ffgan_reference_state_dict
+
+    path = str(tmp_path_factory.mktemp("vocoder") / "ffgan.pt")
+    torch.save({k: torch.from_numpy(np.asarray(v)) for k, v in ffgan_reference_state_dict(seed=3).items()}, path)
+    return path
+
+
+@pytest.mark.parametrize("with_path", [True, False])
+@pytest.mark.parametrize("name", [None, "ffgan"])
+def test_vocoder_choice_matches_jax(ffgan_checkpoint, name, with_path):
+    """{default name, "ffgan"} x {checkpoint, none}: the same vocoder class as
+    the JAX API (a checkpoint is read as the named vocoder, FireflyGAN by
+    default; with none, a random Vocos whatever the name), and where a
+    checkpoint is loaded, the same waveform from the same mel."""
+    from stabletts_tpu.api import StableTTSAPI as JAPI
+
+    jm, _, jvoc = jax_configs()
+    kw = {} if name is None else {"vocoder_name": name}
+    if with_path:
+        kw["vocoder_model_path"] = ffgan_checkpoint
+    japi = JAPI(model_config=jm, vocos_config=jvoc, max_mel_len=256, **kw)
+    ours = StableTTSAPI(model_config=MODEL_CFG, vocos_config=VOCOS_CFG, max_mel_len=256, device="cpu", **kw)
+    assert type(ours.vocoder_model).__name__ == type(japi.vocoder_model).__name__
+    assert type(ours.vocoder_model).__name__ == ("FireflyGANBase" if with_path else "Vocos")
+    assert ours._vocoder_supports_lengths == japi._vocoder_supports_lengths
+    if with_path:
+        mel = np.random.default_rng(4).standard_normal((1, 12, 128)).astype(np.float32)
+        want = np.asarray(japi.vocoder_model.apply(japi.vocoder_variables, jnp.asarray(mel)))
+        got = n(ours.vocoder_model(torch.from_numpy(mel)))
+        assert got.shape == want.shape == (1, 12 * 512)
+        assert float(np.abs(got - want).max() / np.abs(want).max()) <= 1e-3

@@ -384,3 +384,38 @@ def test_attention_variant_adapters_launch_their_kernels(dev):
         got = fn()
         assert counter.launches == before + 1
         assert _rel(got[rows], want[rows]) <= 5e-3
+
+
+@pytest.mark.parametrize("t_len", [64, 1000])
+@pytest.mark.parametrize("kind,masked", [("packed", True), ("packed", False), ("packed_t", True), ("packed_t", False),
+                                         ("v2", True), ("kt", True), ("rope16", True), ("rope32", False),
+                                         ("matmul", False), ("nomax", False), ("bf16", False)])
+def test_attention_core_bf16_tiles(dev, t_len, kind, masked):
+    """The bf16 attention core (attention.cuh's wgmma kernel) through every
+    entry point that reaches it, on one full tile (T=64) and on many tiles
+    with a ragged last one (T=1000): both layouts, channel-major K, RoPE at
+    rot 16 and 32, every softmax mode, against the plain version at the bf16
+    bar on the valid query rows (padded rows finite)."""
+    from stabletts_torch.ops import attention_packed_cuda as ap
+    from stabletts_torch.ops import attention_variants_cuda as av
+
+    rng = np.random.default_rng(13)
+    b = 2
+    q, k, v = (_rand(rng, dev, BF16, b, t_len, 256) for _ in range(3))
+    _, mask = _masked_inputs(rng, dev, BF16, b, t_len, 256)
+    mask = mask if masked else None
+    if kind.startswith("packed"):
+        fn, plain = (ap.attention_packed_t, ap.attention_packed_t_plain) if kind == "packed_t" else \
+            (ap.attention_packed, ap.attention_packed_plain)
+        args = [a.transpose(1, 2).contiguous() for a in (q, k, v)] if kind == "packed_t" else [q, k, v]
+        run, want, count = (lambda: fn(*args, mask, n_heads=4)), (lambda: plain(*args, mask, n_heads=4)), \
+            (lambda: fn.launches)
+    else:
+        run, want, count = _variant_case(av, kind, q, k, v, mask)
+    before = count()
+    got, ref = run(), want()
+    assert count() == before + 1 and torch.isfinite(got).all()
+    if kind == "packed_t":
+        got, ref = got.transpose(1, 2), ref.transpose(1, 2)
+    rows = torch.ones(b, t_len, dtype=torch.bool, device=dev) if mask is None else mask > 0
+    assert _rel(got[rows], ref[rows]) <= 2e-2

@@ -20,6 +20,7 @@ from stabletts_tpu.models import ffgan as jff
 from stabletts_tpu.ops import conv as jconv
 from stabletts_tpu.utils import convert as jconvert
 from torch_port_utils import MODEL_CFG, TOL, n, t
+from torch_port_utils import ffgan_reference_state_dict as _reference_state_dict
 
 torch.set_num_threads(2)
 
@@ -71,39 +72,6 @@ def test_drop_path_keeps_the_mean_and_is_off_when_deterministic():
     out = tff.drop_path(x, 0.2, False, torch.Generator().manual_seed(0))
     kept = out[:, 0] > 0
     assert torch.allclose(out[kept], torch.full_like(out[kept], 1 / 0.8)) and abs(float(kept.float().mean()) - 0.8) < 0.03
-
-
-def _reference_state_dict(seed=0):
-    """A FireflyGAN generator state dict as the reference serialises it: the
-    port's parameter names, with every conv of the head weight-normed (half
-    as weight_g / weight_v, half as parametrizations.weight.original0/1) and
-    a BatchNorm-style counter that loaders drop."""
-    rng = np.random.default_rng(seed)
-    model = tff.FireflyGANBase(device="cpu")
-    sd = {}
-    for i, (key, value) in enumerate(model.state_dict().items()):
-        shape = tuple(value.shape)
-        fan = max(1, int(np.prod(shape[1:])))
-        if key.endswith("gamma"):
-            arr = rng.uniform(0.05, 0.2, shape)
-        elif len(shape) == 1 and key.endswith(".weight"):  # a LayerNorm scale
-            arr = 1.0 + 0.1 * rng.standard_normal(shape)
-        elif len(shape) == 1:
-            arr = 0.05 * rng.standard_normal(shape)
-        else:
-            arr = rng.standard_normal(shape) / np.sqrt(fan)
-        arr = arr.astype(np.float32)
-        if key.startswith("head.") and key.endswith(".weight"):
-            prefix = key[: -len(".weight")]
-            g = np.sqrt((arr ** 2).sum(axis=tuple(range(1, arr.ndim)), keepdims=True)) * rng.uniform(0.5, 1.5)
-            v = arr * rng.uniform(0.3, 3.0)
-            names = (".weight_g", ".weight_v") if (i // 2) % 2 else (".parametrizations.weight.original0",
-                                                             ".parametrizations.weight.original1")
-            sd[prefix + names[0]], sd[prefix + names[1]] = g.astype(np.float32), v.astype(np.float32)
-        else:
-            sd[key] = arr
-    sd["backbone.num_batches_tracked"] = np.asarray(3, np.int64)
-    return sd
 
 
 @pytest.fixture(scope="module")

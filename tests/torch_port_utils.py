@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from stabletts_torch.config import MelConfig, ModelConfig, VocosConfig
+from stabletts_torch.models.ffgan import FireflyGANBase
 
 # 2 heads of 64 (the flagship's head width), F=128, 1 encoder / 2 decoder layers
 MODEL_CFG = ModelConfig(hidden_channels=128, filter_channels=128, n_heads=2, n_enc_layers=1, n_dec_layers=2)
@@ -94,3 +95,36 @@ def t(a) -> torch.Tensor:
 
 def n(a) -> np.ndarray:
     return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def ffgan_reference_state_dict(seed=0):
+    """A FireflyGAN generator state dict as the reference serialises it: the
+    port's parameter names, with every conv of the head weight-normed (half
+    as weight_g / weight_v, half as parametrizations.weight.original0/1) and
+    a BatchNorm-style counter that loaders drop."""
+    rng = np.random.default_rng(seed)
+    model = FireflyGANBase(device="cpu")
+    sd = {}
+    for i, (key, value) in enumerate(model.state_dict().items()):
+        shape = tuple(value.shape)
+        fan = max(1, int(np.prod(shape[1:])))
+        if key.endswith("gamma"):
+            arr = rng.uniform(0.05, 0.2, shape)
+        elif len(shape) == 1 and key.endswith(".weight"):  # a LayerNorm scale
+            arr = 1.0 + 0.1 * rng.standard_normal(shape)
+        elif len(shape) == 1:
+            arr = 0.05 * rng.standard_normal(shape)
+        else:
+            arr = rng.standard_normal(shape) / np.sqrt(fan)
+        arr = arr.astype(np.float32)
+        if key.startswith("head.") and key.endswith(".weight"):
+            prefix = key[: -len(".weight")]
+            g = np.sqrt((arr ** 2).sum(axis=tuple(range(1, arr.ndim)), keepdims=True)) * rng.uniform(0.5, 1.5)
+            v = arr * rng.uniform(0.3, 3.0)
+            names = (".weight_g", ".weight_v") if (i // 2) % 2 else (".parametrizations.weight.original0",
+                                                             ".parametrizations.weight.original1")
+            sd[prefix + names[0]], sd[prefix + names[1]] = g.astype(np.float32), v.astype(np.float32)
+        else:
+            sd[key] = arr
+    sd["backbone.num_batches_tracked"] = np.asarray(3, np.int64)
+    return sd
