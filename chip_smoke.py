@@ -6,11 +6,13 @@ Phases, one JSON line each; any failure exits nonzero:
   1. environment (torch/CUDA versions, card name and power limit)
   2. kernel build (every csrc/*.cu, one nvcc each, in parallel), then the
      `sass` line: HGMMA (wgmma) instructions per library by cuobjdump; every
-     library with attention.cuh's bf16 core must have them in that core
+     library with attention.cuh's bf16 core must have them in that core, and
+     both libraries with attention_train.cuh's in its three bf16 kernels
   3. each kernel against its plain PyTorch version on the card, at the main
      paths' shapes, f32 and bf16, with times and bounds and the unit of
-     each kernel's products ("core": "wgmma" for attention.cuh's bf16 core,
-     else "fma"): the serving
+     each kernel's products ("core": "wgmma" for the bf16 attention cores of
+     attention.cuh and attention_train.cuh, else "fma"; "projections": "fma"
+     where a kernel's tap GEMMs run beside a wgmma core): the serving
      kernels (the whole DiT block, its attention half and FFN half, packed
      attention in both layouts beside one scaled_dot_product_attention call,
      ConvNeXt, ISTFT); the training kernels' forward and every gradient at
@@ -39,7 +41,8 @@ Phases, one JSON line each; any failure exits nonzero:
   7. training: `train()` at the flagship config on a synthetic filelist
      (B=32, mels of 901-1000 frames, text padded to 512), 2 epochs then a
      resume, with the launches of each training kernel per step; 8 steps
-     overfitting one batch; device time by kernel over one step; one step at
+     overfitting one batch; device time by kernel over one step, f32 and
+     bf16; one step at
      B=2 on the GPU against the CPU path, same weights and draws, and the
      same step in bf16 against f32 on the GPU (`train_bf16_vs_f32`)
   8. the opt-in training kernels against their plain versions (packed
@@ -49,7 +52,8 @@ Phases, one JSON line each; any failure exits nonzero:
      configuration (the STABLETTS_ATTN_TRAIN / STABLETTS_PRENET_TRAIN
      variables) with its exact launch counts, its losses and gradients
      against the default's with dropout off, wall ms and peak memory; and
-     `train_bf16`: `train()` with compute_dtype="bfloat16"
+     `train_bf16`: `train()` with compute_dtype="bfloat16", then two bf16
+     steps under STABLETTS_ATTN_TRAIN=xla (packed attention's bf16 kernels)
   9. Vocos GAN training: `train_vocos()` at the flagship Vocos on WAV files
      written from a seed (B=16, segment 20480, f32), a checkpoint and a
      resume; one bf16 step; device time by kernel over one step; `mpd_stack`
@@ -61,7 +65,9 @@ Phases, one JSON line each; any failure exits nonzero:
      configurations that run the kernel, the `train_steps` run of phase 7,
      the `train_config` runs that run the kernel and the `mpd_in_gan` run;
      times: the bf16 bench shape for serving kernels; the decoder's shape in
-     the trainer, f32 at B=32, T=1000, dropout 0.1, for the training kernels;
+     the trainer, f32 at B=32, T=1000, dropout 0.1, for the training kernels,
+     and the same shape in bf16 for the training attention core ("_bf16",
+     launches from the bf16 training runs);
      [32, 1000, 512] for MAS; [16, 20480], period 2, for the MPD stack;
      the attention tools' (64, 1000) bf16 for the attention variants, whose
      launches are those of the two tools' runs); then
@@ -110,6 +116,13 @@ MPD_BAR = 2e-4  # max-abs, f32 (tests/test_mpd_pallas.py:29)
 ATTENTION_CORE_KERNELS = ("dit_block", "dit_attention", "attention_packed", "attention_packed_t", *VARIANT_KERNELS)
 # the libraries that instantiate that core
 ATTENTION_LIBS = ("attention_packed", "attention_variants", "dit_attention", "dit_block")
+# the kernels built on csrc/attention_train.cuh's training core (bf16 on wgmma, f32 on FMA), its libraries and the
+# three kernels of its bf16 form
+TRAIN_CORE_KERNELS = ("attention_train_fwd", "attention_train_bwd", "dit_attention_train_fwd", "dit_attention_train_bwd")
+TRAIN_CORE_LIBS = ("attention_train", "dit_attention_train")
+TRAIN_CORE_FUNCTIONS = ("attn_fwd_kernel", "attn_bwd_dkv_kernel", "attn_bwd_dq_kernel")
+# kernels whose projections (tap GEMMs, fp32 FMA) run beside a wgmma attention core in bf16
+FMA_PROJECTIONS = ("dit_block", "dit_attention", "dit_attention_train_fwd", "dit_attention_train_bwd")
 KERNEL_INFO = {
     "dit_block": ("stabletts_torch/csrc/dit_block.cu", "stabletts_tpu/ops/dit_block_pallas.py:98"),
     "dit_attention": ("stabletts_torch/csrc/dit_attention.cu", "stabletts_tpu/ops/dit_attention_pallas.py:122"),
@@ -129,6 +142,15 @@ KERNEL_INFO = {
                             "stabletts_tpu/ops/attention_pallas_train.py:167"),
     "attention_train_bwd": ("stabletts_torch/csrc/attention_train.cu",
                             "stabletts_tpu/ops/attention_pallas_train.py:191"),
+    # the bf16 form of the training attention core (wgmma), at the same shapes
+    "dit_attention_train_fwd_bf16": ("stabletts_torch/csrc/attention_train.cuh",
+                                     "stabletts_tpu/ops/dit_attention_pallas_train.py:273"),
+    "dit_attention_train_bwd_bf16": ("stabletts_torch/csrc/attention_train.cuh",
+                                     "stabletts_tpu/ops/dit_attention_pallas_train.py:302"),
+    "attention_train_fwd_bf16": ("stabletts_torch/csrc/attention_train.cuh",
+                                 "stabletts_tpu/ops/attention_pallas_train.py:167"),
+    "attention_train_bwd_bf16": ("stabletts_torch/csrc/attention_train.cuh",
+                                 "stabletts_tpu/ops/attention_pallas_train.py:191"),
     "prenet_train_fwd": ("stabletts_torch/csrc/prenet_train.cu", "stabletts_tpu/ops/prenet_pallas_train.py:119"),
     "prenet_train_bwd": ("stabletts_torch/csrc/prenet_train.cu", "stabletts_tpu/ops/prenet_pallas_train.py:145"),
     "mpd_stack": ("stabletts_torch/csrc/mpd_stack.cu", "stabletts_tpu/ops/mpd_pallas.py:227"),
@@ -182,10 +204,15 @@ def bound_ms(flops: float, nbytes: float, dtype) -> tuple:
 
 
 def with_core(row: dict) -> dict:
-    """The row with the unit its products run on: "wgmma" for a bf16 kernel
-    on attention.cuh's core, else "fma" (every other product is fp32 FMA)."""
-    wgmma = row.get("kernel") in ATTENTION_CORE_KERNELS and row.get("dtype") == "bfloat16"
+    """The row with the unit its attention products run on: "wgmma" for a
+    bf16 kernel on attention.cuh's or attention_train.cuh's core, else "fma"
+    (every other product is fp32 FMA); a wgmma row whose tap GEMMs stay on
+    FMA says so under "projections"."""
+    wgmma = (row.get("kernel") in (*ATTENTION_CORE_KERNELS, *TRAIN_CORE_KERNELS)
+             and row.get("dtype") == "bfloat16")
     row["core"] = "wgmma" if wgmma else "fma"
+    if wgmma and row["kernel"] in FMA_PROJECTIONS:
+        row["projections"] = "fma"
     return row
 
 
@@ -207,9 +234,12 @@ def nbytes(*ts) -> int:
 def phase_sass() -> None:
     """The HGMMA (wgmma) instructions in each built library's SASS
     (cuobjdump -sass), in total and in each function of attention.cuh's bf16
-    core (`attention_kernel_wgmma`). Fails if a library that instantiates the
-    core has no such function, if one of them has no HGMMA, or if any
-    library holds the FMA core (`attention_kernel`) for bf16."""
+    core (`attention_kernel_wgmma`) and of attention_train.cuh's
+    (`attn_fwd_kernel_wgmma`, `attn_bwd_dkv_kernel_wgmma`,
+    `attn_bwd_dq_kernel_wgmma`). Fails if a library that instantiates a core
+    lacks its wgmma functions, if one of them has no HGMMA, or if any library
+    holds an FMA core (`attention_kernel`, or one of the three FMA training
+    kernels) for bf16."""
     import re
     import shutil
 
@@ -232,15 +262,21 @@ def phase_sass() -> None:
                     per_fn[fn] += 1
         core = {f: n for f, n in per_fn.items() if "attention_kernel_wgmma" in f}
         fma_bf16 = [f for f in per_fn if "attention_kernelI13__nv_bfloat16" in f]
+        train = {k: n for k in TRAIN_CORE_FUNCTIONS for f, n in per_fn.items() if f"{k}_wgmma" in f}
+        train_fma_bf16 = [f for f in per_fn for k in TRAIN_CORE_FUNCTIONS if f"{k}I13__nv_bfloat16" in f]
         libs[name] = {"hgmma": total, "wgmma_attention_functions": len(core),
                       "hgmma_per_attention_function": sorted(set(core.values())),
-                      "fma_bf16_attention_functions": len(fma_bf16)}
-        if (name in ATTENTION_LIBS and not core) or any(n == 0 for n in core.values()) or fma_bf16:
+                      "fma_bf16_attention_functions": len(fma_bf16),
+                      "hgmma_per_training_attention_function": train,
+                      "fma_bf16_training_attention_functions": len(train_fma_bf16)}
+        if ((name in ATTENTION_LIBS and not core) or any(n == 0 for n in core.values()) or fma_bf16
+                or (name in TRAIN_CORE_LIBS and len(train) != len(TRAIN_CORE_FUNCTIONS))
+                or any(n == 0 for n in train.values()) or train_fma_bf16):
             bad.append(name)
-    ok = not bad and all(name in libs for name in ATTENTION_LIBS)
+    ok = not bad and all(name in libs for name in (*ATTENTION_LIBS, *TRAIN_CORE_LIBS))
     emit({"phase": "sass", "tool": tool, "libraries": libs, "ok": ok})
     if not ok:
-        fail(f"sass: libraries without wgmma in attention.cuh's bf16 core, or with its FMA core in bf16: {bad}")
+        fail(f"sass: libraries without wgmma in a bf16 attention core, or with an FMA core in bf16: {bad}")
 
 
 def measure(kernel: str, dtype, shape: dict, run, run_plain, flops: float, io_bytes: float, select=None,
@@ -678,20 +714,23 @@ def check_mas(b, ty, tx, t_ys, t_xs, dev) -> dict:
 def phase_train_kernels(dev) -> dict:
     """The training kernels at (B=32, T=1024), (32, 512) and a ragged (2, 97),
     f32 and bf16, dropout 0 and 0.1, and at the decoder's shape in the
-    trainer, (32, 1000), f32, dropout 0.1; MAS at [32, 1000, 384] and [32,
-    1000, 512] with ragged lengths and at degenerate lengths. Returns the rows
-    of the kernels line: (32, 1000, f32, 0.1); MAS at [32, 1000, 512]."""
+    trainer, (32, 1000), f32, dropout 0.1 (the attention half also in bf16,
+    dropout 0.1 and 0); MAS at [32, 1000, 384] and [32, 1000, 512] with
+    ragged lengths and at degenerate lengths. Returns the rows of the kernels
+    line: (32, 1000, dropout 0.1) f32, and bf16 for the attention half; MAS
+    at [32, 1000, 512]."""
     rows, line_rows = [], {}
     f32, bf = torch.float32, torch.bfloat16
     cases = [(b, t, dt, rate) for b, t in ((32, 1024), (32, 512), (2, 97)) for dt in (f32, bf)
              for rate in (0.0, 0.1)] + [(32, 1000, f32, 0.1)]
     for kind in ("ffn_train", "dit_attention_train"):
-        for b, t, dt, rate in cases:
+        extra = [(32, 1000, bf, 0.1), (32, 1000, bf, 0.0)] if kind == "dit_attention_train" else []
+        for b, t, dt, rate in cases + extra:
             for row in check_train(kind, b, t, dt, rate, dev):
                 emit({"phase": "kernel_check", **with_core(row)})
                 rows.append(row)
-                if (b, t) == (32, 1000):
-                    line_rows[row["kernel"]] = row
+                if (b, t, rate) == (32, 1000, 0.1):
+                    line_rows[row["kernel"] + ("_bf16" if dt == bf else "")] = row
             torch.cuda.empty_cache()
     rng = np.random.default_rng(5)
     for tx in (384, 512):
@@ -925,7 +964,8 @@ def phase_opt_in_train_kernels(dev) -> dict:
     """The kernels of the opt-in training paths and of GAN training at the
     trainers' shapes and one small odd shape each: `attention_train` and
     `prenet_train` at (32, 1000), (32, 1024) and (2, 97), f32 and bf16
-    (`attention_train` also at (32, 512), the encoder blocks' shape);
+    (`attention_train` also at (32, 512), the encoder blocks' shape, and at
+    (32, 1000) with dropout 0, which leaves out the Philox work);
     `mpd_stack` at [16, 20480] and [2, 8190] for the five periods; the ISTFT
     head's gradient. Returns the rows of the kernels line."""
     from stabletts_torch.models.discriminators import DiscriminatorP
@@ -933,13 +973,13 @@ def phase_opt_in_train_kernels(dev) -> dict:
     rows, line_rows = [], {}
     f32, bf = torch.float32, torch.bfloat16
     for b, t, dt, rate in [(32, 1000, f32, 0.1), (32, 1000, bf, 0.1), (32, 1024, f32, 0.1), (32, 1024, bf, 0.1),
-                           (32, 512, f32, 0.1), (32, 512, bf, 0.1), (32, 1000, f32, 0.0), (2, 97, f32, 0.1),
-                           (2, 97, bf, 0.1), (4, 200, bf, 0.1), (4, 200, f32, 0.1)]:
+                           (32, 512, f32, 0.1), (32, 512, bf, 0.1), (32, 1000, f32, 0.0), (32, 1000, bf, 0.0),
+                           (2, 97, f32, 0.1), (2, 97, bf, 0.1), (4, 200, bf, 0.1), (4, 200, f32, 0.1)]:
         # the last two: keys and values with a common mean (see check_attention_train)
         for row in check_attention_train(b, t, dt, rate, dev, offset=2.0 if (b, t) == (4, 200) else 0.0):
             rows.append(row)
-            if (b, t, dt, rate) == (32, 1000, f32, 0.1):
-                line_rows[row["kernel"]] = row
+            if (b, t, rate) == (32, 1000, 0.1):
+                line_rows[row["kernel"] + ("_bf16" if dt == bf else "")] = row
         torch.cuda.empty_cache()
     for b, t, dt in [(32, 1000, f32), (32, 1000, bf), (32, 1024, f32), (32, 1024, bf), (2, 97, f32), (2, 97, bf)]:
         for row in check_prenet_train(b, t, dt, dev):
@@ -1296,7 +1336,7 @@ def phase_profile(label: str, fn, card: str) -> None:
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in events)
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:16]
     emit({"phase": f"profile_{label}", "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
           "device_idle_share": max(0.0, 1.0 - busy_us / wall_us) if busy_us else None,
           "kernel_launches": sum(e.count for e in events),
@@ -1423,7 +1463,7 @@ def _train_batch(path: str, dev, b: int = 32):
 
 def phase_train_overfit(dev, card: str, root: str):
     """8 steps on one fixed B=32 batch at lr 1e-3: the loss must fall.
-    Returns (step function, for the profile)."""
+    Returns the step functions in f32 and in bf16, for the profiles."""
     from stabletts_torch.config import TrainConfig
     from stabletts_torch.models import build_stabletts
     from stabletts_torch.train.scheduler import make_scheduler
@@ -1449,7 +1489,8 @@ def phase_train_overfit(dev, card: str, root: str):
           "grad_norms": [m["grad_norm"] for m in metrics], "card": card, "ok": ok})
     if not ok:
         fail(f"train_overfit: the loss did not fall: {losses}")
-    return lambda: train_step(model, opt, sched, batch, gen)
+    return lambda: train_step(model, opt, sched, batch, gen), \
+        lambda: train_step(model, opt, sched, batch, gen, torch.bfloat16)
 
 
 # one bf16 step against the f32 step on the same device, same weights and draws (rel). A single tensor's gradient
@@ -1698,26 +1739,34 @@ def phase_train_configs(dev, card: str, root: str) -> dict:
     return total
 
 
-def phase_train_bf16(dev, card: str, root: str, f32_step0_loss: float, f32_wall_ms: float) -> None:
+def phase_train_bf16(dev, card: str, root: str, f32_step0_loss: float, f32_wall_ms: float) -> dict:
     """`train()` with compute_dtype="bfloat16" on the same filelist and seed
     as `train_steps`: one epoch of 3 steps at B=32, the default configuration's
     launches per step, finite losses, f32 master parameters. The first
     step's loss is held to 0.1 (rel) of the f32 run's first step: the data
-    and the weights are the same, the draws (made in bf16) are not."""
+    and the weights are the same, the draws (made in bf16) are not. Then two
+    bf16 steps of the trained model on one batch under
+    STABLETTS_ATTN_TRAIN=xla, with that configuration's launches. Returns
+    the launches of the training attention core's bf16 kernels over both
+    runs ("_bf16" names)."""
     from stabletts_torch.config import TrainConfig
-    from stabletts_torch.train.train_tts import train
+    from stabletts_torch.train.scheduler import make_scheduler
+    from stabletts_torch.train.train_tts import make_optimizer, train, train_step
 
     cfg = TrainConfig(train_dataset_path=os.path.join(root, "filelist.jsonl"), batch_size=32, num_epochs=1,
                       model_save_path=os.path.join(root, "ckpt_bf16"), log_interval=1, save_interval=1,
                       loader_workers=2, compute_dtype="bfloat16")
     audio_s = cfg.batch_size * 1000 * 512 / 44100
     rows, last = [], [0.0]
+    launches = {f"{k}_bf16": 0 for k in TRAIN_CORE_KERNELS}
 
     def log_fn(step, metrics):
         now = time.time()
         wall, last[0] = now - last[0], now
         counts = read_train_counts()
         reset_train_counts()
+        for k in ("dit_attention_train_fwd", "dit_attention_train_bwd"):
+            launches[f"{k}_bf16"] += counts[k]
         mem = torch.cuda.max_memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         rows.append({"step": step, **metrics, "wall_ms": wall * 1e3, "max_memory_allocated_GB": mem / 1e9,
@@ -1738,6 +1787,34 @@ def phase_train_bf16(dev, card: str, root: str, f32_step0_loss: float, f32_wall_
           "bar": 0.1, "master_parameters_f32": master_f32, "card": card, "ok": ok})
     if not ok:
         fail(f"train_bf16: {rows}, first loss rel err {loss_rel}")
+
+    batch = _train_batch(cfg.train_dataset_path, dev)
+    opt = make_optimizer(state.model, cfg)
+    sched = make_scheduler(opt, cfg.learning_rate, cfg.warmup_steps, 100)
+    gen = torch.Generator(device=dev)
+    expect = TRAIN_CONFIGS["attn_xla"][1]
+    xla_rows = []
+    with train_config("attn_xla"):
+        for step in range(2):
+            for fn in opt_in_counters().values():
+                fn.launches = 0
+            gen.manual_seed(200 + step)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            metrics = {k: float(v) for k, v in train_step(state.model, opt, sched, batch, gen, torch.bfloat16).items()}
+            counts = {k: fn.launches for k, fn in opt_in_counters().items()}
+            xla_rows.append({"step": step, **metrics, "wall_ms": (time.time() - t0) * 1e3,
+                             "max_memory_allocated_GB": torch.cuda.max_memory_allocated() / 1e9, "launches": counts,
+                             "ok": counts == expect and all(math.isfinite(v) for v in metrics.values())})
+            for k in ("attention_train_fwd", "attention_train_bwd"):
+                launches[f"{k}_bf16"] += counts[k]
+    ok = all(r["ok"] for r in xla_rows)
+    emit({"phase": "train_bf16_attn_xla", "env": TRAIN_CONFIGS["attn_xla"][0], "steps": xla_rows,
+          "expected_launches": expect, "card": card, "ok": ok})
+    if not ok:
+        fail(f"train_bf16_attn_xla: {xla_rows}")
+    return launches
 
 
 # ------------------------------------------------------------ GAN training --
@@ -1963,16 +2040,18 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as root:
         train_counts, f32_first_loss, f32_wall_ms = phase_train_steps(dev, card, root)
         config_train_counts = phase_train_configs(dev, card, root)
-        phase_train_bf16(dev, card, root, f32_first_loss, f32_wall_ms)
-        step_fn = phase_train_overfit(dev, card, root)
+        bf16_counts = phase_train_bf16(dev, card, root, f32_first_loss, f32_wall_ms)
+        step_fn, step_fn_bf16 = phase_train_overfit(dev, card, root)
         gan_state, gan_audio, gan_cfg = phase_gan(dev, card, root)
     train_counts["mpd_stack"] = phase_mpd_in_gan(gan_state, gan_audio, card)
     phase_profile("train_step", step_fn, card)
+    phase_profile("train_bf16", step_fn_bf16, card)
     phase_profile("gan_step", lambda: vocos_step_for_profile(gan_state, gan_audio, gan_cfg), card)
     phase_train_gpu_vs_cpu(dev)
     phase_gan_gpu_vs_cpu(gan_state, gan_audio, gan_cfg)
     # the opt-in kernels' launches come from the `train_config` runs that run them
     train_counts.update({k: v for k, v in config_train_counts.items() if k not in train_counts})
+    train_counts.update(bf16_counts)
     missing = [k for k, v in train_counts.items() if v == 0]
     if missing:
         fail(f"kernels never launched on the training paths: {missing}")
@@ -1981,9 +2060,10 @@ def main() -> None:
     for name, (source, replaces) in KERNEL_INFO.items():
         r = bench.get(name) or variant_rows.get(name) or train_rows[name]
         shape = {k: r[k] for k in ("B", "T", "Ty", "Tx", "dropout", "masked", "period") if k in r}
-        per_step = {"launches_per_step": TRAIN_LAUNCHES_PER_STEP[name]} if name in TRAIN_LAUNCHES_PER_STEP else {}
-        if name in _NEW_ZERO:  # under the configuration that runs the kernel
-            per_step = {"launches_per_step": TRAIN_CONFIGS["attn_xla_prenet_fused"][1][name]}
+        step_name = name.removesuffix("_bf16")
+        per_step = {"launches_per_step": TRAIN_LAUNCHES_PER_STEP[step_name]} if step_name in TRAIN_LAUNCHES_PER_STEP else {}
+        if step_name in _NEW_ZERO:  # under the configuration that runs the kernel
+            per_step = {"launches_per_step": TRAIN_CONFIGS["attn_xla_prenet_fused"][1][step_name]}
         if name in variant_launches and name != "attention_packed":
             per_step = {"launches_per_tool_run": variant_launches[name]}
             launched = sum(variant_launches[name].values())
@@ -1997,7 +2077,8 @@ def main() -> None:
                         "launches": launched, **per_step,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        "shape": shape, "dtype": r["dtype"], "core": r.get("core")})
+                        "shape": shape, "dtype": r["dtype"], "core": r.get("core"),
+                        **({"projections": r["projections"]} if "projections" in r else {})})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -375,59 +375,7 @@ __global__ void __launch_bounds__(256) attention_kernel(const T* q, const T* k, 
 // T % 8 != 0, or an unaligned pointer) the tiles are copied element by
 // element instead.
 
-constexpr int ATT_WG_THREADS = 128;
-constexpr int ATT_TILE_BYTES = ATT_BQ * ATT_D * 2;
-constexpr int ATT_WG_SMEM = 1024 + 5 * ATT_TILE_BYTES;  // 1024-byte alignment slack, Q, K x 2, V x 2
-
-__device__ __forceinline__ float ld_tile(const uint8_t* tile, int r, int c) {
-  return __bfloat162float(*reinterpret_cast<const bf16*>(tile + swz(r, c)));
-}
-__device__ __forceinline__ void st_tile(uint8_t* tile, int r, int c, float x) {
-  *reinterpret_cast<bf16*>(tile + swz(r, c)) = __float2bfloat16(x);
-}
-
-// Tile element (row i, column c) = src[i * rs + c] for i < rows and c < cols,
-// else 0. vec: 16-byte cp.async per chunk (src and rs multiples of 8 values,
-// 16-byte aligned), committed by the caller; else plain loads and stores.
-__device__ __forceinline__ void load_tile(uint8_t* tile, const bf16* src, long long rs, int rows, int cols,
-                                          bool vec) {
-  const int tid = threadIdx.x;
-  if (vec) {
-    const uint32_t base = smem_addr(tile);
-#pragma unroll
-    for (int kk = 0; kk < ATT_BQ * 8 / ATT_WG_THREADS; ++kk) {
-      const int e = tid + kk * ATT_WG_THREADS, i = e >> 3, c = e & 7;
-      const int n = i < rows ? min(max(cols - c * 8, 0), 8) : 0;
-      cp_async16(base + i * 128 + (((c ^ i) & 7) << 4), n > 0 ? src + i * rs + c * 8 : src, n * 2);
-    }
-  } else {
-    for (int e = tid; e < ATT_BQ * ATT_D; e += ATT_WG_THREADS) {
-      const int i = e >> 6, c = e & 63;
-      *reinterpret_cast<bf16*>(tile + swz(i, c)) = (i < rows && c < cols) ? src[i * rs + c] : __ushort_as_bfloat16(0);
-    }
-  }
-}
-
-// dst[i * rs + c] = tile element (i, c) for i < rows and c < cols (vec as in
-// load_tile, where cols is then a multiple of 8)
-__device__ __forceinline__ void store_tile(const uint8_t* tile, bf16* dst, long long rs, int rows, int cols,
-                                           bool vec) {
-  const int tid = threadIdx.x;
-  if (vec) {
-#pragma unroll
-    for (int kk = 0; kk < ATT_BQ * 8 / ATT_WG_THREADS; ++kk) {
-      const int e = tid + kk * ATT_WG_THREADS, i = e >> 3, c = e & 7;
-      if (i < rows && c * 8 < cols)
-        *reinterpret_cast<uint4*>(dst + i * rs + c * 8) =
-            *reinterpret_cast<const uint4*>(tile + i * 128 + (((c ^ i) & 7) << 4));
-    }
-  } else {
-    for (int e = tid; e < ATT_BQ * ATT_D; e += ATT_WG_THREADS) {
-      const int i = e >> 6, c = e & 63;
-      if (i < rows && c < cols) dst[i * rs + c] = *reinterpret_cast<const bf16*>(tile + swz(i, c));
-    }
-  }
-}
+constexpr int ATT_WG_SMEM = 1024 + 5 * WG_TILE_BYTES;  // 1024-byte alignment slack, Q, K x 2, V x 2
 
 // One operand tile: 64 positions from t0 of (item, head) at `base`; MINOR =
 // [B, C, T] (rows are features, t runs along a row), else rows are positions.
@@ -443,10 +391,10 @@ __device__ __forceinline__ void load_operand(uint8_t* tile, const bf16* base, in
 __device__ __forceinline__ void rope_tile_bf16(uint8_t* X, int t0, int Tn, int C, int h, const bf16* cosv,
                                                const bf16* sinv, int rot) {
   const int half = rot / 2;
-  float y[ATT_BQ * ATT_D / ATT_WG_THREADS];
+  float y[ATT_BQ * ATT_D / WG_THREADS];
 #pragma unroll
-  for (int kk = 0; kk < ATT_BQ * ATT_D / ATT_WG_THREADS; ++kk) {
-    const int e = threadIdx.x + kk * ATT_WG_THREADS, r = e >> 6, d = e & 63, t = t0 + r;
+  for (int kk = 0; kk < ATT_BQ * ATT_D / WG_THREADS; ++kk) {
+    const int e = threadIdx.x + kk * WG_THREADS, r = e >> 6, d = e & 63, t = t0 + r;
     const float x = ld_tile(X, r, d);
     float xp = 0.f;
     if (d < half) xp = -ld_tile(X, r, d + half);
@@ -461,37 +409,25 @@ __device__ __forceinline__ void rope_tile_bf16(uint8_t* X, int t0, int Tn, int C
   }
   __syncthreads();
 #pragma unroll
-  for (int kk = 0; kk < ATT_BQ * ATT_D / ATT_WG_THREADS; ++kk) {
-    const int e = threadIdx.x + kk * ATT_WG_THREADS;
+  for (int kk = 0; kk < ATT_BQ * ATT_D / WG_THREADS; ++kk) {
+    const int e = threadIdx.x + kk * WG_THREADS;
     st_tile(X, e >> 6, e & 63, y[kk]);
   }
 }
 
-// keeps the compiler from moving accesses of a wgmma's registers across the
-// asynchronous product (accumulators are read only after wgmma_wait)
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 template <bool TMINOR, bool QPRE, bool ROPE, bool KTMINOR, int MODE>
-__global__ void __launch_bounds__(ATT_WG_THREADS) attention_kernel_wgmma(const bf16* q, const bf16* k, const bf16* v,
-                                                                        const float* mask, bf16* out, int Tn, int C,
-                                                                        float score_scale, const bf16* rope_cos,
-                                                                        const bf16* rope_sin, int rot) {
+__global__ void __launch_bounds__(WG_THREADS) attention_kernel_wgmma(const bf16* q, const bf16* k, const bf16* v,
+                                                                    const float* mask, bf16* out, int Tn, int C,
+                                                                    float score_scale, const bf16* rope_cos,
+                                                                    const bf16* rope_sin, int rot) {
   static_assert(!(ROPE && (TMINOR || KTMINOR)), "RoPE on load takes [B, T, C] operands");
   extern __shared__ uint8_t sm_raw[];
   // every tile 1024-byte aligned: the swizzle XORs absolute address bits
-  uint8_t* sm = sm_raw + ((1024 - (smem_addr(sm_raw) & 1023)) & 1023);
+  uint8_t* sm = align_1024(sm_raw);
   uint8_t* Qs = sm;
   // the K and V buffers of key tile j
-  const auto Ks = [&](int j) { return sm + (1 + (j & 1)) * ATT_TILE_BYTES; };
-  const auto Vs = [&](int j) { return sm + (3 + (j & 1)) * ATT_TILE_BYTES; };
+  const auto Ks = [&](int j) { return sm + (1 + (j & 1)) * WG_TILE_BYTES; };
+  const auto Vs = [&](int j) { return sm + (3 + (j & 1)) * WG_TILE_BYTES; };
 
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * ATT_BQ;
   const int tid = threadIdx.x, lane = tid % 32;
@@ -532,7 +468,7 @@ __global__ void __launch_bounds__(ATT_WG_THREADS) attention_kernel_wgmma(const b
   if constexpr (QPRE || ROPE) {
     __syncthreads();
     if constexpr (QPRE) {
-      for (int e = tid; e < ATT_BQ * ATT_D; e += ATT_WG_THREADS)
+      for (int e = tid; e < ATT_BQ * ATT_D; e += WG_THREADS)
         st_tile(Qs, e >> 6, e & 63, __fmul_rn(ld_tile(Qs, e >> 6, e & 63), kLog2e / sqrtf((float)ATT_D)));
     }
     if constexpr (ROPE) {
@@ -708,8 +644,8 @@ void launch_attention(const T* q, const T* k, const T* v, const float* mask, T* 
   if constexpr (std::is_same<T, bf16>::value) {
     auto kernel = attention_kernel_wgmma<TMINOR, QPRE, ROPE, KTMINOR, MODE>;
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ATT_WG_SMEM);
-    kernel<<<grid, ATT_WG_THREADS, ATT_WG_SMEM, stream>>>(q, k, v, mask, out, Tn, H * ATT_D, score_scale, rope_cos,
-                                                          rope_sin, rot);
+    kernel<<<grid, WG_THREADS, ATT_WG_SMEM, stream>>>(q, k, v, mask, out, Tn, H * ATT_D, score_scale, rope_cos,
+                                                      rope_sin, rot);
   } else {
     auto kernel = attention_kernel<T, TMINOR, QPRE, ROPE, KTMINOR, MODE>;
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ATT_SMEM);

@@ -12,6 +12,10 @@
 // products), backward 2.5x that (five products; this design recomputes the
 // scores in both backward kernels, seven products); q, k, v and o are 4 *
 // B*T*C values, 131 MB in f32 at B=32, T=1000, C=256 against 32.8 GFLOP forward.
+// bf16 runs every product on the tensor cores (attention_train.cuh's wgmma
+// kernels), and there the dropout's Philox work, which this bound does not
+// count (B*H*T^2/4 calls a pass: one pass forward, two backward), is a large
+// share of the time; f32 runs on the FMA units.
 //
 // Design (attention_train.cuh, shared with the DiT block's attention half). A
 // CTA has 227 KB, so all of K and V do not stay on chip as they do in VMEM:

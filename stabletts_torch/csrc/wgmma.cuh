@@ -13,11 +13,20 @@
 // absolute shared-memory address. The contiguous dimension of a tile's rows is
 // either the product's depth K ("K-major", no transpose) or its M / N
 // ("MN-major", transposed; allowed for 16-bit types only).
+//
+// Below the products: the tile helpers both wgmma cores share (the serving
+// core of attention.cuh and the training core of attention_train.cuh):
+// element access, cp.async copies of a 64 x 64 tile from device memory and
+// its store back, bf16 packing of A fragments, and register fences.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace stts {
+
+constexpr int WG_THREADS = 128;            // one warpgroup
+constexpr int WG_TILE_BYTES = 64 * 64 * 2;  // one swizzled 64 x 64 bf16 tile
 
 // byte offset of element (row r, column c) of a swizzled 64 x 64 bf16 tile
 __device__ __forceinline__ int swz(int r, int c) { return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2; }
@@ -119,10 +128,83 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
 }
+// cp.async of 4 bytes (zero-filled when src_bytes is 0)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// the first 1024-byte boundary at or after p (dynamic shared memory is only
+// 16-byte aligned; the swizzle XORs absolute address bits)
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) { return p + ((1024 - (smem_addr(p) & 1023)) & 1023); }
+
+__device__ __forceinline__ float ld_tile(const uint8_t* tile, int r, int c) {
+  return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(tile + swz(r, c)));
+}
+__device__ __forceinline__ void st_tile(uint8_t* tile, int r, int c, float x) {
+  *reinterpret_cast<__nv_bfloat16*>(tile + swz(r, c)) = __float2bfloat16(x);
+}
+
+// Tile element (row i, column c) = src[i * rs + c] for i < rows and c < cols,
+// else 0. vec: 16-byte cp.async per chunk (src and rs multiples of 8 values,
+// 16-byte aligned), committed by the caller; else plain loads and stores.
+__device__ __forceinline__ void load_tile(uint8_t* tile, const __nv_bfloat16* src, long long rs, int rows, int cols,
+                                          bool vec) {
+  const int tid = threadIdx.x;
+  if (vec) {
+    const uint32_t base = smem_addr(tile);
+#pragma unroll
+    for (int kk = 0; kk < 64 * 8 / WG_THREADS; ++kk) {
+      const int e = tid + kk * WG_THREADS, i = e >> 3, c = e & 7;
+      const int n = i < rows ? min(max(cols - c * 8, 0), 8) : 0;
+      cp_async16(base + i * 128 + (((c ^ i) & 7) << 4), n > 0 ? src + i * rs + c * 8 : src, n * 2);
+    }
+  } else {
+    for (int e = tid; e < 64 * 64; e += WG_THREADS) {
+      const int i = e >> 6, c = e & 63;
+      *reinterpret_cast<__nv_bfloat16*>(tile + swz(i, c)) =
+          (i < rows && c < cols) ? src[i * rs + c] : __ushort_as_bfloat16(0);
+    }
+  }
+}
+
+// dst[i * rs + c] = tile element (i, c) for i < rows and c < cols (vec as in
+// load_tile, where cols is then a multiple of 8)
+__device__ __forceinline__ void store_tile(const uint8_t* tile, __nv_bfloat16* dst, long long rs, int rows, int cols,
+                                           bool vec) {
+  const int tid = threadIdx.x;
+  if (vec) {
+#pragma unroll
+    for (int kk = 0; kk < 64 * 8 / WG_THREADS; ++kk) {
+      const int e = tid + kk * WG_THREADS, i = e >> 3, c = e & 7;
+      if (i < rows && c * 8 < cols)
+        *reinterpret_cast<uint4*>(dst + i * rs + c * 8) =
+            *reinterpret_cast<const uint4*>(tile + i * 128 + (((c ^ i) & 7) << 4));
+    }
+  } else {
+    for (int e = tid; e < 64 * 64; e += WG_THREADS) {
+      const int i = e >> 6, c = e & 63;
+      if (i < rows && c < cols) dst[i * rs + c] = *reinterpret_cast<const __nv_bfloat16*>(tile + swz(i, c));
+    }
+  }
+}
+
+// keeps the compiler from moving accesses of a wgmma's registers across the
+// asynchronous product (accumulators are read only after wgmma_wait)
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// two f32 values rounded to bf16 and packed, the lower column in the low half
+// (one register of an A fragment)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 }  // namespace stts

@@ -171,6 +171,10 @@ def _train_case(kind, dev, dtype, b, t_len, rate):
 def test_train_kernels(dev, kind, dtype, bar, b, t_len, rate):
     """Forward and every gradient of a training kernel pair against autograd
     through its plain version, with the same Philox bits at rate > 0."""
+    _check_train_kernels(dev, kind, dtype, bar, b, t_len, rate)
+
+
+def _check_train_kernels(dev, kind, dtype, bar, b, t_len, rate):
     from stabletts_torch.ops import dit_attention_train_cuda as att
     from stabletts_torch.ops import ffn_train_cuda as ffn
 
@@ -227,14 +231,23 @@ def test_istft_kernel(dev, dtype, bar, lengths):
 def test_attention_train_kernel(dev, dtype, bar, t_len, rate):
     """Forward and dq, dk, dv against autograd through the plain version, on
     the valid query rows, with the same Philox bits."""
+    _check_attention_train(dev, dtype, bar, 2, t_len, rate)
+
+
+def _check_attention_train(dev, dtype, bar, b, t_len, rate, offset=0.0):
+    """With `offset`, keys and values share a mean of that size and q is
+    small, as behind a projection with a bias: the true dq and dk then cancel
+    over the keys."""
     from stabletts_torch.ops import attention_train_cuda as A
     from stabletts_torch.ops import philox
 
     rng = np.random.default_rng(11)
-    b, c, heads = 2, 256, 4
+    c, heads = 256, 4
     _, mask = _masked_inputs(rng, dev, dtype, b, t_len, c)
     rows = (mask > 0)[..., None].to(dtype)
     q, k, v, cot = (_rand(rng, dev, dtype, b, t_len, c) for _ in range(4))
+    if offset:
+        q, k, v = q * 0.3, k + offset * _rand(rng, dev, dtype, 1, 1, c), v + offset * _rand(rng, dev, dtype, 1, 1, c)
     cot = cot * rows  # padded query rows are garbage by contract: give them no cotangent
     seed = philox.draw_seed(torch.Generator(device=dev).manual_seed(3), dev)
     outs = {}
@@ -246,8 +259,31 @@ def test_attention_train_kernel(dev, dtype, bar, t_len, rate):
         launched = (A.attention_train_fwd.launches - before[0], A.attention_train_bwd.launches - before[1])
         assert launched == ((1, 1) if name == "kernel" else (0, 0))
         outs[name] = [out * rows, *grads]
+    assert torch.isfinite(outs["kernel"][0]).all()
     for got, want in zip(outs["kernel"], outs["plain"]):
         assert _rel(got, want) <= bar
+
+
+@pytest.mark.parametrize("kind", ["attention_train", "dit_attention_train"])
+@pytest.mark.parametrize("t_len", [64, 97, 1000])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attention_train_core_bf16(dev, kind, t_len, rate):
+    """The bf16 training attention core (attention_train.cuh's wgmma kernels)
+    through both entry points: one full tile, a ragged one, many tiles with a
+    ragged last one, with and without dropout. The DiT attention half's
+    backward writes dV into its [M, 3C] gradient (row stride 3C)."""
+    if kind == "attention_train":
+        _check_attention_train(dev, BF16, 2e-2, 2, t_len, rate)
+    else:
+        _check_train_kernels(dev, "attention", BF16, 2e-2, 2, t_len, rate)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+def test_attention_train_kernel_kv_offset(dev, dtype):
+    """Keys and values with a common mean: dq and dk cancel over the keys, and
+    ds rounded to the dtype before its products (as the TPU kernel rounds
+    it) shows there; an error in a row's D would show far more. Bar 5e-2."""
+    _check_attention_train(dev, dtype, 5e-2, 4, 200, 0.1, offset=2.0)
 
 
 @pytest.mark.parametrize("dtype,bar", [(torch.float32, 5e-3), (BF16, 2e-2)])
