@@ -6,18 +6,21 @@ Phases, one JSON line each; any failure exits nonzero:
   1. environment (torch/CUDA versions, card name and power limit)
   2. kernel build (every csrc/*.cu, one nvcc each, in parallel), then the
      `sass` line: HGMMA (wgmma) instructions per library by cuobjdump; every
-     library with attention.cuh's bf16 core must have them in that core, and
-     both libraries with attention_train.cuh's in its three bf16 kernels
+     library with attention.cuh's bf16 core must have them in that core, both
+     libraries with attention_train.cuh's in its three bf16 kernels, and every
+     library with common.cuh's bf16 tap GEMM in its wgmma kernel; no library
+     may hold an FMA form of any of them for bf16
   3. each kernel against its plain PyTorch version on the card, at the main
      paths' shapes, f32 and bf16, with times and bounds and the unit of
-     each kernel's products ("core": "wgmma" for the bf16 attention cores of
-     attention.cuh and attention_train.cuh, else "fma"; "projections": "fma"
-     where a kernel's tap GEMMs run beside a wgmma core): the serving
+     each kernel's products ("core": "wgmma" for bf16 on the attention cores
+     or the tap GEMM, else "fma"; "projections" for the tap GEMMs beside an
+     attention core; "wgrad": "fma" for the weight-gradient GEMM): the serving
      kernels (the whole DiT block, its attention half and FFN half, packed
      attention in both layouts beside one scaled_dot_product_attention call,
-     ConvNeXt, ISTFT); the training kernels' forward and every gradient at
-     dropout 0 and 0.1 (shared Philox bits); MAS exactly, with the time per
-     mel row
+     ConvNeXt, ISTFT, and the bare tap GEMM at the DiT block's four products
+     beside one matmul or conv1d call); the training kernels' forward and
+     every gradient at dropout 0 and 0.1 (shared Philox bits); MAS exactly,
+     with the time per mel row
      the attention microbenchmark variants (attention_variants.cu: v2, RoPE
      on load, channel-major K, the three softmax decompositions) against
      their plain versions at (2, 97), (16, 1024) and the tools' (64, 1000),
@@ -105,7 +108,9 @@ BARS = {"dit_block": {torch.float32: 5e-3, torch.bfloat16: 2e-2},
         "ffn_train": {torch.float32: 5e-3, torch.bfloat16: 2e-2},
         "dit_attention_train": {torch.float32: 5e-3, torch.bfloat16: 2e-2},
         "attention_train": {torch.float32: 5e-3, torch.bfloat16: 2e-2},
-        "prenet_train": {torch.float32: 5e-3, torch.bfloat16: 2e-2}}
+        "prenet_train": {torch.float32: 5e-3, torch.bfloat16: 2e-2},
+        # the bare tap GEMM: f32 sums in another order (bf16: the DiT block's bar)
+        "tap_gemm": {torch.float32: 1e-4, torch.bfloat16: 2e-2}}
 VARIANT_KERNELS = ("attention_packed_v2", "attention_packed_rope", "attention_packed_kt",
                    "attention_decompose_matmul", "attention_decompose_nomax", "attention_decompose_bf16")
 # the attention bar for every variant (tools/tpu_selftest.py:68); the matmul-only
@@ -121,8 +126,16 @@ ATTENTION_LIBS = ("attention_packed", "attention_variants", "dit_attention", "di
 TRAIN_CORE_KERNELS = ("attention_train_fwd", "attention_train_bwd", "dit_attention_train_fwd", "dit_attention_train_bwd")
 TRAIN_CORE_LIBS = ("attention_train", "dit_attention_train")
 TRAIN_CORE_FUNCTIONS = ("attn_fwd_kernel", "attn_bwd_dkv_kernel", "attn_bwd_dq_kernel")
-# kernels whose projections (tap GEMMs, fp32 FMA) run beside a wgmma attention core in bf16
-FMA_PROJECTIONS = ("dit_block", "dit_attention", "dit_attention_train_fwd", "dit_attention_train_bwd")
+# kernels whose products include common.cuh's tap GEMM (bf16 on wgmma, f32 on FMA): beside an attention core
+# (the projections and convs of the DiT kernels), or as all of their products (in ConvNeXt, in bf16 only)
+TAP_GEMM_PROJECTIONS = ("dit_block", "dit_attention", "dit_attention_train_fwd", "dit_attention_train_bwd")
+TAP_GEMM_KERNELS = ("adaln_ffn", "istft", "ffn_train_fwd", "ffn_train_bwd", "prenet_train_fwd", "prenet_train_bwd",
+                    "convnext", "tap_gemm")
+# backward kernels whose weight gradients stay on common.cuh's FMA wgrad_kernel in both types
+FMA_WGRAD = ("dit_attention_train_bwd", "ffn_train_bwd", "prenet_train_bwd")
+# the libraries that instantiate the bf16 tap GEMM
+TAP_GEMM_LIBS = ("adaln_ffn", "convnext", "dit_attention", "dit_attention_train", "dit_block", "ffn_train", "istft",
+                 "prenet_train", "tap_gemm")
 KERNEL_INFO = {
     "dit_block": ("stabletts_torch/csrc/dit_block.cu", "stabletts_tpu/ops/dit_block_pallas.py:98"),
     "dit_attention": ("stabletts_torch/csrc/dit_attention.cu", "stabletts_tpu/ops/dit_attention_pallas.py:122"),
@@ -204,15 +217,19 @@ def bound_ms(flops: float, nbytes: float, dtype) -> tuple:
 
 
 def with_core(row: dict) -> dict:
-    """The row with the unit its attention products run on: "wgmma" for a
-    bf16 kernel on attention.cuh's or attention_train.cuh's core, else "fma"
-    (every other product is fp32 FMA); a wgmma row whose tap GEMMs stay on
-    FMA says so under "projections"."""
-    wgmma = (row.get("kernel") in (*ATTENTION_CORE_KERNELS, *TRAIN_CORE_KERNELS)
-             and row.get("dtype") == "bfloat16")
+    """The row with the unit its products run on: "core" is "wgmma" for a
+    bf16 kernel on attention.cuh's or attention_train.cuh's core or whose
+    products are all tap GEMMs, else "fma" (every f32 product is fp32 FMA);
+    "projections" names the unit of the tap GEMMs beside an attention core,
+    and "wgrad" that of a backward's weight-gradient GEMM (FMA in both
+    types)."""
+    kernel, bf16 = row.get("kernel"), row.get("dtype") == "bfloat16"
+    wgmma = bf16 and kernel in (*ATTENTION_CORE_KERNELS, *TRAIN_CORE_KERNELS, *TAP_GEMM_KERNELS)
     row["core"] = "wgmma" if wgmma else "fma"
-    if wgmma and row["kernel"] in FMA_PROJECTIONS:
-        row["projections"] = "fma"
+    if kernel in TAP_GEMM_PROJECTIONS:
+        row["projections"] = "wgmma" if bf16 else "fma"
+    if kernel in FMA_WGRAD:
+        row["wgrad"] = "fma"
     return row
 
 
@@ -234,12 +251,14 @@ def nbytes(*ts) -> int:
 def phase_sass() -> None:
     """The HGMMA (wgmma) instructions in each built library's SASS
     (cuobjdump -sass), in total and in each function of attention.cuh's bf16
-    core (`attention_kernel_wgmma`) and of attention_train.cuh's
+    core (`attention_kernel_wgmma`), of attention_train.cuh's
     (`attn_fwd_kernel_wgmma`, `attn_bwd_dkv_kernel_wgmma`,
-    `attn_bwd_dq_kernel_wgmma`). Fails if a library that instantiates a core
-    lacks its wgmma functions, if one of them has no HGMMA, or if any library
-    holds an FMA core (`attention_kernel`, or one of the three FMA training
-    kernels) for bf16."""
+    `attn_bwd_dq_kernel_wgmma`) and of common.cuh's bf16 tap GEMM
+    (`tap_gemm_wgmma_kernel`, one function per epilogue). Fails if a library
+    that instantiates a core or the bf16 tap GEMM lacks its wgmma functions,
+    if one of them has no HGMMA, or if any library holds an FMA core
+    (`attention_kernel`, one of the three FMA training kernels, or
+    `tap_gemm_kernel`) for bf16."""
     import re
     import shutil
 
@@ -264,19 +283,24 @@ def phase_sass() -> None:
         fma_bf16 = [f for f in per_fn if "attention_kernelI13__nv_bfloat16" in f]
         train = {k: n for k in TRAIN_CORE_FUNCTIONS for f, n in per_fn.items() if f"{k}_wgmma" in f}
         train_fma_bf16 = [f for f in per_fn for k in TRAIN_CORE_FUNCTIONS if f"{k}I13__nv_bfloat16" in f]
+        tap = {f: n for f, n in per_fn.items() if "tap_gemm_wgmma_kernel" in f}
+        tap_fma_bf16 = [f for f in per_fn if "tap_gemm_kernelI13__nv_bfloat16" in f]
         libs[name] = {"hgmma": total, "wgmma_attention_functions": len(core),
                       "hgmma_per_attention_function": sorted(set(core.values())),
                       "fma_bf16_attention_functions": len(fma_bf16),
                       "hgmma_per_training_attention_function": train,
-                      "fma_bf16_training_attention_functions": len(train_fma_bf16)}
+                      "fma_bf16_training_attention_functions": len(train_fma_bf16),
+                      "wgmma_tap_gemm_functions": len(tap), "hgmma_per_tap_gemm_function": sorted(set(tap.values())),
+                      "fma_bf16_tap_gemm_functions": len(tap_fma_bf16)}
         if ((name in ATTENTION_LIBS and not core) or any(n == 0 for n in core.values()) or fma_bf16
                 or (name in TRAIN_CORE_LIBS and len(train) != len(TRAIN_CORE_FUNCTIONS))
-                or any(n == 0 for n in train.values()) or train_fma_bf16):
+                or any(n == 0 for n in train.values()) or train_fma_bf16
+                or (name in TAP_GEMM_LIBS and not tap) or any(n == 0 for n in tap.values()) or tap_fma_bf16):
             bad.append(name)
-    ok = not bad and all(name in libs for name in (*ATTENTION_LIBS, *TRAIN_CORE_LIBS))
+    ok = not bad and all(name in libs for name in (*ATTENTION_LIBS, *TRAIN_CORE_LIBS, *TAP_GEMM_LIBS))
     emit({"phase": "sass", "tool": tool, "libraries": libs, "ok": ok})
     if not ok:
-        fail(f"sass: libraries without wgmma in a bf16 attention core, or with an FMA core in bf16: {bad}")
+        fail(f"sass: libraries without wgmma in a bf16 attention core or tap GEMM, or with an FMA one in bf16: {bad}")
 
 
 def measure(kernel: str, dtype, shape: dict, run, run_plain, flops: float, io_bytes: float, select=None,
@@ -435,6 +459,33 @@ def check_istft(rng, b, t, dtype, dev, with_lengths=False):
                    lambda: _istft_plain_on(re, im, n_fft, hop, md, lengths), 2 * b * t * (n_fft + 2) * n_fft, io)
 
 
+# the tap GEMM's products on the bench batch's DiT block: (taps, K, N)
+TAP_GEMM_SHAPES = {"qkv": (1, 256, 768), "out_proj": (1, 256, 256), "conv1": (3, 256, 1024), "conv2": (3, 1024, 256)}
+
+
+def check_tap_gemm(rng, b, t, dtype, dev, product):
+    """The bare tap GEMM (csrc/tap_gemm.cu, plain store epilogue) at one of
+    the DiT block's products, a "same" conv along T for 3 taps, against
+    `tap_gemm_plain`; the library yardstick is one torch.matmul (1 tap) or
+    F.conv1d (3 taps) call in the same dtype."""
+    import torch.nn.functional as F
+
+    from stabletts_torch.ops.tap_gemm_cuda import tap_gemm, tap_gemm_plain
+
+    taps, k, n = TAP_GEMM_SHAPES[product]
+    a = torch.from_numpy(rng.standard_normal((b * t, k)).astype(np.float32)).to(dev, dtype)
+    w = torch.from_numpy((rng.standard_normal((taps, k, n)) * (taps * k) ** -0.5).astype(np.float32)).to(dev, dtype)
+    kw = dict(t_in=t, t_out=t, taps=taps, shift0=-(taps // 2), shift_step=1)
+    if taps == 1:
+        library = lambda: torch.matmul(a, w[0])
+    else:
+        x, wc = a.view(b, t, k).transpose(1, 2), w.permute(2, 1, 0).contiguous()
+        library = lambda: F.conv1d(x, wc, padding=taps // 2)
+    return measure("tap_gemm", dtype, {"B": b, "T": t, "product": product, "taps": taps, "K": k, "N": n},
+                   lambda: tap_gemm(a, w, **kw), lambda: tap_gemm_plain(a, w, **kw), 2 * b * t * k * n * taps,
+                   nbytes(a, w) + b * t * n * a.element_size(), library=library)
+
+
 def _istft_plain_on(re, im, n_fft, hop, md, lengths):
     from stabletts_torch.ops.istft import istft_same_real
 
@@ -461,12 +512,13 @@ def phase_kernels(dev) -> dict:
     cases += [(fn, dict(b=b, t=t, dtype=dt)) for fn in (check_convnext, check_istft)
               for b, t in ((1, 1000), (8, 1000), (1, 333)) for dt in (f32, bf)]
     cases.append((check_istft, dict(b=8, t=1000, dtype=f32, with_lengths=True)))
+    cases += [(check_tap_gemm, dict(b=16, t=1024, dtype=dt, product=p)) for p in TAP_GEMM_SHAPES for dt in (f32, bf)]
     for fn, kw in cases:
         row = fn(rng, dev=dev, **kw)
         emit({"phase": "kernel_check", **with_core(row)})
         rows.append(row)
         at_bench = kw["b"] == (8 if fn in (check_convnext, check_istft) else 16) and kw["t"] >= 1000
-        if kw["dtype"] == bf and at_bench and kw.get("masked", True):
+        if kw["dtype"] == bf and at_bench and kw.get("masked", True) and fn is not check_tap_gemm:
             bench_rows[row["kernel"]] = row
     rows.append(check_flash_adapter(rng, 2, 1000, dev))
     emit({"phase": "kernel_check", **with_core(rows[-1])})
@@ -714,8 +766,8 @@ def check_mas(b, ty, tx, t_ys, t_xs, dev) -> dict:
 def phase_train_kernels(dev) -> dict:
     """The training kernels at (B=32, T=1024), (32, 512) and a ragged (2, 97),
     f32 and bf16, dropout 0 and 0.1, and at the decoder's shape in the
-    trainer, (32, 1000), f32, dropout 0.1 (the attention half also in bf16,
-    dropout 0.1 and 0); MAS at [32, 1000, 384] and [32, 1000, 512] with
+    trainer, (32, 1000), f32, dropout 0.1 (also in bf16, and the attention
+    half in bf16 at dropout 0); MAS at [32, 1000, 384] and [32, 1000, 512] with
     ragged lengths and at degenerate lengths. Returns the rows of the kernels
     line: (32, 1000, dropout 0.1) f32, and bf16 for the attention half; MAS
     at [32, 1000, 512]."""
@@ -724,7 +776,7 @@ def phase_train_kernels(dev) -> dict:
     cases = [(b, t, dt, rate) for b, t in ((32, 1024), (32, 512), (2, 97)) for dt in (f32, bf)
              for rate in (0.0, 0.1)] + [(32, 1000, f32, 0.1)]
     for kind in ("ffn_train", "dit_attention_train"):
-        extra = [(32, 1000, bf, 0.1), (32, 1000, bf, 0.0)] if kind == "dit_attention_train" else []
+        extra = [(32, 1000, bf, 0.1), (32, 1000, bf, 0.0)] if kind == "dit_attention_train" else [(32, 1000, bf, 0.1)]
         for b, t, dt, rate in cases + extra:
             for row in check_train(kind, b, t, dt, rate, dev):
                 emit({"phase": "kernel_check", **with_core(row)})

@@ -18,8 +18,9 @@
 //   2. conv k=3 C->F + SiLU + mask  (tap GEMM, rows shifted -1..+1, zero
 //      outside [0, T))
 //   3. conv k=3 F->C + mask + gated residual on x, rounded to x's type
-// mods is [B, 3, C]: shift, scale, gate. fp32 FMA products; bf16 values are
-// rounded at the TPU kernel's points (h, y, out). Any T works.
+// mods is [B, 3, C]: shift, scale, gate. The tap GEMMs run on wgmma in bf16
+// and on fp32 FMA in f32 (common.cuh); bf16 values are rounded at the TPU
+// kernel's points (h, y, out). Any T works.
 #include "common.cuh"
 
 using namespace stts;

@@ -7,15 +7,21 @@
 // out-projection and the two FFN convs), shared by the whole-block kernel and
 // its two halves; Philox4x32-10 dropout.
 //
-// Arithmetic is fp32 FMA throughout (no tensor cores): f32 inputs get true-f32
-// products, bf16 inputs are widened exactly to f32. The tile is 64x64 with a
-// 16-deep k step, 256 threads, 4x4 outputs per thread. The epilogue stages
-// the tile in shared memory so it can read neighbouring columns (RoPE).
+// The tap GEMM has two kernels behind one launch. f32 goes to the fp32-FMA
+// `tap_gemm_kernel` (true-f32 products; a 64x64 tile with a 16-deep k step,
+// 256 threads, 4x4 outputs per thread). bf16 goes to `tap_gemm_wgmma_kernel`
+// (tensor cores, f32 sums; see its note below). Both stage the finished tile
+// in shared memory, so an epilogue can read neighbouring columns (RoPE). The
+// weight-gradient GEMM is fp32 FMA in both types.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "wgmma.cuh"
 
 namespace stts {
 
@@ -183,10 +189,284 @@ inline TapGemm conv_gemm(const void* a, int k_in, const void* w, int n_out, int 
   return g;
 }
 
+// ---- the bf16 tap GEMM on wgmma ------------------------------------------
+// Replaces, for bf16, the FMA kernel above under the same contract (TapGemm,
+// Epi). What bounds it on the H100: its products, 2*M*N*K*taps FLOPs against
+// activations and weights read about once and the output written once (the
+// DiT block's convs ~600 FLOPs a byte, above the card's ~295 for bf16; its
+// projections 130-190, below it).
+//
+// Design: a 128 x 128 CTA tile, two consumer warpgroups of 64 rows each
+// issuing wgmma m64n128k16 (A and B from shared memory), and a 64-deep k
+// step; tap `tap` is just more k steps whose A rows are shifted by shift0 +
+// tap * shift_step. Each stage of a 3-deep ring holds A as two swizzled
+// 64 x 64 tiles (K-major) and B as two (MN-major for W[k, n], K-major for
+// w_trans); every thread of the CTA fills it by cp.async one k step ahead,
+// and each warpgroup keeps one product group in flight (wgmma.wait_group 1),
+// so a stage is refilled only after both warpgroups' products on it are done.
+// 97 KB of shared memory and at most 128 registers a thread let two CTAs
+// share an SM, so one's copies and epilogue overlap the other's products
+// (measured against a 4-deep ring at one CTA an SM and against no product in
+// flight: PERF.md). A row outside [0, min(t_in, row_len[b])) and a column
+// past k_in or N read nothing: cp.async zero-fills them. Where lda or ldw is
+// not a multiple of 8, a pointer is not 16-byte aligned, or a 16-byte chunk
+// would straddle k_split, the copies are element by element (the ISTFT's
+// lda = k_split = 1025): right, not fast. The epilogue stages each
+// warpgroup's 64 x 128 sums as two 64 x 64 sub-tiles of row stride
+// GEMM_BN + 1 in the ring's memory and calls the unchanged prep and store,
+// so a store reads neighbours within its 64 columns as on FMA.
+constexpr int TG_BM = 128, TG_BN = 128, TG_BK = 64, TG_STAGES = 3, TG_THREADS = 256;
+constexpr int TG_INFLIGHT = 1;  // product groups a warpgroup keeps in flight across a k step
+constexpr int TG_CTAS_PER_SM = 2;
+constexpr int TG_STAGE_BYTES = 4 * WG_TILE_BYTES;        // A: 2 tiles of 64 rows; B: 2 tiles of 64 columns
+constexpr int TG_SMEM = TG_STAGES * TG_STAGE_BYTES + 1024;  // + alignment slack
+constexpr int TG_SUB = GEMM_BM * (GEMM_BN + 1);           // floats of one staged 64 x 64 sub-tile
+static_assert(4 * TG_SUB * 4 <= TG_STAGES * TG_STAGE_BYTES, "the epilogue's sub-tiles fit in the ring");
+
+// 16 bytes (8 values) into chunk c8 of row r of a swizzled tile
+__device__ __forceinline__ void st_chunk(uint8_t* tile, int r, int c8, uint4 v) {
+  *reinterpret_cast<uint4*>(tile + r * 128 + (((c8 ^ r) & 7) << 4)) = v;
+}
+
+__device__ __forceinline__ uint4 pack8(const bf16 (&v)[8]) {
+  uint4 u;
+  u.x = (uint32_t)__bfloat16_as_ushort(v[0]) | ((uint32_t)__bfloat16_as_ushort(v[1]) << 16);
+  u.y = (uint32_t)__bfloat16_as_ushort(v[2]) | ((uint32_t)__bfloat16_as_ushort(v[3]) << 16);
+  u.z = (uint32_t)__bfloat16_as_ushort(v[4]) | ((uint32_t)__bfloat16_as_ushort(v[5]) << 16);
+  u.w = (uint32_t)__bfloat16_as_ushort(v[6]) | ((uint32_t)__bfloat16_as_ushort(v[7]) << 16);
+  return u;
+}
+
+// The A rows a thread copies, fixed across the k loop: output row m = b *
+// t_out + i reads item b's row i + shift where 0 <= i + shift < lim (lim = -1
+// past M). The vector copies take four rows, (tid / 8) + 32 j; the element
+// copies one, tid / 2.
+struct TapRows {
+  long long base[4];  // b * t_in
+  int i[4];
+  int lim[4];
+  __device__ __forceinline__ void set(const TapGemm& g, int j, int m) {
+    const int b = m < g.M ? m / g.t_out : 0;
+    base[j] = (long long)b * g.t_in;
+    i[j] = m - b * g.t_out;
+    lim[j] = m >= g.M ? -1 : (g.row_len ? min(g.row_len[b], g.t_in) : g.t_in);
+  }
+  // the source row of row j at this shift, or -1 where it reads zeros
+  __device__ __forceinline__ long long row(int j, int shift) const {
+    const int t = i[j] + shift;
+    return (t >= 0 && t < lim[j]) ? base[j] + t : -1;
+  }
+};
+
+// Stage `stage` of the ring <- the operands of k step `step`
+__device__ __forceinline__ void tap_gemm_load(const TapGemm& g, const TapRows& rows, uint8_t* ring, int stage,
+                                              int step, int ktiles, int n0, bool vec_a, bool vec_b) {
+  const bf16* A0 = static_cast<const bf16*>(g.a0);
+  const bf16* A1 = static_cast<const bf16*>(g.a1);
+  const int tid = threadIdx.x;
+  const int tap = step / ktiles, k0 = (step - tap * ktiles) * TG_BK;
+  const int shift = g.shift0 + tap * g.shift_step;
+  const bf16* W = static_cast<const bf16*>(g.w) + tap * g.w_tap_stride;
+  uint8_t* sa = ring + stage * TG_STAGE_BYTES;
+  uint8_t* sb = sa + 2 * WG_TILE_BYTES;
+  const int ka = min(g.k_split, g.k_in);  // columns read from a0
+  if (vec_a) {
+    // 128 rows x 8 chunks: row (tid / 8) + 32 i, chunk tid % 8
+    const int c = tid & 7, k = k0 + c * 8;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = (tid >> 3) + 32 * i, rr = r & 63;
+      const long long row = k < g.k_in ? rows.row(i, shift) : -1;
+      const bf16* src = A0;
+      int n = 0;
+      if (row >= 0) {
+        if (k < ka) {
+          src = A0 + row * g.lda + k;
+          n = min(ka - k, 8);
+        } else {
+          src = A1 + row * g.lda + (k - g.k_split);
+          n = min(g.k_in - k, 8);
+        }
+      }
+      cp_async16(smem_addr(sa + (r >> 6) * WG_TILE_BYTES) + rr * 128 + (((c ^ rr) & 7) << 4), src, n * 2);
+    }
+  } else {
+    // row tid / 2, 32 columns from (tid % 2) * 32
+    const int r = tid >> 1, rr = r & 63, c0 = (tid & 1) * 32;
+    const long long row = rows.row(0, shift);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      bf16 v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int k = k0 + c0 + q * 8 + e;
+        v[e] = __ushort_as_bfloat16(0);
+        if (row >= 0 && k < g.k_in) v[e] = k < ka ? A0[row * g.lda + k] : A1[row * g.lda + (k - g.k_split)];
+      }
+      st_chunk(sa + (r >> 6) * WG_TILE_BYTES, rr, (c0 >> 3) + q, pack8(v));
+    }
+  }
+  if (!g.w_trans) {
+    // W[k, n]: 64 k rows x 16 chunks of n; tile h holds columns 64 h .. 64 h + 63
+    if (vec_b) {
+      const int cb = tid & 15, n = n0 + cb * 8;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int kr = (tid >> 4) + 16 * i, k = k0 + kr;
+        const int nb = (k < g.k_in && n < g.N) ? min(g.N - n, 8) : 0;
+        const bf16* src = nb ? W + (long long)k * g.ldw + n : W;
+        cp_async16(smem_addr(sb + (cb >> 3) * WG_TILE_BYTES) + kr * 128 + ((((cb & 7) ^ kr) & 7) << 4), src,
+                   nb * 2);
+      }
+    } else {
+      const int kr = tid >> 2, k = k0 + kr, c0 = (tid & 3) * 32;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        bf16 v[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int n = n0 + c0 + q * 8 + e;
+          v[e] = (k < g.k_in && n < g.N) ? W[(long long)k * g.ldw + n] : __ushort_as_bfloat16(0);
+        }
+        const int c = c0 + q * 8;
+        st_chunk(sb + (c >> 6) * WG_TILE_BYTES, kr, (c & 63) >> 3, pack8(v));
+      }
+    }
+  } else {
+    // W[n, k]: 128 n rows x 8 chunks of k; tile h holds rows 64 h .. 64 h + 63
+    if (vec_b) {
+      const int c = tid & 7, k = k0 + c * 8;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int nr = (tid >> 3) + 32 * i, rr = nr & 63, n = n0 + nr;
+        const int nb = (n < g.N && k < g.k_in) ? min(g.k_in - k, 8) : 0;
+        const bf16* src = nb ? W + (long long)n * g.ldw + k : W;
+        cp_async16(smem_addr(sb + (nr >> 6) * WG_TILE_BYTES) + rr * 128 + (((c ^ rr) & 7) << 4), src, nb * 2);
+      }
+    } else {
+      const int nr = tid >> 1, rr = nr & 63, n = n0 + nr, c0 = (tid & 1) * 32;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        bf16 v[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int k = k0 + c0 + q * 8 + e;
+          v[e] = (n < g.N && k < g.k_in) ? W[(long long)n * g.ldw + k] : __ushort_as_bfloat16(0);
+        }
+        st_chunk(sb + (nr >> 6) * WG_TILE_BYTES, rr, (c0 >> 3) + q, pack8(v));
+      }
+    }
+  }
+}
+
+// fence_regs for the 64 accumulators of an m64n128 product
+__device__ __forceinline__ void tg_fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <typename Epi>
+__global__ void __launch_bounds__(TG_THREADS, TG_CTAS_PER_SM)
+    tap_gemm_wgmma_kernel(TapGemm g, Epi epi, int vec_a, int vec_b) {
+  extern __shared__ uint8_t tg_smem[];
+  uint8_t* ring = align_1024(tg_smem);
+  const int tid = threadIdx.x, wg = tid / WG_THREADS, lt = tid % WG_THREADS;
+  const int m0 = blockIdx.y * TG_BM, n0 = blockIdx.x * TG_BN;
+  const int ktiles = (g.k_in + TG_BK - 1) / TG_BK, steps = g.taps * ktiles;
+  constexpr int AHEAD = TG_STAGES - 1 - TG_INFLIGHT;  // k steps loaded ahead of the one multiplied
+
+  TapRows rows;
+  if (vec_a) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) rows.set(g, j, m0 + (tid >> 3) + 32 * j);
+  } else {
+    rows.set(g, 0, m0 + (tid >> 1));
+  }
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < AHEAD; ++s) {
+    if (s < steps) tap_gemm_load(g, rows, ring, s, s, ktiles, n0, vec_a, vec_b);
+    cp_async_commit();
+  }
+  for (int step = 0; step < steps; ++step) {
+    // this step's copies have landed for every thread, and every warpgroup's
+    // products of step - 1 - TG_INFLIGHT (whose stage the load below
+    // refills) are done
+    cp_async_wait<AHEAD - 1>();
+    fence_proxy_async();
+    __syncthreads();
+    const int next = step + AHEAD;
+    if (next < steps) tap_gemm_load(g, rows, ring, next % TG_STAGES, next, ktiles, n0, vec_a, vec_b);
+    cp_async_commit();
+
+    uint8_t* sa = ring + (step % TG_STAGES) * TG_STAGE_BYTES;
+    const uint32_t a_tile = smem_addr(sa + wg * WG_TILE_BYTES), b_tile = smem_addr(sa + 2 * WG_TILE_BYTES);
+    const uint64_t da = make_desc<false>(a_tile);
+    wgmma_fence();
+    if (g.w_trans) {
+      const uint64_t db = make_desc<false>(b_tile);
+#pragma unroll
+      for (int kk = 0; kk < TG_BK / 16; ++kk)
+        WgmmaSS<128, 0, 0>::run(acc, desc_k<false>(da, kk), desc_k<false>(db, kk), 1);
+    } else {
+      const uint64_t db = make_desc_mn(b_tile, WG_TILE_BYTES);
+#pragma unroll
+      for (int kk = 0; kk < TG_BK / 16; ++kk)
+        WgmmaSS<128, 0, 1>::run(acc, desc_k<false>(da, kk), desc_k<true>(db, kk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<TG_INFLIGHT>();
+    tg_fence_acc(acc);
+  }
+  wgmma_wait<0>();
+  tg_fence_acc(acc);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // epilogue: this warpgroup's rows m0 + 64 wg .. + 63 as two 64 x 64 sub-tiles
+  float* stage = reinterpret_cast<float*>(ring) + wg * 2 * TG_SUB;
+  const int ld = GEMM_BN + 1, r0 = 16 * (lt / 32) + (lt % 32) / 4, mw = m0 + wg * 64;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = r0 + 8 * h, c = 8 * j + 2 * (lt % 4) + e;
+        const int m = mw + r, n = n0 + c;
+        stage[(c >> 6) * TG_SUB + r * ld + (c & 63)] =
+            (m < g.M && n < g.N) ? epi.prep(m, n, acc[4 * j + 2 * h + e]) : 0.f;
+      }
+  __syncthreads();
+#pragma unroll
+  for (int sub = 0; sub < 2; ++sub)
+    for (int e = lt; e < 64 * 64; e += WG_THREADS) {
+      const int r = e >> 6, c = e & 63, m = mw + r, n = n0 + sub * 64 + c;
+      if (m < g.M && n < g.N) epi.store(m, n, stage + sub * TG_SUB, r, c);
+    }
+}
+
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// f32: the FMA kernel; bf16: the wgmma kernel. Errors surface through the
+// caller's cudaGetLastError.
 template <typename T, typename Epi>
 void launch_tap_gemm(const TapGemm& g, const Epi& epi, cudaStream_t stream) {
-  dim3 grid((g.N + GEMM_BN - 1) / GEMM_BN, (g.M + GEMM_BM - 1) / GEMM_BM);
-  tap_gemm_kernel<T, Epi><<<grid, GEMM_THREADS, 0, stream>>>(g, epi);
+  if constexpr (std::is_same<T, bf16>::value) {
+    const int vec_a = g.lda % 8 == 0 && aligned16(g.a0) &&
+                      (g.k_split >= g.k_in || (g.k_split % 8 == 0 && aligned16(g.a1)));
+    const int vec_b = g.ldw % 8 == 0 && g.w_tap_stride % 8 == 0 && aligned16(g.w);
+    cudaFuncSetAttribute(tap_gemm_wgmma_kernel<Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize, TG_SMEM);
+    dim3 grid((g.N + TG_BN - 1) / TG_BN, (g.M + TG_BM - 1) / TG_BM);
+    tap_gemm_wgmma_kernel<Epi><<<grid, TG_THREADS, TG_SMEM, stream>>>(g, epi, vec_a, vec_b);
+  } else {
+    dim3 grid((g.N + GEMM_BN - 1) / GEMM_BN, (g.M + GEMM_BM - 1) / GEMM_BM);
+    tap_gemm_kernel<T, Epi><<<grid, GEMM_THREADS, 0, stream>>>(g, epi);
+  }
 }
 
 // warp-wide sum

@@ -1,4 +1,4 @@
-// The Vocos ConvNeXt block on Hopper (sm_90a), one kernel per block.
+// The Vocos ConvNeXt block on Hopper (sm_90a).
 //
 // Replaces: the JAX package's ops/convnext_pallas.py::fused_convnext_block, which
 // keeps one batch element's [T, C] tile and the [T, F] GELU activations in
@@ -6,11 +6,20 @@
 // gamma*z.
 //
 // What bounds it on the H100: arithmetic. 4*b*t*C*F FLOPs (3.22 GFLOP at b=1,
-// T=1024, C=512, F=1536) against 2*b*t*C*dtype bytes of activations; the
-// [t, F] intermediate is three times the size of x and would dominate the
-// traffic if it went through device memory.
+// T=1024, C=512, F=1536) against 2*b*t*C*dtype bytes of activations.
 //
-// Design: a CTA owns 32 rows of one batch item and all C output columns.
+// bf16 (tensor cores), three launches on one stream:
+//   1. `dwconv_ln_kernel`: depthwise k=7 conv (rows outside [0, T) are zero)
+//      and LayerNorm (f32 stats, affine), one warp per row, h rounded to bf16;
+//   2. y = round(gelu_tanh(h @ W1 + b1))   (common.cuh's tap GEMM, 1 tap, on
+//      wgmma; GeluEpi)
+//   3. out = x + gamma * (y @ W2 + b2)     (the same; ResidualEpi)
+// The [B*T, F] bf16 intermediate goes through device memory (~25 MB each way
+// at B=8, T=1000, ~15 us at 3.35 TB/s), which one fused kernel would save at
+// the cost of splitting z across warpgroups.
+//
+// f32 (fp32 FMA), one kernel, `convnext_kernel`: a CTA owns 32 rows of one
+// batch item and all C output columns.
 //   1. depthwise k=7 conv with a +-3-row halo read from global memory (rows
 //      outside [0, T) are zero), into a [32, C] f32 tile in shared memory;
 //   2. LayerNorm (f32 stats, affine) per row, one warp per row, in place;
@@ -19,8 +28,9 @@
 //      columns for all 32 rows). The [rows, F] activations never reach
 //      device memory.
 //   4. out = x + gamma * (z + b2).
-// fp32 FMA throughout; GELU is the erf form at f32 and the tanh form at bf16.
-// The kernel takes any T; the caller keeps padded rows zero between blocks.
+// GELU is the erf form at f32 and the tanh form at bf16; both routes round h
+// and y at the same points. Any T works; the caller keeps padded rows zero
+// between blocks.
 #include "common.cuh"
 
 #include <math.h>
@@ -153,26 +163,109 @@ cudaError_t launch(const void* const* p, void* out, int B, int Tn, int F, float 
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const void* const* p, void* out, int B, int Tn, int C, int F, float eps, cudaStream_t s) {
+cudaError_t dispatch_f32(const void* const* p, void* out, int B, int Tn, int C, int F, float eps, cudaStream_t s) {
   switch (C) {
-    case 256: return launch<T, 1>(p, out, B, Tn, F, eps, s);
-    case 512: return launch<T, 2>(p, out, B, Tn, F, eps, s);
-    case 768: return launch<T, 3>(p, out, B, Tn, F, eps, s);
+    case 256: return launch<float, 1>(p, out, B, Tn, F, eps, s);
+    case 512: return launch<float, 2>(p, out, B, Tn, F, eps, s);
+    case 768: return launch<float, 3>(p, out, B, Tn, F, eps, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// ---- bf16: depthwise conv + LayerNorm, then two tap GEMMs on wgmma --------
+
+// h[row] = round(LN(dwconv(x)[row]) * ln_w + ln_b), one warp per row of [B*T, C];
+// lane l owns columns l + 32 j
+template <int CW>  // C / 32
+__global__ void dwconv_ln_kernel(const bf16* x, const bf16* dw_w, const bf16* dw_b, const bf16* ln_w,
+                                 const bf16* ln_b, bf16* h, int M, int Tn, float eps) {
+  constexpr int C = CW * 32;
+  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= M) return;
+  const int t = row % Tn;
+  const bf16* xr = x + (long long)row * C;
+  auto xa = [&](int d, int c) { return (t + d >= 0 && t + d < Tn) ? to_f(xr[(long long)d * C + c]) : 0.f; };
+  float v[CW];
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < CW; ++j) {
+    const int c = lane + 32 * j;
+    // JAX operation order: x*w3 + (x[t-d]*w[3-d] + x[t+d]*w[3+d]), d = 1..3
+    float acc = xa(0, c) * to_f(dw_w[3 * C + c]);
+#pragma unroll
+    for (int d = 1; d < 4; ++d)
+      acc = acc + xa(-d, c) * to_f(dw_w[(3 - d) * C + c]) + xa(d, c) * to_f(dw_w[(3 + d) * C + c]);
+    v[j] = acc + to_f(dw_b[c]);
+    s += v[j];
+  }
+  const float mu = warp_sum(s) / C;
+  float q = 0.f;
+#pragma unroll
+  for (int j = 0; j < CW; ++j) {
+    const float d = v[j] - mu;
+    q += d * d;
+  }
+  const float rstd = rsqrtf(warp_sum(q) / C + eps);
+#pragma unroll
+  for (int j = 0; j < CW; ++j) {
+    const int c = lane + 32 * j;
+    h[(long long)row * C + c] = from_f<bf16>((v[j] - mu) * rstd * to_f(ln_w[c]) + to_f(ln_b[c]));
+  }
+}
+
+// y = round(gelu_tanh(acc + b1))
+struct GeluEpi {
+  const bf16* bias;
+  bf16* y;
+  int F;
+  __device__ float prep(int m, int n, float acc) const { return acc + to_f(bias[n]); }
+  __device__ void store(int m, int n, const float* tile, int r, int c) const {
+    y[(long long)m * F + n] = from_f<bf16>(gelu<true>(tile[r * (GEMM_BN + 1) + c]));
+  }
+};
+
+// out = x + gamma * (acc + b2)
+struct ResidualEpi {
+  const bf16* bias;
+  const bf16* gamma;
+  const bf16* x;
+  bf16* out;
+  int C;
+  __device__ float prep(int m, int n, float acc) const { return acc + to_f(bias[n]); }
+  __device__ void store(int m, int n, const float* tile, int r, int c) const {
+    const long long i = (long long)m * C + n;
+    out[i] = from_f<bf16>(to_f(x[i]) + tile[r * (GEMM_BN + 1) + c] * to_f(gamma[n]));
+  }
+};
+
+cudaError_t run_bf16(const void* const* pv, void* outv, void* hv, void* yv, int B, int Tn, int C, int F, float eps,
+                     cudaStream_t s) {
+  const bf16* const* p = reinterpret_cast<const bf16* const*>(pv);
+  bf16* h = static_cast<bf16*>(hv);
+  bf16* y = static_cast<bf16*>(yv);
+  const int M = B * Tn, grid = (M + LN_ROWS - 1) / LN_ROWS;
+  switch (C) {
+    case 256: dwconv_ln_kernel<8><<<grid, 32 * LN_ROWS, 0, s>>>(p[0], p[1], p[2], p[3], p[4], h, M, Tn, eps); break;
+    case 512: dwconv_ln_kernel<16><<<grid, 32 * LN_ROWS, 0, s>>>(p[0], p[1], p[2], p[3], p[4], h, M, Tn, eps); break;
+    case 768: dwconv_ln_kernel<24><<<grid, 32 * LN_ROWS, 0, s>>>(p[0], p[1], p[2], p[3], p[4], h, M, Tn, eps); break;
+    default: return cudaErrorInvalidValue;
+  }
+  launch_tap_gemm<bf16>(conv_gemm(h, C, p[5], F, M, Tn, 1, false), GeluEpi{p[6], y, F}, s);
+  launch_tap_gemm<bf16>(conv_gemm(y, F, p[7], C, M, Tn, 1, false),
+                        ResidualEpi{p[8], p[9], p[0], static_cast<bf16*>(outv), C}, s);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// h [B*T, C] and y [B*T, F] are bf16 scratch for the bf16 route (unused in f32)
 extern "C" int convnext_forward(const void* x, const void* dw_w, const void* dw_b, const void* ln_w,
                                 const void* ln_b, const void* w1, const void* b1, const void* w2,
-                                const void* b2, const void* gamma, void* out, int B, int T, int C, int F,
-                                int is_bf16, float eps, void* stream) {
+                                const void* b2, const void* gamma, void* out, void* h, void* y, int B, int T,
+                                int C, int F, int is_bf16, float eps, void* stream) {
   if (F % CN_BF) return (int)cudaErrorInvalidValue;
   const void* p[10] = {x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = is_bf16 ? dispatch<bf16>(p, out, B, T, C, F, eps, s)
-                            : dispatch<float>(p, out, B, T, C, F, eps, s);
+  cudaError_t err = is_bf16 ? run_bf16(p, out, h, y, B, T, C, F, eps, s) : dispatch_f32(p, out, B, T, C, F, eps, s);
   return (int)err;
 }

@@ -21,8 +21,9 @@
 //      64-key tiles (attention.cuh)
 //   4. out-projection + gated residual, rounded to x's type (the whole block
 //      keeps this value in f32 instead: one rounding apart in bf16)
-// mods is [B, 3, C]: shift, scale, gate. fp32 FMA products, but wgmma for
-// bf16 attention (attention.cuh). Any T works.
+// mods is [B, 3, C]: shift, scale, gate. In bf16 every product runs on wgmma
+// (the tap GEMMs of common.cuh, the attention of attention.cuh), in f32 on
+// fp32 FMA. Any T works.
 #include "attention.cuh"
 
 using namespace stts;

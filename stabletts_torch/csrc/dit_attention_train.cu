@@ -42,8 +42,9 @@
 // before RoPE, p before PV, ds and dq/dk/dv after their products. Dropout:
 // weight (b, h, q, key) keeps when Philox word key%4 of counter
 // (key/4, q, b*H + h, 0) under the call's key is >= thresh. The projections
-// are fp32 FMA tap GEMMs; attention's products are fp32 FMA in f32 and wgmma
-// (tensor cores) in bf16 (attention_train.cuh). Head dim 64.
+// (tap GEMMs, common.cuh) and attention's products (attention_train.cuh) run
+// on wgmma (tensor cores) in bf16 and on fp32 FMA in f32; the weight
+// gradients are fp32 FMA in both. Head dim 64.
 #include "attention_train.cuh"
 
 using namespace stts;

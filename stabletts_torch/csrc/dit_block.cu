@@ -21,9 +21,9 @@
 //   6. conv k=3 C->F + SiLU + mask (tap GEMM, 3 taps, rows shifted -1..+1,
 //      zero outside [0, T))
 //   7. conv k=3 F->C + mask + gated residual                 (tap GEMM, 3 taps)
-// Every product is computed here with fp32 FMAs but bf16 attention, whose two
-// products run on wgmma (attention.cuh); bf16 values are rounded at the TPU
-// kernel's points. Any T works (ragged tiles are masked).
+// In bf16 every product runs on wgmma (the tap GEMMs of common.cuh, the
+// attention of attention.cuh), in f32 on fp32 FMA; bf16 values are rounded at
+// the TPU kernel's points. Any T works (ragged tiles are masked).
 #include "attention.cuh"
 
 using namespace stts;

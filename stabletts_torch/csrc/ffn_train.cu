@@ -33,7 +33,8 @@
 //             LayerNorm + modulate backward.
 // Tap convention (ffn_pallas_train.py:26-28): y[t] = h[t-1] w0 + h[t] w1 +
 // h[t+1] w2, so dh[t] = dy[t+1] w0^T + dy[t] w1^T + dy[t-1] w2^T and
-// dW[j] = sum_t h[t-1+j]^T dy[t]. All products are fp32 FMA; in bf16 the
+// dW[j] = sum_t h[t-1+j]^T dy[t]. The tap GEMMs run on wgmma in bf16 and on
+// fp32 FMA in f32, the weight gradients on fp32 FMA in both; in bf16 the
 // values are rounded where the TPU kernel rounds them (h, sd, dz, dy, dx).
 // Dropout: element (b, t, f) keeps when Philox word f%4 of counter
 // (f/4, t, b, 1) under the call's key is >= thresh.

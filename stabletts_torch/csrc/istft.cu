@@ -16,7 +16,9 @@
 // directly, so the [B, T, n_fft] frames never reach device memory. The
 // epilogue multiplies by the reciprocal envelope (static: precomputed on the
 // host in float64; lengths mode: summed in-kernel over each item's valid
-// frames) and writes only samples inside the trimmed window.
+// frames) and writes only samples inside the trimmed window. In bf16 the tap
+// GEMM runs on wgmma, its spectrum rows copied element by element (lda =
+// n_fft/2 + 1 is odd); in f32 on fp32 FMA (common.cuh).
 #include "common.cuh"
 
 using namespace stts;

@@ -33,9 +33,10 @@
 //             against W^T with the SiLU derivative in its epilogue.
 // Tap convention (ffn_pallas.py::_conv3): y[t] = h[t-1] w0 + h[t] w1 + h[t+1]
 // w2, so dh[t] = dy[t+1] w0^T + dy[t] w1^T + dy[t-1] w2^T and dW[j] = sum_t
-// h[t-1+j]^T dy[t]. All products are fp32 FMA; in bf16 the values are rounded
-// where the TPU kernel rounds them (h1, h2, dy2, dy1, dmu); y1 and y2 stay
-// f32; parameter gradients are f32.
+// h[t-1+j]^T dy[t]. The tap GEMMs run on wgmma in bf16 and on fp32 FMA in
+// f32, the weight gradients on fp32 FMA in both; in bf16 the values are
+// rounded where the TPU kernel rounds them (h1, h2, dy2, dy1, dmu); y1 and y2
+// stay f32; parameter gradients are f32.
 #include "common.cuh"
 
 #include <math.h>

@@ -2,9 +2,10 @@
 // exist on plain sm_90, and _build.py compiles for arch=compute_90a).
 //
 // One warpgroup (4 consecutive warps, 128 threads) issues each product
-// together: D[64 x 64] (+)= A[64 x 16] * B[16 x 64] in f32, bf16 operands.
-// B always comes from shared memory through a 64-bit matrix descriptor; A from
-// a descriptor or from registers.
+// together: D[64 x N] (+)= A[64 x 16] * B[16 x N] in f32, bf16 operands, N =
+// 64 (the attention cores) or 128 (the tap GEMM of common.cuh). B always
+// comes from shared memory through a 64-bit matrix descriptor; A from a
+// descriptor or from registers.
 //
 // Shared-memory tiles here are always 64 rows of 64 bf16 (128 bytes a row) in
 // the 128-byte swizzle: the 16-byte chunk c of row r is stored at chunk
@@ -14,8 +15,8 @@
 // either the product's depth K ("K-major", no transpose) or its M / N
 // ("MN-major", transposed; allowed for 16-bit types only).
 //
-// Below the products: the tile helpers both wgmma cores share (the serving
-// core of attention.cuh and the training core of attention_train.cuh):
+// Below the products: the tile helpers the wgmma attention cores share (the
+// serving core of attention.cuh and the training core of attention_train.cuh):
 // element access, cp.async copies of a 64 x 64 tile from device memory and
 // its store back, bf16 packing of A fragments, and register fences.
 #pragma once
@@ -121,7 +122,59 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
 }
 
+// The accumulator of one m64n128 product: as STTS_ACC32, for j < 16.
+#define STTS_ACC64(d)                                                                                            \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]),    \
+      "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),     \
+      "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),    \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]),    \
+      "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),    \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),    \
+      "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),    \
+      "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// The products of width N (64 or 128) with A and B from shared-memory
+// descriptors: d (+)= A[64 x 16] B[16 x N]; d holds N / 2 values a thread in
+// the accumulator layout above (column 8j + 2 (t % 4) + e for j < N / 8).
+template <int N, int TA, int TB>
+struct WgmmaSS;
+
+template <int TA, int TB>
+struct WgmmaSS<64, TA, TB> {
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+    wgmma_m64n64k16_ss<TA, TB>(d, da, db, accumulate);
+  }
+};
+
+template <int TA, int TB>
+struct WgmmaSS<128, TA, TB> {
+  static __device__ __forceinline__ void run(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, %67, %68;\n}\n"
+        : STTS_ACC64(d)
+        : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+  }
+};
+
 #undef STTS_ACC32
+#undef STTS_ACC64
+
+// The descriptor of an MN-major operand N = 128 wide, held as two swizzled
+// 64 x 64 tiles (64 rows along K, 64 values along M/N each) `atom_bytes`
+// apart: LBO is the step between the two 64-wide swizzle atoms along M/N, SBO
+// the step between groups of 8 rows along K (1024 bytes). A K-major operand
+// 128 rows wide needs no such form: its two tiles lie back to back, and 16
+// groups of 8 rows 1024 bytes apart are make_desc<false>'s SBO.
+__device__ __forceinline__ uint64_t make_desc_mn(uint32_t tile, uint32_t atom_bytes) {
+  const uint64_t lbo = atom_bytes >> 4, sbo = 1024 >> 4;
+  return (uint64_t)((tile & 0x3FFFF) >> 4) | (lbo << 16) | (sbo << 32) | (1ull << 62);
+}
 
 // cp.async of 16 bytes into shared memory; the bytes past `src_bytes` (0-16)
 // are zero-filled, so a chunk past the end of the data reads nothing.

@@ -1,5 +1,6 @@
-"""The Vocos ConvNeXt block as one CUDA kernel (csrc/convnext.cu) and its
-plain PyTorch version:
+"""The Vocos ConvNeXt block as CUDA kernels (csrc/convnext.cu: one fp32-FMA
+kernel in f32; in bf16 a depthwise-conv + LayerNorm kernel and two products
+on the tensor cores) and its plain PyTorch version:
 
     h = dwconv_k7(x)                   # depthwise, SAME zero padding
     h = LN(h) * ln_w + ln_b            # f32 statistics, eps 1e-6
@@ -11,7 +12,8 @@ In bf16, h and y are rounded to bf16 where the TPU kernel rounds them; every
 product accumulates in f32.
 
 `convnext_block` dispatches on the tensor's device: the plain version on the
-CPU, the kernel on the GPU. `convnext_block.launches` counts launches.
+CPU, the kernel on the GPU. `convnext_block.launches` counts
+calls of the kernel route (one per block, whatever its launches).
 """
 
 from __future__ import annotations
@@ -71,10 +73,14 @@ def _convnext_cuda(x: torch.Tensor, w: ConvNeXtWeights, eps: float) -> torch.Ten
     if w.dw_w.shape != (7, c) or w.w1.shape != (c, f) or w.w2.shape != (f, c):
         raise ValueError("convnext kernel: unexpected weight shapes")
     out = torch.empty_like(x)
-    fn = _build.load("convnext", "convnext_forward", 11, 5, 1)
+    bf16 = x.dtype == torch.bfloat16
+    # the bf16 route's h [B*T, C] and y [B*T, F] between its three launches
+    h = torch.empty(b * t * c if bf16 else 0, device=x.device, dtype=x.dtype)
+    y = torch.empty(b * t * f if bf16 else 0, device=x.device, dtype=x.dtype)
+    fn = _build.load("convnext", "convnext_forward", 13, 5, 1)
     err = fn(
-        x.data_ptr(), *(ten.data_ptr() for ten in w), out.data_ptr(),
-        b, t, c, f, int(x.dtype == torch.bfloat16), eps,
+        x.data_ptr(), *(ten.data_ptr() for ten in w), out.data_ptr(), h.data_ptr(), y.data_ptr(),
+        b, t, c, f, int(bf16), eps,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "convnext")

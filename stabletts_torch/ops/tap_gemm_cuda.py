@@ -1,0 +1,135 @@
+"""The tap GEMM of `csrc/common.cuh` on its own (csrc/tap_gemm.cu) and its
+plain PyTorch version.
+
+    out[b * t_out + i, n] = sum_tap sum_k A_tap[b, i, k] * W_tap[k, n]
+
+A_tap[b, i] is activation row t = i + shift0 + tap * shift_step of item b,
+zero outside [0, min(t_in, row_len[b])); its column k comes from a0 for
+k < k_split and from a1 (column k - k_split) otherwise, up to k_in. W_tap is
+read from w's storage at offset tap * w_tap_stride with row stride ldw, as
+[k_in, N], or with `w_trans` as [N, k_in] and transposed. This is the
+product inside the DiT kernels (k=3 convs and projections), the ISTFT head
+(4 taps over a split spectrum) and the training kernels' forward and input
+gradients; on the card bf16 runs on wgmma and f32 on fp32 FMA.
+
+`tap_gemm` dispatches on the tensor's device: the plain version on the CPU,
+the kernel on the GPU. `tap_gemm.launches` counts launches. The output is in
+the activations' dtype (the sums are f32).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class TapGemmShape(NamedTuple):
+    b: int
+    lda: int
+    k_split: int
+    k_in: int
+    n: int
+    ldw: int
+    w_tap_stride: int
+
+
+def _shape(a0, w, t_in, taps, a1, k_split, k_in, w_trans, n_out, ldw, w_tap_stride) -> TapGemmShape:
+    if a0.dim() != 2 or a0.shape[0] % t_in:
+        raise ValueError(f"tap_gemm: a0 must be [B * t_in, lda] (t_in={t_in}, a0 {tuple(a0.shape)})")
+    if a1 is not None and a1.shape != a0.shape:
+        raise ValueError("tap_gemm: a1 must have a0's shape")
+    lda = a0.shape[1]
+    if k_in is None:
+        k_in = lda if a1 is None else 2 * lda
+    if k_split is None:
+        k_split = k_in if a1 is None else lda
+    if min(k_split, k_in) > lda or (k_split < k_in and k_in - k_split > lda):
+        raise ValueError(f"tap_gemm: k_split={k_split}, k_in={k_in} do not fit rows of {lda}")
+    if n_out is None:
+        if w.dim() != 3 or w.shape[0] != taps:
+            raise ValueError("tap_gemm: give n_out, ldw and w_tap_stride unless w is [taps, K, N] ([taps, N, K])")
+        n_out = w.shape[1] if w_trans else w.shape[2]
+        ldw = w.shape[2]
+        w_tap_stride = w.shape[1] * w.shape[2]
+    last = (taps - 1) * w_tap_stride + (n_out - 1) * (ldw if w_trans else 1) + (k_in - 1) * (1 if w_trans else ldw)
+    if last >= w.numel():
+        raise ValueError("tap_gemm: w is too small for its strides")
+    return TapGemmShape(a0.shape[0] // t_in, lda, k_split, k_in, n_out, ldw, w_tap_stride)
+
+
+def tap_gemm_plain(a0, w, *, t_in: int, t_out: int, taps: int = 1, shift0: int = 0, shift_step: int = 0,
+                   a1=None, k_split=None, k_in=None, row_len=None, w_trans: bool = False, n_out=None, ldw=None,
+                   w_tap_stride=None) -> torch.Tensor:
+    """The TapGemm contract in plain PyTorch (f32 sums, one product per tap)."""
+    s = _shape(a0, w, t_in, taps, a1, k_split, k_in, w_trans, n_out, ldw, w_tap_stride)
+    a1 = a0 if a1 is None else a1
+    ka = min(s.k_split, s.k_in)
+    af = torch.cat([a0[:, :ka], a1[:, : s.k_in - ka]], dim=1).float().view(s.b, t_in, s.k_in)
+    lim = torch.full((s.b,), t_in, device=a0.device)
+    if row_len is not None:
+        lim = torch.clamp(row_len.to(a0.device, torch.long), max=t_in)
+    wf = w.reshape(-1).float()
+    i = torch.arange(t_out, device=a0.device)
+    out = torch.zeros(s.b * t_out, s.n, device=a0.device)
+    for tap in range(taps):
+        t = i + shift0 + tap * shift_step
+        valid = (t[None, :] >= 0) & (t[None, :] < lim[:, None])
+        rows = af[:, t.clamp(0, t_in - 1)] * valid[..., None]
+        off = wf.storage_offset() + tap * s.w_tap_stride
+        if w_trans:
+            wt = wf.as_strided((s.n, s.k_in), (s.ldw, 1), off).t()
+        else:
+            wt = wf.as_strided((s.k_in, s.n), (s.ldw, 1), off)
+        out += rows.reshape(-1, s.k_in) @ wt
+    return out.to(a0.dtype)
+
+
+def _tap_gemm_cuda(a0, w, t_in, t_out, taps, shift0, shift_step, a1, k_split, k_in, row_len, w_trans, n_out, ldw,
+                   w_tap_stride) -> torch.Tensor:
+    from stabletts_torch.ops import _build
+
+    if a0.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"tap_gemm kernel takes float32 or bfloat16, got {a0.dtype}")
+    s = _shape(a0, w, t_in, taps, a1, k_split, k_in, w_trans, n_out, ldw, w_tap_stride)
+    a1 = a0 if a1 is None else a1
+    for ten in (a0, a1, w):
+        if ten.device != a0.device or ten.dtype != a0.dtype or not ten.is_contiguous():
+            raise ValueError("tap_gemm kernel: a0, a1 and w must be contiguous tensors of one device and dtype")
+    if row_len is None:
+        lens = torch.empty(0, dtype=torch.int32, device=a0.device)
+    else:
+        lens = row_len.to(device=a0.device, dtype=torch.int32).contiguous()
+        if lens.shape != (s.b,):
+            raise ValueError("tap_gemm kernel: row_len must be [B]")
+    m = s.b * t_out
+    out = torch.empty(m, s.n, device=a0.device, dtype=a0.dtype)
+    fn = _build.load("tap_gemm", "tap_gemm_forward", 5, 14)
+    err = fn(
+        a0.data_ptr(), a1.data_ptr(), lens.data_ptr() if row_len is not None else 0, w.data_ptr(), out.data_ptr(),
+        s.k_split, s.lda, t_in, t_out, s.k_in, taps, shift0, shift_step, s.ldw, m, s.n, int(w_trans),
+        s.w_tap_stride, int(a0.dtype == torch.bfloat16),
+        torch.cuda.current_stream(a0.device).cuda_stream,
+    )
+    _build.check(err, "tap_gemm")
+    tap_gemm.launches += 1
+    return out
+
+
+def tap_gemm(a0, w, *, t_in: int, t_out: int, taps: int = 1, shift0: int = 0, shift_step: int = 0, a1=None,
+             k_split=None, k_in=None, row_len=None, w_trans: bool = False, n_out=None, ldw=None,
+             w_tap_stride=None) -> torch.Tensor:
+    """a0 (and a1) [B * t_in, lda], w as described above -> [B * t_out, N]
+    in a0's dtype, on a0's device: the plain version on the CPU, the kernel
+    on the GPU."""
+    if a0.device.type == "cpu":
+        return tap_gemm_plain(a0, w, t_in=t_in, t_out=t_out, taps=taps, shift0=shift0, shift_step=shift_step,
+                              a1=a1, k_split=k_split, k_in=k_in, row_len=row_len, w_trans=w_trans, n_out=n_out,
+                              ldw=ldw, w_tap_stride=w_tap_stride)
+    if a0.device.type != "cuda":
+        raise ValueError(f"tap_gemm runs on cpu or cuda, not {a0.device}")
+    return _tap_gemm_cuda(a0, w, t_in, t_out, taps, shift0, shift_step, a1, k_split, k_in, row_len, w_trans, n_out,
+                          ldw, w_tap_stride)
+
+
+tap_gemm.launches = 0

@@ -1,0 +1,150 @@
+"""Where the bf16 tap GEMM's time goes, on one GPU.
+
+    python -m stabletts_torch.tools.tap_gemm_probe [--iters 50]
+
+Builds `csrc/tap_gemm.cu` (the tap GEMM of `csrc/common.cuh` with a plain
+store epilogue) several times, each from a copy of the sources with one
+change to `common.cuh`, and times each build at the bench batch's four DiT
+products (M = 16 * 1024 rows; QKV, out-projection, conv1, conv2) in bf16,
+mean of `--iters` back-to-back calls between two CUDA events, two rounds in
+opposite orders. The builds:
+
+  as_built            the kernel as it is
+  ring4_1cta          a 4-deep ring at one CTA an SM (AHEAD 2 k steps)
+  ring3_no_inflight   no product group in flight across a k step (AHEAD 2)
+  ring4_1cta_no_inflight
+  no_copies           no cp.async at all: the products run on whatever the
+                      ring holds (its result is meaningless), so this is the
+                      main loop's products, barriers and epilogue alone
+  no_epilogue         the sums are not staged or stored (one conditional
+                      store keeps the main loop alive)
+  no_copies_no_epilogue
+
+The first four are checked against `tap_gemm_plain`. It prints one JSON line
+per build and product (ms of each round, TFLOP/s of the best, and for
+`as_built` and `no_epilogue` the rate at which the copies fill shared memory
+from L2: the A and B tiles of every k step of every CTA), then the card line.
+The host issues a call every ~40 us (shape checks, allocation, ctypes), so
+products shorter than that (QKV, out-projection) read the host, not the
+kernel. Nothing of the port calls it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import shutil
+import subprocess
+
+import numpy as np
+import torch
+
+SHAPES = {"qkv": (1, 256, 768), "out_proj": (1, 256, 256), "conv1": (3, 256, 1024), "conv2": (3, 1024, 256)}
+B, T = 16, 1024
+TILE, BK = 128, 64  # the kernel's CTA tile (M and N) and k step
+
+
+def _variants(src: str) -> dict:
+    def sub(text, pairs):
+        for old, new in pairs:
+            if text.count(old) != 1:
+                raise RuntimeError(f"tap_gemm_probe: `{old}` not found once in common.cuh; update the probe")
+            text = text.replace(old, new)
+        return text
+
+    ring4 = [("TG_STAGES = 3", "TG_STAGES = 4"), ("TG_CTAS_PER_SM = 2", "TG_CTAS_PER_SM = 1")]
+    no_inflight = [("TG_INFLIGHT = 1;", "TG_INFLIGHT = 0;")]
+    no_copies = [("if (s < steps) tap_gemm_load(", "if (false) tap_gemm_load("),
+                 ("if (next < steps) tap_gemm_load(", "if (false) tap_gemm_load(")]
+    e0, e1 = src.index("  // epilogue: this warpgroup's rows"), src.index("inline bool aligned16")
+    no_epi = src[:e0] + (
+        "  float sum = 0.f;\n"
+        "  for (int i = 0; i < 64; ++i) sum += acc[i];\n"
+        "  if (sum == 1234.5f) epi.store(m0, n0, reinterpret_cast<float*>(ring), 0, 0);\n"
+        "}\n\n") + src[e1:]
+    return {"as_built": src, "ring4_1cta": sub(src, ring4), "ring3_no_inflight": sub(src, no_inflight),
+            "ring4_1cta_no_inflight": sub(src, ring4 + no_inflight), "no_copies": sub(src, no_copies),
+            "no_epilogue": no_epi, "no_copies_no_epilogue": sub(no_epi, no_copies)}
+
+
+def _build_variants(_build) -> dict:
+    src = open(os.path.join(_build.CSRC_DIR, "common.cuh")).read()
+    procs = {}
+    for name, text in _variants(src).items():
+        d = os.path.join(_build.BUILD_DIR, "probe", name)
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(_build.CSRC_DIR, d)
+        with open(os.path.join(d, "common.cuh"), "w") as f:
+            f.write(text)
+        lib = os.path.join(d, "libtap_gemm.so")
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", d, "-o", lib, os.path.join(d, "tap_gemm.cu")]
+        procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (lib, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the {name} build:\n{out}")
+        libs[name] = ctypes.CDLL(lib)
+    return libs
+
+
+def _loop_ms(fn, iters: int) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--iters", type=int, default=50)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("tap_gemm_probe measures the kernel on a GPU; none is present")
+    from stabletts_torch.ops import _build
+    from stabletts_torch.ops.tap_gemm_cuda import tap_gemm, tap_gemm_plain
+
+    _build.build_all()
+    libs = _build_variants(_build)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    inputs = {}
+    for prod, (taps, k, n) in SHAPES.items():
+        a = torch.from_numpy(rng.standard_normal((B * T, k)).astype(np.float32)).to(dev, torch.bfloat16)
+        w = torch.from_numpy((rng.standard_normal((taps, k, n)) * (taps * k) ** -0.5).astype(np.float32))
+        kw = dict(t_in=T, t_out=T, taps=taps, shift0=-(taps // 2), shift_step=1)
+        inputs[prod] = (a, w.to(dev, torch.bfloat16), kw)
+    rows = {}
+    for order in (list(libs), list(reversed(libs))):
+        for name in order:
+            _build._libs["tap_gemm"] = libs[name]
+            for prod, (a, w, kw) in inputs.items():
+                row = rows.setdefault((name, prod), {"build": name, "product": prod, "ms": []})
+                row["ms"].append(_loop_ms(lambda: tap_gemm(a, w, **kw), args.iters))
+                if "rel_err" not in row and not name.startswith("no_"):
+                    got, want = tap_gemm(a, w, **kw).float(), tap_gemm_plain(a, w, **kw).float()
+                    row["rel_err"] = ((got - want).abs().max() / want.abs().max()).item()
+    for (name, prod), row in rows.items():
+        taps, k, n = SHAPES[prod]
+        best = min(row["ms"])
+        row["tflops"] = 2 * B * T * k * n * taps / best / 1e9
+        if name in ("no_epilogue", "as_built"):
+            ctas = -(-B * T // TILE) * -(-n // TILE)
+            ring_bytes = ctas * taps * -(-k // BK) * 2 * TILE * BK * 2  # A and B tiles of every k step
+            row["copied_GB_per_s"] = ring_bytes / best / 1e6
+        print(json.dumps(row), flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=False).stdout.strip()
+    print(smi or torch.cuda.get_device_name(0))
+
+
+if __name__ == "__main__":
+    main()

@@ -126,16 +126,66 @@ def test_kernels_raise_on_what_they_do_not_take(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, BF16])
-@pytest.mark.parametrize("t_len", [32, 45])
-def test_convnext_kernel(dev, dtype, t_len):
+@pytest.mark.parametrize("t_len", [32, 45, 1000])
+@pytest.mark.parametrize("c", [256, 512, 768])
+def test_convnext_kernel(dev, dtype, t_len, c):
+    """Each width of the kernel's dispatch (F = 3C, Vocos's 512 -> 1536)."""
     from stabletts_torch.ops.convnext_cuda import ConvNeXtWeights, convnext_block, convnext_block_plain
 
     rng = np.random.default_rng(1)
-    c, f = 512, 1536
+    f = 3 * c
     w = ConvNeXtWeights(*(_rand(rng, dev, dtype, *s, scale=0.05) for s in
                           [(7, c), (c,), (c,), (c,), (c, f), (f,), (f, c), (c,), (c,)]))
     x = _rand(rng, dev, dtype, 2, t_len, c)
     assert _rel(convnext_block(x, w), convnext_block_plain(x, w)) <= 2e-2
+
+
+# The bare tap GEMM (csrc/tap_gemm.cu: bf16 on wgmma, f32 on FMA) against
+# tap_gemm_plain at the edges of its contract. Each case: (b, t_in, lda, taps,
+# shift0, shift_step, n_out, w_trans, row_len, extra) with extra the ISTFT's
+# split-spectrum form (t_out = t_in + 3, a1, k_split = lda, weights read as
+# overlapping windows of one [2 * lda, n_fft] matrix).
+TAP_CASES = {
+    "ragged_m_77": (2, 77, 256, 1, 0, 0, 768, False, None, None),
+    "ragged_m_97_conv": (2, 97, 256, 3, -1, 1, 1024, False, None, None),
+    "taps_across_items": (3, 97, 1024, 3, -1, 1, 256, False, None, None),
+    "row_len": (3, 97, 256, 3, -1, 1, 256, False, [97, 50, 3], None),
+    "w_trans": (2, 97, 1024, 3, 1, -1, 256, True, None, None),
+    "w_trans_qkv": (2, 77, 768, 1, 0, 0, 256, True, None, None),
+    "k_split_1025": (2, 37, 1025, 4, 0, -1, 512, False, None, "istft"),
+    "k_split_1025_lengths": (2, 37, 1025, 4, 0, -1, 512, False, [37, 20], "istft"),
+    "n_200": (2, 97, 256, 3, -1, 1, 200, False, None, None),
+    "n_77_unaligned_ldw": (2, 97, 256, 3, -1, 1, 77, False, None, None),
+    "unaligned_lda_257": (2, 97, 257, 3, -1, 1, 256, False, None, None),
+    "unaligned_lda_260_trans": (2, 97, 260, 3, 1, -1, 256, True, None, None),
+}
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float32, 1e-4), (BF16, 2e-2)])
+@pytest.mark.parametrize("case", sorted(TAP_CASES))
+def test_tap_gemm_kernel(dev, dtype, bar, case):
+    from stabletts_torch.ops.tap_gemm_cuda import tap_gemm, tap_gemm_plain
+
+    b, t_in, lda, taps, shift0, step, n_out, w_trans, row_len, extra = TAP_CASES[case]
+    rng = np.random.default_rng(len(case))
+    kw = dict(t_in=t_in, t_out=t_in, taps=taps, shift0=shift0, shift_step=step, w_trans=w_trans)
+    a0 = _rand(rng, dev, dtype, b * t_in, lda)
+    if extra == "istft":
+        n_fft = 4 * n_out
+        w = _rand(rng, dev, dtype, 2 * lda, n_fft, scale=(2 * lda) ** -0.5)
+        kw.update(t_out=t_in + taps - 1, a1=_rand(rng, dev, dtype, b * t_in, lda), k_split=lda, k_in=2 * lda,
+                  n_out=n_out, ldw=n_fft, w_tap_stride=n_out)
+    else:
+        w = _rand(rng, dev, dtype, taps, *((n_out, lda) if w_trans else (lda, n_out)), scale=(taps * lda) ** -0.5)
+    if row_len is not None:
+        kw["row_len"] = torch.tensor(row_len, device=dev)
+    before = tap_gemm.launches
+    got = tap_gemm(a0, w, **kw)
+    assert tap_gemm.launches == before + 1
+    want = tap_gemm_plain(a0, w, **kw)
+    assert got.shape == want.shape == (b * kw["t_out"], n_out)
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, want) <= bar
 
 
 def _train_case(kind, dev, dtype, b, t_len, rate):

@@ -2,11 +2,20 @@
 package's: `load_and_resample_audio` and `VocosDataset.get_segment` of both
 packages on the same seeded files. Both libraries are built from the same C++
 with the same flags, so the outputs agree within 1e-6 (in practice bit for
-bit); scipy's polyphase resampler, the port's fallback, differs by ~4e-2."""
+bit); scipy's polyphase resampler, the port's fallback, differs by ~4e-2.
+
+The JAX package's loader compiles its library in place, next to its sources,
+when the library is older than them; a process that opens the file while
+another one rewrites it falls back to scipy for the rest of its life. So this
+module builds the JAX package's library into a private file of its own."""
+
+import os
 
 import numpy as np
 import pytest
 from scipy.io import wavfile
+
+import stabletts_tpu.native as jax_native
 
 from stabletts_torch.data.vocos_dataset import VocosDataset
 from stabletts_torch.native import get_lib as port_lib
@@ -32,8 +41,24 @@ def _write_wav(tmp_path, sr: int, seconds: float = 1.0) -> str:
     return path
 
 
-def test_both_packages_take_the_native_path():
-    assert jax_lib() is not None
+@pytest.fixture(scope="module", autouse=True)
+def private_jax_lib(tmp_path_factory):
+    """Points the JAX package's loader at a private library path: its own
+    `_build` compiles its sources there, with its own flags, on first use and
+    no other process reads or writes that file. The three attributes are
+    restored afterwards."""
+    path = str(tmp_path_factory.mktemp("jax_native") / "libstabletts_native.so")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_native, "_LIB_PATH", path)
+        mp.setattr(jax_native, "_lib", None)
+        mp.setattr(jax_native, "_build_failed", False)
+        yield path
+
+
+def test_both_packages_take_the_native_path(private_jax_lib):
+    lib = jax_lib()
+    assert lib is not None
+    assert os.path.samefile(lib._name, private_jax_lib)
     assert port_lib() is not None
 
 
