@@ -7,18 +7,23 @@ Phases, one JSON line each; any failure exits nonzero:
   2. kernel build (every csrc/*.cu, one nvcc each, in parallel), then the
      `sass` line: HGMMA (wgmma) instructions per library by cuobjdump; every
      library with attention.cuh's bf16 core must have them in that core, both
-     libraries with attention_train.cuh's in its three bf16 kernels, and every
-     library with common.cuh's bf16 tap GEMM in its wgmma kernel; no library
-     may hold an FMA form of any of them for bf16
+     libraries with attention_train.cuh's in its three bf16 kernels, every
+     library with common.cuh's bf16 tap GEMM in its wgmma kernel, and every
+     library with its bf16 weight-gradient GEMM in `wgrad_wgmma_kernel`; no
+     library may hold an FMA form of any of them for bf16
   3. each kernel against its plain PyTorch version on the card, at the main
      paths' shapes, f32 and bf16, with times and bounds and the unit of
-     each kernel's products ("core": "wgmma" for bf16 on the attention cores
-     or the tap GEMM, else "fma"; "projections" for the tap GEMMs beside an
-     attention core; "wgrad": "fma" for the weight-gradient GEMM): the serving
+     each kernel's products ("core": "wgmma" for bf16 on the attention cores,
+     the tap GEMM or the weight-gradient GEMM, else "fma"; "projections" for
+     the tap GEMMs beside an attention core; "wgrad" for a backward's
+     weight-gradient GEMM, "wgmma" in bf16 and "fma" in f32): the serving
      kernels (the whole DiT block, its attention half and FFN half, packed
      attention in both layouts beside one scaled_dot_product_attention call,
      ConvNeXt, ISTFT, and the bare tap GEMM at the DiT block's four products
-     beside one matmul or conv1d call); the training kernels' forward and
+     beside one matmul or conv1d call; the bare weight-gradient GEMM at the
+     training step's four products at B=32, T=1000 beside one matmul or
+     cuDNN convolution_backward call, and the bare column sums beside one
+     torch.sum call); the training kernels' forward and
      every gradient at dropout 0 and 0.1 (shared Philox bits); MAS exactly,
      with the time per mel row
      the attention microbenchmark variants (attention_variants.cu: v2, RoPE
@@ -110,7 +115,10 @@ BARS = {"dit_block": {torch.float32: 5e-3, torch.bfloat16: 2e-2},
         "attention_train": {torch.float32: 5e-3, torch.bfloat16: 2e-2},
         "prenet_train": {torch.float32: 5e-3, torch.bfloat16: 2e-2},
         # the bare tap GEMM: f32 sums in another order (bf16: the DiT block's bar)
-        "tap_gemm": {torch.float32: 1e-4, torch.bfloat16: 2e-2}}
+        "tap_gemm": {torch.float32: 1e-4, torch.bfloat16: 2e-2},
+        # the bare weight gradient and column sums: f32 sums of the same (bf16: exact) products in another order
+        "wgrad": {torch.float32: 1e-4, torch.bfloat16: 1e-3},
+        "colsum": {torch.float32: 1e-4, torch.bfloat16: 1e-4}}
 VARIANT_KERNELS = ("attention_packed_v2", "attention_packed_rope", "attention_packed_kt",
                    "attention_decompose_matmul", "attention_decompose_nomax", "attention_decompose_bf16")
 # the attention bar for every variant (tools/tpu_selftest.py:68); the matmul-only
@@ -130,9 +138,13 @@ TRAIN_CORE_FUNCTIONS = ("attn_fwd_kernel", "attn_bwd_dkv_kernel", "attn_bwd_dq_k
 # (the projections and convs of the DiT kernels), or as all of their products (in ConvNeXt, in bf16 only)
 TAP_GEMM_PROJECTIONS = ("dit_block", "dit_attention", "dit_attention_train_fwd", "dit_attention_train_bwd")
 TAP_GEMM_KERNELS = ("adaln_ffn", "istft", "ffn_train_fwd", "ffn_train_bwd", "prenet_train_fwd", "prenet_train_bwd",
-                    "convnext", "tap_gemm")
-# backward kernels whose weight gradients stay on common.cuh's FMA wgrad_kernel in both types
-FMA_WGRAD = ("dit_attention_train_bwd", "ffn_train_bwd", "prenet_train_bwd")
+                    "convnext", "tap_gemm", "wgrad")
+# kernels whose weight gradients are common.cuh's launch_wgrad (bf16 on wgmma, f32 on the FMA wgrad_kernel): the
+# three backwards and the bare entry; and the libraries that instantiate its bf16 form
+WGRAD_KERNELS = ("dit_attention_train_bwd", "ffn_train_bwd", "prenet_train_bwd", "wgrad")
+WGRAD_LIBS = ("dit_attention_train", "ffn_train", "prenet_train", "wgrad")
+# kernels with no product at all
+NO_PRODUCT_KERNELS = ("colsum",)
 # the libraries that instantiate the bf16 tap GEMM
 TAP_GEMM_LIBS = ("adaln_ffn", "convnext", "dit_attention", "dit_attention_train", "dit_block", "ffn_train", "istft",
                  "prenet_train", "tap_gemm")
@@ -183,6 +195,10 @@ ADAPTERS = {"attention_packed_v2": [("attention_head_pair", "tools/attn_exp.py:9
 TRAIN_LAUNCHES_PER_STEP = {"dit_attention_train_fwd": 9, "dit_attention_train_bwd": 9, "ffn_train_fwd": 9,
                            "ffn_train_bwd": 9, "mas": 1}
 DT_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+# kernel-name parts whose device time the profile phases sum: the weight-gradient GEMM (wgmma, FMA) and the sum of its
+# row chunks, the column sums (one pass or two), the tap GEMM (wgmma, FMA)
+PROFILE_FAMILIES = ("wgrad_wgmma_kernel", "wgrad_kernel", "sum_splits_kernel", "colsum", "tap_gemm_wgmma_kernel",
+                    "tap_gemm_kernel")
 
 
 def emit(obj) -> None:
@@ -219,17 +235,18 @@ def bound_ms(flops: float, nbytes: float, dtype) -> tuple:
 def with_core(row: dict) -> dict:
     """The row with the unit its products run on: "core" is "wgmma" for a
     bf16 kernel on attention.cuh's or attention_train.cuh's core or whose
-    products are all tap GEMMs, else "fma" (every f32 product is fp32 FMA);
-    "projections" names the unit of the tap GEMMs beside an attention core,
-    and "wgrad" that of a backward's weight-gradient GEMM (FMA in both
-    types)."""
+    products are all tap GEMMs or weight-gradient GEMMs, else "fma" (every
+    f32 product is fp32 FMA; "none" for the column sums, which have no
+    product); "projections" names the unit of the tap GEMMs beside an
+    attention core, and "wgrad" that of a backward's weight-gradient GEMM
+    (wgmma in bf16, FMA in f32)."""
     kernel, bf16 = row.get("kernel"), row.get("dtype") == "bfloat16"
     wgmma = bf16 and kernel in (*ATTENTION_CORE_KERNELS, *TRAIN_CORE_KERNELS, *TAP_GEMM_KERNELS)
-    row["core"] = "wgmma" if wgmma else "fma"
+    row["core"] = "none" if kernel in NO_PRODUCT_KERNELS else ("wgmma" if wgmma else "fma")
     if kernel in TAP_GEMM_PROJECTIONS:
         row["projections"] = "wgmma" if bf16 else "fma"
-    if kernel in FMA_WGRAD:
-        row["wgrad"] = "fma"
+    if kernel in WGRAD_KERNELS:
+        row["wgrad"] = "wgmma" if bf16 else "fma"
     return row
 
 
@@ -253,12 +270,13 @@ def phase_sass() -> None:
     (cuobjdump -sass), in total and in each function of attention.cuh's bf16
     core (`attention_kernel_wgmma`), of attention_train.cuh's
     (`attn_fwd_kernel_wgmma`, `attn_bwd_dkv_kernel_wgmma`,
-    `attn_bwd_dq_kernel_wgmma`) and of common.cuh's bf16 tap GEMM
-    (`tap_gemm_wgmma_kernel`, one function per epilogue). Fails if a library
-    that instantiates a core or the bf16 tap GEMM lacks its wgmma functions,
-    if one of them has no HGMMA, or if any library holds an FMA core
-    (`attention_kernel`, one of the three FMA training kernels, or
-    `tap_gemm_kernel`) for bf16."""
+    `attn_bwd_dq_kernel_wgmma`), of common.cuh's bf16 tap GEMM
+    (`tap_gemm_wgmma_kernel`, one function per epilogue) and of its bf16
+    weight-gradient GEMM (`wgrad_wgmma_kernel`). Fails if a library that
+    instantiates a core, the bf16 tap GEMM or the bf16 weight gradient lacks
+    its wgmma functions, if one of them has no HGMMA, or if any library holds
+    an FMA core (`attention_kernel`, one of the three FMA training kernels,
+    `tap_gemm_kernel` or `wgrad_kernel`) for bf16."""
     import re
     import shutil
 
@@ -285,22 +303,28 @@ def phase_sass() -> None:
         train_fma_bf16 = [f for f in per_fn for k in TRAIN_CORE_FUNCTIONS if f"{k}I13__nv_bfloat16" in f]
         tap = {f: n for f, n in per_fn.items() if "tap_gemm_wgmma_kernel" in f}
         tap_fma_bf16 = [f for f in per_fn if "tap_gemm_kernelI13__nv_bfloat16" in f]
+        wgrad = {f: n for f, n in per_fn.items() if "wgrad_wgmma_kernel" in f}
+        wgrad_fma_bf16 = [f for f in per_fn if "wgrad_kernelI13__nv_bfloat16" in f]
         libs[name] = {"hgmma": total, "wgmma_attention_functions": len(core),
                       "hgmma_per_attention_function": sorted(set(core.values())),
                       "fma_bf16_attention_functions": len(fma_bf16),
                       "hgmma_per_training_attention_function": train,
                       "fma_bf16_training_attention_functions": len(train_fma_bf16),
                       "wgmma_tap_gemm_functions": len(tap), "hgmma_per_tap_gemm_function": sorted(set(tap.values())),
-                      "fma_bf16_tap_gemm_functions": len(tap_fma_bf16)}
+                      "fma_bf16_tap_gemm_functions": len(tap_fma_bf16),
+                      "wgmma_wgrad_functions": len(wgrad), "hgmma_per_wgrad_function": sorted(set(wgrad.values())),
+                      "fma_bf16_wgrad_functions": len(wgrad_fma_bf16)}
         if ((name in ATTENTION_LIBS and not core) or any(n == 0 for n in core.values()) or fma_bf16
                 or (name in TRAIN_CORE_LIBS and len(train) != len(TRAIN_CORE_FUNCTIONS))
                 or any(n == 0 for n in train.values()) or train_fma_bf16
-                or (name in TAP_GEMM_LIBS and not tap) or any(n == 0 for n in tap.values()) or tap_fma_bf16):
+                or (name in TAP_GEMM_LIBS and not tap) or any(n == 0 for n in tap.values()) or tap_fma_bf16
+                or (name in WGRAD_LIBS and not wgrad) or any(n == 0 for n in wgrad.values()) or wgrad_fma_bf16):
             bad.append(name)
-    ok = not bad and all(name in libs for name in (*ATTENTION_LIBS, *TRAIN_CORE_LIBS, *TAP_GEMM_LIBS))
+    ok = not bad and all(name in libs for name in (*ATTENTION_LIBS, *TRAIN_CORE_LIBS, *TAP_GEMM_LIBS, *WGRAD_LIBS))
     emit({"phase": "sass", "tool": tool, "libraries": libs, "ok": ok})
     if not ok:
-        fail(f"sass: libraries without wgmma in a bf16 attention core or tap GEMM, or with an FMA one in bf16: {bad}")
+        fail(f"sass: libraries without wgmma in a bf16 attention core, tap GEMM or weight gradient, or with an FMA one "
+             f"in bf16: {bad}")
 
 
 def measure(kernel: str, dtype, shape: dict, run, run_plain, flops: float, io_bytes: float, select=None,
@@ -486,6 +510,57 @@ def check_tap_gemm(rng, b, t, dtype, dev, product):
                    nbytes(a, w) + b * t * n * a.element_size(), library=library)
 
 
+# the weight-gradient GEMM's products in a decoder layer of the training step: (taps, ka, n), as dWo, dWqkv
+# (dit_attention_train.cu) and dW1, dW2 (ffn_train.cu)
+WGRAD_SHAPES = {"out_proj": (1, 256, 256), "qkv": (1, 256, 768), "conv1": (3, 256, 1024), "conv2": (3, 1024, 256)}
+
+
+def check_wgrad(rng, b, t, dtype, dev, product):
+    """The bare weight-gradient GEMM (csrc/wgrad.cu) at one of a decoder
+    layer's products, for 3 taps the weight gradient of a "same" conv along
+    T, against `wgrad_plain`; two runs must give equal bits. The library
+    yardstick is one call in the same dtype: `torch.matmul(a.T, g)` (1 tap)
+    or cuDNN's wgrad, `aten.convolution_backward` with only the weight's
+    gradient asked (3 taps; its [B, C, T] operands made beforehand)."""
+    from stabletts_torch.ops.tap_gemm_cuda import wgrad, wgrad_plain
+
+    taps, ka, n = WGRAD_SHAPES[product]
+    a = torch.from_numpy(rng.standard_normal((b * t, ka)).astype(np.float32)).to(dev, dtype)
+    g = torch.from_numpy(rng.standard_normal((b * t, n)).astype(np.float32)).to(dev, dtype)
+    kw = dict(t_len=t, taps=taps, shift0=-(taps // 2), shift_step=1 if taps > 1 else 0)
+    if taps == 1:
+        library = lambda: torch.matmul(a.t(), g)
+    else:
+        x = a.view(b, t, ka).transpose(1, 2).contiguous()
+        gy = g.view(b, t, n).transpose(1, 2).contiguous()
+        wc = torch.zeros(n, ka, taps, device=dev, dtype=dtype)  # only its shape is read
+        library = lambda: torch.ops.aten.convolution_backward(gy, x, wc, None, [1], [taps // 2], [1], False, [0], 1,
+                                                              [False, True, False])[1]
+    row = measure("wgrad", dtype, {"B": b, "T": t, "product": product, "taps": taps, "ka": ka, "N": n},
+                  lambda: wgrad(a, g, **kw), lambda: wgrad_plain(a, g, **kw), 2 * b * t * ka * n * taps,
+                  nbytes(a, g) + taps * ka * n * 4, library=library)
+    row["same_bits_twice"] = bool(torch.equal(wgrad(a, g, **kw), wgrad(a, g, **kw)))
+    row["ok"] = row["ok"] and row["same_bits_twice"]
+    return row
+
+
+def check_colsum(rng, b, t, dtype, dev, n, groups):
+    """The bare column sums (csrc/wgrad.cu) of x [B * T, N] in `groups`
+    groups of rows against `colsum_plain`; two runs must give equal bits. The
+    library yardstick is one x.view(groups, rows, N).sum(1,
+    dtype=torch.float32) call."""
+    from stabletts_torch.ops.tap_gemm_cuda import colsum, colsum_plain
+
+    rows = b * t // groups
+    x = torch.from_numpy(rng.standard_normal((groups * rows, n)).astype(np.float32)).to(dev, dtype)
+    row = measure("colsum", dtype, {"rows": rows, "N": n, "groups": groups}, lambda: colsum(x, groups),
+                  lambda: colsum_plain(x, groups), groups * rows * n, nbytes(x) + groups * n * 4,
+                  library=lambda: x.view(groups, rows, n).sum(1, dtype=torch.float32))
+    row["same_bits_twice"] = bool(torch.equal(colsum(x, groups), colsum(x, groups)))
+    row["ok"] = row["ok"] and row["same_bits_twice"]
+    return row
+
+
 def _istft_plain_on(re, im, n_fft, hop, md, lengths):
     from stabletts_torch.ops.istft import istft_same_real
 
@@ -513,12 +588,16 @@ def phase_kernels(dev) -> dict:
               for b, t in ((1, 1000), (8, 1000), (1, 333)) for dt in (f32, bf)]
     cases.append((check_istft, dict(b=8, t=1000, dtype=f32, with_lengths=True)))
     cases += [(check_tap_gemm, dict(b=16, t=1024, dtype=dt, product=p)) for p in TAP_GEMM_SHAPES for dt in (f32, bf)]
+    cases += [(check_wgrad, dict(b=32, t=1000, dtype=dt, product=p)) for p in WGRAD_SHAPES for dt in (f32, bf)]
+    cases += [(check_colsum, dict(b=32, t=1000, dtype=dt, n=n, groups=groups))
+              for n, groups in ((256, 1), (1024, 1), (256, 32)) for dt in (f32, bf)]
     for fn, kw in cases:
         row = fn(rng, dev=dev, **kw)
         emit({"phase": "kernel_check", **with_core(row)})
         rows.append(row)
         at_bench = kw["b"] == (8 if fn in (check_convnext, check_istft) else 16) and kw["t"] >= 1000
-        if kw["dtype"] == bf and at_bench and kw.get("masked", True) and fn is not check_tap_gemm:
+        if (kw["dtype"] == bf and at_bench and kw.get("masked", True)
+                and row["kernel"] not in ("tap_gemm", "wgrad", "colsum")):
             bench_rows[row["kernel"]] = row
     rows.append(check_flash_adapter(rng, 2, 1000, dev))
     emit({"phase": "kernel_check", **with_core(rows[-1])})
@@ -1389,9 +1468,11 @@ def phase_profile(label: str, fn, card: str) -> None:
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:16]
+    # device ms of common.cuh's kernels by family, all of their instantiations together
+    families = {fam: sum(e.self_device_time_total for e in events if fam in e.key) / 1e3 for fam in PROFILE_FAMILIES}
     emit({"phase": f"profile_{label}", "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
           "device_idle_share": max(0.0, 1.0 - busy_us / wall_us) if busy_us else None,
-          "kernel_launches": sum(e.count for e in events),
+          "kernel_launches": sum(e.count for e in events), "families_device_ms": families,
           "top": [{"name": e.key[:100], "calls": e.count, "device_ms": e.self_device_time_total / 1e3}
                   for e in top], "card": card})
 
@@ -2130,7 +2211,7 @@ def main() -> None:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "shape": shape, "dtype": r["dtype"], "core": r.get("core"),
-                        **({"projections": r["projections"]} if "projections" in r else {})})
+                        **{k: r[k] for k in ("projections", "wgrad") if k in r}})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,8 @@
 // 256 threads, 4x4 outputs per thread). bf16 goes to `tap_gemm_wgmma_kernel`
 // (tensor cores, f32 sums; see its note below). Both stage the finished tile
 // in shared memory, so an epilogue can read neighbouring columns (RoPE). The
-// weight-gradient GEMM is fp32 FMA in both types.
+// weight-gradient GEMM likewise: f32 goes to the FMA `wgrad_kernel`, bf16 to
+// `wgrad_wgmma_kernel`.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -698,7 +699,20 @@ void launch_ln_bwd(const T* x, const float* dh0, const T* mods, int n_mods, int 
 
 // ---- column sums over groups of rows, in a fixed order (no atomics) -------
 // out[g * out_stride + n] = sum_{r < rows} X[(g * rows + r) * N + n], f32.
-// Block: 32 columns x 8 row lanes; grid (ceil(N / 32), groups).
+// The bias gradients and dmod of the training backwards. A memory-bound
+// reduction with no product in it, so one kernel serves f32 and bf16; what
+// bounds it is reading X once (an [M = 32000, 1024] f32 X takes ~39 us at
+// 3.35 TB/s). One CTA per 32 columns and group, walking all of a group's rows,
+// gave 8 CTAs on 132 SMs for a bias of N = 256; so each group's rows are cut
+// into `chunks` consecutive chunks, about COLSUM_TARGET_CTAS CTAs in all.
+//
+// Pass 1, colsum_chunk_kernel: a CTA is 32 column lanes x 8 row lanes; a lane
+// takes V adjacent columns (V = 4, one 16-byte f32 or 8-byte bf16 load, where
+// N is a multiple of 4 and X is aligned; else V = 1), row lane ry adds rows
+// ry, ry + 8, ... of the chunk, and the 8 row lanes are added in order. With
+// one chunk it writes out; else it writes the chunk's partial to
+// ws[(g * chunks + c) * N + n], and pass 2, colsum_kernel with the chunks as
+// the rows, adds the partials in chunk order. The same sums on every run.
 template <typename Tin>
 __global__ void colsum_kernel(const Tin* X, float* out, int rows, int N, long long out_stride) {
   __shared__ float part[8][33];
@@ -718,18 +732,92 @@ __global__ void colsum_kernel(const Tin* X, float* out, int rows, int N, long lo
   }
 }
 
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+}
+__device__ __forceinline__ void load4(const bf16* p, float (&v)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  v[0] = __uint_as_float(u.x << 16); v[1] = __uint_as_float(u.x & 0xFFFF0000u);
+  v[2] = __uint_as_float(u.y << 16); v[3] = __uint_as_float(u.y & 0xFFFF0000u);
+}
+
+// dst[g * g_stride + c * c_stride + n] = the sum of chunk c (grid z) of group
+// g (grid y) over columns n of this CTA (grid x)
+template <typename Tin, int V>
+__global__ void __launch_bounds__(256) colsum_chunk_kernel(const Tin* X, float* dst, int rows, int N, int row_chunk,
+                                                           long long g_stride, long long c_stride) {
+  __shared__ float part[8][32 * V + 1];
+  const int cx = threadIdx.x % 32, ry = threadIdx.x / 32;
+  const int n = (blockIdx.x * 32 + cx) * V;
+  const int r_begin = blockIdx.z * row_chunk, r_end = min(rows, r_begin + row_chunk);
+  const Tin* xg = X + (long long)blockIdx.y * rows * N;
+  float s[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) s[e] = 0.f;
+  if (n < N) {
+#pragma unroll 4
+    for (int r = r_begin + ry; r < r_end; r += 8) {
+      float v[V];
+      if constexpr (V == 4) {
+        load4(xg + (long long)r * N + n, v);
+      } else {
+        v[0] = to_f(xg[(long long)r * N + n]);
+      }
+#pragma unroll
+      for (int e = 0; e < V; ++e) s[e] += v[e];
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < V; ++e) part[ry][cx * V + e] = s[e];
+  __syncthreads();
+  if (ry == 0 && n < N) {
+    float* d = dst + blockIdx.y * g_stride + blockIdx.z * c_stride + n;
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      float t = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) t += part[i][cx * V + e];
+      d[e] = t;
+    }
+  }
+}
+
+constexpr int NUM_SMS = 132;  // H100 SXM
+constexpr int COLSUM_TARGET_CTAS = 2 * NUM_SMS;
+constexpr int COLSUM_MIN_ROWS = 64;  // rows per chunk, at least
+
+// `ws` (ws_floats floats) holds the partials. The chunks depend only on the
+// shapes, X's alignment and ws_floats.
 template <typename Tin>
-void launch_colsum(const Tin* X, float* out, int groups, int rows, int N, long long out_stride, cudaStream_t stream) {
-  colsum_kernel<Tin><<<dim3((N + 31) / 32, groups), 256, 0, stream>>>(X, out, rows, N, out_stride);
+void launch_colsum(const Tin* X, float* out, int groups, int rows, int N, long long out_stride, float* ws,
+                   long long ws_floats, cudaStream_t stream) {
+  const bool vec = N % 4 == 0 && reinterpret_cast<uintptr_t>(X) % (4 * sizeof(Tin)) == 0;
+  const int cols = vec ? 128 : 32, blocks = (N + cols - 1) / cols;
+  long long chunks = max(1LL, (long long)COLSUM_TARGET_CTAS / ((long long)blocks * groups));
+  chunks = min(chunks, max(1LL, (long long)rows / COLSUM_MIN_ROWS));
+  chunks = max(1LL, min(chunks, ws_floats / ((long long)groups * N)));
+  const int row_chunk = max(1, (int)((rows + chunks - 1) / chunks));
+  chunks = max(1, (rows + row_chunk - 1) / row_chunk);
+  float* dst = chunks > 1 ? ws : out;
+  const long long g_stride = chunks > 1 ? chunks * N : out_stride, c_stride = chunks > 1 ? N : 0;
+  const dim3 grid(blocks, groups, (unsigned)chunks);
+  if (vec)
+    colsum_chunk_kernel<Tin, 4><<<grid, 256, 0, stream>>>(X, dst, rows, N, row_chunk, g_stride, c_stride);
+  else
+    colsum_chunk_kernel<Tin, 1><<<grid, 256, 0, stream>>>(X, dst, rows, N, row_chunk, g_stride, c_stride);
+  if (chunks > 1)
+    colsum_kernel<float><<<dim3((N + 31) / 32, groups), 256, 0, stream>>>(ws, out, (int)chunks, N, out_stride);
 }
 
 // ---- weight gradient of a tap GEMM: the transposed product ---------------
 // out[tap, m, n] = sum_{r < rows} A(r, tap)[m] * G[r, n], f32, where row
 // r = b * t_len + t and A(r, tap) is activation row t + shift0 + tap *
 // shift_step of item b (zero outside [0, t_len)). The rows are cut into
-// `splits` consecutive chunks; one CTA per (64 x 64 output tile, tap, chunk)
-// writes its partial sum to a workspace, and a second kernel adds the
-// partials in chunk order. No atomics: the same sums on every run.
+// `splits` consecutive chunks; one CTA per (output tile, tap, chunk) writes
+// its partial sum to a workspace, and a second kernel adds the partials in
+// chunk order. No atomics: the same sums on every run. Below, the f32 kernel
+// (fp32 FMA, 64 x 64 tiles); after it the bf16 one on wgmma.
 struct WGrad {
   const void* a;
   int lda;
@@ -742,7 +830,7 @@ struct WGrad {
   int shift0;
   int shift_step;
   float* out;
-  int row_chunk;  // rows per chunk, a multiple of GEMM_BK (set by launch_wgrad)
+  int row_chunk;  // rows per chunk, a multiple of the kernel's k step (set by launch_wgrad)
 };
 
 template <typename T>
@@ -803,6 +891,162 @@ __global__ void __launch_bounds__(GEMM_THREADS) wgrad_kernel(WGrad p, int taps) 
     }
 }
 
+// ---- the bf16 weight gradient on wgmma ------------------------------------
+// Replaces, for bf16, wgrad_kernel above under the same contract (WGrad, the
+// row chunks, the workspace and the fixed-order sum of the partials). It is
+// the backward product of #11, #12 and #13, which the TPU kernels run on the
+// MXU (ffn_pallas_train.py: dot_general of bf16 operands with f32 sums). What
+// bounds it on the H100: its products, 2 * rows * ka * n * taps FLOPs (dW1 of
+// the FFN at B*T = 32000: 50.3 GFLOP, 0.051 ms at 989 TFLOP/s) against A and
+// G read about once per tap.
+//
+// Design: the wgmma tap GEMM above turned on its side, the reduction running
+// over rows. A 128 (m, over ka) x 128 (n) output tile, a 64-row k step, two
+// consumer warpgroups of 64 m each issuing m64n128k16 with both operands
+// MN-major: A's m and G's n are the contiguous axes of a row, so a k step's
+// 64 rows are copied as they lie (A as two 64 x 64 tiles under make_desc<true>,
+// G as two 64-wide atoms under make_desc_mn) and the transpose bits do the
+// rest. The same 3-deep cp.async ring (97 KB, two CTAs an SM). The tap's shift
+// lands on the k axis: row r = b * t_len + t copies activation row r + shift
+// where t + shift lies in [0, t_len), else the 16-byte chunk is zero-filled;
+// so are chunks past ka, n and the chunk's last row. One tap per CTA (grid z
+// = tap x chunk), so the three taps of a conv read each G slab three times
+// (from L2). Where lda or ldg is not a multiple of 8 or a pointer is not
+// 16-byte aligned the copies are element by element: right, not fast. Each
+// CTA writes its 128 x 128 f32 partial straight from the accumulators.
+
+// Stage `stage` of the ring <- rows r0 .. r0 + 63 of the chunk (below r_end)
+__device__ __forceinline__ void wgrad_load(const WGrad& p, uint8_t* ring, int stage, int r0, int r_end, int shift,
+                                           int m0, int n0, bool vec_a, bool vec_g) {
+  const bf16* A = static_cast<const bf16*>(p.a);
+  const bf16* G = static_cast<const bf16*>(p.g);
+  const int tid = threadIdx.x;
+  uint8_t* sa = ring + stage * TG_STAGE_BYTES;
+  uint8_t* sg = sa + 2 * WG_TILE_BYTES;
+  // the activation row that row r reads at this shift, or -1 for zeros
+  auto src_row = [&](int r) -> long long {
+    if (r >= r_end) return -1;
+    const int t = r % p.t_len + shift;
+    return (t >= 0 && t < p.t_len) ? (long long)r + shift : -1;
+  };
+  if (vec_a || vec_g) {
+    // 64 rows x 16 chunks: rows (tid / 16) + 16 i, chunk tid % 16 (tile chunk / 8)
+    const int cb = tid & 15;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int kr = (tid >> 4) + 16 * i, r = r0 + kr;
+      const uint32_t off = kr * 128 + ((((cb & 7) ^ kr) & 7) << 4);
+      if (vec_a) {
+        const long long row = src_row(r);
+        const int m = m0 + cb * 8, na = (row >= 0 && m < p.ka) ? min(p.ka - m, 8) : 0;
+        cp_async16(smem_addr(sa + (cb >> 3) * WG_TILE_BYTES) + off, na ? A + row * p.lda + m : A, na * 2);
+      }
+      if (vec_g) {
+        const int n = n0 + cb * 8, ng = (r < r_end && n < p.n) ? min(p.n - n, 8) : 0;
+        cp_async16(smem_addr(sg + (cb >> 3) * WG_TILE_BYTES) + off, ng ? G + (long long)r * p.ldg + n : G, ng * 2);
+      }
+    }
+  }
+  if (!vec_a || !vec_g) {
+    // row tid / 4, 32 columns from (tid % 4) * 32
+    const int kr = tid >> 2, r = r0 + kr, c0 = (tid & 3) * 32;
+    const long long row = src_row(r);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = c0 + q * 8;
+      bf16 v[8];
+      if (!vec_a) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int m = m0 + c + e;
+          v[e] = (row >= 0 && m < p.ka) ? A[row * p.lda + m] : __ushort_as_bfloat16(0);
+        }
+        st_chunk(sa + (c >> 6) * WG_TILE_BYTES, kr, (c & 63) >> 3, pack8(v));
+      }
+      if (!vec_g) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int n = n0 + c + e;
+          v[e] = (r < r_end && n < p.n) ? G[(long long)r * p.ldg + n] : __ushort_as_bfloat16(0);
+        }
+        st_chunk(sg + (c >> 6) * WG_TILE_BYTES, kr, (c & 63) >> 3, pack8(v));
+      }
+    }
+  }
+}
+
+// (a template only so that it is compiled where a bf16 launch_wgrad is)
+template <typename T>
+__global__ void __launch_bounds__(TG_THREADS, TG_CTAS_PER_SM)
+    wgrad_wgmma_kernel(WGrad p, int taps, int vec_a, int vec_g) {
+  static_assert(std::is_same<T, bf16>::value, "the wgmma weight gradient takes bf16");
+  extern __shared__ uint8_t wgr_smem[];
+  uint8_t* ring = align_1024(wgr_smem);
+  const int tid = threadIdx.x, wg = tid / WG_THREADS, lt = tid % WG_THREADS;
+  const int n0 = blockIdx.x * TG_BN, m0 = blockIdx.y * TG_BM;
+  const int tap = blockIdx.z % taps, chunk = blockIdx.z / taps;
+  const int shift = p.shift0 + tap * p.shift_step;
+  const int r_begin = chunk * p.row_chunk, r_end = min(p.rows, r_begin + p.row_chunk);
+  const int steps = max(0, (r_end - r_begin + TG_BK - 1) / TG_BK);
+  constexpr int AHEAD = TG_STAGES - 1 - TG_INFLIGHT;  // k steps loaded ahead of the one multiplied
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < AHEAD; ++s) {
+    if (s < steps) wgrad_load(p, ring, s, r_begin + s * TG_BK, r_end, shift, m0, n0, vec_a, vec_g);
+    cp_async_commit();
+  }
+  for (int step = 0; step < steps; ++step) {
+    // as in tap_gemm_wgmma_kernel: this step's copies have landed, and both
+    // warpgroups' products on the stage refilled below are done
+    cp_async_wait<AHEAD - 1>();
+    fence_proxy_async();
+    __syncthreads();
+    const int next = step + AHEAD;
+    if (next < steps)
+      wgrad_load(p, ring, next % TG_STAGES, r_begin + next * TG_BK, r_end, shift, m0, n0, vec_a, vec_g);
+    cp_async_commit();
+
+    uint8_t* sa = ring + (step % TG_STAGES) * TG_STAGE_BYTES;
+    const uint64_t da = make_desc<true>(smem_addr(sa + wg * WG_TILE_BYTES));
+    const uint64_t dg = make_desc_mn(smem_addr(sa + 2 * WG_TILE_BYTES), WG_TILE_BYTES);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TG_BK / 16; ++kk) WgmmaSS<128, 1, 1>::run(acc, desc_k<true>(da, kk), desc_k<true>(dg, kk), 1);
+    wgmma_commit();
+    wgmma_wait<TG_INFLIGHT>();
+    tg_fence_acc(acc);
+  }
+  wgmma_wait<0>();
+  tg_fence_acc(acc);
+  cp_async_wait<0>();
+
+  // this warpgroup's m rows m0 + 64 wg .. + 63, straight from the accumulators
+  float* out = p.out + ((long long)chunk * taps + tap) * p.ka * p.n;
+  const int r0 = 16 * (lt / 32) + (lt % 32) / 4, mw = m0 + wg * 64;
+  const bool pairs = (p.n & 1) == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = mw + r0 + 8 * h;
+    if (m >= p.ka) continue;
+    float* o = out + (long long)m * p.n;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int n = n0 + 8 * j + 2 * (lt % 4);
+      const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if (pairs && n < p.n) {
+        *reinterpret_cast<float2*>(o + n) = make_float2(v0, v1);
+      } else {
+        if (n < p.n) o[n] = v0;
+        if (n + 1 < p.n) o[n + 1] = v1;
+      }
+    }
+  }
+}
+
 // out[i] = sum_{s < splits} part[s * size + i], in order of s
 __global__ void sum_splits_kernel(const float* part, float* out, int splits, long long size) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -812,26 +1056,51 @@ __global__ void sum_splits_kernel(const float* part, float* out, int splits, lon
   out[i] = s;
 }
 
-constexpr int WGRAD_TARGET_CTAS = 1024;  // ~4 waves of 2 CTAs on 132 SMs
-constexpr int WGRAD_MIN_CHUNK = 128;     // rows
+// f32 (FMA, 64 x 64 tiles): about WGRAD_TARGET_CTAS CTAs, ~4 waves of 2 CTAs
+// on 132 SMs, chunks of at least WGRAD_MIN_CHUNK rows. bf16 (wgmma, 128 x 128
+// tiles, two CTAs an SM): at most WGRAD_WGMMA_CTAS, one wave, so that no
+// second wave runs a few CTAs alone; chunks of at least WGRAD_WGMMA_MIN_CHUNK
+// rows. At B*T = 32000 that is 240 CTAs for dW1 / dW2 of the FFN (5 chunks),
+// 252 for dWqkv (21) and for dWo (63).
+constexpr int WGRAD_TARGET_CTAS = 1024;
+constexpr int WGRAD_MIN_CHUNK = 128;
+constexpr int WGRAD_WGMMA_CTAS = TG_CTAS_PER_SM * NUM_SMS;
+constexpr int WGRAD_WGMMA_MIN_CHUNK = 256;
 
-// Splits the row reduction so that the grid has about WGRAD_TARGET_CTAS
-// CTAs, as far as `ws` (ws_floats floats; may be nullptr) holds the
-// partials. The split depends only on the shapes and ws_floats.
+// Splits the row reduction as above, as far as `ws` (ws_floats floats; may be
+// nullptr) holds the partials. The split depends only on the shapes, the type
+// and ws_floats. f32: the FMA kernel; bf16: the wgmma kernel.
 template <typename T>
 void launch_wgrad(WGrad p, int taps, float* ws, long long ws_floats, cudaStream_t stream) {
+  constexpr bool tc = std::is_same<T, bf16>::value;
+  constexpr int bm = tc ? TG_BM : GEMM_BM, bn = tc ? TG_BN : GEMM_BN, bk = tc ? TG_BK : GEMM_BK;
   const long long size = (long long)taps * p.ka * p.n;
-  const int tiles = ((p.n + GEMM_BN - 1) / GEMM_BN) * ((p.ka + GEMM_BM - 1) / GEMM_BM) * taps;
-  long long splits = (WGRAD_TARGET_CTAS + tiles - 1) / tiles;
-  splits = min(splits, (long long)(p.rows + WGRAD_MIN_CHUNK - 1) / WGRAD_MIN_CHUNK);
+  const int tiles = ((p.n + bn - 1) / bn) * ((p.ka + bm - 1) / bm) * taps;
+  long long splits;
+  if constexpr (tc) {
+    splits = WGRAD_WGMMA_CTAS / tiles;
+    splits = min(splits, (long long)p.rows / WGRAD_WGMMA_MIN_CHUNK);
+  } else {
+    splits = (WGRAD_TARGET_CTAS + tiles - 1) / tiles;
+    splits = min(splits, (long long)(p.rows + WGRAD_MIN_CHUNK - 1) / WGRAD_MIN_CHUNK);
+  }
   splits = ws ? min(splits, ws_floats / size) : 1;
   splits = max(splits, 1LL);
-  p.row_chunk = (int)(((p.rows + splits - 1) / splits + GEMM_BK - 1) / GEMM_BK * GEMM_BK);
+  p.row_chunk = (int)(((p.rows + splits - 1) / splits + bk - 1) / bk * bk);
+  if (p.row_chunk == 0) p.row_chunk = bk;
   splits = (p.rows + p.row_chunk - 1) / p.row_chunk;
+  splits = max(splits, 1LL);
   float* final_out = p.out;
   if (splits > 1) p.out = ws;
-  dim3 grid((p.n + GEMM_BN - 1) / GEMM_BN, (p.ka + GEMM_BM - 1) / GEMM_BM, taps * (int)splits);
-  wgrad_kernel<T><<<grid, GEMM_THREADS, 0, stream>>>(p, taps);
+  dim3 grid((p.n + bn - 1) / bn, (p.ka + bm - 1) / bm, taps * (int)splits);
+  if constexpr (tc) {
+    const int vec_a = p.lda % 8 == 0 && aligned16(p.a);
+    const int vec_g = p.ldg % 8 == 0 && aligned16(p.g);
+    cudaFuncSetAttribute(wgrad_wgmma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, TG_SMEM);
+    wgrad_wgmma_kernel<T><<<grid, TG_THREADS, TG_SMEM, stream>>>(p, taps, vec_a, vec_g);
+  } else {
+    wgrad_kernel<T><<<grid, GEMM_THREADS, 0, stream>>>(p, taps);
+  }
   if (splits > 1)
     sum_splits_kernel<<<(int)((size + 255) / 256), 256, 0, stream>>>(ws, final_out, (int)splits, size);
 }

@@ -43,8 +43,8 @@
 // weight (b, h, q, key) keeps when Philox word key%4 of counter
 // (key/4, q, b*H + h, 0) under the call's key is >= thresh. The projections
 // (tap GEMMs, common.cuh) and attention's products (attention_train.cuh) run
-// on wgmma (tensor cores) in bf16 and on fp32 FMA in f32; the weight
-// gradients are fp32 FMA in both. Head dim 64.
+// on wgmma (tensor cores) in bf16 and on fp32 FMA in f32, and so do the
+// weight gradients. Head dim 64.
 #include "attention_train.cuh"
 
 using namespace stts;
@@ -157,7 +157,9 @@ cudaError_t backward(const T* x, const T* mod, const float* mask, const float* c
   launch_tap_gemm<T>(conv_gemm(att, C, wo, C, M, Tn, 1, false), OutBwdEpi<T>{bo, dout, mod, mask, pz, dzc, C, Tn}, s);
   launch_tap_gemm<T>(conv_gemm(dzc, C, wo, C, M, Tn, 1, true), StoreEpi<T>{datt, C}, s);
   launch_wgrad<T>(WGrad{att, C, C, dzc, C, C, M, Tn, 0, 0, dwo}, 1, ws, ws_floats, s);
-  launch_colsum<T>(dzc, dbo, 1, M, C, 0, s);
+  // the column sums reuse ws for their row-chunk partials: every launch here runs in order on one
+  // stream, so a launch_wgrad's partials are summed before the next colsum writes its own
+  launch_colsum<T>(dzc, dbo, 1, M, C, 0, ws, ws_floats, s);
   // attention backward
   launch_attn_bwd<T>(q, k, v, att, att_lo, datt, lse, mask, Dv, dq_r, dk_r, dqkv + 2 * C, 3 * C, B, Tn, C, H, sm_scale,
                      drop, s);
@@ -168,12 +170,12 @@ cudaError_t backward(const T* x, const T* mod, const float* mask, const float* c
   // projections: dh = dqkv Wqkv^T; dWqkv, dbqkv
   launch_tap_gemm<T>(conv_gemm(dqkv, 3 * C, wqkv, C, M, Tn, 1, true), StoreEpi<float>{dh0, C}, s);
   launch_wgrad<T>(WGrad{h, C, C, dqkv, 3 * C, 3 * C, M, Tn, 0, 0, dwqkv}, 1, ws, ws_floats, s);
-  launch_colsum<T>(dqkv, dbqkv, 1, M, 3 * C, 0, s);
+  launch_colsum<T>(dqkv, dbqkv, 1, M, 3 * C, 0, ws, ws_floats, s);
   // modulate + LayerNorm backward; per-item d{shift, scale, gate} -> dmod [B, 3, C]
   launch_ln_bwd<T>(x, dh0, mod, 3, 1, dout, dx, dh0n, M, Tn, C, eps, s);
-  launch_colsum<float>(dh0, dmod, B, Tn, C, 3LL * C, s);
-  launch_colsum<float>(dh0n, dmod + C, B, Tn, C, 3LL * C, s);
-  launch_colsum<float>(pz, dmod + 2 * C, B, Tn, C, 3LL * C, s);
+  launch_colsum<float>(dh0, dmod, B, Tn, C, 3LL * C, ws, ws_floats, s);
+  launch_colsum<float>(dh0n, dmod + C, B, Tn, C, 3LL * C, ws, ws_floats, s);
+  launch_colsum<float>(pz, dmod + 2 * C, B, Tn, C, 3LL * C, ws, ws_floats, s);
   return cudaGetLastError();
 }
 

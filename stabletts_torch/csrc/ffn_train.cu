@@ -34,7 +34,7 @@
 // Tap convention (ffn_pallas_train.py:26-28): y[t] = h[t-1] w0 + h[t] w1 +
 // h[t+1] w2, so dh[t] = dy[t+1] w0^T + dy[t] w1^T + dy[t-1] w2^T and
 // dW[j] = sum_t h[t-1+j]^T dy[t]. The tap GEMMs run on wgmma in bf16 and on
-// fp32 FMA in f32, the weight gradients on fp32 FMA in both; in bf16 the
+// fp32 FMA in f32, and so do the weight gradients; in bf16 the
 // values are rounded where the TPU kernel rounds them (h, sd, dz, dy, dx).
 // Dropout: element (b, t, f) keeps when Philox word f%4 of counter
 // (f/4, t, b, 1) under the call's key is >= thresh.
@@ -152,16 +152,18 @@ cudaError_t backward(const T* x, const T* mod, const float* mask, const T* w1, c
   // conv2 backward: dsd -> dy (dropout + SiLU derivative); dW2, db2
   launch_tap_gemm<T>(conv_gemm(dzc, C, w2, F, M, Tn, 3, true), DsdEpi<T>{mask, y, drop, dyf, dyc, F, Tn}, s);
   launch_wgrad<T>(WGrad{sd, F, F, dzc, C, C, M, Tn, -1, 1, dw2}, 3, ws, ws_floats, s);
-  launch_colsum<float>(dzf, db2, 1, M, C, 0, s);
+  // the column sums reuse ws for their row-chunk partials: every launch here runs in order on one
+  // stream, so a launch_wgrad's partials are summed before the next colsum writes its own
+  launch_colsum<float>(dzf, db2, 1, M, C, 0, ws, ws_floats, s);
   // conv1 backward: dh0 = conv1^T(dy) * m; dW1, db1
   launch_tap_gemm<T>(conv_gemm(dyc, F, w1, C, M, Tn, 3, true), DhEpi{mask, dh0, C}, s);
   launch_wgrad<T>(WGrad{h, C, C, dyc, F, F, M, Tn, -1, 1, dw1}, 3, ws, ws_floats, s);
-  launch_colsum<float>(dyf, db1, 1, M, F, 0, s);
+  launch_colsum<float>(dyf, db1, 1, M, F, 0, ws, ws_floats, s);
   // modulate + LayerNorm backward; per-item d{shift, scale, gate} -> dmod [B, 3, C]
   launch_ln_bwd<T>(x, dh0, mod, 3, 1, dout, dx, dh0n, M, Tn, C, eps, s);
-  launch_colsum<float>(dh0, dmod, B, Tn, C, 3LL * C, s);
-  launch_colsum<float>(dh0n, dmod + C, B, Tn, C, 3LL * C, s);
-  launch_colsum<float>(pz, dmod + 2 * C, B, Tn, C, 3LL * C, s);
+  launch_colsum<float>(dh0, dmod, B, Tn, C, 3LL * C, ws, ws_floats, s);
+  launch_colsum<float>(dh0n, dmod + C, B, Tn, C, 3LL * C, ws, ws_floats, s);
+  launch_colsum<float>(pz, dmod + 2 * C, B, Tn, C, 3LL * C, ws, ws_floats, s);
   return cudaGetLastError();
 }
 

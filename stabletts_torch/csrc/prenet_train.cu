@@ -34,7 +34,7 @@
 // Tap convention (ffn_pallas.py::_conv3): y[t] = h[t-1] w0 + h[t] w1 + h[t+1]
 // w2, so dh[t] = dy[t+1] w0^T + dy[t] w1^T + dy[t-1] w2^T and dW[j] = sum_t
 // h[t-1+j]^T dy[t]. The tap GEMMs run on wgmma in bf16 and on fp32 FMA in
-// f32, the weight gradients on fp32 FMA in both; in bf16 the values are
+// f32, and so do the weight gradients; in bf16 the values are
 // rounded where the TPU kernel rounds them (h1, h2, dy2, dy1, dmu); y1 and y2
 // stay f32; parameter gradients are f32.
 #include "common.cuh"
@@ -114,15 +114,17 @@ cudaError_t backward(const T* mu, const T* wa, const T* ba, const T* wb, const T
   launch_tap_gemm<T>(conv_gemm(h1, F, wb, F, M, Tn, 3, false), SiluEpi<T>{bb, y2, h2, F}, s);
   // conv_c: dWc, dbc; dh2 = conv_c^T(do) -> dy2
   launch_wgrad<T>(WGrad{h2, F, F, d_o, Cout, Cout, M, Tn, -1, 1, dwc}, 3, ws, ws_floats, s);
-  launch_colsum<T>(d_o, dbc, 1, M, Cout, 0, s);
+  // the column sums reuse ws for their row-chunk partials: every launch here runs in order on one
+  // stream, so a launch_wgrad's partials are summed before the next colsum writes its own
+  launch_colsum<T>(d_o, dbc, 1, M, Cout, 0, ws, ws_floats, s);
   launch_tap_gemm<T>(conv_gemm(d_o, Cout, wc, F, M, Tn, 3, true), SiluBwdEpi<T>{y2, dy2, F}, s);
   // conv_b: dWb, dbb; dh1 = conv_b^T(dy2) -> dy1
   launch_wgrad<T>(WGrad{h1, F, F, dy2, F, F, M, Tn, -1, 1, dwb}, 3, ws, ws_floats, s);
-  launch_colsum<T>(dy2, dbb, 1, M, F, 0, s);
+  launch_colsum<T>(dy2, dbb, 1, M, F, 0, ws, ws_floats, s);
   launch_tap_gemm<T>(conv_gemm(dy2, F, wb, F, M, Tn, 3, true), SiluBwdEpi<T>{y1, dy1, F}, s);
   // conv_a: dWa, dba; dmu = conv_a^T(dy1)
   launch_wgrad<T>(WGrad{mu, Cin, Cin, dy1, F, F, M, Tn, -1, 1, dwa}, 3, ws, ws_floats, s);
-  launch_colsum<T>(dy1, dba, 1, M, F, 0, s);
+  launch_colsum<T>(dy1, dba, 1, M, F, 0, ws, ws_floats, s);
   launch_tap_gemm<T>(conv_gemm(dy1, F, wa, Cin, M, Tn, 3, true), SiluBwdEpi<T>{nullptr, dmu, Cin}, s);
   return cudaGetLastError();
 }

@@ -25,7 +25,10 @@ NVCC_FLAGS = [
 ]
 
 # f32 workspace of the weight-gradient GEMM's row chunks (common.cuh
-# launch_wgrad): 16 MB, enough for ~1000 CTAs at the flagship widths
+# launch_wgrad) and of the column sums' (launch_colsum), which reuse it: 16 MB,
+# enough for ~1000 FMA CTAs at the flagship widths and for the 240-252 wgmma
+# CTAs of each bf16 weight gradient; the column sums' partials take at most
+# ~34k floats
 WGRAD_WS_FLOATS = 1 << 22
 
 _lock = threading.Lock()

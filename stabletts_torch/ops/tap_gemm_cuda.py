@@ -1,5 +1,6 @@
-"""The tap GEMM of `csrc/common.cuh` on its own (csrc/tap_gemm.cu) and its
-plain PyTorch version.
+"""The tap GEMM of `csrc/common.cuh` on its own (csrc/tap_gemm.cu), its
+weight-gradient GEMM and the column sums (csrc/wgrad.cu), and their plain
+PyTorch versions.
 
     out[b * t_out + i, n] = sum_tap sum_k A_tap[b, i, k] * W_tap[k, n]
 
@@ -15,6 +16,19 @@ gradients; on the card bf16 runs on wgmma and f32 on fp32 FMA.
 `tap_gemm` dispatches on the tensor's device: the plain version on the CPU,
 the kernel on the GPU. `tap_gemm.launches` counts launches. The output is in
 the activations' dtype (the sums are f32).
+
+The weight gradient of such a product, the backward product of #11, #12 and
+#13 (the `WGrad` contract):
+
+    out[tap, m, n] = sum_r A_tap[r, m] * G[r, n]      (f32)
+
+with row r = b * t_len + t of a [B * t_len, lda] activation A and a
+[B * t_len, ldg] gradient G; A_tap[r] is activation row t + shift0 + tap *
+shift_step of item b, zero outside [0, t_len); m < ka, n < n_out. On the
+card bf16 runs on wgmma and f32 on fp32 FMA, the rows in chunks whose
+partials are added in a fixed order. `colsum` is the bias gradients' sum,
+out[g, n] = sum_r x[g * rows + r, n] in f32. Both dispatch as `tap_gemm`
+does and count their launches in `.launches`.
 """
 
 from __future__ import annotations
@@ -133,3 +147,102 @@ def tap_gemm(a0, w, *, t_in: int, t_out: int, taps: int = 1, shift0: int = 0, sh
 
 
 tap_gemm.launches = 0
+
+
+def _wgrad_shape(a, g, t_len, ka, n_out):
+    if a.dim() != 2 or g.dim() != 2 or a.shape[0] != g.shape[0] or a.shape[0] % t_len:
+        raise ValueError(f"wgrad: a and g must be [B * t_len, lda] and [B * t_len, ldg] (t_len={t_len}, "
+                         f"a {tuple(a.shape)}, g {tuple(g.shape)})")
+    ka = a.shape[1] if ka is None else ka
+    n_out = g.shape[1] if n_out is None else n_out
+    if not (0 < ka <= a.shape[1] and 0 < n_out <= g.shape[1]):
+        raise ValueError(f"wgrad: ka={ka}, n_out={n_out} do not fit a {tuple(a.shape)}, g {tuple(g.shape)}")
+    return ka, n_out
+
+
+def wgrad_plain(a, g, *, t_len: int, taps: int = 1, shift0: int = 0, shift_step: int = 0, ka=None,
+                n_out=None) -> torch.Tensor:
+    """The WGrad contract in plain PyTorch: [taps, ka, n_out] f32, one
+    product per tap."""
+    ka, n_out = _wgrad_shape(a, g, t_len, ka, n_out)
+    rows = a.shape[0]
+    af = a[:, :ka].float().view(rows // t_len, t_len, ka)
+    gf = g[:, :n_out].float()
+    t = torch.arange(t_len, device=a.device)
+    out = torch.empty(taps, ka, n_out, device=a.device)
+    for tap in range(taps):
+        src = t + shift0 + tap * shift_step
+        valid = ((src >= 0) & (src < t_len)).float()
+        shifted = af[:, src.clamp(0, t_len - 1)] * valid[None, :, None]
+        out[tap] = shifted.reshape(rows, ka).t() @ gf
+    return out
+
+
+def _wgrad_cuda(a, g, t_len, taps, shift0, shift_step, ka, n_out) -> torch.Tensor:
+    from stabletts_torch.ops import _build
+
+    if a.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"wgrad kernel takes float32 or bfloat16, got {a.dtype}")
+    ka, n_out = _wgrad_shape(a, g, t_len, ka, n_out)
+    if g.device != a.device or g.dtype != a.dtype or not (a.is_contiguous() and g.is_contiguous()):
+        raise ValueError("wgrad kernel: a and g must be contiguous tensors of one device and dtype")
+    out = torch.empty(taps, ka, n_out, device=a.device, dtype=torch.float32)
+    ws = torch.empty(_build.WGRAD_WS_FLOATS, device=a.device, dtype=torch.float32)
+    fn = _build.load("wgrad", "wgrad_forward", 4, 11)
+    err = fn(a.data_ptr(), g.data_ptr(), out.data_ptr(), ws.data_ptr(), a.shape[1], ka, g.shape[1], n_out,
+             a.shape[0], t_len, shift0, shift_step, taps, ws.numel(), int(a.dtype == torch.bfloat16),
+             torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(err, "wgrad")
+    wgrad.launches += 1
+    return out
+
+
+def wgrad(a, g, *, t_len: int, taps: int = 1, shift0: int = 0, shift_step: int = 0, ka=None,
+          n_out=None) -> torch.Tensor:
+    """a [B * t_len, lda], g [B * t_len, ldg] -> [taps, ka, n_out] f32 on a's
+    device: the plain version on the CPU, the kernel on the GPU."""
+    if a.device.type == "cpu":
+        return wgrad_plain(a, g, t_len=t_len, taps=taps, shift0=shift0, shift_step=shift_step, ka=ka, n_out=n_out)
+    if a.device.type != "cuda":
+        raise ValueError(f"wgrad runs on cpu or cuda, not {a.device}")
+    return _wgrad_cuda(a, g, t_len, taps, shift0, shift_step, ka, n_out)
+
+
+wgrad.launches = 0
+
+
+def _colsum_shape(x, groups):
+    if x.dim() != 2 or groups < 1 or x.shape[0] % groups:
+        raise ValueError(f"colsum: x must be [groups * rows, N] (groups={groups}, x {tuple(x.shape)})")
+    return x.shape[0] // groups, x.shape[1]
+
+
+def colsum_plain(x, groups: int = 1) -> torch.Tensor:
+    """x [groups * rows, N] -> [groups, N] f32: each group's column sums."""
+    rows, n = _colsum_shape(x, groups)
+    return x.float().view(groups, rows, n).sum(1)
+
+
+def colsum(x, groups: int = 1) -> torch.Tensor:
+    """The column sums on x's device: the plain version on the CPU, the
+    kernel on the GPU."""
+    if x.device.type == "cpu":
+        return colsum_plain(x, groups)
+    if x.device.type != "cuda":
+        raise ValueError(f"colsum runs on cpu or cuda, not {x.device}")
+    from stabletts_torch.ops import _build
+
+    if x.dtype not in (torch.float32, torch.bfloat16) or not x.is_contiguous():
+        raise ValueError("colsum kernel takes a contiguous float32 or bfloat16 tensor")
+    rows, n = _colsum_shape(x, groups)
+    out = torch.empty(groups, n, device=x.device, dtype=torch.float32)
+    ws = torch.empty(_build.WGRAD_WS_FLOATS, device=x.device, dtype=torch.float32)
+    fn = _build.load("wgrad", "colsum_forward", 3, 5)
+    err = fn(x.data_ptr(), out.data_ptr(), ws.data_ptr(), groups, rows, n, ws.numel(),
+             int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "colsum")
+    colsum.launches += 1
+    return out
+
+
+colsum.launches = 0

@@ -188,6 +188,66 @@ def test_tap_gemm_kernel(dev, dtype, bar, case):
     assert _rel(got, want) <= bar
 
 
+# The bare weight-gradient GEMM (csrc/wgrad.cu: bf16 on wgmma, f32 on FMA)
+# against wgrad_plain. Each case: (b, t_len, lda, ka, ldg, n_out, taps,
+# shift0). At T = 77 and 97 items end inside a 64-row k step and shifted rows
+# cross item boundaries (where they must read zeros); "one_split" has 192
+# output tiles and so one row chunk, "many_splits" 15 chunks (bf16) or 32
+# (f32); lda = 257 and ldg = 77 take the element copies.
+WGRAD_CASES = {
+    "dense_77": (2, 77, 256, 256, 768, 768, 1, 0),
+    "ldg_3c_n_256": (2, 77, 256, 256, 768, 256, 1, 0),
+    "conv1_97": (2, 97, 256, 256, 1024, 1024, 3, -1),
+    "conv2_97": (3, 97, 1024, 1024, 256, 256, 3, -1),
+    "ka_n_ragged": (2, 77, 200, 200, 136, 136, 3, -1),
+    "ka_below_lda": (2, 97, 256, 131, 256, 77, 3, -1),
+    "unaligned_lda_257_ldg_77": (2, 97, 257, 257, 77, 77, 3, -1),
+    "five_taps": (2, 97, 128, 128, 256, 256, 5, -2),
+    "one_split": (2, 97, 1024, 1024, 1024, 1024, 3, -1),
+    "many_splits": (4, 1000, 256, 256, 256, 256, 1, 0),
+}
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float32, 1e-4), (BF16, 1e-3)])
+@pytest.mark.parametrize("case", sorted(WGRAD_CASES))
+def test_wgrad_kernel(dev, dtype, bar, case):
+    """bf16 operands are exact in f32 and so are their products: only the
+    order of the f32 sums differs from the plain version (1e-3 covers that
+    with room; f32: the tap GEMM's 1e-4). Two runs give equal bits."""
+    from stabletts_torch.ops.tap_gemm_cuda import wgrad, wgrad_plain
+
+    b, t_len, lda, ka, ldg, n_out, taps, shift0 = WGRAD_CASES[case]
+    rng = np.random.default_rng(len(case) + 100)
+    a, g = _rand(rng, dev, dtype, b * t_len, lda), _rand(rng, dev, dtype, b * t_len, ldg)
+    kw = dict(t_len=t_len, taps=taps, shift0=shift0, shift_step=1 if taps > 1 else 0, ka=ka, n_out=n_out)
+    before = wgrad.launches
+    got = wgrad(a, g, **kw)
+    assert wgrad.launches == before + 1
+    want = wgrad_plain(a, g, **kw)
+    assert got.shape == want.shape == (taps, ka, n_out) and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) <= bar
+    assert torch.equal(wgrad(a, g, **kw), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("n", [96, 1024, 77])
+@pytest.mark.parametrize("groups,rows", [(1, 4000), (4, 1000), (3, 7)])
+def test_colsum_kernel(dev, dtype, n, groups, rows):
+    """Against torch.sum in f32 (1e-4: the same values summed in another
+    order); N = 77 takes the scalar loads. Two runs give equal bits."""
+    from stabletts_torch.ops.tap_gemm_cuda import colsum
+
+    rng = np.random.default_rng(n + groups)
+    x = _rand(rng, dev, dtype, groups * rows, n)
+    before = colsum.launches
+    got = colsum(x, groups)
+    assert colsum.launches == before + 1
+    want = x.float().view(groups, rows, n).sum(1)
+    assert got.shape == (groups, n) and _rel(got, want) <= 1e-4
+    assert torch.equal(colsum(x, groups), got)
+
+
 def _train_case(kind, dev, dtype, b, t_len, rate):
     """Inputs of a training kernel at flagship widths; returns
     (kernel_fn, plain_fn, args) where args are leaf tensors needing grads."""

@@ -1,17 +1,22 @@
 """`ops/tap_gemm_cuda.py::tap_gemm_plain`, the plain version of the port's
 tap GEMM (csrc/common.cuh), against the JAX package's
 `ops/conv.py::conv1d_same_dots` (SAME convs as shifted products) and against
-dense products and an overlap-add written in numpy, on seeded inputs, f32.
-The bar, rtol = atol = 2e-4, covers f32 sums taken in another order. On the
-CPU `tap_gemm` is the plain version; the kernel is held to it on the card
-(tests/test_torch_cuda.py::test_tap_gemm_kernel)."""
+dense products and an overlap-add written in numpy, on seeded inputs, f32;
+likewise `wgrad_plain`, the weight-gradient GEMM's plain version, against the
+gradient of `conv1d_same_dots` with respect to its kernel (jax.vjp) and a
+dense product, and `colsum_plain` against numpy's sums. The bar, rtol = atol
+= 2e-4, covers f32 sums taken in another order. On the CPU `tap_gemm`,
+`wgrad` and `colsum` are the plain versions; the kernels are held to them on
+the card (tests/test_torch_cuda.py::test_tap_gemm_kernel,
+test_wgrad_kernel, test_colsum_kernel)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from stabletts_torch.ops.tap_gemm_cuda import tap_gemm, tap_gemm_plain
+from stabletts_torch.ops.tap_gemm_cuda import colsum, colsum_plain, tap_gemm, tap_gemm_plain, wgrad, wgrad_plain
 from stabletts_tpu.ops.conv import conv1d_same_dots
 
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -123,3 +128,59 @@ def test_kernel_wrapper_takes_the_plain_version_on_the_cpu():
     torch.testing.assert_close(got, tap_gemm_plain(a, w, t_in=6, t_out=6, taps=3, shift0=-1, shift_step=1))
     with pytest.raises(ValueError):
         tap_gemm(a, w, t_in=5, t_out=5, taps=3)
+
+
+@pytest.mark.parametrize("t_len", [7, 33])
+@pytest.mark.parametrize("k", [1, 3, 5])
+def test_wgrad_is_the_jax_conv_kernel_gradient(k, t_len):
+    """dK[j] = sum_t x[t + j - (k-1)/2]^T dy[t]: wgrad with shift0 = -(k-1)/2,
+    shift_step = 1, against jax.vjp of conv1d_same_dots with respect to its
+    kernel, over several items (no tap reads across items)."""
+    rng = np.random.default_rng(k * 31 + t_len)
+    b, c, n = 3, 12, 10
+    x = rng.standard_normal((b, t_len, c)).astype(np.float32)
+    w = rng.standard_normal((k, c, n)).astype(np.float32)
+    dy = rng.standard_normal((b, t_len, n)).astype(np.float32)
+    bias = jnp.zeros(n, jnp.float32)
+    _, vjp = jax.vjp(lambda kern: conv1d_same_dots(jnp.asarray(x), kern, bias), jnp.asarray(w))
+    (want,) = vjp(jnp.asarray(dy))
+    got = wgrad_plain(torch.from_numpy(x).reshape(b * t_len, c), torch.from_numpy(dy).reshape(b * t_len, n),
+                      t_len=t_len, taps=k, shift0=-((k - 1) // 2), shift_step=1)
+    assert got.shape == (k, c, n) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("ka,n_out", [(None, None), (19, 7)])
+def test_wgrad_one_tap_is_a_dense_product(ka, n_out):
+    """One unshifted tap is a.T @ g; ka and n_out read the leading columns of
+    wider rows (as dWqkv reads a G of row stride 3C)."""
+    rng = np.random.default_rng(23)
+    a = rng.standard_normal((24, 40)).astype(np.float32)
+    g = rng.standard_normal((24, 30)).astype(np.float32)
+    got = wgrad_plain(torch.from_numpy(a), torch.from_numpy(g), t_len=8, ka=ka, n_out=n_out)
+    dense = a[:, :ka].astype(np.float64).T @ g[:, :n_out].astype(np.float64)
+    np.testing.assert_allclose(got[0].numpy(), dense, **TOL)
+
+
+@pytest.mark.parametrize("groups", [1, 3])
+def test_colsum_is_each_groups_column_sum(groups):
+    rng = np.random.default_rng(29 + groups)
+    x = rng.standard_normal((groups * 17, 9)).astype(np.float32)
+    got = colsum_plain(torch.from_numpy(x), groups)
+    want = x.astype(np.float64).reshape(groups, 17, 9).sum(1)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_wgrad_and_colsum_wrappers_take_the_plain_versions_on_the_cpu():
+    rng = np.random.default_rng(31)
+    a = torch.from_numpy(rng.standard_normal((12, 8)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((12, 5)).astype(np.float32))
+    before = wgrad.launches, colsum.launches
+    kw = dict(t_len=6, taps=3, shift0=-1, shift_step=1)
+    torch.testing.assert_close(wgrad(a, g, **kw), wgrad_plain(a, g, **kw))
+    torch.testing.assert_close(colsum(g, 2), colsum_plain(g, 2))
+    assert (wgrad.launches, colsum.launches) == before
+    with pytest.raises(ValueError):
+        wgrad(a, g, t_len=5)
+    with pytest.raises(ValueError):
+        colsum(g, 5)
