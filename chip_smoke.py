@@ -10,7 +10,9 @@ Phases, one JSON line each; any failure exits nonzero:
      libraries with attention_train.cuh's in its three bf16 kernels, every
      library with common.cuh's bf16 tap GEMM in its wgmma kernel, and every
      library with its bf16 weight-gradient GEMM in `wgrad_wgmma_kernel`; no
-     library may hold an FMA form of any of them for bf16
+     library may hold an FMA form of any of them for bf16; then the `ptxas`
+     line: registers and spills of every f32 tap-GEMM and weight-gradient
+     instantiation
   3. each kernel against its plain PyTorch version on the card, at the main
      paths' shapes, f32 and bf16, with times and bounds and the unit of
      each kernel's products ("core": "wgmma" for bf16 on the attention cores,
@@ -20,7 +22,9 @@ Phases, one JSON line each; any failure exits nonzero:
      kernels (the whole DiT block, its attention half and FFN half, packed
      attention in both layouts beside one scaled_dot_product_attention call,
      ConvNeXt, ISTFT, and the bare tap GEMM at the DiT block's four products
-     beside one matmul or conv1d call; the bare weight-gradient GEMM at the
+     beside one matmul or conv1d call (in f32 also at a request's 2 x 1024
+     rows and the training step's 32 x 1000; each row names its CTA tile,
+     "tile"); the bare weight-gradient GEMM at the
      training step's four products at B=32, T=1000 beside one matmul or
      cuDNN convolution_backward call, and the bare column sums beside one
      torch.sum call); the training kernels' forward and
@@ -197,8 +201,10 @@ TRAIN_LAUNCHES_PER_STEP = {"dit_attention_train_fwd": 9, "dit_attention_train_bw
 DT_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 # kernel-name parts whose device time the profile phases sum: the weight-gradient GEMM (wgmma, FMA) and the sum of its
 # row chunks, the column sums (one pass or two), the tap GEMM (wgmma, FMA)
-PROFILE_FAMILIES = ("wgrad_wgmma_kernel", "wgrad_kernel", "sum_splits_kernel", "colsum", "tap_gemm_wgmma_kernel",
-                    "tap_gemm_kernel")
+PROFILE_FAMILIES = ("wgrad_wgmma_kernel", "wgrad_f32_kernel", "sum_splits_kernel", "colsum", "tap_gemm_wgmma_kernel",
+                    "tap_gemm_f32_kernel")
+# the FMA (f32) forms of common.cuh's tap GEMM and weight gradient, whose registers and spills the `ptxas` line reports
+F32_GEMM_FUNCTIONS = ("tap_gemm_f32_kernel", "wgrad_f32_kernel")
 
 
 def emit(obj) -> None:
@@ -325,6 +331,55 @@ def phase_sass() -> None:
     if not ok:
         fail(f"sass: libraries without wgmma in a bf16 attention core, tap GEMM or weight gradient, or with an FMA one "
              f"in bf16: {bad}")
+
+
+def phase_ptxas() -> None:
+    """Registers and spill bytes of the f32 tap GEMM and weight gradient
+    (F32_GEMM_FUNCTIONS), read from the `-Xptxas -v` report that the build
+    keeps beside each library: per kernel and template (tile, w_trans) the
+    count of instantiations over all libraries, their least and most
+    registers, and each instantiation that spills."""
+    import re
+
+    from stabletts_torch.ops import _build
+
+    kernels = {}
+    for name in sorted(_build._libs):
+        path = os.path.join(_build.BUILD_DIR, f"{name}.log")
+        if not os.path.exists(path):
+            continue
+        row = None
+        with open(path) as f:
+            for line in f:
+                m = re.search(r"Compiling entry function '(\S+)'", line)
+                if m:
+                    fn = m.group(1)
+                    kind = next((k for k in F32_GEMM_FUNCTIONS if k in fn), None)
+                    row = None
+                    if kind:
+                        # tap_gemm_f32_kernel<BM, BN, WT, Epi> mangles as ...ILi128ELi128ELb1E<Epi>...
+                        t = re.search(r"ILi(\d+)ELi(\d+)ELb([01])E", fn)
+                        key = f"{kind}<{t.group(1)}, {t.group(2)}, {'true' if t.group(3) == '1' else 'false'}>" \
+                            if t else f"{kind}<float>"
+                        row = {"key": key, "library": name, "function": fn}
+                        kernels.setdefault(key, []).append(row)
+                    continue
+                if row is None:
+                    continue
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                if m:
+                    row.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+                m = re.search(r"Used (\d+) registers", line)
+                if m:
+                    row["registers"] = int(m.group(1))
+    summary = {}
+    for key, rows in sorted(kernels.items()):
+        regs = [r.get("registers", 0) for r in rows]
+        summary[key] = {"instantiations": len(rows), "registers": [min(regs), max(regs)],
+                        "spilling": [{"library": r["library"], "function": r["function"],
+                                      "spill_stores": r.get("spill_stores"), "spill_loads": r.get("spill_loads")}
+                                     for r in rows if r.get("spill_stores") or r.get("spill_loads")]}
+    emit({"phase": "ptxas", "kernels": summary})
 
 
 def measure(kernel: str, dtype, shape: dict, run, run_plain, flops: float, io_bytes: float, select=None,
@@ -494,7 +549,7 @@ def check_tap_gemm(rng, b, t, dtype, dev, product):
     F.conv1d (3 taps) call in the same dtype."""
     import torch.nn.functional as F
 
-    from stabletts_torch.ops.tap_gemm_cuda import tap_gemm, tap_gemm_plain
+    from stabletts_torch.ops.tap_gemm_cuda import tap_gemm, tap_gemm_plain, tap_gemm_tile
 
     taps, k, n = TAP_GEMM_SHAPES[product]
     a = torch.from_numpy(rng.standard_normal((b * t, k)).astype(np.float32)).to(dev, dtype)
@@ -505,9 +560,11 @@ def check_tap_gemm(rng, b, t, dtype, dev, product):
     else:
         x, wc = a.view(b, t, k).transpose(1, 2), w.permute(2, 1, 0).contiguous()
         library = lambda: F.conv1d(x, wc, padding=taps // 2)
-    return measure("tap_gemm", dtype, {"B": b, "T": t, "product": product, "taps": taps, "K": k, "N": n},
-                   lambda: tap_gemm(a, w, **kw), lambda: tap_gemm_plain(a, w, **kw), 2 * b * t * k * n * taps,
-                   nbytes(a, w) + b * t * n * a.element_size(), library=library)
+    row = measure("tap_gemm", dtype, {"B": b, "T": t, "product": product, "taps": taps, "K": k, "N": n},
+                  lambda: tap_gemm(a, w, **kw), lambda: tap_gemm_plain(a, w, **kw), 2 * b * t * k * n * taps,
+                  nbytes(a, w) + b * t * n * a.element_size(), library=library)
+    row["tile"] = tap_gemm_tile(b * t, n, dtype)
+    return row
 
 
 # the weight-gradient GEMM's products in a decoder layer of the training step: (taps, ka, n), as dWo, dWqkv
@@ -522,7 +579,7 @@ def check_wgrad(rng, b, t, dtype, dev, product):
     yardstick is one call in the same dtype: `torch.matmul(a.T, g)` (1 tap)
     or cuDNN's wgrad, `aten.convolution_backward` with only the weight's
     gradient asked (3 taps; its [B, C, T] operands made beforehand)."""
-    from stabletts_torch.ops.tap_gemm_cuda import wgrad, wgrad_plain
+    from stabletts_torch.ops.tap_gemm_cuda import wgrad, wgrad_plain, wgrad_tile
 
     taps, ka, n = WGRAD_SHAPES[product]
     a = torch.from_numpy(rng.standard_normal((b * t, ka)).astype(np.float32)).to(dev, dtype)
@@ -541,6 +598,7 @@ def check_wgrad(rng, b, t, dtype, dev, product):
                   nbytes(a, g) + taps * ka * n * 4, library=library)
     row["same_bits_twice"] = bool(torch.equal(wgrad(a, g, **kw), wgrad(a, g, **kw)))
     row["ok"] = row["ok"] and row["same_bits_twice"]
+    row["tile"] = wgrad_tile(dtype)
     return row
 
 
@@ -588,6 +646,9 @@ def phase_kernels(dev) -> dict:
               for b, t in ((1, 1000), (8, 1000), (1, 333)) for dt in (f32, bf)]
     cases.append((check_istft, dict(b=8, t=1000, dtype=f32, with_lengths=True)))
     cases += [(check_tap_gemm, dict(b=16, t=1024, dtype=dt, product=p)) for p in TAP_GEMM_SHAPES for dt in (f32, bf)]
+    # f32 also at a request's shape (2B = 2, the mel cap) and the training step's (B = 32, T = 1000)
+    cases += [(check_tap_gemm, dict(b=b, t=t, dtype=f32, product=p)) for b, t in ((2, 1024), (32, 1000))
+              for p in TAP_GEMM_SHAPES]
     cases += [(check_wgrad, dict(b=32, t=1000, dtype=dt, product=p)) for p in WGRAD_SHAPES for dt in (f32, bf)]
     cases += [(check_colsum, dict(b=32, t=1000, dtype=dt, n=n, groups=groups))
               for n, groups in ((256, 1), (1024, 1), (256, 32)) for dt in (f32, bf)]
@@ -2147,6 +2208,7 @@ def main() -> None:
     _build.build_all()
     emit({"phase": "build", "seconds": time.time() - t0, "libraries": sorted(_build._libs)})
     phase_sass()
+    phase_ptxas()
 
     bench = phase_kernels(dev)
     variant_rows, variant_launches = phase_attention_variants(dev)

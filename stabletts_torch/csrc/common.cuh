@@ -8,12 +8,12 @@
 // its two halves; Philox4x32-10 dropout.
 //
 // The tap GEMM has two kernels behind one launch. f32 goes to the fp32-FMA
-// `tap_gemm_kernel` (true-f32 products; a 64x64 tile with a 16-deep k step,
-// 256 threads, 4x4 outputs per thread). bf16 goes to `tap_gemm_wgmma_kernel`
-// (tensor cores, f32 sums; see its note below). Both stage the finished tile
-// in shared memory, so an epilogue can read neighbouring columns (RoPE). The
-// weight-gradient GEMM likewise: f32 goes to the FMA `wgrad_kernel`, bf16 to
-// `wgrad_wgmma_kernel`.
+// `tap_gemm_f32_kernel` (true-f32 products on the FP32 pipes; a register-
+// blocked 128 x 128 or 64 x 64 tile chosen by the shape; see its note below).
+// bf16 goes to `tap_gemm_wgmma_kernel` (tensor cores, f32 sums). Both stage
+// the finished tile in shared memory, so an epilogue can read neighbouring
+// columns (RoPE). The weight-gradient GEMM likewise: f32 goes to the FMA
+// `wgrad_f32_kernel`, bf16 to `wgrad_wgmma_kernel`.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -42,6 +42,7 @@ constexpr int GEMM_BM = 64;
 constexpr int GEMM_BN = 64;
 constexpr int GEMM_BK = 16;
 constexpr int GEMM_THREADS = 256;
+constexpr int NUM_SMS = 132;  // H100 SXM
 
 // C[m, n] = sum_tap sum_k A(m, tap, k) * B(tap, k, n)
 //   output row m = b * t_out + i; A(m, tap, k) reads activation row
@@ -73,104 +74,6 @@ struct TapGemm {
 // Epi must provide
 //   float prep(int m, int n, float acc)                 -> value staged in the tile
 //   void store(int m, int n, const float* tile, int r, int c)  (tile row stride GEMM_BN + 1)
-template <typename T, typename Epi>
-__global__ void __launch_bounds__(GEMM_THREADS) tap_gemm_kernel(TapGemm g, Epi epi) {
-  __shared__ __align__(16) float As[GEMM_BK][GEMM_BM + 4];
-  __shared__ __align__(16) float Bs[GEMM_BK][GEMM_BN + 4];
-  __shared__ float Cs[GEMM_BM][GEMM_BN + 1];
-
-  const T* A0 = static_cast<const T*>(g.a0);
-  const T* A1 = static_cast<const T*>(g.a1);
-  const T* W = static_cast<const T*>(g.w);
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * GEMM_BM, n0 = blockIdx.x * GEMM_BN;
-  const int k_pad = (g.k_in + GEMM_BK - 1) / GEMM_BK * GEMM_BK;
-
-  // the A rows this thread loads: fixed across the k loop
-  int a_b[4], a_i[4];
-  bool a_ok[4];
-#pragma unroll
-  for (int l = 0; l < 4; ++l) {
-    int r = (tid + l * GEMM_THREADS) / GEMM_BK;
-    int m = m0 + r;
-    a_ok[l] = m < g.M;
-    a_b[l] = a_ok[l] ? m / g.t_out : 0;
-    a_i[l] = a_ok[l] ? m % g.t_out : 0;
-  }
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int tap = 0; tap < g.taps; ++tap) {
-    const int shift = g.shift0 + tap * g.shift_step;
-    const T* Wt = W + tap * g.w_tap_stride;
-    for (int k0 = 0; k0 < k_pad; k0 += GEMM_BK) {
-#pragma unroll
-      for (int l = 0; l < 4; ++l) {
-        int e = tid + l * GEMM_THREADS;
-        int r = e / GEMM_BK, kk = e % GEMM_BK;
-        int k = k0 + kk;
-        float v = 0.f;
-        if (a_ok[l] && k < g.k_in) {
-          int t = a_i[l] + shift;
-          int lim = g.row_len ? min(g.row_len[a_b[l]], g.t_in) : g.t_in;
-          if (t >= 0 && t < lim) {
-            long long row = (long long)a_b[l] * g.t_in + t;
-            v = k < g.k_split ? to_f(A0[row * g.lda + k]) : to_f(A1[row * g.lda + (k - g.k_split)]);
-          }
-        }
-        As[kk][r] = v;
-      }
-#pragma unroll
-      for (int l = 0; l < 4; ++l) {
-        int e = tid + l * GEMM_THREADS;
-        // W^T: neighbouring threads take neighbouring k, which is contiguous
-        int kk = g.w_trans ? e % GEMM_BK : e / GEMM_BN;
-        int c = g.w_trans ? e / GEMM_BK : e % GEMM_BN;
-        int k = k0 + kk, n = n0 + c;
-        float v = 0.f;
-        if (k < g.k_in && n < g.N)
-          v = to_f(g.w_trans ? Wt[(long long)n * g.ldw + k] : Wt[(long long)k * g.ldw + n]);
-        Bs[kk][c] = v;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < GEMM_BK; ++kk) {
-        float4 a4 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-        float4 b4 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-        float a[4] = {a4.x, a4.y, a4.z, a4.w};
-        float b[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int r = ty * 4 + i, c = tx * 4 + j;
-      int m = m0 + r, n = n0 + c;
-      Cs[r][c] = (m < g.M && n < g.N) ? epi.prep(m, n, acc[i][j]) : 0.f;
-    }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int r = ty * 4 + i, c = tx * 4 + j;
-      int m = m0 + r, n = n0 + c;
-      if (m < g.M && n < g.N) epi.store(m, n, &Cs[0][0], r, c);
-    }
-}
 
 // A "same"-padded k-tap conv along time (taps = 1: a dense layer) of a [M =
 // B*Tn, k_in] activation with w [taps, k_in, n_out]: tap j reads row
@@ -453,6 +356,280 @@ __global__ void __launch_bounds__(TG_THREADS, TG_CTAS_PER_SM)
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
+// ---- the f32 tap GEMM on the FP32 pipes -----------------------------------
+// The f32 form of the product inside #1, #3-#5 and #11-#13 under the same
+// contract (TapGemm, Epi). It stays true f32: TF32 keeps about three digits,
+// and the f32 bars are 1e-4. What bounds it on the H100: its products on the
+// FMA units, 2*M*N*K*taps FLOPs at 67 TFLOP/s (the DiT block's conv1 at
+// 16 x 1024 rows: 25.8 GFLOP, 0.385 ms), and the scheduler's one instruction
+// a clock, so every load, address or barrier instruction takes an FFMA's slot.
+//
+// Design: a register-blocked SIMT tile of 256 threads. A thread holds TM x TN
+// outputs as (TM/4) x (TN/4) groups of 4 x 4 at a stride of 64 rows and 64
+// columns, and reads them per k by float4 from [k][m] and [k][n] tiles in
+// shared memory: 128 x 128 (8 x 8 a thread, 4 LDS.128 per 64 FFMA) where the
+// grid holds 128 x 128 tiles for at least three quarters of the SMs, else
+// 64 x 64 (4 x 4), so that a request's M = 2048 at N = 256 still launches 128
+// CTAs. A warp covers 4 x 8 threads, so a fragment load reads 64 (A) or 128
+// (B) contiguous bytes. The k step is 16 deep. Every operand comes in by
+// 16-byte cp.async through a 4-deep ring, three steps ahead of the products,
+// one barrier a step and no registers held across the products: W[k, n] as
+// the [k][n] tile the products read; A's rows (and W^T's rows under w_trans),
+// whose k is contiguous, as they lie in 64-byte rows (XOR-swizzled so that a
+// quarter-warp's float4s hit distinct banks), then one step ahead each thread
+// moves its float4s into the [k][m] tile (row stride BM + 4: free of bank
+// conflicts). Rows outside [0, min(t_in, row_len[b])) and columns at or past
+// k_in read zeros (cp.async zero-fills); where lda or ldw is not a multiple of
+// 4, a pointer is not 16-byte aligned or k_split is not a multiple of 4, the
+// copies are element by element (the ISTFT's lda = 1025). Each output is one
+// fmaf chain from 0 over the taps in order, then k ascending, padded with
+// zeros to a multiple of 16: the f32 callers' bits are this order's, whatever
+// the tile. The epilogue stages the tile as 64 x 64 sub-tiles of row stride
+// GEMM_BN + 1 in the ring's memory and calls prep and store.
+constexpr int FG_BK = 16, FG_THREADS = 256, FG_STAGES = 4;
+constexpr int FG_CTAS_PER_SM = 2;  // at most 128 registers a thread
+
+template <int BM, int BN, bool WT>
+struct FgTile {
+  static constexpr int TM = BM / 16, TN = BN / 16;        // outputs a thread holds
+  static constexpr int LDA = BM + 4, LDB = BN + 4;        // row strides of the [k][m] and [k][n] tiles
+  static constexpr int AV = BM * FG_BK / 4 / FG_THREADS;  // float4s of A a thread copies a step
+  static constexpr int BV = BN * FG_BK / 4 / FG_THREADS;  // and of W
+  static constexpr int RAW_A = BM * FG_BK;                // A's rows as they lie
+  static constexpr int W_SLOT = WT ? BN * FG_BK : FG_BK * LDB;  // W^T's rows as they lie, or the [k][n] tile
+  static constexpr int SLOT = RAW_A + W_SLOT;             // floats of one ring stage
+  static constexpr int T_BUF = FG_BK * LDA + (WT ? FG_BK * LDB : 0);  // the transposed tiles, two buffers
+  static constexpr int RING = FG_STAGES * SLOT + 2 * T_BUF;
+  static constexpr int SUBS = (BM / 64) * (BN / 64);      // staged 64 x 64 sub-tiles
+  static constexpr int SMEM = 4 * (RING > SUBS * TG_SUB ? RING : SUBS * TG_SUB);
+};
+
+// chunk (16 bytes) kq of row r of a [rows][16] tile as it lies: chunks 0-3
+// XORed with 2 on rows 2 and 3 of every 4, so that the float4s a quarter-warp
+// reads in fg_transpose (4 rows x 2 chunks) fall in distinct banks
+__device__ __forceinline__ int fg_chunk(int r, int kq) { return r * FG_BK + 4 * (kq ^ (r & 2)); }
+
+// float4 e of a [R rows][16 k] tile in fg_transpose: row (e / 2) % R, chunk
+// (e & 1) + 2 ((e / 2) / R); 16 rows a warp, so its stores into the [k][R + 4]
+// tile hit 32 distinct banks
+template <int R> __device__ __forceinline__ int fg_row(int e) { return (e >> 1) % R; }
+template <int R> __device__ __forceinline__ int fg_kq(int e) { return (e & 1) | (((e >> 1) / R) << 1); }
+
+// A's rows of the step at (shift, k0) -> raw [BM][16]: float4 e = tid + 256 l
+// is chunk e % 4 of row e / 4 (four threads a 64-byte row), the rows of
+// `rows` slot l
+template <int BM, int AV>
+__device__ __forceinline__ void fg_copy_a(const TapGemm& g, const TapRows& rows, int shift, int k0, bool vec,
+                                          float* raw) {
+  const float* A0 = static_cast<const float*>(g.a0);
+  const float* A1 = static_cast<const float*>(g.a1);
+  const int ka = min(g.k_split, g.k_in);  // columns read from a0
+#pragma unroll
+  for (int l = 0; l < AV; ++l) {
+    const int e = threadIdx.x + FG_THREADS * l, r = e >> 2, kq = e & 3, k = k0 + 4 * kq;
+    const long long row = k < g.k_in ? rows.row(l, shift) : -1;
+    float* dst = raw + fg_chunk(r, kq);
+    if (vec) {
+      const float* src = A0;
+      int n = 0;
+      if (row >= 0) {
+        if (k < ka) {
+          src = A0 + row * g.lda + k;
+          n = min(ka - k, 4);
+        } else {
+          src = A1 + row * g.lda + (k - g.k_split);
+          n = min(g.k_in - k, 4);
+        }
+      }
+      cp_async16(smem_addr(dst), src, n * 4);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kj = k + j;
+        dst[j] = (row < 0 || kj >= g.k_in) ? 0.f
+                 : (kj < ka ? A0[row * g.lda + kj] : A1[row * g.lda + (kj - g.k_split)]);
+      }
+    }
+  }
+}
+
+// W^T's rows n0 .. n0 + BN - 1 (k contiguous) at k0 -> raw [BN][16]; W is the tap's
+template <int BN, int BV>
+__device__ __forceinline__ void fg_copy_wt(const TapGemm& g, const float* W, int n0, int k0, bool vec, float* raw) {
+#pragma unroll
+  for (int l = 0; l < BV; ++l) {
+    const int e = threadIdx.x + FG_THREADS * l, r = e >> 2, kq = e & 3, n = n0 + r, k = k0 + 4 * kq;
+    float* dst = raw + fg_chunk(r, kq);
+    const bool in = n < g.N && k < g.k_in;
+    if (vec) {
+      cp_async16(smem_addr(dst), in ? W + (long long)n * g.ldw + k : W, in ? 4 * min(g.k_in - k, 4) : 0);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dst[j] = (in && k + j < g.k_in) ? W[(long long)n * g.ldw + k + j] : 0.f;
+    }
+  }
+}
+
+// W[k, n] rows k0 .. k0 + 15 -> the [16][BN + 4] tile s: by cp.async (zero-
+// filled past k_in and N), or element by element
+template <int BN, int BV>
+__device__ __forceinline__ void fg_copy_w(const TapGemm& g, const float* W, int n0, int k0, bool vec, float* s) {
+#pragma unroll
+  for (int l = 0; l < BV; ++l) {
+    const int e = threadIdx.x + FG_THREADS * l, kk = e / (BN / 4), c = 4 * (e % (BN / 4));
+    const int k = k0 + kk, n = n0 + c;
+    float* dst = s + kk * (BN + 4) + c;
+    if (vec) {
+      const int nb = (k < g.k_in && n < g.N) ? min(g.N - n, 4) : 0;
+      cp_async16(smem_addr(dst), nb ? W + (long long)k * g.ldw + n : W, nb * 4);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dst[j] = (k < g.k_in && n + j < g.N) ? W[(long long)k * g.ldw + n + j] : 0.f;
+    }
+  }
+}
+
+// raw [R][16] (as fg_copy_a / fg_copy_wt lay it) -> t [16][R + 4]
+template <int R>
+__device__ __forceinline__ void fg_transpose(const float* raw, float* t) {
+#pragma unroll
+  for (int l = 0; l < R * FG_BK / 4 / FG_THREADS; ++l) {
+    const int e = threadIdx.x + FG_THREADS * l, r = fg_row<R>(e), kq = fg_kq<R>(e);
+    const float4 v = *reinterpret_cast<const float4*>(raw + fg_chunk(r, kq));
+    t[(4 * kq + 0) * (R + 4) + r] = v.x;
+    t[(4 * kq + 1) * (R + 4) + r] = v.y;
+    t[(4 * kq + 2) * (R + 4) + r] = v.z;
+    t[(4 * kq + 3) * (R + 4) + r] = v.w;
+  }
+}
+
+// acc += the products of one stage: sa [16][LDA], sb [16][LDB]
+template <int BM, int BN, int LDA = BM + 4, int LDB = BN + 4>
+__device__ __forceinline__ void fg_mma(const float* sa, const float* sb, int tr, int tc,
+                                       float (&acc)[BM / 16][BN / 16]) {
+  constexpr int TM = BM / 16, TN = BN / 16;
+#pragma unroll
+  for (int kk = 0; kk < FG_BK; ++kk) {
+    float a[TM], b[TN];
+#pragma unroll
+    for (int p = 0; p < TM / 4; ++p) {
+      const float4 x = *reinterpret_cast<const float4*>(sa + kk * LDA + 64 * p + 4 * tr);
+      a[4 * p] = x.x; a[4 * p + 1] = x.y; a[4 * p + 2] = x.z; a[4 * p + 3] = x.w;
+    }
+#pragma unroll
+    for (int q = 0; q < TN / 4; ++q) {
+      const float4 x = *reinterpret_cast<const float4*>(sb + kk * LDB + 64 * q + 4 * tc);
+      b[4 * q] = x.x; b[4 * q + 1] = x.y; b[4 * q + 2] = x.z; b[4 * q + 3] = x.w;
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
+template <int BM, int BN, bool WT, typename Epi>
+__global__ void __launch_bounds__(FG_THREADS, FG_CTAS_PER_SM)
+    tap_gemm_f32_kernel(TapGemm g, Epi epi, int vec_a, int vec_b) {
+  using L = FgTile<BM, BN, WT>;
+  extern __shared__ float4 fg_smem[];
+  float* ring = reinterpret_cast<float*>(fg_smem);  // FG_STAGES slots: raw A, then W (or raw W^T)
+  float* tbuf = ring + FG_STAGES * L::SLOT;         // two buffers: A [16][LDA] (then W^T [16][LDB])
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // this thread's rows 64 p + 4 tr + i and columns 64 q + 4 tc + j
+  const int tr = (warp >> 1) * 4 + (lane >> 3), tc = (warp & 1) * 8 + (lane & 7);
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int ktiles = (g.k_in + FG_BK - 1) / FG_BK, steps = g.taps * ktiles;
+
+  TapRows rows;
+#pragma unroll
+  for (int l = 0; l < L::AV; ++l) rows.set(g, l, m0 + ((tid + FG_THREADS * l) >> 2));
+
+  float acc[L::TM][L::TN];
+#pragma unroll
+  for (int i = 0; i < L::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < L::TN; ++j) acc[i][j] = 0.f;
+
+  // the copies of k step `step` into its ring slot
+  auto issue = [&](int step) {
+    float* slot = ring + (step % FG_STAGES) * L::SLOT;
+    const int tap = step / ktiles, k0 = (step - tap * ktiles) * FG_BK;
+    const float* W = static_cast<const float*>(g.w) + tap * g.w_tap_stride;
+    fg_copy_a<BM, L::AV>(g, rows, g.shift0 + tap * g.shift_step, k0, vec_a, slot);
+    if constexpr (WT)
+      fg_copy_wt<BN, L::BV>(g, W, n0, k0, vec_b, slot + L::RAW_A);
+    else
+      fg_copy_w<BN, L::BV>(g, W, n0, k0, vec_b, slot + L::RAW_A);
+  };
+  // k step `step`'s rows as they lie -> its transposed buffer
+  auto transpose = [&](int step) {
+    const float* slot = ring + (step % FG_STAGES) * L::SLOT;
+    float* t = tbuf + (step & 1) * L::T_BUF;
+    fg_transpose<BM>(slot, t);
+    if constexpr (WT) fg_transpose<BN>(slot + L::RAW_A, t + FG_BK * L::LDA);
+  };
+
+#pragma unroll
+  for (int s = 0; s < FG_STAGES - 1; ++s) {
+    if (s < steps) issue(s);
+    cp_async_commit();
+  }
+  cp_async_wait<FG_STAGES - 2>();
+  __syncthreads();
+  transpose(0);
+  for (int step = 0; step < steps; ++step) {
+    // step + 1's copies have landed for every thread, step's transposed tiles
+    // are written, and every thread's products of step - 1 (whose slot and
+    // transposed buffer are refilled below) are done
+    cp_async_wait<FG_STAGES - 3>();
+    __syncthreads();
+    if (step + FG_STAGES - 1 < steps) issue(step + FG_STAGES - 1);
+    cp_async_commit();
+    if (step + 1 < steps) transpose(step + 1);
+    const float* t = tbuf + (step & 1) * L::T_BUF;
+    const float* sb = WT ? t + FG_BK * L::LDA : ring + (step % FG_STAGES) * L::SLOT + L::RAW_A;
+    fg_mma<BM, BN>(t, sb, tr, tc, acc);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // epilogue: sub-tile (p, q) holds rows m0 + 64 p .., columns n0 + 64 q ..
+  float* stage = ring;
+  constexpr int QN = BN / 64, ld = GEMM_BN + 1;
+#pragma unroll
+  for (int i = 0; i < L::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < L::TN; ++j) {
+      const int p = i >> 2, q = j >> 2, r = 4 * tr + (i & 3), c = 4 * tc + (j & 3);
+      const int m = m0 + 64 * p + r, n = n0 + 64 * q + c;
+      stage[(p * QN + q) * TG_SUB + r * ld + c] = (m < g.M && n < g.N) ? epi.prep(m, n, acc[i][j]) : 0.f;
+    }
+  __syncthreads();
+#pragma unroll
+  for (int sub = 0; sub < L::SUBS; ++sub)
+    for (int e = tid; e < 64 * 64; e += FG_THREADS) {
+      const int r = e >> 6, c = e & 63, m = m0 + 64 * (sub / QN) + r, n = n0 + 64 * (sub % QN) + c;
+      if (m < g.M && n < g.N) epi.store(m, n, stage + sub * TG_SUB, r, c);
+    }
+}
+
+// The f32 tap GEMM's CTA tile (BM = BN) for an M x N output: 128 where the
+// grid holds 128 x 128 tiles for at least three quarters of the SMs (the
+// request's conv1 at M = 2048, N = 1024: 128 tiles), else 64.
+inline int tap_gemm_f32_tile(int M, int N) {
+  const long long tiles = (long long)((M + 127) / 128) * ((N + 127) / 128);
+  return 4 * tiles >= 3 * NUM_SMS ? 128 : 64;
+}
+
+template <int BM, int BN, bool WT, typename Epi>
+void launch_tap_gemm_f32(const TapGemm& g, const Epi& epi, int vec_a, int vec_b, cudaStream_t stream) {
+  constexpr int smem = FgTile<BM, BN, WT>::SMEM;
+  const dim3 grid((g.N + BN - 1) / BN, (g.M + BM - 1) / BM);
+  cudaFuncSetAttribute(tap_gemm_f32_kernel<BM, BN, WT, Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  tap_gemm_f32_kernel<BM, BN, WT, Epi><<<grid, FG_THREADS, smem, stream>>>(g, epi, vec_a, vec_b);
+}
+
 // f32: the FMA kernel; bf16: the wgmma kernel. Errors surface through the
 // caller's cudaGetLastError.
 template <typename T, typename Epi>
@@ -465,8 +642,18 @@ void launch_tap_gemm(const TapGemm& g, const Epi& epi, cudaStream_t stream) {
     dim3 grid((g.N + TG_BN - 1) / TG_BN, (g.M + TG_BM - 1) / TG_BM);
     tap_gemm_wgmma_kernel<Epi><<<grid, TG_THREADS, TG_SMEM, stream>>>(g, epi, vec_a, vec_b);
   } else {
-    dim3 grid((g.N + GEMM_BN - 1) / GEMM_BN, (g.M + GEMM_BM - 1) / GEMM_BM);
-    tap_gemm_kernel<T, Epi><<<grid, GEMM_THREADS, 0, stream>>>(g, epi);
+    const int vec_a = g.lda % 4 == 0 && aligned16(g.a0) &&
+                      (g.k_split >= g.k_in || (g.k_split % 4 == 0 && aligned16(g.a1)));
+    const int vec_b = g.ldw % 4 == 0 && g.w_tap_stride % 4 == 0 && aligned16(g.w);
+    const bool big = tap_gemm_f32_tile(g.M, g.N) == 128;
+    if (big && g.w_trans)
+      launch_tap_gemm_f32<128, 128, true>(g, epi, vec_a, vec_b, stream);
+    else if (big)
+      launch_tap_gemm_f32<128, 128, false>(g, epi, vec_a, vec_b, stream);
+    else if (g.w_trans)
+      launch_tap_gemm_f32<64, 64, true>(g, epi, vec_a, vec_b, stream);
+    else
+      launch_tap_gemm_f32<64, 64, false>(g, epi, vec_a, vec_b, stream);
   }
 }
 
@@ -783,7 +970,6 @@ __global__ void __launch_bounds__(256) colsum_chunk_kernel(const Tin* X, float* 
   }
 }
 
-constexpr int NUM_SMS = 132;  // H100 SXM
 constexpr int COLSUM_TARGET_CTAS = 2 * NUM_SMS;
 constexpr int COLSUM_MIN_ROWS = 64;  // rows per chunk, at least
 
@@ -817,7 +1003,7 @@ void launch_colsum(const Tin* X, float* out, int groups, int rows, int N, long l
 // `splits` consecutive chunks; one CTA per (output tile, tap, chunk) writes
 // its partial sum to a workspace, and a second kernel adds the partials in
 // chunk order. No atomics: the same sums on every run. Below, the f32 kernel
-// (fp32 FMA, 64 x 64 tiles); after it the bf16 one on wgmma.
+// (fp32 FMA, 128 x 128 tiles); after it the bf16 one on wgmma.
 struct WGrad {
   const void* a;
   int lda;
@@ -833,66 +1019,131 @@ struct WGrad {
   int row_chunk;  // rows per chunk, a multiple of the kernel's k step (set by launch_wgrad)
 };
 
+// ---- the f32 weight gradient on the FP32 pipes ----------------------------
+// The backward product of #11, #12 and #13 in f32, under the contract above.
+// What bounds it on the H100: its products on the FMA units, 2 * rows * ka *
+// n * taps FLOPs at 67 TFLOP/s (dW1 of the FFN at B*T = 32000: 50.3 GFLOP,
+// 0.751 ms).
+//
+// Design: the f32 tap GEMM's register-blocked 128 (m, over ka) x 128 (n) tile
+// (8 x 8 outputs a thread, 4 LDS.128 per 64 FFMA), the reduction running over
+// rows 16 at a time. Both operands are read as they lie: a k step's 16 rows of
+// A (m contiguous) and of G (n contiguous) are the [k][m] and [k][n] tiles
+// the inner loop reads, so a 3-deep ring fills them by 16-byte cp.async, with
+// no transpose and no registers, one barrier a step. The tap's shift lands on
+// the k axis: row r = b * t_len + t copies activation row r + shift where t +
+// shift lies in [0, t_len), else the chunk is zero-filled; so are chunks past
+// ka or n and rows past the chunk's end. Where lda or ldg is not a multiple of
+// 4 or a pointer is not 16-byte aligned the copies are element by element.
+// Each partial is one fmaf chain over its chunk's rows in ascending order and
+// sum_splits_kernel adds the partials in chunk order, so the chunks (counted
+// at 64 x 64 tiles, see launch_wgrad) fix the f32 weight gradients' bits; at
+// 128 x 128 tiles they make about 256 CTAs, one wave at two an SM.
+constexpr int FW_BM = 128, FW_BN = 128, FW_STAGES = 3;
+constexpr int FW_STAGE = FG_BK * (FW_BM + FW_BN);  // floats of one stage: A [16][128], then G [16][128]
+constexpr int FW_SMEM = FW_STAGES * FW_STAGE * 4;
+static_assert(FG_BK == GEMM_BK, "launch_wgrad cuts f32 row chunks in multiples of the kernel's k step");
+
+// Stage s <- rows r0 .. r0 + 15 of the chunk (below r_end): 16 rows x 32
+// chunks of 4 floats of each operand, chunk e = tid + 256 l at row e / 32
+__device__ __forceinline__ void fw_load(const WGrad& p, float* s, int r0, int r_end, int shift, int m0, int n0,
+                                        bool vec_a, bool vec_g) {
+  const float* A = static_cast<const float*>(p.a);
+  const float* G = static_cast<const float*>(p.g);
+#pragma unroll
+  for (int l = 0; l < 2; ++l) {
+    const int e = threadIdx.x + FG_THREADS * l, kr = e >> 5, c = 4 * (e & 31), r = r0 + kr;
+    long long row = -1;  // the activation row that row r reads at this shift
+    if (r < r_end) {
+      const int t = r % p.t_len + shift;
+      if (t >= 0 && t < p.t_len) row = (long long)r + shift;
+    }
+    float* da = s + kr * FW_BM + c;
+    const int m = m0 + c;
+    if (vec_a) {
+      const int na = (row >= 0 && m < p.ka) ? min(p.ka - m, 4) : 0;
+      cp_async16(smem_addr(da), na ? A + row * p.lda + m : A, na * 4);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) da[j] = (row >= 0 && m + j < p.ka) ? A[row * p.lda + m + j] : 0.f;
+    }
+    float* dg = s + FG_BK * FW_BM + kr * FW_BN + c;
+    const int n = n0 + c;
+    if (vec_g) {
+      const int ng = (r < r_end && n < p.n) ? min(p.n - n, 4) : 0;
+      cp_async16(smem_addr(dg), ng ? G + (long long)r * p.ldg + n : G, ng * 4);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dg[j] = (r < r_end && n + j < p.n) ? G[(long long)r * p.ldg + n + j] : 0.f;
+    }
+  }
+}
+
+// (a template only so that it is compiled where an f32 launch_wgrad is)
 template <typename T>
-__global__ void __launch_bounds__(GEMM_THREADS) wgrad_kernel(WGrad p, int taps) {
-  __shared__ __align__(16) float As[GEMM_BK][GEMM_BM + 4];
-  __shared__ __align__(16) float Bs[GEMM_BK][GEMM_BN + 4];
-  const T* A = static_cast<const T*>(p.a);
-  const T* G = static_cast<const T*>(p.g);
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int n0 = blockIdx.x * GEMM_BN, m0 = blockIdx.y * GEMM_BM;
+__global__ void __launch_bounds__(FG_THREADS, FG_CTAS_PER_SM)
+    wgrad_f32_kernel(WGrad p, int taps, int vec_a, int vec_g) {
+  static_assert(std::is_same<T, float>::value, "the FMA weight gradient takes f32");
+  extern __shared__ float4 fw_smem[];
+  float* ring = reinterpret_cast<float*>(fw_smem);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // this thread's m 64 p + 4 tr + i and n 64 q + 4 tc + j, as in the tap GEMM
+  const int tr = (warp >> 1) * 4 + (lane >> 3), tc = (warp & 1) * 8 + (lane & 7);
+  const int n0 = blockIdx.x * FW_BN, m0 = blockIdx.y * FW_BM;
   const int tap = blockIdx.z % taps, chunk = blockIdx.z / taps;
   const int shift = p.shift0 + tap * p.shift_step;
   const int r_begin = chunk * p.row_chunk, r_end = min(p.rows, r_begin + p.row_chunk);
-  float* out = p.out + (long long)chunk * taps * p.ka * p.n;
+  const int steps = max(0, (r_end - r_begin + FG_BK - 1) / FG_BK);
 
-  float acc[4][4];
+  float acc[8][8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  for (int r0 = r_begin; r0 < r_end; r0 += GEMM_BK) {
 #pragma unroll
-    for (int l = 0; l < 4; ++l) {
-      int e = tid + l * GEMM_THREADS;
-      int kk = e / GEMM_BM, c = e % GEMM_BM;
-      int r = r0 + kk;
-      float va = 0.f, vg = 0.f;
-      if (r < r_end) {
-        int m = m0 + c, n = n0 + c;
-        int b = r / p.t_len, t = r % p.t_len + shift;
-        if (m < p.ka && t >= 0 && t < p.t_len) va = to_f(A[((long long)b * p.t_len + t) * p.lda + m]);
-        if (n < p.n) vg = to_f(G[(long long)r * p.ldg + n]);
-      }
-      As[kk][c] = va;
-      Bs[kk][c] = vg;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < GEMM_BK; ++kk) {
-      float4 a4 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      float4 b4 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      float a[4] = {a4.x, a4.y, a4.z, a4.w};
-      float b[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int s = 0; s < FW_STAGES - 1; ++s) {
+    if (s < steps) fw_load(p, ring + s * FW_STAGE, r_begin + s * FG_BK, r_end, shift, m0, n0, vec_a, vec_g);
+    cp_async_commit();
   }
+  for (int step = 0; step < steps; ++step) {
+    // this step's copies have landed for every thread, and every thread's
+    // products of step - 1, whose stage the load below refills, are done
+    cp_async_wait<FW_STAGES - 2>();
+    __syncthreads();
+    const int next = step + FW_STAGES - 1;
+    if (next < steps)
+      fw_load(p, ring + (next % FW_STAGES) * FW_STAGE, r_begin + next * FG_BK, r_end, shift, m0, n0, vec_a, vec_g);
+    cp_async_commit();
+    const float* cur = ring + (step % FW_STAGES) * FW_STAGE;
+    fg_mma<FW_BM, FW_BN, FW_BM, FW_BN>(cur, cur + FG_BK * FW_BM, tr, tc, acc);
+  }
+  cp_async_wait<0>();
+
+  float* out = p.out + ((long long)chunk * taps + tap) * p.ka * p.n;
+  const bool vec_out = (p.n & 3) == 0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + 64 * (i >> 2) + 4 * tr + (i & 3);
+    if (m >= p.ka) continue;
+    float* o = out + (long long)m * p.n;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int m = m0 + ty * 4 + i, n = n0 + tx * 4 + j;
-      if (m < p.ka && n < p.n) out[((long long)tap * p.ka + m) * p.n + n] = acc[i][j];
+    for (int q = 0; q < 2; ++q) {
+      const int n = n0 + 64 * q + 4 * tc;
+      if (vec_out && n < p.n) {
+        *reinterpret_cast<float4*>(o + n) = make_float4(acc[i][4 * q], acc[i][4 * q + 1], acc[i][4 * q + 2],
+                                                        acc[i][4 * q + 3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (n + j < p.n) o[n + j] = acc[i][4 * q + j];
+      }
     }
+  }
 }
 
 // ---- the bf16 weight gradient on wgmma ------------------------------------
-// Replaces, for bf16, wgrad_kernel above under the same contract (WGrad, the
+// Replaces, for bf16, the FMA kernel above under the same contract (WGrad, the
 // row chunks, the workspace and the fixed-order sum of the partials). It is
 // the backward product of #11, #12 and #13, which the TPU kernels run on the
 // MXU (ffn_pallas_train.py: dot_general of bf16 operands with f32 sums). What
@@ -1056,8 +1307,10 @@ __global__ void sum_splits_kernel(const float* part, float* out, int splits, lon
   out[i] = s;
 }
 
-// f32 (FMA, 64 x 64 tiles): about WGRAD_TARGET_CTAS CTAs, ~4 waves of 2 CTAs
-// on 132 SMs, chunks of at least WGRAD_MIN_CHUNK rows. bf16 (wgmma, 128 x 128
+// f32 (FMA): chunks cut for about WGRAD_TARGET_CTAS tiles of 64 x 64 with
+// 16-row steps, chunks of at least WGRAD_MIN_CHUNK rows (the chunks fix the
+// f32 sums' bits, so the count stays at 64 x 64 tiles); wgrad_f32_kernel's
+// 128 x 128 tiles make that about 256 CTAs, one wave. bf16 (wgmma, 128 x 128
 // tiles, two CTAs an SM): at most WGRAD_WGMMA_CTAS, one wave, so that no
 // second wave runs a few CTAs alone; chunks of at least WGRAD_WGMMA_MIN_CHUNK
 // rows. At B*T = 32000 that is 240 CTAs for dW1 / dW2 of the FFN (5 chunks),
@@ -1092,14 +1345,18 @@ void launch_wgrad(WGrad p, int taps, float* ws, long long ws_floats, cudaStream_
   splits = max(splits, 1LL);
   float* final_out = p.out;
   if (splits > 1) p.out = ws;
-  dim3 grid((p.n + bn - 1) / bn, (p.ka + bm - 1) / bm, taps * (int)splits);
   if constexpr (tc) {
+    dim3 grid((p.n + bn - 1) / bn, (p.ka + bm - 1) / bm, taps * (int)splits);
     const int vec_a = p.lda % 8 == 0 && aligned16(p.a);
     const int vec_g = p.ldg % 8 == 0 && aligned16(p.g);
     cudaFuncSetAttribute(wgrad_wgmma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, TG_SMEM);
     wgrad_wgmma_kernel<T><<<grid, TG_THREADS, TG_SMEM, stream>>>(p, taps, vec_a, vec_g);
   } else {
-    wgrad_kernel<T><<<grid, GEMM_THREADS, 0, stream>>>(p, taps);
+    dim3 grid((p.n + FW_BN - 1) / FW_BN, (p.ka + FW_BM - 1) / FW_BM, taps * (int)splits);
+    const int vec_a = p.lda % 4 == 0 && aligned16(p.a);
+    const int vec_g = p.ldg % 4 == 0 && aligned16(p.g);
+    cudaFuncSetAttribute(wgrad_f32_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, FW_SMEM);
+    wgrad_f32_kernel<T><<<grid, FG_THREADS, FW_SMEM, stream>>>(p, taps, vec_a, vec_g);
   }
   if (splits > 1)
     sum_splits_kernel<<<(int)((size + 255) / 256), 256, 0, stream>>>(ws, final_out, (int)splits, size);

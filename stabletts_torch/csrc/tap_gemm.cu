@@ -6,7 +6,7 @@
 // #11, #12, #13 and the bf16 ConvNeXt (where the TPU kernels' products ran
 // on the MXU), exposed so that the card can time it and test its edges
 // against `ops/tap_gemm_cuda.py::tap_gemm_plain`. bf16 runs on wgmma, f32 on
-// fp32 FMA (see common.cuh).
+// fp32 FMA (see common.cuh); `tap_gemm_tile` names the CTA tile either runs.
 #include "common.cuh"
 
 using namespace stts;
@@ -40,3 +40,6 @@ extern "C" int tap_gemm_forward(const void* a0, const void* a1, const void* row_
     launch_tap_gemm<float>(g, PlainStoreEpi<float>{static_cast<float*>(out), N}, s);
   return (int)cudaGetLastError();
 }
+
+// BM (= BN) of the CTA tile that launch_tap_gemm runs for an M x N output
+extern "C" int tap_gemm_tile(int M, int N, int is_bf16) { return is_bf16 ? TG_BM : tap_gemm_f32_tile(M, N); }

@@ -14,7 +14,7 @@
 // and test their edges against `ops/tap_gemm_cuda.py::wgrad_plain` and
 // `colsum_plain`. bf16 weight gradients run on wgmma, f32 on fp32 FMA; the
 // column sums are one kernel for both types. Each entry takes its workspace
-// from the caller.
+// from the caller; `wgrad_tile` names the weight gradient's CTA tile.
 #include "common.cuh"
 
 using namespace stts;
@@ -30,6 +30,9 @@ extern "C" int wgrad_forward(const void* a, const void* g, void* out, void* ws, 
     launch_wgrad<float>(p, taps, static_cast<float*>(ws), ws_floats, s);
   return (int)cudaGetLastError();
 }
+
+// BM (= BN) of the CTA tile (over ka x n) that launch_wgrad runs
+extern "C" int wgrad_tile(int is_bf16) { return is_bf16 ? TG_BM : FW_BM; }
 
 extern "C" int colsum_forward(const void* x, void* out, void* ws, int groups, int rows, int N, int ws_floats,
                               int is_bf16, void* stream) {

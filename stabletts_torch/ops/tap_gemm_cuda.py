@@ -11,7 +11,8 @@ read from w's storage at offset tap * w_tap_stride with row stride ldw, as
 [k_in, N], or with `w_trans` as [N, k_in] and transposed. This is the
 product inside the DiT kernels (k=3 convs and projections), the ISTFT head
 (4 taps over a split spectrum) and the training kernels' forward and input
-gradients; on the card bf16 runs on wgmma and f32 on fp32 FMA.
+gradients; on the card bf16 runs on wgmma and f32 on fp32 FMA, in a CTA
+tile that `tap_gemm_tile` names.
 
 `tap_gemm` dispatches on the tensor's device: the plain version on the CPU,
 the kernel on the GPU. `tap_gemm.launches` counts launches. The output is in
@@ -149,6 +150,15 @@ def tap_gemm(a0, w, *, t_in: int, t_out: int, taps: int = 1, shift0: int = 0, sh
 tap_gemm.launches = 0
 
 
+def tap_gemm_tile(m: int, n: int, dtype) -> str:
+    """The CTA tile ("BMxBN") that the kernel runs for an [m, n] output in
+    `dtype`, as the built library chooses it (a CUDA build is needed)."""
+    from stabletts_torch.ops import _build
+
+    t = _build.load("tap_gemm", "tap_gemm_tile", 0, 3, stream=False)(m, n, int(dtype == torch.bfloat16))
+    return f"{t}x{t}"
+
+
 def _wgrad_shape(a, g, t_len, ka, n_out):
     if a.dim() != 2 or g.dim() != 2 or a.shape[0] != g.shape[0] or a.shape[0] % t_len:
         raise ValueError(f"wgrad: a and g must be [B * t_len, lda] and [B * t_len, ldg] (t_len={t_len}, "
@@ -209,6 +219,15 @@ def wgrad(a, g, *, t_len: int, taps: int = 1, shift0: int = 0, shift_step: int =
 
 
 wgrad.launches = 0
+
+
+def wgrad_tile(dtype) -> str:
+    """The CTA tile ("BMxBN", over ka x n) of the weight-gradient kernel in
+    `dtype`, as the built library has it (a CUDA build is needed)."""
+    from stabletts_torch.ops import _build
+
+    t = _build.load("wgrad", "wgrad_tile", 0, 1, stream=False)(int(dtype == torch.bfloat16))
+    return f"{t}x{t}"
 
 
 def _colsum_shape(x, groups):

@@ -1,0 +1,77 @@
+"""Time the port end to end, of the tree in the current directory, for
+comparing two commits on one GPU, one after the other:
+
+    cd <parent checkout> && python <this file> parent
+    cd <changed checkout> && python <this file> change     (then change, parent)
+
+Each run builds that tree's kernels and runs that tree's `chip_smoke`
+phases at the flagship config (random weights from a seed): `phase_serving`
+(three f32 `StableTTSAPI.inference` requests, one batch request and the bf16
+bench batch), then `--reps` more f32 requests of the 313-frame sentence and
+bench batches, timed by the host clock around a call that ends on the host;
+`phase_profile` of that request (device busy ms and the idle share); and
+`phase_train_steps` (f32 `train()` at B=32, T <= 1000, steady median) and
+`phase_train_bf16` (the same in bf16). It prints one JSON line: the wall ms
+of each request and batch, the profile's numbers and the training steps'
+steady medians. The phases' own lines are not printed.
+"""
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+import time
+
+import torch
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("tree", nargs="?", default=os.getcwd())
+    ap.add_argument("--reps", type=int, default=5)
+    args = ap.parse_args()
+    sys.path.insert(0, os.getcwd())
+    import chip_smoke as cs
+    from stabletts_torch.ops import _build
+
+    lines = []
+    cs.emit = lines.append  # the phases report through chip_smoke.emit
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    _build.build_all()
+    card = torch.cuda.get_device_name(0)
+    api, _, pipeline = cs.phase_serving(dev, card)
+    ref = cs.reference_wave(5)
+    request = lambda: api.inference(cs.SENTENCES[2], ref, "english", step=10, cfg=3.0)
+    walls = {"request_f32": [], "bench_bf16": []}
+    for _ in range(args.reps):
+        for name, fn in (("request_f32", request), ("bench_bf16", pipeline)):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn()
+            if isinstance(out, torch.Tensor):
+                out.cpu()
+            walls[name].append((time.time() - t0) * 1e3)
+    cs.phase_profile("request_f32", request, card)
+    with tempfile.TemporaryDirectory() as root:
+        _, f32_loss, f32_wall = cs.phase_train_steps(dev, card, root)
+        cs.phase_train_bf16(dev, card, root, f32_loss, f32_wall)
+    by_phase = {}
+    for line in lines:
+        by_phase.setdefault(line.get("phase"), []).append(line)
+    prof = by_phase["profile_request_f32"][0]
+    out = {"tree": args.tree, "request_f32_wall_ms": walls["request_f32"],
+           "bench_bf16_wall_ms": walls["bench_bf16"],
+           "serving_request_wall_ms": [r["wall_ms"] for r in by_phase["serving_request"]],
+           "serving_bench_bf16_wall_ms": by_phase["serving_bench_bf16"][0]["wall_ms"],
+           "profile_request_f32": {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share",
+                                                          "kernel_launches", "families_device_ms")},
+           "train_f32_steady_ms": by_phase["train_steps"][0]["steady_wall_ms_median"],
+           "train_bf16_steady_ms": by_phase["train_bf16"][0]["steady_wall_ms_median"], "card": card}
+    print(json.dumps(out), flush=True)
+
+
+if __name__ == "__main__":
+    main()

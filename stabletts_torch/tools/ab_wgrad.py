@@ -11,11 +11,12 @@ weight gradients and bias sums these are: #11 and #12 (`check_train`, (32,
 1000), dropout 0.1) and #13 (`check_prenet_train`, (32, 1000)), bf16 and f32;
 and, where the tree has them, `check_wgrad` at the training step's four
 products and `check_colsum` at its three shapes. It prints one JSON line: per
-case the median ms of each run and the rel err against the plain version
-(the worst gradient's for a backward), and per backward a short hash of each
-output of one launch on fixed inputs, so that equal hashes in two trees mean
-equal bits, beside that output's rel err against autograd through the plain
-version on the same inputs.
+case the median ms of each run, the rel err against the plain version (the
+worst gradient's for a backward) and the library call's ms where the case
+has one, and per backward a short hash of each output of one launch on fixed
+inputs (and of its forward's output, "out"), so that equal hashes in two
+trees mean equal bits, beside that output's rel err against autograd through
+the plain version on the same inputs.
 """
 
 import hashlib
@@ -33,8 +34,9 @@ def _hash(t: torch.Tensor) -> str:
 
 def _backward_bits(kind: str, dtype, dev, rel_err) -> dict:
     """Each output of one backward launch at (32, 1000), dropout 0.1, as a
-    hash and its rel err against autograd through the plain version; the
-    inputs come from a numpy seed, the dropout key from a fixed generator."""
+    hash and its rel err against autograd through the plain version, and the
+    same for the output of one forward launch ("out"); the inputs come from a
+    numpy seed, the dropout key from a fixed generator."""
     from stabletts_torch.ops import philox
 
     b, t, c, f, heads = 32, 1000, 256, 1024, 4
@@ -49,23 +51,25 @@ def _backward_bits(kind: str, dtype, dev, rel_err) -> dict:
 
         ws = [g(3, c, f, scale=(3 * c) ** -0.5), g(f, scale=0.05), g(3, f, c, scale=(3 * f) ** -0.5), g(c, scale=0.05)]
         cot = g(b, t, c)
+        fwd = F.ffn_train_fwd(x, mod, mask, *ws, 0.1, seed)
         outs = F.ffn_train_bwd(x, mod, mask, *ws, 0.1, seed, cot)
         names = ["dx", "dmod", "dw1", "db1", "dw2", "db2"]
         leaves = [a.detach().clone().requires_grad_() for a in (x, mod, *ws)]
-        plain = torch.autograd.grad(F.ffn_train_plain(leaves[0], leaves[1], mask, *leaves[2:], 0.1, seed), leaves, cot)
+        fwd_plain = F.ffn_train_plain(leaves[0], leaves[1], mask, *leaves[2:], 0.1, seed)
+        plain = torch.autograd.grad(fwd_plain, leaves, cot)
     elif kind == "dit_attention_train":
         from stabletts_torch.ops import dit_attention_train_cuda as A
 
         wqkv, bqkv, wo, bo = g(c, 3 * c, scale=c ** -0.5), g(3 * c, scale=0.05), g(c, c, scale=c ** -0.5), g(c, scale=0.05)
         cot = g(b, t, c)
-        _, att, lse, att_lo = A.dit_attention_train_fwd(x, mod, mask, wqkv, bqkv, wo, bo, heads, 0.1, seed)
+        fwd, att, lse, att_lo = A.dit_attention_train_fwd(x, mod, mask, wqkv, bqkv, wo, bo, heads, 0.1, seed)
         outs = A.dit_attention_train_bwd(x, mod, mask, wqkv, bqkv, wo, bo, heads, 0.1, seed, att, lse, cot,
                                          att_lo=att_lo)
         names = ["dx", "dmod", "dwqkv", "dbqkv", "dwo", "dbo"]
         split = [wqkv[:, :c], bqkv[:c], wqkv[:, c:2 * c], bqkv[c:2 * c], wqkv[:, 2 * c:], bqkv[2 * c:], wo, bo]
         leaves = [a.detach().clone().requires_grad_() for a in (x, mod, *split)]
-        gp = torch.autograd.grad(A.dit_attention_train_plain(leaves[0], leaves[1], mask, *leaves[2:], heads, 0.1, seed),
-                                 leaves, cot)
+        fwd_plain = A.dit_attention_train_plain(leaves[0], leaves[1], mask, *leaves[2:], heads, 0.1, seed)
+        gp = torch.autograd.grad(fwd_plain, leaves, cot)
         plain = [gp[0], gp[1], torch.cat(gp[2:8:2], dim=1), torch.cat(gp[3:8:2]), gp[8], gp[9]]
     else:
         from stabletts_torch.ops import prenet_train_cuda as P
@@ -74,11 +78,14 @@ def _backward_bits(kind: str, dtype, dev, rel_err) -> dict:
         ws = [g(3, cin, f, scale=(3 * cin) ** -0.5), g(f, scale=0.05), g(3, f, f, scale=(3 * f) ** -0.5),
               g(f, scale=0.05), g(3, f, c, scale=(3 * f) ** -0.5), g(c, scale=0.05)]
         mu, cot = g(b, t, cin), g(b, t, c)
+        fwd = P.prenet_train_fwd(mu, *ws)
         outs = P.prenet_train_bwd(mu, *ws, cot)
         names = ["dmu", "dwa", "dba", "dwb", "dbb", "dwc", "dbc"]
         leaves = [a.detach().clone().requires_grad_() for a in (mu, *ws)]
-        plain = torch.autograd.grad(P.prenet_train_plain(*leaves), leaves, cot)
-    return {name: {"sha": _hash(o), "rel_err": rel_err(o, r)[0]} for name, o, r in zip(names, outs, plain)}
+        fwd_plain = P.prenet_train_plain(*leaves)
+        plain = torch.autograd.grad(fwd_plain, leaves, cot)
+    return {name: {"sha": _hash(o), "rel_err": rel_err(o, r)[0]}
+            for name, o, r in zip(["out", *names], [fwd, *outs], [fwd_plain, *plain])}
 
 
 def main() -> None:

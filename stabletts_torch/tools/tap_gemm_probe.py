@@ -1,6 +1,7 @@
-"""Where the bf16 tap GEMM's time goes, on one GPU.
+"""Where the tap GEMM's time goes, on one GPU.
 
     python -m stabletts_torch.tools.tap_gemm_probe [--iters 50]
+    python -m stabletts_torch.tools.tap_gemm_probe --dtype float32 [--b 2 --t 1024]
 
 Builds `csrc/tap_gemm.cu` (the tap GEMM of `csrc/common.cuh` with a plain
 store epilogue) several times, each from a copy of the sources with one
@@ -20,7 +21,15 @@ opposite orders. The builds:
                       store keeps the main loop alive)
   no_copies_no_epilogue
 
-The first four are checked against `tap_gemm_plain`. It prints one JSON line
+In float32 (the FMA kernel `tap_gemm_f32_kernel`) at `--b` x `--t` rows
+(default the bench batch's 16 x 1024):
+
+  as_built            the kernel as it is (its tile chosen by the shape)
+  one_cta_an_sm       __launch_bounds__ for one CTA an SM: no 128-register cap
+  ring_3              a 3-deep ring: the copies two k steps ahead, not three
+  tile_64, tile_128   the 64 x 64 or the 128 x 128 tile at every shape
+
+The builds that compute the product are checked against `tap_gemm_plain`. It prints one JSON line
 per build and product (ms of each round, TFLOP/s of the best, and for
 `as_built` and `no_epilogue` the rate at which the copies fill shared memory
 from L2: the A and B tiles of every k step of every CTA), then the card line.
@@ -43,10 +52,10 @@ import torch
 
 SHAPES = {"qkv": (1, 256, 768), "out_proj": (1, 256, 256), "conv1": (3, 256, 1024), "conv2": (3, 1024, 256)}
 B, T = 16, 1024
-TILE, BK = 128, 64  # the kernel's CTA tile (M and N) and k step
+TILE, BK = 128, 64  # the bf16 kernel's CTA tile (M and N) and k step
 
 
-def _variants(src: str) -> dict:
+def _variants(src: str, dtype: str) -> dict:
     def sub(text, pairs):
         for old, new in pairs:
             if text.count(old) != 1:
@@ -54,6 +63,11 @@ def _variants(src: str) -> dict:
             text = text.replace(old, new)
         return text
 
+    if dtype == "float32":
+        tile = "return 4 * tiles >= 3 * NUM_SMS ? 128 : 64;"
+        return {"as_built": src, "one_cta_an_sm": sub(src, [("FG_CTAS_PER_SM = 2;", "FG_CTAS_PER_SM = 1;")]),
+                "ring_3": sub(src, [("FG_STAGES = 4;", "FG_STAGES = 3;")]),
+                "tile_64": sub(src, [(tile, "return 64;")]), "tile_128": sub(src, [(tile, "return 128;")])}
     ring4 = [("TG_STAGES = 3", "TG_STAGES = 4"), ("TG_CTAS_PER_SM = 2", "TG_CTAS_PER_SM = 1")]
     no_inflight = [("TG_INFLIGHT = 1;", "TG_INFLIGHT = 0;")]
     no_copies = [("if (s < steps) tap_gemm_load(", "if (false) tap_gemm_load("),
@@ -69,10 +83,10 @@ def _variants(src: str) -> dict:
             "no_epilogue": no_epi, "no_copies_no_epilogue": sub(no_epi, no_copies)}
 
 
-def _build_variants(_build) -> dict:
+def _build_variants(_build, dtype: str) -> dict:
     src = open(os.path.join(_build.CSRC_DIR, "common.cuh")).read()
     procs = {}
-    for name, text in _variants(src).items():
+    for name, text in _variants(src, dtype).items():
         d = os.path.join(_build.BUILD_DIR, "probe", name)
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(_build.CSRC_DIR, d)
@@ -106,28 +120,33 @@ def _loop_ms(fn, iters: int) -> float:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
+    ap.add_argument("--b", type=int, default=B)
+    ap.add_argument("--t", type=int, default=T)
     args = ap.parse_args()
+    dtype, b, t = getattr(torch, args.dtype), args.b, args.t
     if not torch.cuda.is_available():
         raise SystemExit("tap_gemm_probe measures the kernel on a GPU; none is present")
     from stabletts_torch.ops import _build
     from stabletts_torch.ops.tap_gemm_cuda import tap_gemm, tap_gemm_plain
 
     _build.build_all()
-    libs = _build_variants(_build)
+    libs = _build_variants(_build, args.dtype)
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     inputs = {}
     for prod, (taps, k, n) in SHAPES.items():
-        a = torch.from_numpy(rng.standard_normal((B * T, k)).astype(np.float32)).to(dev, torch.bfloat16)
+        a = torch.from_numpy(rng.standard_normal((b * t, k)).astype(np.float32)).to(dev, dtype)
         w = torch.from_numpy((rng.standard_normal((taps, k, n)) * (taps * k) ** -0.5).astype(np.float32))
-        kw = dict(t_in=T, t_out=T, taps=taps, shift0=-(taps // 2), shift_step=1)
-        inputs[prod] = (a, w.to(dev, torch.bfloat16), kw)
+        kw = dict(t_in=t, t_out=t, taps=taps, shift0=-(taps // 2), shift_step=1)
+        inputs[prod] = (a, w.to(dev, dtype), kw)
     rows = {}
     for order in (list(libs), list(reversed(libs))):
         for name in order:
             _build._libs["tap_gemm"] = libs[name]
             for prod, (a, w, kw) in inputs.items():
-                row = rows.setdefault((name, prod), {"build": name, "product": prod, "ms": []})
+                row = rows.setdefault((name, prod), {"build": name, "dtype": args.dtype, "B": b, "T": t,
+                                                     "product": prod, "ms": []})
                 row["ms"].append(_loop_ms(lambda: tap_gemm(a, w, **kw), args.iters))
                 if "rel_err" not in row and not name.startswith("no_"):
                     got, want = tap_gemm(a, w, **kw).float(), tap_gemm_plain(a, w, **kw).float()
@@ -135,9 +154,9 @@ def main() -> None:
     for (name, prod), row in rows.items():
         taps, k, n = SHAPES[prod]
         best = min(row["ms"])
-        row["tflops"] = 2 * B * T * k * n * taps / best / 1e9
-        if name in ("no_epilogue", "as_built"):
-            ctas = -(-B * T // TILE) * -(-n // TILE)
+        row["tflops"] = 2 * b * t * k * n * taps / best / 1e9
+        if name in ("no_epilogue", "as_built") and dtype == torch.bfloat16:
+            ctas = -(-b * t // TILE) * -(-n // TILE)
             ring_bytes = ctas * taps * -(-k // BK) * 2 * TILE * BK * 2  # A and B tiles of every k step
             row["copied_GB_per_s"] = ring_bytes / best / 1e6
         print(json.dumps(row), flush=True)

@@ -144,7 +144,12 @@ def test_convnext_kernel(dev, dtype, t_len, c):
 # tap_gemm_plain at the edges of its contract. Each case: (b, t_in, lda, taps,
 # shift0, shift_step, n_out, w_trans, row_len, extra) with extra the ISTFT's
 # split-spectrum form (t_out = t_in + 3, a1, k_split = lda, weights read as
-# overlapping windows of one [2 * lda, n_fft] matrix).
+# overlapping windows of one [2 * lda, n_fft] matrix). The f32 kernel picks a
+# 128 x 128 tile where the grid holds such tiles for at least three quarters of
+# the 132 SMs, else 64 x 64:
+# F32_TILES names the tile of the cases that reach each branch at a real size
+# (a request's conv2, M = 2048 and N = 256; ragged M and N, w_trans and the
+# ISTFT's element copies at the large tile).
 TAP_CASES = {
     "ragged_m_77": (2, 77, 256, 1, 0, 0, 768, False, None, None),
     "ragged_m_97_conv": (2, 97, 256, 3, -1, 1, 1024, False, None, None),
@@ -158,14 +163,17 @@ TAP_CASES = {
     "n_77_unaligned_ldw": (2, 97, 256, 3, -1, 1, 77, False, None, None),
     "unaligned_lda_257": (2, 97, 257, 3, -1, 1, 256, False, None, None),
     "unaligned_lda_260_trans": (2, 97, 260, 3, 1, -1, 256, True, None, None),
+    "request_conv2_2x1024": (2, 1024, 1024, 3, -1, 1, 256, False, None, None),
+    "large_ragged_m_n": (3, 4999, 256, 3, -1, 1, 200, False, None, None),
+    "large_w_trans": (4, 4000, 256, 3, 1, -1, 1024, True, None, None),
+    "large_k_split_1025": (8, 1000, 1025, 4, 0, -1, 512, False, None, "istft"),
 }
+F32_TILES = {"request_conv2_2x1024": "64x64", "large_ragged_m_n": "128x128", "large_w_trans": "128x128",
+             "large_k_split_1025": "128x128"}
 
 
-@pytest.mark.parametrize("dtype,bar", [(torch.float32, 1e-4), (BF16, 2e-2)])
-@pytest.mark.parametrize("case", sorted(TAP_CASES))
-def test_tap_gemm_kernel(dev, dtype, bar, case):
-    from stabletts_torch.ops.tap_gemm_cuda import tap_gemm, tap_gemm_plain
-
+def _tap_case(case, dev, dtype):
+    """The inputs and keyword arguments of TAP_CASES[case]."""
     b, t_in, lda, taps, shift0, step, n_out, w_trans, row_len, extra = TAP_CASES[case]
     rng = np.random.default_rng(len(case))
     kw = dict(t_in=t_in, t_out=t_in, taps=taps, shift0=shift0, shift_step=step, w_trans=w_trans)
@@ -179,13 +187,35 @@ def test_tap_gemm_kernel(dev, dtype, bar, case):
         w = _rand(rng, dev, dtype, taps, *((n_out, lda) if w_trans else (lda, n_out)), scale=(taps * lda) ** -0.5)
     if row_len is not None:
         kw["row_len"] = torch.tensor(row_len, device=dev)
+    return a0, w, kw, b * kw["t_out"], n_out
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float32, 1e-4), (BF16, 2e-2)])
+@pytest.mark.parametrize("case", sorted(TAP_CASES))
+def test_tap_gemm_kernel(dev, dtype, bar, case):
+    from stabletts_torch.ops.tap_gemm_cuda import tap_gemm, tap_gemm_plain, tap_gemm_tile
+
+    a0, w, kw, m, n_out = _tap_case(case, dev, dtype)
+    if dtype == torch.float32 and case in F32_TILES:
+        assert tap_gemm_tile(m, n_out, dtype) == F32_TILES[case]
     before = tap_gemm.launches
     got = tap_gemm(a0, w, **kw)
     assert tap_gemm.launches == before + 1
     want = tap_gemm_plain(a0, w, **kw)
-    assert got.shape == want.shape == (b * kw["t_out"], n_out)
+    assert got.shape == want.shape == (m, n_out)
     assert torch.isfinite(got.float()).all()
     assert _rel(got, want) <= bar
+
+
+@pytest.mark.parametrize("case", ["request_conv2_2x1024", "large_w_trans", "large_k_split_1025", "w_trans_qkv",
+                                  "unaligned_lda_257"])
+def test_tap_gemm_f32_same_bits_twice(dev, case):
+    """The f32 tap GEMM sums each output in one fixed order at either tile:
+    two launches on the same inputs give equal bits."""
+    from stabletts_torch.ops.tap_gemm_cuda import tap_gemm
+
+    a0, w, kw, _, _ = _tap_case(case, dev, torch.float32)
+    assert torch.equal(tap_gemm(a0, w, **kw), tap_gemm(a0, w, **kw))
 
 
 # The bare weight-gradient GEMM (csrc/wgrad.cu: bf16 on wgmma, f32 on FMA)
@@ -193,7 +223,9 @@ def test_tap_gemm_kernel(dev, dtype, bar, case):
 # shift0). At T = 77 and 97 items end inside a 64-row k step and shifted rows
 # cross item boundaries (where they must read zeros); "one_split" has 192
 # output tiles and so one row chunk, "many_splits" 15 chunks (bf16) or 32
-# (f32); lda = 257 and ldg = 77 take the element copies.
+# (f32); lda = 257 and ldg = 77 take the element copies. The last three are
+# at B * T of 4000-32000 rows: dW1 of the training step (5 chunks), ragged ka
+# and n over the 128 x 128 tiles, and the element copies over many chunks.
 WGRAD_CASES = {
     "dense_77": (2, 77, 256, 256, 768, 768, 1, 0),
     "ldg_3c_n_256": (2, 77, 256, 256, 768, 256, 1, 0),
@@ -205,6 +237,9 @@ WGRAD_CASES = {
     "five_taps": (2, 97, 128, 128, 256, 256, 5, -2),
     "one_split": (2, 97, 1024, 1024, 1024, 1024, 3, -1),
     "many_splits": (4, 1000, 256, 256, 256, 256, 1, 0),
+    "conv1_32x1000": (32, 1000, 256, 256, 1024, 1024, 3, -1),
+    "ka_n_ragged_long": (8, 1000, 200, 200, 136, 136, 3, -1),
+    "unaligned_long": (4, 1000, 257, 257, 77, 77, 1, 0),
 }
 
 
