@@ -200,11 +200,15 @@ TRAIN_LAUNCHES_PER_STEP = {"dit_attention_train_fwd": 9, "dit_attention_train_bw
                            "ffn_train_bwd": 9, "mas": 1}
 DT_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 # kernel-name parts whose device time the profile phases sum: the weight-gradient GEMM (wgmma, FMA) and the sum of its
-# row chunks, the column sums (one pass or two), the tap GEMM (wgmma, FMA)
+# row chunks, the column sums (one pass or two), the tap GEMM (wgmma, FMA), the training attention core's three
+# kernels (each name part covers its f32 and its bf16 form) and its row sums D
 PROFILE_FAMILIES = ("wgrad_wgmma_kernel", "wgrad_f32_kernel", "sum_splits_kernel", "colsum", "tap_gemm_wgmma_kernel",
-                    "tap_gemm_f32_kernel")
-# the FMA (f32) forms of common.cuh's tap GEMM and weight gradient, whose registers and spills the `ptxas` line reports
+                    "tap_gemm_f32_kernel", "attn_fwd_kernel", "attn_bwd_dkv_kernel", "attn_bwd_dq_kernel",
+                    "rowdot_kernel")
+# the FMA (f32) forms of common.cuh's tap GEMM and weight gradient and of attention_train.cuh's training core, whose
+# registers and spills the `ptxas` line reports
 F32_GEMM_FUNCTIONS = ("tap_gemm_f32_kernel", "wgrad_f32_kernel")
+F32_TRAIN_CORE_FUNCTIONS = ("attn_fwd_kernel_f32", "attn_bwd_dkv_kernel_f32", "attn_bwd_dq_kernel_f32")
 
 
 def emit(obj) -> None:
@@ -335,9 +339,10 @@ def phase_sass() -> None:
 
 def phase_ptxas() -> None:
     """Registers and spill bytes of the f32 tap GEMM and weight gradient
-    (F32_GEMM_FUNCTIONS), read from the `-Xptxas -v` report that the build
-    keeps beside each library: per kernel and template (tile, w_trans) the
-    count of instantiations over all libraries, their least and most
+    (F32_GEMM_FUNCTIONS) and of the f32 training attention core
+    (F32_TRAIN_CORE_FUNCTIONS), read from the `-Xptxas -v` report that the
+    build keeps beside each library: per kernel and template (tile, w_trans)
+    the count of instantiations over all libraries, their least and most
     registers, and each instantiation that spills."""
     import re
 
@@ -354,13 +359,13 @@ def phase_ptxas() -> None:
                 m = re.search(r"Compiling entry function '(\S+)'", line)
                 if m:
                     fn = m.group(1)
-                    kind = next((k for k in F32_GEMM_FUNCTIONS if k in fn), None)
+                    kind = next((k for k in (*F32_GEMM_FUNCTIONS, *F32_TRAIN_CORE_FUNCTIONS) if k in fn), None)
                     row = None
                     if kind:
                         # tap_gemm_f32_kernel<BM, BN, WT, Epi> mangles as ...ILi128ELi128ELb1E<Epi>...
                         t = re.search(r"ILi(\d+)ELi(\d+)ELb([01])E", fn)
                         key = f"{kind}<{t.group(1)}, {t.group(2)}, {'true' if t.group(3) == '1' else 'false'}>" \
-                            if t else f"{kind}<float>"
+                            if t else (kind if kind in F32_TRAIN_CORE_FUNCTIONS else f"{kind}<float>")
                         row = {"key": key, "library": name, "function": fn}
                         kernels.setdefault(key, []).append(row)
                     continue
@@ -640,7 +645,7 @@ def phase_kernels(dev) -> dict:
     halves = [(16, 1024, f32), (16, 1024, bf), (2, 1000, f32), (2, 97, f32), (2, 97, bf)]
     cases += [(fn, dict(b=b, t=t, dtype=dt)) for fn in (check_dit_attention, check_adaln_ffn) for b, t, dt in halves]
     cases += [(check_attention_packed, dict(b=b, t=t, dtype=dt, masked=masked, tminor=tminor))
-              for tminor in (False, True) for b, t in ((16, 1024), (2, 1000), (2, 97)) for dt in (f32, bf)
+              for tminor in (False, True) for b, t in ((16, 1024), (2, 1024), (2, 1000), (2, 97)) for dt in (f32, bf)
               for masked in (True, False)]
     cases += [(fn, dict(b=b, t=t, dtype=dt)) for fn in (check_convnext, check_istft)
               for b, t in ((1, 1000), (8, 1000), (1, 333)) for dt in (f32, bf)]
@@ -1157,7 +1162,8 @@ def phase_opt_in_train_kernels(dev) -> dict:
     trainers' shapes and one small odd shape each: `attention_train` and
     `prenet_train` at (32, 1000), (32, 1024) and (2, 97), f32 and bf16
     (`attention_train` also at (32, 512), the encoder blocks' shape, and at
-    (32, 1000) with dropout 0, which leaves out the Philox work);
+    (32, 1000) with dropout 0, which leaves out the Philox work, and in f32
+    at (32, 512) with dropout 0);
     `mpd_stack` at [16, 20480] and [2, 8190] for the five periods; the ISTFT
     head's gradient. Returns the rows of the kernels line."""
     from stabletts_torch.models.discriminators import DiscriminatorP
@@ -1166,6 +1172,7 @@ def phase_opt_in_train_kernels(dev) -> dict:
     f32, bf = torch.float32, torch.bfloat16
     for b, t, dt, rate in [(32, 1000, f32, 0.1), (32, 1000, bf, 0.1), (32, 1024, f32, 0.1), (32, 1024, bf, 0.1),
                            (32, 512, f32, 0.1), (32, 512, bf, 0.1), (32, 1000, f32, 0.0), (32, 1000, bf, 0.0),
+                           (32, 512, f32, 0.0),
                            (2, 97, f32, 0.1), (2, 97, bf, 0.1), (4, 200, bf, 0.1), (4, 200, f32, 0.1)]:
         # the last two: keys and values with a common mean (see check_attention_train)
         for row in check_attention_train(b, t, dt, rate, dev, offset=2.0 if (b, t) == (4, 200) else 0.0):

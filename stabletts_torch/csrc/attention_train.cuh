@@ -15,11 +15,11 @@
 // counter (key/4, q, b*H + h, 0) under the call's key is >= thresh, so the
 // backward regenerates the forward's mask.
 //
-// Two sets of kernels compute this. f32 runs the fp32-FMA kernels (the f32
-// bars hold no TF32 form). bf16 runs the *_wgmma kernels below them: every
-// operand of the ten tile products is a bf16 value at the rounding points
-// above, so wgmma (tensor cores, f32 accumulate) changes only the order of
-// the f32 sums.
+// Two sets of kernels compute this. f32 runs the fp32-FMA *_f32 kernels (the
+// f32 bars hold no TF32 form; their forward is one online pass, see below).
+// bf16 runs the *_wgmma kernels below them: every operand of the ten tile
+// products is a bf16 value at the rounding points above, so wgmma (tensor
+// cores, f32 accumulate) changes only the order of the f32 sums.
 //
 // The backward's D = rowsum(datt * att) stands for the TPU kernel's f32
 // sum(dp * p). It is subtracted from every dp of its row, so an error in it is
@@ -40,161 +40,303 @@ namespace stts {
 namespace atr {
 
 constexpr float kNeg = -0.7f * 3.402823466e38f;  // key bias of padded keys
-constexpr int HD = 64, TQ = 64, TK = 64, LD = 68, NT = 256;
-constexpr int TILE = HD * LD;  // floats of one [64][LD] shared tile
-constexpr int FWD_SMEM = (4 * TILE + TK) * (int)sizeof(float);
-constexpr int DKV_SMEM = (8 * TILE + 3 * TQ) * (int)sizeof(float);
-constexpr int DQ_SMEM = (6 * TILE + TK) * (int)sizeof(float);
-
-// [64 rows][64 dims] of a head from a [B*T, ld] tensor: into s[r * LD + d]
-// (row-major) and/or st[d * LD + r] (transposed); rows past Tn are zero.
-template <typename T>
-__device__ void load_tile(const T* src, long long ld, int row0, int Tn, float* s, float* st) {
-  for (int e = threadIdx.x; e < 64 * HD; e += NT) {
-    int r = e / HD, d = e % HD;
-    float v = row0 + r < Tn ? to_f(src[(long long)(row0 + r) * ld + d]) : 0.f;
-    if (s) s[r * LD + d] = v;
-    if (st) st[d * LD + r] = v;
-  }
-}
-
-__device__ __forceinline__ void load_kbias(const float* mask_b, int k0, int Tn, float* kb) {
-  if (threadIdx.x < TK) {
-    int t = k0 + threadIdx.x;
-    kb[threadIdx.x] = t < Tn ? (mask_b[t] > 0.f ? 0.f : kNeg) : -INFINITY;
-  }
-}
-
-// acc[i][j] += sum_d a[d * LD + row_a + i] * b[d * LD + row_b + j]
-__device__ __forceinline__ void mma_tile(float (&acc)[4][4], const float* a, const float* b, int ra, int rb) {
-#pragma unroll 8
-  for (int d = 0; d < 64; ++d) {
-    float4 a4 = *reinterpret_cast<const float4*>(&a[d * LD + ra]);
-    float4 b4 = *reinterpret_cast<const float4*>(&b[d * LD + rb]);
-    float av[4] = {a4.x, a4.y, a4.z, a4.w};
-    float bv[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-__device__ __forceinline__ void zero(float (&a)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) a[i][j] = 0.f;
-}
+constexpr int HD = 64, TQ = 64, TK = 64;
 
 // ================================================================ f32: FMA ==
+//
+// Replaces, in f32, the TPU kernels stabletts_tpu/ops/attention_pallas_train.py:167
+// (forward) and :191 (backward), and ops/dit_attention_pallas_train.py:273 and :302
+// (their attention core). True f32 on the FP32 pipes: the f32 bars hold no TF32
+// form. What bounds it on the H100: the products on the FMA units and the
+// scheduler's one instruction a clock, so every load, exp, Philox step or
+// barrier takes an FFMA's slot. At (B=32, T=1000, 4 heads of 64) the forward is
+// 32.8 GFLOP (two products), 0.489 ms at 67 TFLOP/s; the backward 2.5x that
+// (five products), 1.223 ms; Philox's 32 M calls a pass are not counted.
+//
+// Design. Three kernels of 128 threads (four warps) and five products, the
+// bound's count:
+//   forward  one CTA per (128 queries, head, item), two an SM (96 KB of
+//            shared memory); S = Q K^T and o += P V, 8 x 8 outputs a thread
+//            (8 queries x 8 keys, then x 8 features)
+//   dK, dV   one CTA per (128 keys, head, item), two an SM (112.3 KB), over
+//            32-query steps; dP^T = V dO^T and S^T = K Q^T at 8 x 4 a thread
+//            (dP^T parked in dS^T's buffer, so one score tile is live), dV +=
+//            P^T dO and dK += dS^T Q at 8 x 8 (four 8 x 8 tiles would need 256
+//            registers); it also writes dS^T to a workspace [B*H][T'][T']
+//            (T' = T rounded up to 128; 537 MB at B=32, T=1000, 4 heads)
+//   dQ       one CTA per (128 queries, head, item), four an SM; dQ = dS K
+//            over that workspace, 8 x 8 a thread: a plain product, so the
+//            backward makes the scores, their exps and the Philox bits once,
+//            not twice as with a dQ kernel that recomputes them
+// Every operand is a [rows][64] tile of a head copied as it lies (rows are
+// positions, the 64 features run along a row) by 16-byte cp.async, rows past
+// T zero-filled; no tile is held in a second orientation. A product either
+// contracts over the features of two such tiles (S, dP: fa_mma_nt) or over the
+// rows of the second (o, dK, dV: fa_mma_nn), and either way reads both with
+// float4 loads along their rows: no transposes. A thread's rows are 8
+// consecutive rows of the first operand, read by all the lanes of a
+// quarter-warp at once (one address, a broadcast); its columns are 4 (or 2 x
+// 4) rows or features of the second, read at eight distinct 16-byte chunks by
+// the eight lanes of a quarter-warp. Tiles read as a second operand are
+// therefore swizzled: the 16-byte chunk c of row r lies at chunk
+// c ^ ((r >> 2) & 7), so those eight chunks fall in eight distinct bank groups
+// (fa_at). Stores into shared memory are by quarter-warps of eight lanes each
+// writing one 16-byte chunk of the same row, eight consecutive (or, swizzled,
+// XOR-permuted within an aligned group of eight) chunks: free of bank
+// conflicts by construction. The copies are single-buffered and staggered one
+// product ahead: each tile is refilled as soon as its last product is done and
+// lands while the next products run (K_{j+1} behind the forward's softmax and
+// PV, V_{j+1} behind its QK^T; dO_{j+1} behind dK's product and Q_{j+1} behind
+// dP^T in dK/dV); dQ streams 16-key steps through a 4-deep ring.
+// A 16-byte shared-memory load costs four wavefronts whether its quarter-warps
+// read eight distinct chunks or all the same eight (measured on an H100), so a
+// thread holding a x b outputs pays about (a + b) wavefronts per 4 a b FMAs:
+// 8 x 8 keeps pace with the FMA pipes, 8 x 4 asks shared memory for 1.5x the
+// time its FMAs take. On the H100 dK/dV with all four tiles at 8 x 4 (64 keys
+// a CTA) ran 8% slower than this one, and a layout whose warps share 16 key
+// rows (16 x 2 a thread, one address per first-operand load) slower still:
+// it issues more loads.
+// What the design does about the 4 x 4 FMA kernels it replaces: those paid
+// twice 8 x 8's shared-memory loads per FMA, loaded every tile synchronously
+// one float at a time with 4-way conflicting transposed stores, kept Q and dO
+// in both orientations in dK/dV (140 KB: one CTA an SM), computed the scores
+// four times (twice in the forward, once in each backward kernel), and hit
+// 8-way conflicts in their transposed stores of P and dS.
+//
+// One-pass forward. In f32 no weight is rounded, so the forward is one online
+// pass: a running row max m, o rescaled by exp(m_old - m_new) at each key tile,
+// the row sum l of the undropped weights, and at the end o / l and
+// lse = m + log l. The weights are exp(s - m) * f / l, not exp(s - lse) * f:
+// only the order of the f32 operations differs (the bf16 kernels below keep
+// two passes because they round the normalised weights to bf16). The backward
+// reads lse as before.
+//
+// Dropout: weight (b, h, q, key) keeps when Philox word key % 4 of counter
+// (key / 4, q, b*H + h, 0) is >= thresh. A thread's keys are aligned groups of
+// four, so one Philox call serves four weights in every kernel.
 
-// ---- forward attention: one CTA per (64-query tile, head, item) -----------
-// thread (ty, tx) owns queries ty*4..+3 and keys (pass 2: dims) tx*4..+3
-template <typename T>
-__global__ void __launch_bounds__(NT) attn_fwd_kernel(const T* q, const T* k, const T* v, const float* mask,
-                                                      T* att, T* att_lo, float* lse, int Tn, int C, int H,
-                                                      float sm_scale, Dropout drop) {
-  extern __shared__ __align__(16) float sm[];
-  float* Qt = sm;           // [d][q]
-  float* Kt = Qt + TILE;    // [d][key]
-  float* Vs = Kt + TILE;    // [key][d]
-  float* Pt = Vs + TILE;    // [key][q]
-  float* kb = Pt + TILE;    // [key]
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * TQ;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+constexpr int FA_THREADS = 128;
+constexpr int FA_FWD_BQ = 128;    // the forward's query rows a CTA
+constexpr int FA_TILE = TK * HD;  // floats of one [64][64] tile
+constexpr int FA_FWD_SMEM = 6 * FA_TILE * (int)sizeof(float);             // Q, P (128 rows each), K, V
+constexpr int FA_DKV_BK = 128, FA_DKV_BQ = 32;  // dK/dV: keys a CTA, queries a step
+// K, V [128][64]; Q, dO [32][64]; P^T, dS^T [128][32]; lse, D [32] each: 112.3 KB, two CTAs an SM
+constexpr int FA_DKV_SMEM = (2 * FA_DKV_BK * HD + 2 * FA_DKV_BQ * HD + 2 * FA_DKV_BK * FA_DKV_BQ + 2 * FA_DKV_BQ) *
+                            (int)sizeof(float);
+
+// float offset of chunk c (16 bytes) of row r of an [rows][64] tile: as it
+// lies, or swizzled (SWZ) at chunk c ^ ((r >> 2) & 7)
+template <bool SWZ>
+__device__ __forceinline__ int fa_at(int r, int c) { return r * HD + 4 * (SWZ ? c ^ ((r >> 2) & 7) : c); }
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ void st4(float* p, float x, float y, float z, float w) {
+  *reinterpret_cast<float4*>(p) = make_float4(x, y, z, w);
+}
+// four consecutive floats to device memory: one 16-byte store, or four where !vec
+__device__ __forceinline__ void fa_store4(float* p, float x, float y, float z, float w, bool vec) {
+  if (vec) {
+    st4(p, x, y, z, w);
+  } else {
+    p[0] = x, p[1] = y, p[2] = z, p[3] = w;
+  }
+}
+
+// Rows t0 .. t0 + R - 1 of one head (row stride ld) into an [R][64] tile laid
+// out as fa_at<SWZ>: 16-byte cp.async (zero-filled at or past Tn), or element
+// by element where !vec. Chunk e = tid + 128 l is chunk e % 16 of row e / 16:
+// a quarter-warp stores chunks 8a .. 8a + 7 of one row, which the swizzle only
+// permutes, so its stores hit distinct banks.
+template <int R, bool SWZ>
+__device__ __forceinline__ void fa_copy(float* tile, const float* src, long long ld, int t0, int Tn, bool vec) {
+#pragma unroll
+  for (int l = 0; l < R * 16 / FA_THREADS; ++l) {
+    const int e = threadIdx.x + FA_THREADS * l, r = e >> 4, c = e & 15;
+    float* dst = tile + fa_at<SWZ>(r, c);
+    const bool in = t0 + r < Tn;
+    const float* p = in ? src + (long long)(t0 + r) * ld + 4 * c : src;
+    if (vec) {
+      cp_async16(smem_addr(dst), p, in ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) dst[x] = in ? p[x] : 0.f;
+    }
+  }
+}
+
+// acc[i][j] += sum_d A[ra + i][d] B[rb(j)][d] (a product with B^T): A as it
+// lies, B swizzled; rb(j) = cb + (j & 3) + 32 (j >> 2) with cb % 4 == 0, so all
+// of this thread's B rows share the swizzle (cb >> 2) & 7, and the lanes of a
+// quarter-warp (cb / 4 = 0..7 mod 8) read eight distinct chunks. Each output is
+// one fmaf chain over d ascending.
+template <int NJ>
+__device__ __forceinline__ void fa_mma_nt(float (&acc)[8][NJ], const float* A, int ra, const float* B, int cb) {
+  const int s = (cb >> 2) & 7;
+  const float* a0 = A + ra * HD;
+  const float* b0 = B + cb * HD;
+#pragma unroll 2
+  for (int c = 0; c < 16; ++c) {
+    const int pc = 4 * (c ^ s);
+    float4 b[NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) b[j] = ld4(b0 + ((j & 3) + 32 * (j >> 2)) * HD + pc);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 a = ld4(a0 + i * HD + 4 * c);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        acc[i][j] = fmaf(a.x, b[j].x, acc[i][j]);
+        acc[i][j] = fmaf(a.y, b[j].y, acc[i][j]);
+        acc[i][j] = fmaf(a.z, b[j].z, acc[i][j]);
+        acc[i][j] = fmaf(a.w, b[j].w, acc[i][j]);
+      }
+    }
+  }
+}
+
+// acc[i][j] += sum_k A[ra + i][k] B[k][cb(j)] over B's DEPTH rows: A as it lies (row stride LDA),
+// B swizzled; column cb(j) = 4 tx + (j & 3) + 32 (j >> 2) (tx < 16 for NJ = 4,
+// < 8 for NJ = 8). Rows 4 kc .. 4 kc + 3 of B share the swizzle kc & 7, and the
+// lanes of a quarter-warp (tx = 0..7 mod 8) read eight distinct chunks. Each
+// output is one fmaf chain over k ascending.
+template <int NJ, int DEPTH = TK, int LDA = HD>
+__device__ __forceinline__ void fa_mma_nn(float (&acc)[8][NJ], const float* A, int ra, const float* B, int tx) {
+  const float* a0 = A + ra * LDA;
+#pragma unroll 2
+  for (int kc = 0; kc < DEPTH / 4; ++kc) {
+    const float* bk = B + 4 * kc * HD + 4 * (tx ^ (kc & 7));
+    float4 b[4][NJ / 4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int h = 0; h < NJ / 4; ++h) b[kk][h] = ld4(bk + kk * HD + 32 * h);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 a4 = ld4(a0 + i * LDA + 4 * kc);
+      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int h = 0; h < NJ / 4; ++h) {
+          acc[i][4 * h + 0] = fmaf(a[kk], b[kk][h].x, acc[i][4 * h + 0]);
+          acc[i][4 * h + 1] = fmaf(a[kk], b[kk][h].y, acc[i][4 * h + 1]);
+          acc[i][4 * h + 2] = fmaf(a[kk], b[kk][h].z, acc[i][4 * h + 2]);
+          acc[i][4 * h + 3] = fmaf(a[kk], b[kk][h].w, acc[i][4 * h + 3]);
+        }
+    }
+  }
+}
+
+template <int NJ>
+__device__ __forceinline__ void fa_zero(float (&a)[8][NJ]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) a[i][j] = 0.f;
+}
+
+__device__ __forceinline__ float key_bias(const float* mask_b, int t, int Tn) {
+  return t < Tn ? (mask_b[t] > 0.f ? 0.f : kNeg) : -INFINITY;
+}
+
+// ---- forward: one CTA per (128-query tile, head, item) --------------------
+// thread (tr, tx) = (tid / 8, tid % 8): queries 8 tr .. 8 tr + 7; keys (and,
+// for o, features) 4 tx .. 4 tx + 3 and 32 + 4 tx .. 32 + 4 tx + 3
+__global__ void __launch_bounds__(FA_THREADS, 2) attn_fwd_kernel_f32(const float* q, const float* k, const float* v,
+                                                                    const float* mask, float* att, float* lse,
+                                                                    int Tn, int C, int H, float sm_scale,
+                                                                    Dropout drop, int vec) {
+  extern __shared__ __align__(16) float fa_sm[];
+  float* Qs = fa_sm;               // [128][64] as it lies
+  float* Ps = Qs + 2 * FA_TILE;    // [128 queries][64 keys] the dropped weights, as written
+  float* Ks = Ps + 2 * FA_TILE;    // [64][64] swizzled
+  float* Vs = Ks + FA_TILE;        // [64][64] swizzled
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * FA_FWD_BQ;
+  const int tid = threadIdx.x, tx = tid & 7, tr = tid >> 3;
   const long long base = (long long)b * Tn * C + h * HD;
   const float* mask_b = mask + (long long)b * Tn;
   const uint32_t bh = b * H + h;
+  const bool dropping = drop.seed != nullptr;
+  const uint32_t key0 = dropping ? (uint32_t)drop.seed[0] : 0u, key1 = dropping ? (uint32_t)drop.seed[1] : 0u;
+  const int nt = (Tn + TK - 1) / TK;
 
-  load_tile(q + base, C, q0, Tn, nullptr, Qt);
+  fa_copy<FA_FWD_BQ, false>(Qs, q + base, C, q0, Tn, vec);
+  fa_copy<TK, true>(Ks, k + base, C, 0, Tn, vec);
+  cp_async_commit();
+  fa_copy<TK, true>(Vs, v + base, C, 0, Tn, vec);
+  cp_async_commit();
 
-  // pass 1: row max and sum -> log-sum-exp
-  float m_i[4], l_i[4];
+  float o[8][8], m[8], l[8];
+  fa_zero(o);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) m_i[i] = -INFINITY, l_i[i] = 0.f;
-  for (int k0 = 0; k0 < Tn; k0 += TK) {
+  for (int i = 0; i < 8; ++i) m[i] = -INFINITY, l[i] = 0.f;
+  for (int j = 0; j < nt; ++j) {
+    const int k0 = j * TK;
+    cp_async_wait<1>();  // Q and K_j have landed (V_j may be in flight)
     __syncthreads();
-    load_tile(k + base, C, k0, Tn, nullptr, Kt);
-    load_kbias(mask_b, k0, Tn, kb);
-    __syncthreads();
-    float s[4][4];
-    zero(s);
-    mma_tile(s, Qt, Kt, ty * 4, tx * 4);
+    float s[8][8];
+    fa_zero(s);
+    fa_mma_nt(s, Qs, 8 * tr, Ks, 4 * tx);
+    __syncthreads();  // every thread is done with K_j
+    if (j + 1 < nt) fa_copy<TK, true>(Ks, k + base, C, k0 + TK, Tn, vec);
+    cp_async_commit();
+
+    float kb[8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int c = 0; c < 8; ++c) kb[c] = key_bias(mask_b, k0 + 4 * tx + (c & 3) + 32 * (c >> 2), Tn);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = s[i][j] * sm_scale + kb[tx * 4 + j];
-        mx = fmaxf(mx, s[i][j]);
+      for (int c = 0; c < 8; ++c) {
+        s[i][c] = s[i][c] * sm_scale + kb[c];
+        mx = fmaxf(mx, s[i][c]);
       }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      float m_new = fmaxf(m_i[i], mx);
+      // the row's eight threads are the eight lanes tr * 8 .. tr * 8 + 7
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float m_new = fmaxf(m[i], mx), alpha = expf(m[i] - m_new);  // 0 on the first tile
+      m[i] = m_new;
+      uint4 w0 = make_uint4(0u, 0u, 0u, 0u), w1 = w0;
+      if (dropping) {
+        const uint32_t row = q0 + 8 * tr + i;
+        w0 = philox4x32_10(make_uint4((k0 >> 2) + tx, row, bh, 0u), key0, key1);
+        w1 = philox4x32_10(make_uint4((k0 >> 2) + 8 + tx, row, bh, 0u), key0, key1);
+      }
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) rs += expf(s[i][j] - m_new);
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l_i[i] = l_i[i] * expf(m_i[i] - m_new) + rs;
-      m_i[i] = m_new;
-    }
-  }
-  float lse_i[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    lse_i[i] = m_i[i] + logf(l_i[i]);
-    int t = q0 + ty * 4 + i;
-    if (tx == 0 && t < Tn) lse[(long long)bh * Tn + t] = lse_i[i];
-  }
-
-  // pass 2: normalised, dropped, rounded weights times v
-  float o[4][4];
-  zero(o);
-  for (int k0 = 0; k0 < Tn; k0 += TK) {
-    __syncthreads();
-    load_tile(k + base, C, k0, Tn, nullptr, Kt);
-    load_tile(v + base, C, k0, Tn, Vs, nullptr);
-    load_kbias(mask_b, k0, Tn, kb);
-    __syncthreads();
-    float s[4][4];
-    zero(s);
-    mma_tile(s, Qt, Kt, ty * 4, tx * 4);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      uint4 w;
-      if (drop.seed) w = drop.bits((k0 + tx * 4) >> 2, q0 + ty * 4 + i, bh, 0u);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float p = expf(s[i][j] * sm_scale + kb[tx * 4 + j] - lse_i[i]);
-        if (drop.seed) p *= drop.factor(w, j);
-        Pt[(tx * 4 + j) * LD + ty * 4 + i] = round_to<T>(p);
+      for (int c = 0; c < 8; ++c) {
+        const float p = expf(s[i][c] - m_new);
+        rs += p;
+        s[i][c] = dropping ? (word_of(c < 4 ? w0 : w1, c & 3) >= drop.thresh ? p * drop.scale : 0.f) : p;
       }
+      l[i] = l[i] * alpha + rs;  // this thread's part of the row sum
+#pragma unroll
+      for (int c = 0; c < 8; ++c) o[i][c] *= alpha;
+      float* pr = Ps + (8 * tr + i) * HD + 4 * tx;
+      st4(pr, s[i][0], s[i][1], s[i][2], s[i][3]);
+      st4(pr + 32, s[i][4], s[i][5], s[i][6], s[i][7]);
     }
+    cp_async_wait<1>();  // V_j has landed (K_{j+1} may be in flight)
     __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < TK; ++kk) {
-      float4 a4 = *reinterpret_cast<const float4*>(&Pt[kk * LD + ty * 4]);
-      float4 b4 = *reinterpret_cast<const float4*>(&Vs[kk * LD + tx * 4]);
-      float a[4] = {a4.x, a4.y, a4.z, a4.w};
-      float bb[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) o[i][j] = fmaf(a[i], bb[j], o[i][j]);
-    }
+    fa_mma_nn(o, Ps, 8 * tr, Vs, tx);
+    __syncthreads();  // every thread is done with V_j and P
+    if (j + 1 < nt) fa_copy<TK, true>(Vs, v + base, C, k0 + TK, Tn, vec);
+    cp_async_commit();
   }
+  cp_async_wait<0>();
+
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int t = q0 + ty * 4 + i;
+  for (int i = 0; i < 8; ++i) {
+    float lt = l[i] + __shfl_xor_sync(0xffffffffu, l[i], 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 4);
+    const int t = q0 + 8 * tr + i;
     if (t >= Tn) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      long long e = base + (long long)t * C + tx * 4 + j;
-      att[e] = from_f<T>(o[i][j]);
-      if (att_lo) att_lo[e] = from_f<T>(o[i][j] - round_to<T>(o[i][j]));
-    }
+    if (tx == 0) lse[(long long)bh * Tn + t] = m[i] + logf(lt);
+    float* dst = att + base + (long long)t * C + 4 * tx;
+    fa_store4(dst, o[i][0] / lt, o[i][1] / lt, o[i][2] / lt, o[i][3] / lt, vec);
+    fa_store4(dst + 32, o[i][4] / lt, o[i][5] / lt, o[i][6] / lt, o[i][7] / lt, vec);
   }
 }
 
@@ -217,181 +359,225 @@ __global__ void rowdot_kernel(const T* datt, const T* att, const T* att_lo, floa
   if (lane == 0) Dv[w] = s;
 }
 
-// ---- backward dK, dV: one CTA per (64-key tile, head, item) ---------------
-// S-phase thread (ty, tx): keys ty*4..+3, queries tx*4..+3;
-// accumulation: keys ty*4..+3, dims tx*4..+3.
-template <typename T>
-__global__ void __launch_bounds__(NT) attn_bwd_dkv_kernel(const T* q, const T* k, const T* v, const T* datt,
-                                                          const float* lse, const float* Dv, const float* mask,
-                                                          T* dk, T* dv, int ld_dv, int Tn, int C, int H,
-                                                          float sm_scale, Dropout drop) {
-  extern __shared__ __align__(16) float sm[];
-  float* Kt = sm;            // [d][key]
-  float* Vt = Kt + TILE;     // [d][key]
-  float* Qt = Vt + TILE;     // [d][q]
-  float* Qs = Qt + TILE;     // [q][d]
-  float* dOt = Qs + TILE;    // [d][q]
-  float* dOs = dOt + TILE;   // [q][d]
-  float* Pq = dOs + TILE;    // [q][key] dropped weights
-  float* Sq = Pq + TILE;     // [q][key] ds
-  float* kb = Sq + TILE;     // [key]
-  float* lse_s = kb + TK;    // [q]
-  float* D_s = lse_s + TQ;   // [q]
-  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * TK;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+// ---- backward dK, dV: one CTA per (128-key tile, head, item) --------------
+// thread (tr, tx) = (tid / 8, tid % 8): keys 8 tr .. 8 tr + 7; queries 4 tx ..
+// 4 tx + 3 of a 32-query step (for the scores), features 4 tx .. + 3 and
+// 32 + 4 tx .. + 3 (for dK, dV: 8 x 8 each). dP^T goes through dS^T's buffer
+// so that only one 8 x 4 score tile is live beside dK and dV.
+__global__ void __launch_bounds__(FA_THREADS, 2) attn_bwd_dkv_kernel_f32(const float* q, const float* k,
+                                                                        const float* v, const float* datt,
+                                                                        const float* lse, const float* Dv,
+                                                                        const float* mask, float* dk, float* dv,
+                                                                        float* ds_t, int ld_ws, int ld_dv, int Tn,
+                                                                        int C, int H, float sm_scale, Dropout drop,
+                                                                        int vec) {
+  constexpr int BK = FA_DKV_BK, BQ = FA_DKV_BQ;
+  extern __shared__ __align__(16) float fa_sm[];
+  float* Ks = fa_sm;           // [128 keys][64] as it lies
+  float* Vs = Ks + BK * HD;    // [128 keys][64] as it lies
+  float* Qs = Vs + BK * HD;    // [32 queries][64] swizzled
+  float* Os = Qs + BQ * HD;    // dO [32 queries][64] swizzled
+  float* Ps = Os + BQ * HD;    // [128 keys][32 queries] dropped weights P^T, as written
+  float* Ss = Ps + BK * BQ;    // [128 keys][32 queries] dP^T, then dS^T, as written
+  float* Rs = Ss + BK * BQ;    // the query step's lse at [0, 32), D at [32, 64)
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * BK;
+  const int tid = threadIdx.x, tx = tid & 7, tr = tid >> 3;
   const long long base = (long long)b * Tn * C + h * HD;
   const uint32_t bh = b * H + h;
+  const bool dropping = drop.seed != nullptr;
+  const uint32_t key0 = dropping ? (uint32_t)drop.seed[0] : 0u, key1 = dropping ? (uint32_t)drop.seed[1] : 0u;
+  const float* row_src = (tid < BQ ? lse : Dv) + (long long)bh * Tn;
+  const int nt = (Tn + BQ - 1) / BQ;
 
-  load_tile(k + base, C, k0, Tn, nullptr, Kt);
-  load_tile(v + base, C, k0, Tn, nullptr, Vt);
-  load_kbias(mask + (long long)b * Tn, k0, Tn, kb);
-
-  float dK[4][4], dV[4][4];
-  zero(dK);
-  zero(dV);
-  for (int q0 = 0; q0 < Tn; q0 += TQ) {
-    __syncthreads();
-    load_tile(q + base, C, q0, Tn, Qs, Qt);
-    load_tile(datt + base, C, q0, Tn, dOs, dOt);
-    if (tid < TQ) {
-      int t = q0 + tid;
-      lse_s[tid] = t < Tn ? lse[(long long)bh * Tn + t] : INFINITY;  // p = 0 past Tn
-      D_s[tid] = t < Tn ? Dv[(long long)bh * Tn + t] : 0.f;
+  // dO of query step j and its rows' lse (threads 0-31) and D (32-63), zero past T
+  auto issue_o = [&](int j) {
+    fa_copy<BQ, true>(Os, datt + base, C, j * BQ, Tn, vec);
+    if (tid < 2 * BQ) {
+      const int t = j * BQ + tid % BQ;
+      cp_async4(smem_addr(Rs + tid), t < Tn ? row_src + t : row_src, t < Tn ? 4 : 0);
     }
+  };
+  fa_copy<BK, false>(Ks, k + base, C, k0, Tn, vec);
+  fa_copy<BK, false>(Vs, v + base, C, k0, Tn, vec);
+  issue_o(0);
+  cp_async_commit();
+  fa_copy<BQ, true>(Qs, q + base, C, 0, Tn, vec);
+  cp_async_commit();
+  float kb[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) kb[i] = key_bias(mask + (long long)b * Tn, k0 + 8 * tr + i, Tn);
+
+  float dk_acc[8][8], dv_acc[8][8];
+  fa_zero(dk_acc);
+  fa_zero(dv_acc);
+  for (int j = 0; j < nt; ++j) {
+    const int q0 = j * BQ;
+    cp_async_wait<1>();  // K, V, dO_j and its rows have landed (Q_j may be in flight)
     __syncthreads();
-    float s[4][4], dp[4][4];
-    zero(s);
-    zero(dp);
-    mma_tile(s, Kt, Qt, ty * 4, tx * 4);
-    mma_tile(dp, Vt, dOt, ty * 4, tx * 4);
+    float s[8][4];
+    fa_zero(s);
+    fa_mma_nt(s, Vs, 8 * tr, Os, 4 * tx);  // dP^T = V dO_j^T, parked in dS^T's buffer
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int qj = tx * 4 + j;
-      uint4 w;
-      if (drop.seed) w = drop.bits((k0 + ty * 4) >> 2, q0 + qj, bh, 0u);
+    for (int i = 0; i < 8; ++i) st4(Ss + (8 * tr + i) * BQ + 4 * tx, s[i][0], s[i][1], s[i][2], s[i][3]);
+    cp_async_wait<0>();  // Q_j
+    __syncthreads();
+    fa_zero(s);
+    fa_mma_nt(s, Ks, 8 * tr, Qs, 4 * tx);  // S^T = K Q_j^T
+
+    const float4 l4 = ld4(Rs + 4 * tx), d4 = ld4(Rs + BQ + 4 * tx);
+    const float lse_c[4] = {l4.x, l4.y, l4.z, l4.w}, d_c[4] = {d4.x, d4.y, d4.z, d4.w};
+    // dS^T also to the workspace for the dQ kernel: keys k0 .. k0 + 127, zeros past T
+    float* ws_rows = ds_t + ((long long)bh * ld_ws + k0 + 8 * tr) * ld_ws + q0 + 4 * tx;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float p = expf(s[i][j] * sm_scale + kb[ty * 4 + i] - lse_s[qj]);
-        float f = drop.seed ? drop.factor(w, i) : 1.f;
-        Pq[qj * LD + ty * 4 + i] = round_to<T>(p * f);
-        Sq[qj * LD + ty * 4 + i] = round_to<T>(p * (dp[i][j] * f - D_s[qj]));
+    for (int g = 0; g < 2; ++g) {  // keys 8 tr + 4 g .. + 3: one Philox call per query
+      uint4 w[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        w[c] = dropping ? philox4x32_10(make_uint4((k0 >> 2) + 2 * tr + g, q0 + 4 * tx + c, bh, 0u), key0, key1)
+                        : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = 4 * g + r;
+        float* srow = Ss + (8 * tr + i) * BQ + 4 * tx;
+        const float4 dp4 = ld4(srow);  // this thread's own dP^T, written above
+        const float dp[4] = {dp4.x, dp4.y, dp4.z, dp4.w};
+        float ds[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float l_c = q0 + 4 * tx + c < Tn ? lse_c[c] : INFINITY;  // p = 0 past T
+          const float p = expf(s[i][c] * sm_scale + kb[i] - l_c);
+          const float f = dropping ? (word_of(w[c], r) >= drop.thresh ? drop.scale : 0.f) : 1.f;
+          s[i][c] = p * f;                      // P^T
+          ds[c] = p * (dp[c] * f - d_c[c]);     // dS^T
+        }
+        st4(Ps + (8 * tr + i) * BQ + 4 * tx, s[i][0], s[i][1], s[i][2], s[i][3]);
+        st4(srow, ds[0], ds[1], ds[2], ds[3]);
+        st4(ws_rows + (long long)i * ld_ws, ds[0], ds[1], ds[2], ds[3]);
       }
     }
     __syncthreads();
-#pragma unroll 4
-    for (int qq = 0; qq < TQ; ++qq) {
-      float4 p4 = *reinterpret_cast<const float4*>(&Pq[qq * LD + ty * 4]);
-      float4 s4 = *reinterpret_cast<const float4*>(&Sq[qq * LD + ty * 4]);
-      float4 o4 = *reinterpret_cast<const float4*>(&dOs[qq * LD + tx * 4]);
-      float4 q4 = *reinterpret_cast<const float4*>(&Qs[qq * LD + tx * 4]);
-      float pv[4] = {p4.x, p4.y, p4.z, p4.w}, sv[4] = {s4.x, s4.y, s4.z, s4.w};
-      float ov[4] = {o4.x, o4.y, o4.z, o4.w}, qv[4] = {q4.x, q4.y, q4.z, q4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          dV[i][j] = fmaf(pv[i], ov[j], dV[i][j]);
-          dK[i][j] = fmaf(sv[i], qv[j], dK[i][j]);
-        }
-    }
+    fa_mma_nn<8, BQ, BQ>(dv_acc, Ps, 8 * tr, Os, tx);  // dV += P^T dO_j
+    __syncthreads();                                   // every thread is done with dO_j and its rows
+    if (j + 1 < nt) issue_o(j + 1);
+    cp_async_commit();
+    fa_mma_nn<8, BQ, BQ>(dk_acc, Ss, 8 * tr, Qs, tx);  // dK += dS^T Q_j
+    __syncthreads();                                   // every thread is done with Q_j and dS^T
+    if (j + 1 < nt) fa_copy<BQ, true>(Qs, q + base, C, q0 + BQ, Tn, vec);
+    cp_async_commit();
   }
+  cp_async_wait<0>();
+
+  float* dv_b = dv + (long long)b * Tn * ld_dv + h * HD;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int t = k0 + ty * 4 + i;
+  for (int i = 0; i < 8; ++i) {
+    const int t = k0 + 8 * tr + i;
     if (t >= Tn) continue;
-    long long row = (long long)b * Tn + t;
+    float* dkp = dk + base + (long long)t * C + 4 * tx;
+    float* dvp = dv_b + (long long)t * ld_dv + 4 * tx;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int c = h * HD + tx * 4 + j;
-      dk[row * C + c] = from_f<T>(dK[i][j] * sm_scale);
-      dv[row * ld_dv + c] = from_f<T>(dV[i][j]);
+    for (int hh = 0; hh < 2; ++hh) {
+      fa_store4(dkp + 32 * hh, dk_acc[i][4 * hh] * sm_scale, dk_acc[i][4 * hh + 1] * sm_scale,
+                dk_acc[i][4 * hh + 2] * sm_scale, dk_acc[i][4 * hh + 3] * sm_scale, vec);
+      fa_store4(dvp + 32 * hh, dv_acc[i][4 * hh], dv_acc[i][4 * hh + 1], dv_acc[i][4 * hh + 2], dv_acc[i][4 * hh + 3],
+                vec);
     }
   }
 }
 
-// ---- backward dQ: one CTA per (64-query tile, head, item) -----------------
-// S-phase thread (ty, tx): queries ty*4..+3, keys tx*4..+3;
-// accumulation: queries ty*4..+3, dims tx*4..+3.
-template <typename T>
-__global__ void __launch_bounds__(NT) attn_bwd_dq_kernel(const T* q, const T* k, const T* v, const T* datt,
-                                                         const float* lse, const float* Dv, const float* mask,
-                                                         T* dq_r, int Tn, int C, int H, float sm_scale,
-                                                         Dropout drop) {
-  extern __shared__ __align__(16) float sm[];
-  float* Qt = sm;            // [d][q]
-  float* dOt = Qt + TILE;    // [d][q]
-  float* Kt = dOt + TILE;    // [d][key]
-  float* Ks = Kt + TILE;     // [key][d]
-  float* Vt = Ks + TILE;     // [d][key]
-  float* St = Vt + TILE;     // [key][q] ds
-  float* kb = St + TILE;     // [key]
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * TQ;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+// ---- backward dQ: one CTA per (128-query tile, head, item) ----------------
+// dQ = sm_scale dS K over the keys, from the dS^T that the dK/dV kernel wrote
+// ([B*H][T'][T'], T' = T rounded up to 64). Thread (tq, td) = (tid / 8,
+// tid % 8): queries 8 tq .. 8 tq + 7, features 4 td .. 4 td + 3 and 32 + 4 td
+// .. 32 + 4 td + 3. 16-key steps through a 4-deep cp.async ring, three steps
+// ahead; per key, two float4 of dS^T's row (one address per quarter-warp) and
+// two of K's (eight consecutive chunks) feed 64 FFMA.
+constexpr int FQ_BQ = 128, FQ_BK = 16, FQ_STAGES = 4;
+constexpr int FQ_SLOT = FQ_BK * (FQ_BQ + HD);                     // dS^T rows [16][128], then K rows [16][64]
+constexpr int FQ_SMEM = FQ_STAGES * FQ_SLOT * (int)sizeof(float);  // 48 KB: four CTAs an SM
+
+__global__ void __launch_bounds__(FA_THREADS, 4) attn_bwd_dq_kernel_f32(const float* ds_t, int ld_ws, const float* k,
+                                                                       float* dq_r, int Tn, int C, int H,
+                                                                       float sm_scale, int vec) {
+  extern __shared__ __align__(16) float fa_sm[];
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * FQ_BQ;
+  const int tid = threadIdx.x, td = tid & 7, tq = tid >> 3;
   const long long base = (long long)b * Tn * C + h * HD;
-  const uint32_t bh = b * H + h;
-  const float* mask_b = mask + (long long)b * Tn;
+  const float* ws = ds_t + (long long)(b * H + h) * ld_ws * ld_ws;
+  const int steps = (Tn + FQ_BK - 1) / FQ_BK;
 
-  load_tile(q + base, C, q0, Tn, nullptr, Qt);
-  load_tile(datt + base, C, q0, Tn, nullptr, dOt);
-  float lse_i[4], d_i[4];
+  // keys step * 16 ..: dS^T's rows (32 chunks each) and K's (16), zero at or
+  // past T and past the workspace's width; a quarter-warp stores eight
+  // consecutive chunks of one row
+  auto issue = [&](int step) {
+    float* slot = fa_sm + (step % FQ_STAGES) * FQ_SLOT;
+    const int k0 = step * FQ_BK;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int t = q0 + ty * 4 + i;
-    lse_i[i] = t < Tn ? lse[(long long)bh * Tn + t] : INFINITY;
-    d_i[i] = t < Tn ? Dv[(long long)bh * Tn + t] : 0.f;
-  }
-
-  float dQ[4][4];
-  zero(dQ);
-  for (int k0 = 0; k0 < Tn; k0 += TK) {
-    __syncthreads();
-    load_tile(k + base, C, k0, Tn, Ks, Kt);
-    load_tile(v + base, C, k0, Tn, nullptr, Vt);
-    load_kbias(mask_b, k0, Tn, kb);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    zero(s);
-    zero(dp);
-    mma_tile(s, Qt, Kt, ty * 4, tx * 4);
-    mma_tile(dp, dOt, Vt, ty * 4, tx * 4);
+    for (int l = 0; l < FQ_BK * FQ_BQ / 4 / FA_THREADS; ++l) {
+      const int e = tid + FA_THREADS * l, r = e >> 5, c = e & 31;
+      const bool in = k0 + r < Tn && q0 + 4 * c < ld_ws;
+      cp_async16(smem_addr(slot + r * FQ_BQ + 4 * c), in ? ws + (long long)(k0 + r) * ld_ws + q0 + 4 * c : ws,
+                 in ? 16 : 0);
+    }
+    float* kt = slot + FQ_BK * FQ_BQ;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      uint4 w;
-      if (drop.seed) w = drop.bits((k0 + tx * 4) >> 2, q0 + ty * 4 + i, bh, 0u);
+    for (int l = 0; l < FQ_BK * HD / 4 / FA_THREADS; ++l) {
+      const int e = tid + FA_THREADS * l, r = e >> 4, c = e & 15;
+      const bool in = k0 + r < Tn;
+      const float* p = in ? k + base + (long long)(k0 + r) * C + 4 * c : k;
+      if (vec) {
+        cp_async16(smem_addr(kt + r * HD + 4 * c), p, in ? 16 : 0);
+      } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float p = expf(s[i][j] * sm_scale + kb[tx * 4 + j] - lse_i[i]);
-        float f = drop.seed ? drop.factor(w, j) : 1.f;
-        St[(tx * 4 + j) * LD + ty * 4 + i] = round_to<T>(p * (dp[i][j] * f - d_i[i]));
+        for (int x = 0; x < 4; ++x) kt[r * HD + 4 * c + x] = in ? p[x] : 0.f;
       }
     }
+  };
+
+  float acc[8][8];
+  fa_zero(acc);
+#pragma unroll
+  for (int st = 0; st < FQ_STAGES - 1; ++st) {
+    if (st < steps) issue(st);
+    cp_async_commit();
+  }
+  for (int step = 0; step < steps; ++step) {
+    // step's copies have landed for every thread, and every thread's products
+    // of step - 1 (whose slot is refilled below) are done
+    cp_async_wait<FQ_STAGES - 2>();
     __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < TK; ++kk) {
-      float4 a4 = *reinterpret_cast<const float4*>(&St[kk * LD + ty * 4]);
-      float4 b4 = *reinterpret_cast<const float4*>(&Ks[kk * LD + tx * 4]);
-      float a[4] = {a4.x, a4.y, a4.z, a4.w};
-      float bb[4] = {b4.x, b4.y, b4.z, b4.w};
+    if (step + FQ_STAGES - 1 < steps) issue(step + FQ_STAGES - 1);
+    cp_async_commit();
+    const float* a = fa_sm + (step % FQ_STAGES) * FQ_SLOT + 8 * tq;
+    const float* bk = fa_sm + (step % FQ_STAGES) * FQ_SLOT + FQ_BK * FQ_BQ + 4 * td;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int kk = 0; kk < FQ_BK; ++kk) {
+      const float4 a0 = ld4(a + kk * FQ_BQ), a1 = ld4(a + kk * FQ_BQ + 4);
+      const float4 b0 = ld4(bk + kk * HD), b1 = ld4(bk + kk * HD + 32);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-        for (int j = 0; j < 4; ++j) dQ[i][j] = fmaf(a[i], bb[j], dQ[i][j]);
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
   }
+  cp_async_wait<0>();
+
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int t = q0 + ty * 4 + i;
+  for (int i = 0; i < 8; ++i) {
+    const int t = q0 + 8 * tq + i;
     if (t >= Tn) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      dq_r[((long long)b * Tn + t) * C + h * HD + tx * 4 + j] = from_f<T>(dQ[i][j] * sm_scale);
+    float* dst = dq_r + base + (long long)t * C + 4 * td;
+    fa_store4(dst, acc[i][0] * sm_scale, acc[i][1] * sm_scale, acc[i][2] * sm_scale, acc[i][3] * sm_scale, vec);
+    fa_store4(dst + 32, acc[i][4] * sm_scale, acc[i][5] * sm_scale, acc[i][6] * sm_scale, acc[i][7] * sm_scale,
+              vec);
   }
 }
 
 // ============================================================= bf16: wgmma ==
 //
 // The same three kernels with every product on the tensor cores (wgmma.cuh),
-// one warpgroup (128 threads) per CTA over the FMA kernels' grids. Shared
+// one warpgroup (128 threads) per CTA over 64-row query or key tiles. Shared
 // memory holds 64 x 64 bf16 tiles in the 128-byte swizzle, each copied once
 // by cp.async as 128-byte rows of its [B, T, C] operand (rows are positions,
 // the 64 features of the head run along a row) and read by wgmma through a
@@ -410,10 +596,9 @@ __global__ void __launch_bounds__(NT) attn_bwd_dq_kernel(const T* q, const T* k,
 // column pairs 8j + 2 (t % 4) + {0, 1}; element 4j + 2h + e of a fragment is
 // (row r0 + 8h, column 8j + 2 (t % 4) + e). That is also the layout of an A
 // operand in registers, so P and dS are rounded to bf16 and packed where they
-// are computed and never touch shared memory. The forward keeps the two
-// passes of the FMA kernel (the log-sum-exp first, then the normalised
-// weights), so the dropped weights are rounded normalised, as the TPU kernel
-// rounds them.
+// are computed and never touch shared memory. The forward makes two passes
+// (the log-sum-exp first, then the normalised weights), so the dropped
+// weights are rounded normalised, as the TPU kernel rounds them.
 //
 // Dropout bits: a Philox call gives the words of four consecutive keys of one
 // query. Where rows are queries (forward, dQ) lanes t and t ^ 1 hold the same
@@ -865,23 +1050,30 @@ __global__ void __launch_bounds__(WG_THREADS) attn_bwd_dq_kernel_wgmma(const bf1
 template <typename T>
 void launch_attn_fwd(const T* q, const T* k, const T* v, const float* mask, T* att, T* att_lo, float* lse, int B,
                      int Tn, int C, int H, float sm_scale, Dropout drop, cudaStream_t s) {
-  const dim3 grid((Tn + TQ - 1) / TQ, H, B);
   if constexpr (std::is_same<T, bf16>::value) {
+    const dim3 grid((Tn + TQ - 1) / TQ, H, B);
     cudaFuncSetAttribute(attn_fwd_kernel_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_FWD_SMEM);
     attn_fwd_kernel_wgmma<<<grid, WG_THREADS, WG_FWD_SMEM, s>>>(q, k, v, mask, att, att_lo, lse, Tn, C, H, sm_scale,
                                                                 drop);
   } else {
-    cudaFuncSetAttribute(attn_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM);
-    attn_fwd_kernel<T><<<grid, NT, FWD_SMEM, s>>>(q, k, v, mask, att, att_lo, lse, Tn, C, H, sm_scale, drop);
+    const dim3 grid((Tn + FA_FWD_BQ - 1) / FA_FWD_BQ, H, B);
+    const int vec = C % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(att);
+    cudaFuncSetAttribute(attn_fwd_kernel_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, FA_FWD_SMEM);
+    cudaFuncSetAttribute(attn_fwd_kernel_f32, cudaFuncAttributePreferredSharedMemoryCarveout,
+                         cudaSharedmemCarveoutMaxShared);
+    attn_fwd_kernel_f32<<<grid, FA_THREADS, FA_FWD_SMEM, s>>>(q, k, v, mask, att, lse, Tn, C, H, sm_scale, drop, vec);
   }
 }
 
 // D = rowsum(datt * (att + att_lo)) (att_lo may be null), then dK (scaled) ->
 // dk [M, C], dV -> dv (row stride ld_dv), dQ (scaled) -> dq [M, C]
+// ds_ws: f32 only, B*H*attn_ws_width(Tn)^2 floats for dS^T (null in bf16)
+inline int attn_ws_width(int Tn) { return (Tn + FA_DKV_BK - 1) / FA_DKV_BK * FA_DKV_BK; }
+
 template <typename T>
 void launch_attn_bwd(const T* q, const T* k, const T* v, const T* att, const T* att_lo, const T* datt,
-                     const float* lse, const float* mask, float* Dv, T* dq, T* dk, T* dv, int ld_dv, int B, int Tn,
-                     int C, int H, float sm_scale, Dropout drop, cudaStream_t s) {
+                     const float* lse, const float* mask, float* Dv, T* dq, T* dk, T* dv, int ld_dv, float* ds_ws,
+                     int B, int Tn, int C, int H, float sm_scale, Dropout drop, cudaStream_t s) {
   const int n_rows = B * H * Tn;
   rowdot_kernel<T><<<(n_rows + 7) / 8, 256, 0, s>>>(datt, att, att_lo, Dv, Tn, C, H, n_rows);
   const dim3 grid((Tn + TK - 1) / TK, H, B);
@@ -893,11 +1085,20 @@ void launch_attn_bwd(const T* q, const T* k, const T* v, const T* att, const T* 
     attn_bwd_dq_kernel_wgmma<<<grid, WG_THREADS, WG_DQ_SMEM, s>>>(q, k, v, datt, lse, Dv, mask, dq, Tn, C, H,
                                                                   sm_scale, drop);
   } else {
-    cudaFuncSetAttribute(attn_bwd_dkv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, DKV_SMEM);
-    attn_bwd_dkv_kernel<T><<<grid, NT, DKV_SMEM, s>>>(q, k, v, datt, lse, Dv, mask, dk, dv, ld_dv, Tn, C, H,
-                                                      sm_scale, drop);
-    cudaFuncSetAttribute(attn_bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, DQ_SMEM);
-    attn_bwd_dq_kernel<T><<<grid, NT, DQ_SMEM, s>>>(q, k, v, datt, lse, Dv, mask, dq, Tn, C, H, sm_scale, drop);
+    const int vec = C % 4 == 0 && ld_dv % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
+                    aligned16(datt) && aligned16(dq) && aligned16(dk) && aligned16(dv);
+    cudaFuncSetAttribute(attn_bwd_dkv_kernel_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, FA_DKV_SMEM);
+    cudaFuncSetAttribute(attn_bwd_dkv_kernel_f32, cudaFuncAttributePreferredSharedMemoryCarveout,
+                         cudaSharedmemCarveoutMaxShared);
+    const int ld_ws = attn_ws_width(Tn);
+    const dim3 grid_k((Tn + FA_DKV_BK - 1) / FA_DKV_BK, H, B);
+    attn_bwd_dkv_kernel_f32<<<grid_k, FA_THREADS, FA_DKV_SMEM, s>>>(q, k, v, datt, lse, Dv, mask, dk, dv, ds_ws,
+                                                                  ld_ws, ld_dv, Tn, C, H, sm_scale, drop, vec);
+    cudaFuncSetAttribute(attn_bwd_dq_kernel_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, FQ_SMEM);
+    cudaFuncSetAttribute(attn_bwd_dq_kernel_f32, cudaFuncAttributePreferredSharedMemoryCarveout,
+                         cudaSharedmemCarveoutMaxShared);
+    const dim3 grid_q((Tn + FQ_BQ - 1) / FQ_BQ, H, B);
+    attn_bwd_dq_kernel_f32<<<grid_q, FA_THREADS, FQ_SMEM, s>>>(ds_ws, ld_ws, k, dq, Tn, C, H, sm_scale, vec);
   }
 }
 

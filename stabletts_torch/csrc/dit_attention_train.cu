@@ -17,15 +17,19 @@
 // T=1024, C=256, 4 heads that is 51.5 GFLOP forward.
 //
 // Design. One head's f32 [T, T] softmax is 4 MB at T=1024 and a CTA has
-// 227 KB, so attention is tiled flash-style and no [B, H, T, T] tensor ever
-// reaches device memory, forward or backward:
+// 227 KB, so attention is tiled flash-style and no [B, H, T, T] tensor
+// reaches device memory in the forward or is saved for the backward (the f32
+// backward writes dS^T for its dQ kernel, attention_train.cuh):
 //   forward:  LN + modulate -> QKV tap GEMM with partial RoPE and bf16
-//             rounding in its epilogue -> attention per (64 queries, head,
-//             item) in two passes over 64-key tiles: the first finds each
-//             row's log-sum-exp (saved, [B, H, T] f32), the second forms the
-//             normalised weights p = exp(s - lse), drops them (Philox), rounds
-//             them as the TPU kernel does before the PV product and
-//             accumulates att -> out-projection with the gated residual.
+//             rounding in its epilogue -> attention per (query tile, head,
+//             item) over 64-key tiles, saving each row's log-sum-exp ([B, H,
+//             T] f32): in bf16 two passes, the first finding the log-sum-exp,
+//             the second forming the normalised weights p = exp(s - lse),
+//             dropping them (Philox) and rounding them as the TPU kernel does
+//             before the PV product (64 queries a CTA); in f32 one online
+//             pass (128 queries a CTA), att = sum exp(s - m) f v / l
+//             (attention_train.cuh) -> out-projection with the gated
+//             residual.
 //   backward: recompute h, q, k, v and the out-projection (for dgate);
 //             datt = dz Wo^T; D = rowsum(datt * att) per head (the TPU's
 //             sum(dp * p); in bf16 att with its rounding remainder att_lo,
@@ -148,8 +152,8 @@ cudaError_t backward(const T* x, const T* mod, const float* mask, const float* c
                      const T* wqkv, const T* bqkv, const T* wo, const T* bo, Dropout drop, const T* att,
                      const T* att_lo, const float* lse, const T* dout, T* h, T* q, T* k, T* v, float* pz, T* dzc, T* datt,
                      float* Dv, T* dq_r, T* dk_r, T* dqkv, float* dh0, float* dh0n, T* dx, float* dmod,
-                     float* dwqkv, float* dbqkv, float* dwo, float* dbo, float* ws, long long ws_floats, int B,
-                     int Tn, int C, int H, float eps, cudaStream_t s) {
+                     float* dwqkv, float* dbqkv, float* dwo, float* dbo, float* ws, long long ws_floats,
+                     float* ds_ws, int B, int Tn, int C, int H, float eps, cudaStream_t s) {
   const int M = B * Tn;
   const float sm_scale = 1.f / sqrtf((float)HD);
   qkv_recompute<T>(x, mod, cos_t, sin_t, wqkv, bqkv, h, q, k, v, M, Tn, C, eps, s);
@@ -161,8 +165,8 @@ cudaError_t backward(const T* x, const T* mod, const float* mask, const float* c
   // stream, so a launch_wgrad's partials are summed before the next colsum writes its own
   launch_colsum<T>(dzc, dbo, 1, M, C, 0, ws, ws_floats, s);
   // attention backward
-  launch_attn_bwd<T>(q, k, v, att, att_lo, datt, lse, mask, Dv, dq_r, dk_r, dqkv + 2 * C, 3 * C, B, Tn, C, H, sm_scale,
-                     drop, s);
+  launch_attn_bwd<T>(q, k, v, att, att_lo, datt, lse, mask, Dv, dq_r, dk_r, dqkv + 2 * C, 3 * C, ds_ws, B, Tn, C, H,
+                     sm_scale, drop, s);
   const long long n_el = (long long)M * C;
   const int rb = (int)((n_el + 255) / 256);
   rope_bwd_kernel<T><<<rb, 256, 0, s>>>(dq_r, cos_t, sin_t, dqkv, 0, M, Tn, C, HD / 4);
@@ -206,8 +210,8 @@ extern "C" int dit_attention_train_backward(
     const void* bqkv, const void* wo, const void* bo, const void* seed, const void* att, const void* att_lo,
     const void* lse, const void* dout, void* h, void* q, void* k, void* v, void* pz, void* dzc, void* datt, void* Dv, void* dq_r,
     void* dk_r, void* dqkv, void* dh0, void* dh0n, void* dx, void* dmod, void* dwqkv, void* dbqkv, void* dwo,
-    void* dbo, void* ws, int B, int T, int C, int H, int is_bf16, int thresh, int ws_floats, float keep_scale,
-    float eps, void* stream) {
+    void* dbo, void* ws, void* ds_ws, int B, int T, int C, int H, int is_bf16, int thresh, int ws_floats,
+    float keep_scale, float eps, void* stream) {
   if (C / H != HD || C % 64) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Dropout drop = make_dropout(seed, thresh, keep_scale);
@@ -219,7 +223,7 @@ extern "C" int dit_attention_train_backward(
   (const TY*)x, (const TY*)mod, mk, cs, sn, (const TY*)wqkv, (const TY*)bqkv, (const TY*)wo, (const TY*)bo,  \
       drop, (const TY*)att, (const TY*)att_lo, static_cast<const float*>(lse), (const TY*)dout, (TY*)h,      \
       (TY*)q, (TY*)k, (TY*)v, f(pz), (TY*)dzc, (TY*)datt, f(Dv), (TY*)dq_r, (TY*)dk_r, (TY*)dqkv, f(dh0),    \
-      f(dh0n), (TY*)dx, f(dmod), f(dwqkv), f(dbqkv), f(dwo), f(dbo), f(ws), ws_floats, B, T, C, H, eps, s
+      f(dh0n), (TY*)dx, f(dmod), f(dwqkv), f(dbqkv), f(dwo), f(dbo), f(ws), ws_floats, f(ds_ws), B, T, C, H, eps, s
   cudaError_t err = is_bf16 ? backward<bf16>(STTS_ARGS(bf16)) : backward<float>(STTS_ARGS(float));
 #undef STTS_ARGS
   return (int)err;

@@ -22,7 +22,10 @@ backward one `attention_train_bwd` call, each counting its launches in
 per-row log-sum-exp [B, H, T] and, in bf16, the output's rounding remainder
 `o_lo` (the f32 output minus its bf16 rounding, in bf16: the backward's
 row sums D = rowsum(d_o * o) then carry f32's error, not bf16's, as the
-plain version's do); no [B, H, T, T] tensor exists on the GPU path.
+plain version's do). No [B, H, T, T] tensor is saved between the passes; the
+f32 backward holds one while it runs, dS^T (`ds_workspace`: its dK/dV kernel
+writes it, its dQ kernel reads it, so the scores are recomputed once, not
+twice).
 """
 
 from __future__ import annotations
@@ -86,6 +89,16 @@ def attention_train_fwd(q, k, v, mask, n_heads, rate, seed):
     return o, lse, o_lo
 
 
+def ds_workspace(b: int, n_heads: int, t: int, like: torch.Tensor):
+    """The f32 backward's dS^T workspace, [B*H, T', T'] f32 with T' = T
+    rounded up to 128, the dK/dV kernel's key tile (it writes it, the dQ
+    kernel reads it: 537 MB at B=32, T=1000, 4 heads); None in bf16."""
+    if like.dtype != torch.float32:
+        return None
+    tp = (t + 127) // 128 * 128
+    return torch.empty(b * n_heads * tp * tp, device=like.device, dtype=torch.float32)
+
+
 def attention_train_bwd(q, k, v, mask, n_heads, rate, seed, o, lse, d_o, o_lo=None):
     """One launch of the backward kernel on the forward's (o, lse, o_lo);
     returns (dq, dk, dv) like q."""
@@ -101,9 +114,11 @@ def attention_train_bwd(q, k, v, mask, n_heads, rate, seed, o, lse, d_o, o_lo=No
     seed_ptr, thresh, keep_scale = philox.kernel_args(rate, seed, "attention_train")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     d_rows = torch.empty(b, n_heads, t, device=q.device, dtype=torch.float32)
-    fn = _build.load("attention_train", "attention_train_backward", 13, 6, 1)
+    ds_ws = ds_workspace(b, n_heads, t, q)
+    fn = _build.load("attention_train", "attention_train_backward", 14, 6, 1)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), seed_ptr, o.data_ptr(),
-             None if o_lo is None else o_lo.data_ptr(), lse.data_ptr(), d_o.data_ptr(), d_rows.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             None if o_lo is None else o_lo.data_ptr(), lse.data_ptr(), d_o.data_ptr(), d_rows.data_ptr(),
+             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), None if ds_ws is None else ds_ws.data_ptr(),
              b, t, c, n_heads, int(q.dtype == torch.bfloat16), thresh, keep_scale,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "attention_train_bwd")

@@ -20,7 +20,8 @@ the plain version (autograd differentiates it); a CUDA tensor runs
 and backward one `dit_attention_train_bwd` call, each counting its launches
 in `.launches`. The residuals are the inputs, the seed, the attention
 output [B, T, C] and the per-row log-sum-exp [B, H, T]; no [B, H, T, T]
-tensor exists on the GPU path.
+tensor is saved between the passes (the f32 backward holds dS^T while it
+runs: `attention_train_cuda.ds_workspace`).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import math
 import torch
 
 from stabletts_torch.ops import philox
+from stabletts_torch.ops.attention_train_cuda import ds_workspace
 from stabletts_torch.ops.dit_block_cuda import _NEG, apply_rope, layer_norm, rope_tables
 
 
@@ -126,15 +128,16 @@ def dit_attention_train_bwd(x, mod, mask, wqkv, bqkv, wo, bo, n_heads, rate, see
     dv_rows = e32(b, n_heads, t)
     dmod, dwqkv, dbqkv, dwo, dbo = e32(b, 3, c), e32(c, 3 * c), e32(3 * c), e32(c, c), e32(c)
     ws = e32(_build.WGRAD_WS_FLOATS)
-    fn = _build.load("dit_attention_train", "dit_attention_train_backward", 34, 7, 2)
+    ds_ws = ds_workspace(b, n_heads, t, x)
+    fn = _build.load("dit_attention_train", "dit_attention_train_backward", 35, 7, 2)
     err = fn(x.data_ptr(), mod.data_ptr(), mask.data_ptr(), cos.data_ptr(), sin.data_ptr(), wqkv.data_ptr(),
              bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(), seed_ptr, att.data_ptr(),
              None if att_lo is None else att_lo.data_ptr(), lse.data_ptr(), dout.data_ptr(), h.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), pz.data_ptr(),
              dzc.data_ptr(), datt.data_ptr(), dv_rows.data_ptr(), dq_r.data_ptr(), dk_r.data_ptr(),
              dqkv.data_ptr(), dh0.data_ptr(), dh0n.data_ptr(), dx.data_ptr(), dmod.data_ptr(),
              dwqkv.data_ptr(), dbqkv.data_ptr(), dwo.data_ptr(), dbo.data_ptr(), ws.data_ptr(),
-             b, t, c, n_heads, int(x.dtype == torch.bfloat16), thresh, ws.numel(), keep_scale, eps,
-             torch.cuda.current_stream(dev).cuda_stream)
+             None if ds_ws is None else ds_ws.data_ptr(), b, t, c, n_heads, int(x.dtype == torch.bfloat16), thresh,
+             ws.numel(), keep_scale, eps, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "dit_attention_train_bwd")
     dit_attention_train_bwd.launches += 1
     return dx, dmod, dwqkv, dbqkv, dwo, dbo

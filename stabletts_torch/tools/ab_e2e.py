@@ -10,10 +10,12 @@ phases at the flagship config (random weights from a seed): `phase_serving`
 bench batch), then `--reps` more f32 requests of the 313-frame sentence and
 bench batches, timed by the host clock around a call that ends on the host;
 `phase_profile` of that request (device busy ms and the idle share); and
-`phase_train_steps` (f32 `train()` at B=32, T <= 1000, steady median) and
-`phase_train_bf16` (the same in bf16). It prints one JSON line: the wall ms
-of each request and batch, the profile's numbers and the training steps'
-steady medians. The phases' own lines are not printed.
+`phase_train_steps` (f32 `train()` at B=32, T <= 1000, steady median),
+`phase_train_bf16` (the same in bf16) and `phase_profile` of one f32 step of
+`phase_train_overfit`'s model (device busy ms, the idle share, the largest
+kernels and the training attention core's device ms by kernel). It prints one
+JSON line: the wall ms of each request and batch, the profiles' numbers and
+the training steps' steady medians. The phases' own lines are not printed.
 """
 
 import argparse
@@ -58,6 +60,9 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as root:
         _, f32_loss, f32_wall = cs.phase_train_steps(dev, card, root)
         cs.phase_train_bf16(dev, card, root, f32_loss, f32_wall)
+        step_fn, _ = cs.phase_train_overfit(dev, card, root)
+        step_fn()
+        cs.phase_profile("train_step", step_fn, card)
     by_phase = {}
     for line in lines:
         by_phase.setdefault(line.get("phase"), []).append(line)
@@ -68,6 +73,12 @@ def main() -> None:
            "serving_bench_bf16_wall_ms": by_phase["serving_bench_bf16"][0]["wall_ms"],
            "profile_request_f32": {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share",
                                                           "kernel_launches", "families_device_ms")},
+           "profile_train_step": {k: by_phase["profile_train_step"][0][k] for k in (
+               "wall_ms", "device_busy_ms", "device_idle_share", "kernel_launches", "top")},
+           # the training attention core's kernels (FMA or wgmma) and D's row sums, from the profile's largest kernels
+           "train_step_attention_core_ms": {
+               fam: sum(e["device_ms"] for e in by_phase["profile_train_step"][0]["top"] if fam in e["name"])
+               for fam in ("attn_fwd_kernel", "attn_bwd_dkv_kernel", "attn_bwd_dq_kernel", "rowdot_kernel")},
            "train_f32_steady_ms": by_phase["train_steps"][0]["steady_wall_ms_median"],
            "train_bf16_steady_ms": by_phase["train_bf16"][0]["steady_wall_ms_median"], "card": card}
     print(json.dumps(out), flush=True)

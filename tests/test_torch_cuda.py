@@ -409,18 +409,20 @@ def _check_attention_train(dev, dtype, bar, b, t_len, rate, offset=0.0):
         assert _rel(got, want) <= bar
 
 
+@pytest.mark.parametrize("dtype,bar", [(torch.float32, 5e-3), (BF16, 2e-2)])
 @pytest.mark.parametrize("kind", ["attention_train", "dit_attention_train"])
 @pytest.mark.parametrize("t_len", [64, 97, 1000])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_attention_train_core_bf16(dev, kind, t_len, rate):
-    """The bf16 training attention core (attention_train.cuh's wgmma kernels)
-    through both entry points: one full tile, a ragged one, many tiles with a
-    ragged last one, with and without dropout. The DiT attention half's
-    backward writes dV into its [M, 3C] gradient (row stride 3C)."""
+def test_attention_train_core(dev, dtype, bar, kind, t_len, rate):
+    """The training attention core (attention_train.cuh: the f32 FMA kernels
+    and the bf16 wgmma kernels) through both entry points: one full tile, a
+    ragged one, many tiles with a ragged last one (the trainer's T = 1000),
+    with and without dropout. The DiT attention half's backward writes dV into
+    its [M, 3C] gradient (row stride 3C)."""
     if kind == "attention_train":
-        _check_attention_train(dev, BF16, 2e-2, 2, t_len, rate)
+        _check_attention_train(dev, dtype, bar, 2, t_len, rate)
     else:
-        _check_train_kernels(dev, "attention", BF16, 2e-2, 2, t_len, rate)
+        _check_train_kernels(dev, "attention", dtype, bar, 2, t_len, rate)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, BF16])
