@@ -12,7 +12,8 @@ Phases, one JSON line each; any failure exits nonzero:
      library with its bf16 weight-gradient GEMM in `wgrad_wgmma_kernel`; no
      library may hold an FMA form of any of them for bf16; then the `ptxas`
      line: registers and spills of every f32 tap-GEMM and weight-gradient
-     instantiation
+     instantiation, of the f32 attention cores and of ConvNeXt's depthwise
+     conv + LayerNorm
   3. each kernel against its plain PyTorch version on the card, at the main
      paths' shapes, f32 and bf16, with times and bounds and the unit of
      each kernel's products ("core": "wgmma" for bf16 on the attention cores,
@@ -21,6 +22,9 @@ Phases, one JSON line each; any failure exits nonzero:
      weight-gradient GEMM, "wgmma" in bf16 and "fma" in f32): the serving
      kernels (the whole DiT block, its attention half and FFN half, packed
      attention in both layouts beside one scaled_dot_product_attention call,
+     and in f32 the block and packed attention at a request's mask, at a mask
+     with a hole of one key tile and, for packed attention, with an item that
+     has no valid key; under a mask the bound counts the valid rows' work,
      ConvNeXt, ISTFT, and the bare tap GEMM at the DiT block's four products
      beside one matmul or conv1d call (in f32 also at a request's 2 x 1024
      rows and the training step's 32 x 1000; each row names its CTA tile,
@@ -139,7 +143,8 @@ TRAIN_CORE_KERNELS = ("attention_train_fwd", "attention_train_bwd", "dit_attenti
 TRAIN_CORE_LIBS = ("attention_train", "dit_attention_train")
 TRAIN_CORE_FUNCTIONS = ("attn_fwd_kernel", "attn_bwd_dkv_kernel", "attn_bwd_dq_kernel")
 # kernels whose products include common.cuh's tap GEMM (bf16 on wgmma, f32 on FMA): beside an attention core
-# (the projections and convs of the DiT kernels), or as all of their products (in ConvNeXt, in bf16 only)
+# (the projections and convs of the DiT kernels), or as all of their products (ConvNeXt in both types since its f32
+# route moved onto the f32 tap GEMM)
 TAP_GEMM_PROJECTIONS = ("dit_block", "dit_attention", "dit_attention_train_fwd", "dit_attention_train_bwd")
 TAP_GEMM_KERNELS = ("adaln_ffn", "istft", "ffn_train_fwd", "ffn_train_bwd", "prenet_train_fwd", "prenet_train_bwd",
                     "convnext", "tap_gemm", "wgrad")
@@ -201,14 +206,17 @@ TRAIN_LAUNCHES_PER_STEP = {"dit_attention_train_fwd": 9, "dit_attention_train_bw
 DT_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 # kernel-name parts whose device time the profile phases sum: the weight-gradient GEMM (wgmma, FMA) and the sum of its
 # row chunks, the column sums (one pass or two), the tap GEMM (wgmma, FMA), the training attention core's three
-# kernels (each name part covers its f32 and its bf16 form) and its row sums D
+# kernels (each name part covers its f32 and its bf16 form) and its row sums D, the f32 serving attention core and
+# ConvNeXt's depthwise conv + LayerNorm
 PROFILE_FAMILIES = ("wgrad_wgmma_kernel", "wgrad_f32_kernel", "sum_splits_kernel", "colsum", "tap_gemm_wgmma_kernel",
                     "tap_gemm_f32_kernel", "attn_fwd_kernel", "attn_bwd_dkv_kernel", "attn_bwd_dq_kernel",
-                    "rowdot_kernel")
-# the FMA (f32) forms of common.cuh's tap GEMM and weight gradient and of attention_train.cuh's training core, whose
-# registers and spills the `ptxas` line reports
+                    "rowdot_kernel", "attention_kernel_f32", "dwconv_ln_kernel")
+# the FMA (f32) forms of common.cuh's tap GEMM and weight gradient, of attention_train.cuh's training core and of
+# attention.cuh's serving core, and convnext.cu's depthwise conv + LayerNorm, whose registers and spills the `ptxas`
+# line reports
 F32_GEMM_FUNCTIONS = ("tap_gemm_f32_kernel", "wgrad_f32_kernel")
 F32_TRAIN_CORE_FUNCTIONS = ("attn_fwd_kernel_f32", "attn_bwd_dkv_kernel_f32", "attn_bwd_dq_kernel_f32")
+F32_SERVING_FUNCTIONS = ("attention_kernel_f32", "dwconv_ln_kernel")
 
 
 def emit(obj) -> None:
@@ -339,8 +347,10 @@ def phase_sass() -> None:
 
 def phase_ptxas() -> None:
     """Registers and spill bytes of the f32 tap GEMM and weight gradient
-    (F32_GEMM_FUNCTIONS) and of the f32 training attention core
-    (F32_TRAIN_CORE_FUNCTIONS), read from the `-Xptxas -v` report that the
+    (F32_GEMM_FUNCTIONS), of the f32 training attention core
+    (F32_TRAIN_CORE_FUNCTIONS) and of the f32 serving core and ConvNeXt's
+    depthwise conv + LayerNorm (F32_SERVING_FUNCTIONS, both types of the
+    latter), read from the `-Xptxas -v` report that the
     build keeps beside each library: per kernel and template (tile, w_trans)
     the count of instantiations over all libraries, their least and most
     registers, and each instantiation that spills."""
@@ -359,13 +369,22 @@ def phase_ptxas() -> None:
                 m = re.search(r"Compiling entry function '(\S+)'", line)
                 if m:
                     fn = m.group(1)
-                    kind = next((k for k in (*F32_GEMM_FUNCTIONS, *F32_TRAIN_CORE_FUNCTIONS) if k in fn), None)
+                    kind = next((k for k in (*F32_GEMM_FUNCTIONS, *F32_TRAIN_CORE_FUNCTIONS, *F32_SERVING_FUNCTIONS)
+                                 if k in fn), None)
                     row = None
                     if kind:
-                        # tap_gemm_f32_kernel<BM, BN, WT, Epi> mangles as ...ILi128ELi128ELb1E<Epi>...
+                        # tap_gemm_f32_kernel<BM, BN, WT, Epi> mangles as ...ILi128ELi128ELb1E<Epi>...,
+                        # attention_kernel_f32<TMINOR, BQ> as ...ILb0ELi64E..., dwconv_ln_kernel<T, CW> as ...IfLi16E...
                         t = re.search(r"ILi(\d+)ELi(\d+)ELb([01])E", fn)
-                        key = f"{kind}<{t.group(1)}, {t.group(2)}, {'true' if t.group(3) == '1' else 'false'}>" \
-                            if t else (kind if kind in F32_TRAIN_CORE_FUNCTIONS else f"{kind}<float>")
+                        a = re.search(r"attention_kernel_f32ILb([01])ELi(\d+)E", fn)
+                        if t:
+                            key = f"{kind}<{t.group(1)}, {t.group(2)}, {'true' if t.group(3) == '1' else 'false'}>"
+                        elif a:
+                            key = f"{kind}<{'true' if a.group(1) == '1' else 'false'}, {a.group(2)}>"
+                        elif kind == "dwconv_ln_kernel":
+                            key = f"{kind}<{'float' if 'dwconv_ln_kernelIf' in fn else 'bf16'}>"
+                        else:
+                            key = kind if kind in F32_TRAIN_CORE_FUNCTIONS else f"{kind}<float>"
                         row = {"key": key, "library": name, "function": fn}
                         kernels.setdefault(key, []).append(row)
                     continue
@@ -411,7 +430,43 @@ def _ragged_mask(b, t, dev):
     return (torch.arange(t, device=dev)[None, :] < lengths[:, None]).float()
 
 
-def check_dit(rng, b, t, dtype, dev):
+# a request's mask: a 313-frame sentence in the 1024-frame mel cap, both CFG halves
+REQUEST_LEN = 313
+
+
+def _mask(kind, b, t, dev):
+    """[B, T] key mask of one kind: "ragged" (_ragged_mask), "request" (every
+    item REQUEST_LEN long), "all_masked" (item 0 has no valid key, the rest
+    ragged) or "holed" (item 0 loses keys 320-383, one whole 64-key tile in
+    the middle; the rest ragged)."""
+    if kind == "request":
+        return (torch.arange(t, device=dev)[None, :] < REQUEST_LEN).float().repeat(b, 1)
+    mask = _ragged_mask(b, t, dev)
+    if kind == "all_masked":
+        mask[0] = 0.0
+    elif kind == "holed":
+        mask[0, 320:384] = 0.0
+    return mask
+
+
+def _valid(mask, b, t) -> torch.Tensor:
+    """Rows (queries, and keys) each item needs: its valid ones, all T where it has none
+    (its output is then uniform over every key and is held to the plain version's)."""
+    if mask is None:
+        return torch.full((b,), float(t))
+    n = (mask > 0).sum(1).float().cpu()
+    return torch.where(n > 0, n, torch.full_like(n, float(t)))
+
+
+def _shape(b, t, kind) -> dict:
+    return {"B": b, "T": t, **({} if kind == "ragged" else {"mask": kind})}
+
+
+def check_dit(rng, b, t, dtype, dev, mask_kind="ragged"):
+    """The whole DiT block against its plain version on every row (padded rows
+    are masked in both). The bound counts the work of the valid rows: the
+    projections and convs of each item's valid rows, its attention's valid
+    queries x valid keys."""
     from stabletts_torch.ops.dit_block_cuda import DiTWeights, dit_block, dit_block_plain
 
     c, f, heads = 256, 1024, 4
@@ -419,11 +474,12 @@ def check_dit(rng, b, t, dtype, dev):
     w = DiTWeights(g(c, 3 * c, scale=c ** -0.5), g(3 * c, scale=0.02), g(c, c, scale=c ** -0.5),
                    g(c, scale=0.02), g(3, c, f, scale=(3 * c) ** -0.5), g(f, scale=0.02),
                    g(3, f, c, scale=(3 * f) ** -0.5), g(c, scale=0.02))
-    mask = _ragged_mask(b, t, dev)
+    mask = _mask(mask_kind, b, t, dev)
     x = g(b, t, c) * mask[..., None].to(dtype)
     mods = g(b, 6, c, scale=0.1)
-    flops = 2 * b * t * c * 4 * c + 4 * b * heads * t * t * (c // heads) + 4 * b * t * 3 * c * f
-    return measure("dit_block", dtype, {"B": b, "T": t}, lambda: dit_block(x, mods, mask, w, heads),
+    n = _valid(mask, b, t)
+    flops = float(2 * n.sum() * c * 4 * c + 4 * heads * (n * n).sum() * (c // heads) + 4 * n.sum() * 3 * c * f)
+    return measure("dit_block", dtype, _shape(b, t, mask_kind), lambda: dit_block(x, mods, mask, w, heads),
                    lambda: dit_block_plain(x, mods, mask, w, heads), flops, nbytes(x, mods, mask, *w, x))
 
 
@@ -436,7 +492,8 @@ def check_dit_attention(rng, b, t, dtype, dev):
     mask = _ragged_mask(b, t, dev)
     x = g(b, t, c) * mask[..., None].to(dtype)
     mods = g(b, 3, c, scale=0.1)
-    flops = 2 * b * t * c * 4 * c + 4 * b * heads * t * t * (c // heads)
+    n = _valid(mask, b, t)
+    flops = float(2 * n.sum() * c * 4 * c + 4 * heads * (n * n).sum() * (c // heads))
     return measure("dit_attention", dtype, {"B": b, "T": t}, lambda: dit_attention(x, mods, mask, *w, heads),
                    lambda: dit_attention_plain(x, mods, mask, *w, heads), flops, nbytes(x, mods, mask, *w, x))
 
@@ -450,16 +507,19 @@ def check_adaln_ffn(rng, b, t, dtype, dev):
     mask = _ragged_mask(b, t, dev)
     x = g(b, t, c) * mask[..., None].to(dtype)
     mods = g(b, 3, c, scale=0.1)
+    flops = float(4 * _valid(mask, b, t).sum() * 3 * c * f)
     return measure("adaln_ffn", dtype, {"B": b, "T": t}, lambda: adaln_ffn(x, mods, mask, *w),
-                   lambda: adaln_ffn_plain(x, mods, mask, *w), 4 * b * t * 3 * c * f, nbytes(x, mods, mask, *w, x))
+                   lambda: adaln_ffn_plain(x, mods, mask, *w), flops, nbytes(x, mods, mask, *w, x))
 
 
-def check_attention_packed(rng, b, t, dtype, dev, masked, tminor):
+def check_attention_packed(rng, b, t, dtype, dev, masked, tminor, mask_kind="ragged"):
     """Packed-head attention ([B, T, C], or channel-major [B, C, T] with
-    tminor) against its plain version on the valid query rows; padded rows
-    must be finite. The library yardstick is one
-    scaled_dot_product_attention call with the same key mask, with the
-    layout changes it needs from and to the kernel's layout counted."""
+    tminor) against its plain version on the valid query rows and on every
+    row of an item with no valid key; other padded rows must be finite. The
+    bound counts each item's valid queries x valid keys (T x T for an item
+    with none). The library yardstick is one scaled_dot_product_attention
+    call with the same key mask, with the layout changes it needs from and to
+    the kernel's layout counted."""
     import torch.nn.functional as F
 
     from stabletts_torch.ops import attention_packed_cuda as ap
@@ -467,8 +527,8 @@ def check_attention_packed(rng, b, t, dtype, dev, masked, tminor):
     c, heads, d = 256, 4, 64
     g = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev, dtype)
     q, k, v = g(b, t, c), g(b, t, c), g(b, t, c)
-    mask = _ragged_mask(b, t, dev) if masked else None
-    rows = torch.ones(b, t, dtype=torch.bool, device=dev) if mask is None else mask > 0
+    mask = _mask(mask_kind, b, t, dev) if masked else None
+    rows = torch.ones(b, t, dtype=torch.bool, device=dev) if mask is None else (mask > 0) | (mask.amax(1) <= 0)[:, None]
     key_mask = None if mask is None else (mask > 0)[:, None, None, :]
     if tminor:
         q, k, v = (a.transpose(1, 2).contiguous() for a in (q, k, v))
@@ -483,8 +543,9 @@ def check_attention_packed(rng, b, t, dtype, dev, masked, tminor):
         from_bhtd = lambda o: o.transpose(1, 2).reshape(b, t, c)
     library = lambda: from_bhtd(F.scaled_dot_product_attention(to_bhtd(q), to_bhtd(k), to_bhtd(v),
                                                                attn_mask=key_mask))
-    row = measure(name, dtype, {"B": b, "T": t, "masked": masked}, lambda: fn(q, k, v, mask, n_heads=heads),
-                  lambda: plain(q, k, v, mask, n_heads=heads), 4 * b * heads * t * t * d,
+    n = _valid(mask, b, t)
+    row = measure(name, dtype, {**_shape(b, t, mask_kind), "masked": masked}, lambda: fn(q, k, v, mask, n_heads=heads),
+                  lambda: plain(q, k, v, mask, n_heads=heads), float(4 * heads * (n * n).sum() * d),
                   nbytes(q, k, v, q) + (0 if mask is None else nbytes(mask)), select=select, library=library)
     row["library_rel_err"] = rel_err(select(library()), select(plain(q, k, v, mask, n_heads=heads)))[0]
     return row
@@ -635,7 +696,8 @@ def _istft_plain_on(re, im, n_fft, hop, md, lengths):
 
 def phase_kernels(dev) -> dict:
     """Every serving kernel against its plain version at the path's shapes,
-    f32 and bf16; returns the bench-shape rows (bf16; the DiT kernels and
+    f32 and bf16, and the f32 serving attention core at the masks `_mask`
+    names; returns the bench-shape rows (bf16; the DiT kernels and
     packed attention, with a mask, at 2B=16, T=1024; ConvNeXt/ISTFT at B=8,
     T=1000) keyed by kernel, for the kernels line."""
     rng = np.random.default_rng(1234)
@@ -647,6 +709,11 @@ def phase_kernels(dev) -> dict:
     cases += [(check_attention_packed, dict(b=b, t=t, dtype=dt, masked=masked, tminor=tminor))
               for tminor in (False, True) for b, t in ((16, 1024), (2, 1024), (2, 1000), (2, 97)) for dt in (f32, bf)
               for masked in (True, False)]
+    # the f32 serving core at a request's mask (the key-tile skip and the zeroed padded query tiles), at an item
+    # with no valid key (every tile runs) and at a mask with a hole of one whole key tile
+    cases += [(check_dit, dict(b=2, t=1024, dtype=f32, mask_kind=kind)) for kind in ("request", "holed")]
+    cases += [(check_attention_packed, dict(b=2, t=1024, dtype=f32, masked=True, tminor=tminor, mask_kind=kind))
+              for tminor in (False, True) for kind in ("request", "all_masked", "holed")]
     cases += [(fn, dict(b=b, t=t, dtype=dt)) for fn in (check_convnext, check_istft)
               for b, t in ((1, 1000), (8, 1000), (1, 333)) for dt in (f32, bf)]
     cases.append((check_istft, dict(b=8, t=1000, dtype=f32, with_lengths=True)))
@@ -662,7 +729,7 @@ def phase_kernels(dev) -> dict:
         emit({"phase": "kernel_check", **with_core(row)})
         rows.append(row)
         at_bench = kw["b"] == (8 if fn in (check_convnext, check_istft) else 16) and kw["t"] >= 1000
-        if (kw["dtype"] == bf and at_bench and kw.get("masked", True)
+        if (kw["dtype"] == bf and at_bench and kw.get("masked", True) and "mask_kind" not in kw
                 and row["kernel"] not in ("tap_gemm", "wgrad", "colsum")):
             bench_rows[row["kernel"]] = row
     rows.append(check_flash_adapter(rng, 2, 1000, dev))

@@ -13,8 +13,9 @@
 // cores, ~1 ms at the 67 TFLOP/s of fp32 FMA) against 4*B*T*H*64 elements
 // moved. So the products must run on the tensor cores: the bf16 kernel
 // (attention_kernel_wgmma, below) issues both as wgmma from shared-memory
-// tiles; f32 stays on fp32 FMA (attention_kernel), since no TF32 form has
-// been shown to hold the f32 bars.
+// tiles; f32 stays on fp32 FMA (attention_kernel_f32, and attention_kernel for
+// the variants' options), since no TF32 form has been shown to hold the f32
+// bars.
 //
 // One CTA per (64-query tile, head, batch item). Online softmax in exp2 over
 // 64-key tiles, so no score tile larger than 64 x 64 exists and any T works
@@ -23,7 +24,8 @@
 // caller with unscaled q passes log2(e)/sqrt(D). The key bias is 0 for a valid
 // key and kNeg (finite) for a padded one, so a row whose keys are all padded
 // still gets a finite softmax; keys past T are excluded. Only keys are masked:
-// padded query rows come out as finite values the caller masks. The weights
+// padded query rows come out as finite values the caller masks (in f32 under
+// the default options, zeros where a whole query tile is padded). The weights
 // are rounded to T before the PV product; the normaliser sums the unrounded
 // f32 weights.
 //
@@ -51,6 +53,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "fma_tiles.cuh"
 #include "wgmma.cuh"
 
 #include <math.h>
@@ -349,6 +352,268 @@ __global__ void __launch_bounds__(256) attention_kernel(const T* q, const T* k, 
   }
 }
 
+// ---------------------------------------------------------------- f32: FMA --
+//
+// The f32 kernel of the default options (the serving callers: the DiT block,
+// its attention half, packed attention in both layouts). The variants of
+// attention_variants.cu keep attention_kernel above in f32.
+//
+// What bounds it on the H100: its products on the FP32 pipes, at a request's
+// 2B = 2, T = 1024 (4 heads) 2.1 GFLOP with every key valid, 0.032 ms at 67
+// TFLOP/s; but a request pads its mel to the 1024-frame cap and fills a
+// quarter to a third of it, and most of that work multiplies by zero.
+//
+// Design:
+//   1. Each CTA reads its item's mask once and lists the 64-key tiles that hold
+//      a valid key; it runs only those. A tile of padded keys alone would add
+//      weights of exactly 0 (exp2 of kNeg less a finite max) with a rescale of
+//      exactly 1, or, before the first valid tile, be wiped by a rescale of 0:
+//      skipping it changes no bit. Decided from the mask, so holes work. An
+//      item with no valid key runs every tile (uniform weights over all keys).
+//   2. A query tile whose rows are all padded, in an item with a valid key, is
+//      written as zeros without being computed: every caller masks those rows
+//      (an out-projection epilogue's `* mask`, the composed blocks' `* m`).
+//   3. The tiles that remain run the training core's FMA products
+//      (fma_tiles.cuh): BQ queries a CTA of 128 threads, a thread NI = BQ / 16
+//      queries x 8 keys for S and x 8 features for o; K and V copied as they
+//      lie by 16-byte cp.async into a double buffer, tile i + 1's copies in
+//      flight behind tile i's products; 16-byte shared-memory reads. BQ is
+//      64 (NI = 4: 4 x 8 a thread, 99 KB, two CTAs an SM): on the H100 it beat
+//      BQ = 128 (8 x 8, which ptxas gives 255 registers and a 16-byte spill)
+//      at every shape measured, a request's 2 x 1024 (half the CTAs) and the
+//      bench batch's 16 x 1024 alike (tools/attn_f32_probe.py, PERF.md).
+// [B, T, C]: S = Q K^T reads Q [BQ][64] and K [64][64] (swizzled) along their
+// features (fa_mma_nt), o += P V reads V [64 keys][64] (swizzled) along its
+// features (fa_mma_nn). [B, C, T]: Q [64][BQ] and K [64][64] lie feature by
+// feature, so S is an outer product over the features (fa_mma_tn), and
+// o += P V reads V [64 features][64 keys] (swizzled) along its keys
+// (fa_mma_nt). Either way each output is the FMA kernel's fmaf chain (the
+// scores over d ascending, o over the keys ascending), the row max and the
+// rescale are the same, and each tile's row sum is added in its order (a
+// thread's keys 4 tx.. then 32 + 4 tx.., then across lanes 8, 4, 2, 1 apart):
+// a valid row has attention_kernel's bits.
+constexpr int ATF_MAX_TILES = 1024;  // key tiles a CTA lists (T <= 65536); past that it runs every tile
+constexpr int ATF_BQ = 64;            // query rows a CTA
+
+template <int BQ>
+struct AttF32 {
+  static constexpr int NI = BQ / 16;                          // queries a thread
+  static constexpr int Q = BQ * HD;                           // floats of the Q tile, and of P
+  static constexpr int SMEM = (2 * Q + 4 * TK * HD) * (int)sizeof(float);  // Q, P, K x 2, V x 2
+};
+
+// R x W floats of src (row stride ld) -> the [R][W] tile (chunk c of row r at
+// r * W + 4 c, or with SWZ, W = 64, at fa_at<true>); row r is read where
+// r < rows and column x where x < cols, the rest zero-filled. 16-byte cp.async
+// where vec, else element by element.
+template <int R, int W, bool SWZ>
+__device__ __forceinline__ void att_copy(float* tile, const float* src, long long ld, int rows, int cols, bool vec) {
+  constexpr int CH = W / 4;
+#pragma unroll
+  for (int l = 0; l < R * CH / FA_THREADS; ++l) {
+    const int e = threadIdx.x + FA_THREADS * l, r = e / CH, c = e % CH;
+    float* dst = tile + r * W + 4 * (SWZ ? c ^ ((r >> 2) & 7) : c);
+    const int n = r < rows ? min(max(cols - 4 * c, 0), 4) : 0;
+    const float* p = n > 0 ? src + r * ld + 4 * c : src;
+    if (vec) {
+      cp_async16(smem_addr(dst), p, 4 * n);
+    } else {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) dst[x] = x < n ? p[x] : 0.f;
+    }
+  }
+}
+
+template <bool TMINOR, int BQ>
+__global__ void __launch_bounds__(FA_THREADS, 2) attention_kernel_f32(const float* q, const float* k,
+                                                                     const float* v, const float* mask,
+                                                                     float* out, int Tn, int C, float score_scale,
+                                                                     int vec) {
+  using L = AttF32<BQ>;
+  constexpr int NI = L::NI;
+  extern __shared__ __align__(16) float af_sm[];
+  float* Qs = af_sm;           // [BQ][64] as it lies; [B, C, T]: [64][BQ]
+  float* Ps = Qs + L::Q;       // [BQ][64 keys] the weights, as written
+  float* KV = Ps + L::Q;       // K of tile i at (i & 1), V at 2 + (i & 1): [64][64] each
+  __shared__ unsigned char tile_ok[ATF_MAX_TILES];
+  __shared__ short tiles[ATF_MAX_TILES];
+  __shared__ int n_listed;
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
+  const int tid = threadIdx.x, tx = tid & 7, tr = tid >> 3, warp = tid >> 5, lane = tid & 31;
+  const long long head = (long long)b * Tn * C + (long long)h * HD * (TMINOR ? Tn : 1);
+  const float* mask_b = mask == nullptr ? nullptr : mask + (long long)b * Tn;
+  const int nt = (Tn + TK - 1) / TK;
+
+  // 1. the key tiles that hold a valid key, listed in order by warp 0
+  const bool skip = mask_b != nullptr && nt <= ATF_MAX_TILES;
+  if (skip) {
+    for (int j = warp; j < nt; j += FA_THREADS / 32) {
+      const int t = j * TK + lane;
+      const bool ok = (t < Tn && mask_b[t] > 0.f) || (t + 32 < Tn && mask_b[t + 32] > 0.f);
+      const bool any = __any_sync(0xffffffffu, ok);
+      if (lane == 0) tile_ok[j] = any;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      int n = 0;
+      for (int j0 = 0; j0 < nt; j0 += 32) {
+        const bool f = j0 + lane < nt && tile_ok[j0 + lane];
+        const unsigned bal = __ballot_sync(0xffffffffu, f);
+        if (f) tiles[n + __popc(bal & ((1u << lane) - 1u))] = (short)(j0 + lane);
+        n += __popc(bal);
+      }
+      if (lane == 0) n_listed = n;
+    }
+    __syncthreads();
+  }
+  const bool listed = skip && n_listed > 0;
+  const int nrun = listed ? n_listed : nt;
+
+  // 2. a query tile of padded rows only: zeros
+  if (listed) {
+    bool padded = true;
+    for (int j = q0 / TK; j < min(nt, (q0 + BQ) / TK); ++j) padded = padded && !tile_ok[j];
+    if (padded) {
+      for (int e = tid; e < BQ * HD; e += FA_THREADS) {
+        const int r = TMINOR ? e % BQ : e / HD, d = TMINOR ? e / BQ : e % HD, t = q0 + r;
+        if (t < Tn) out[head + (TMINOR ? (long long)d * Tn + t : (long long)t * C + d)] = 0.f;
+      }
+      return;
+    }
+  }
+
+  // 3. the listed key tiles
+  auto issue = [&](int i) {
+    const int k0 = (listed ? tiles[i] : i) * TK;
+    float* Ks = KV + (i & 1) * TK * HD;
+    float* Vs = KV + (2 + (i & 1)) * TK * HD;
+    if constexpr (TMINOR) {
+      att_copy<HD, TK, false>(Ks, k + head + k0, Tn, HD, Tn - k0, vec);
+      att_copy<HD, TK, true>(Vs, v + head + k0, Tn, HD, Tn - k0, vec);
+    } else {
+      att_copy<TK, HD, true>(Ks, k + head + (long long)k0 * C, C, Tn - k0, HD, vec);
+      att_copy<TK, HD, true>(Vs, v + head + (long long)k0 * C, C, Tn - k0, HD, vec);
+    }
+  };
+  if constexpr (TMINOR)
+    att_copy<HD, BQ, false>(Qs, q + head + q0, Tn, HD, Tn - q0, vec);
+  else
+    att_copy<BQ, HD, false>(Qs, q + head + (long long)q0 * C, C, Tn - q0, HD, vec);
+  issue(0);
+  cp_async_commit();
+
+  float o[NI][8], m[NI], l[NI];
+  fa_zero(o);
+#pragma unroll
+  for (int i = 0; i < NI; ++i) m[i] = -INFINITY, l[i] = 0.f;
+  for (int i = 0; i < nrun; ++i) {
+    const int k0 = (listed ? tiles[i] : i) * TK;
+    const float* Ks = KV + (i & 1) * TK * HD;
+    const float* Vs = KV + (2 + (i & 1)) * TK * HD;
+    cp_async_wait<0>();  // tile i (and Q) have landed
+    __syncthreads();     // ... for every thread, and every thread is done with tile i - 1 and P
+    if (i + 1 < nrun) issue(i + 1);
+    cp_async_commit();
+
+    float s[NI][8];
+    fa_zero(s);
+    if constexpr (TMINOR)
+      fa_mma_tn<BQ>(s, Qs, NI * tr, Ks, tx);
+    else
+      fa_mma_nt(s, Qs, NI * tr, Ks, 4 * tx);
+
+    float kb[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int t = k0 + 4 * tx + (c & 3) + 32 * (c >> 2);
+      kb[c] = t < Tn ? ((mask_b == nullptr || mask_b[t] > 0.f) ? 0.f : kNeg) : -INFINITY;
+    }
+#pragma unroll
+    for (int i2 = 0; i2 < NI; ++i2) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        s[i2][c] = s[i2][c] * score_scale + kb[c];
+        mx = fmaxf(mx, s[i2][c]);
+      }
+      // the row's eight threads are the eight lanes 8 (tr % 4) .. 8 (tr % 4) + 7
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float m_new = fmaxf(m[i2], mx);
+      const float corr = exp2f(m[i2] - m_new);  // 0 on the first tile (m = -inf)
+      float ra = 0.f, rb = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[i2][c] = exp2f(s[i2][c] - m_new);
+        ra += s[i2][c];
+      }
+#pragma unroll
+      for (int c = 4; c < 8; ++c) {
+        s[i2][c] = exp2f(s[i2][c] - m_new);
+        rb += s[i2][c];
+      }
+      float rs = ra + rb;
+      rs += __shfl_xor_sync(0xffffffffu, rs, 4);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      l[i2] = l[i2] * corr + rs;
+      m[i2] = m_new;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) o[i2][c] *= corr;
+      float* pr = Ps + (NI * tr + i2) * TK + 4 * tx;
+      st4(pr, s[i2][0], s[i2][1], s[i2][2], s[i2][3]);
+      st4(pr + 32, s[i2][4], s[i2][5], s[i2][6], s[i2][7]);
+    }
+    __syncthreads();  // P is complete
+    if constexpr (TMINOR)
+      fa_mma_nt(o, Ps, NI * tr, Vs, 4 * tx);
+    else
+      fa_mma_nn(o, Ps, NI * tr, Vs, tx);
+  }
+  cp_async_wait<0>();
+
+  // o / l: features 4 tx + j and 32 + 4 tx + j of rows q0 + NI tr + i
+  const int r0 = q0 + NI * tr;
+  if constexpr (TMINOR) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      float* dst = out + head + (long long)(4 * tx + (c & 3) + 32 * (c >> 2)) * Tn + r0;
+#pragma unroll
+      for (int p = 0; p < NI / 4; ++p) {
+        if (vec && r0 + 4 * p + 3 < Tn) {
+          st4(dst + 4 * p, o[4 * p][c] / l[4 * p], o[4 * p + 1][c] / l[4 * p + 1], o[4 * p + 2][c] / l[4 * p + 2],
+              o[4 * p + 3][c] / l[4 * p + 3]);
+        } else {
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            if (r0 + 4 * p + x < Tn) dst[4 * p + x] = o[4 * p + x][c] / l[4 * p + x];
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      if (r0 + i >= Tn) continue;
+      float* dst = out + head + (long long)(r0 + i) * C + 4 * tx;
+      fa_store4(dst, o[i][0] / l[i], o[i][1] / l[i], o[i][2] / l[i], o[i][3] / l[i], vec);
+      fa_store4(dst + 32, o[i][4] / l[i], o[i][5] / l[i], o[i][6] / l[i], o[i][7] / l[i], vec);
+    }
+  }
+}
+
+template <bool TMINOR, int BQ = ATF_BQ>
+void launch_attention_f32(const float* q, const float* k, const float* v, const float* mask, float* out, int B,
+                          int Tn, int H, float score_scale, cudaStream_t stream) {
+  const auto aligned = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
+  const int vec = aligned(q) && aligned(k) && aligned(v) && aligned(out) && (!TMINOR || Tn % 4 == 0);
+  auto kernel = attention_kernel_f32<TMINOR, BQ>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, AttF32<BQ>::SMEM);
+  dim3 grid((Tn + BQ - 1) / BQ, H, B);
+  kernel<<<grid, FA_THREADS, AttF32<BQ>::SMEM, stream>>>(q, k, v, mask, out, Tn, H * HD, score_scale, vec);
+}
+
 // ------------------------------------------------------------ bf16: wgmma --
 //
 // The bf16 kernel: the same function, grid and options as attention_kernel,
@@ -634,8 +899,9 @@ __global__ void __launch_bounds__(WG_THREADS) attention_kernel_wgmma(const bf16*
 
 // q/k/v/out [B, T, H*64] (or [B, H*64, T] with TMINOR; K alone per KTMINOR);
 // mask [B, T] f32 or nullptr (every key valid); rope_cos/rope_sin [T, H*64]
-// in T with ROPE, else unread. bf16 runs attention_kernel_wgmma, f32
-// attention_kernel (fp32 FMA: the f32 bars hold no TF32 form).
+// in T with ROPE, else unread. bf16 runs attention_kernel_wgmma; f32 runs
+// attention_kernel_f32 under the default options, attention_kernel under the
+// variants' (fp32 FMA: the f32 bars hold no TF32 form).
 template <typename T, bool TMINOR, bool QPRE = false, bool ROPE = false, bool KTMINOR = TMINOR, int MODE = SM_ONLINE>
 void launch_attention(const T* q, const T* k, const T* v, const float* mask, T* out, int B, int Tn, int H,
                       float score_scale, cudaStream_t stream, const T* rope_cos = nullptr,
@@ -646,6 +912,8 @@ void launch_attention(const T* q, const T* k, const T* v, const float* mask, T* 
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ATT_WG_SMEM);
     kernel<<<grid, WG_THREADS, ATT_WG_SMEM, stream>>>(q, k, v, mask, out, Tn, H * ATT_D, score_scale, rope_cos,
                                                       rope_sin, rot);
+  } else if constexpr (!QPRE && !ROPE && KTMINOR == TMINOR && MODE == SM_ONLINE) {
+    launch_attention_f32<TMINOR>(q, k, v, mask, out, B, Tn, H, score_scale, stream);
   } else {
     auto kernel = attention_kernel<T, TMINOR, QPRE, ROPE, KTMINOR, MODE>;
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ATT_SMEM);

@@ -10,9 +10,10 @@
 // What bounds it on the H100: arithmetic, 4*b*H*t^2*D FLOPs (1.72e10 at b=16,
 // T=1024, H=4) against 4*b*t*H*D elements moved.
 //
-// Design: attention.cuh's kernel, one CTA per (64-query tile, head, batch item)
+// Design: attention.cuh's kernels, one CTA per (query tile, head, batch item)
 // with an online softmax over 64-key tiles; ragged tiles are masked, so any T
-// works without padding. q and k arrive rotated and unscaled: the f32 scores
+// works without padding. In f32 the tiles of padded keys are skipped and a
+// tile of padded queries is written as zeros (its callers mask those rows). q and k arrive rotated and unscaled: the f32 scores
 // are multiplied by log2(e)/sqrt(D) and the softmax runs in exp2 (the TPU
 // kernel scales by 1/sqrt(D) and uses exp: the same weights up to f32
 // rounding). mask is [B, T] f32 or null (every key valid); only keys are

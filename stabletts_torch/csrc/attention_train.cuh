@@ -31,6 +31,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "fma_tiles.cuh"
 #include "wgmma.cuh"
 
 #include <math.h>
@@ -40,7 +41,7 @@ namespace stts {
 namespace atr {
 
 constexpr float kNeg = -0.7f * 3.402823466e38f;  // key bias of padded keys
-constexpr int HD = 64, TQ = 64, TK = 64;
+constexpr int TQ = 64;
 
 // ================================================================ f32: FMA ==
 //
@@ -115,7 +116,6 @@ constexpr int HD = 64, TQ = 64, TK = 64;
 // (key / 4, q, b*H + h, 0) is >= thresh. A thread's keys are aligned groups of
 // four, so one Philox call serves four weights in every kernel.
 
-constexpr int FA_THREADS = 128;
 constexpr int FA_FWD_BQ = 128;    // the forward's query rows a CTA
 constexpr int FA_TILE = TK * HD;  // floats of one [64][64] tile
 constexpr int FA_FWD_SMEM = 6 * FA_TILE * (int)sizeof(float);             // Q, P (128 rows each), K, V
@@ -123,23 +123,6 @@ constexpr int FA_DKV_BK = 128, FA_DKV_BQ = 32;  // dK/dV: keys a CTA, queries a 
 // K, V [128][64]; Q, dO [32][64]; P^T, dS^T [128][32]; lse, D [32] each: 112.3 KB, two CTAs an SM
 constexpr int FA_DKV_SMEM = (2 * FA_DKV_BK * HD + 2 * FA_DKV_BQ * HD + 2 * FA_DKV_BK * FA_DKV_BQ + 2 * FA_DKV_BQ) *
                             (int)sizeof(float);
-
-// float offset of chunk c (16 bytes) of row r of an [rows][64] tile: as it
-// lies, or swizzled (SWZ) at chunk c ^ ((r >> 2) & 7)
-template <bool SWZ>
-__device__ __forceinline__ int fa_at(int r, int c) { return r * HD + 4 * (SWZ ? c ^ ((r >> 2) & 7) : c); }
-__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-__device__ __forceinline__ void st4(float* p, float x, float y, float z, float w) {
-  *reinterpret_cast<float4*>(p) = make_float4(x, y, z, w);
-}
-// four consecutive floats to device memory: one 16-byte store, or four where !vec
-__device__ __forceinline__ void fa_store4(float* p, float x, float y, float z, float w, bool vec) {
-  if (vec) {
-    st4(p, x, y, z, w);
-  } else {
-    p[0] = x, p[1] = y, p[2] = z, p[3] = w;
-  }
-}
 
 // Rows t0 .. t0 + R - 1 of one head (row stride ld) into an [R][64] tile laid
 // out as fa_at<SWZ>: 16-byte cp.async (zero-filled at or past Tn), or element
@@ -161,77 +144,6 @@ __device__ __forceinline__ void fa_copy(float* tile, const float* src, long long
       for (int x = 0; x < 4; ++x) dst[x] = in ? p[x] : 0.f;
     }
   }
-}
-
-// acc[i][j] += sum_d A[ra + i][d] B[rb(j)][d] (a product with B^T): A as it
-// lies, B swizzled; rb(j) = cb + (j & 3) + 32 (j >> 2) with cb % 4 == 0, so all
-// of this thread's B rows share the swizzle (cb >> 2) & 7, and the lanes of a
-// quarter-warp (cb / 4 = 0..7 mod 8) read eight distinct chunks. Each output is
-// one fmaf chain over d ascending.
-template <int NJ>
-__device__ __forceinline__ void fa_mma_nt(float (&acc)[8][NJ], const float* A, int ra, const float* B, int cb) {
-  const int s = (cb >> 2) & 7;
-  const float* a0 = A + ra * HD;
-  const float* b0 = B + cb * HD;
-#pragma unroll 2
-  for (int c = 0; c < 16; ++c) {
-    const int pc = 4 * (c ^ s);
-    float4 b[NJ];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) b[j] = ld4(b0 + ((j & 3) + 32 * (j >> 2)) * HD + pc);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float4 a = ld4(a0 + i * HD + 4 * c);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        acc[i][j] = fmaf(a.x, b[j].x, acc[i][j]);
-        acc[i][j] = fmaf(a.y, b[j].y, acc[i][j]);
-        acc[i][j] = fmaf(a.z, b[j].z, acc[i][j]);
-        acc[i][j] = fmaf(a.w, b[j].w, acc[i][j]);
-      }
-    }
-  }
-}
-
-// acc[i][j] += sum_k A[ra + i][k] B[k][cb(j)] over B's DEPTH rows: A as it lies (row stride LDA),
-// B swizzled; column cb(j) = 4 tx + (j & 3) + 32 (j >> 2) (tx < 16 for NJ = 4,
-// < 8 for NJ = 8). Rows 4 kc .. 4 kc + 3 of B share the swizzle kc & 7, and the
-// lanes of a quarter-warp (tx = 0..7 mod 8) read eight distinct chunks. Each
-// output is one fmaf chain over k ascending.
-template <int NJ, int DEPTH = TK, int LDA = HD>
-__device__ __forceinline__ void fa_mma_nn(float (&acc)[8][NJ], const float* A, int ra, const float* B, int tx) {
-  const float* a0 = A + ra * LDA;
-#pragma unroll 2
-  for (int kc = 0; kc < DEPTH / 4; ++kc) {
-    const float* bk = B + 4 * kc * HD + 4 * (tx ^ (kc & 7));
-    float4 b[4][NJ / 4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int h = 0; h < NJ / 4; ++h) b[kk][h] = ld4(bk + kk * HD + 32 * h);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float4 a4 = ld4(a0 + i * LDA + 4 * kc);
-      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int h = 0; h < NJ / 4; ++h) {
-          acc[i][4 * h + 0] = fmaf(a[kk], b[kk][h].x, acc[i][4 * h + 0]);
-          acc[i][4 * h + 1] = fmaf(a[kk], b[kk][h].y, acc[i][4 * h + 1]);
-          acc[i][4 * h + 2] = fmaf(a[kk], b[kk][h].z, acc[i][4 * h + 2]);
-          acc[i][4 * h + 3] = fmaf(a[kk], b[kk][h].w, acc[i][4 * h + 3]);
-        }
-    }
-  }
-}
-
-template <int NJ>
-__device__ __forceinline__ void fa_zero(float (&a)[8][NJ]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) a[i][j] = 0.f;
 }
 
 __device__ __forceinline__ float key_bias(const float* mask_b, int t, int Tn) {

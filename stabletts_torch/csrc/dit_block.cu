@@ -14,8 +14,10 @@
 // Design: tile T. The block is a short sequence of launches on one stream:
 //   1. LN1 + modulate            (one warp per row)
 //   2. QKV projection + q scale + partial RoPE epilogue      (tap GEMM, 1 tap)
-//   3. attention per (batch, head, 64-query tile), online softmax in exp2
-//      over 64-key tiles, so no score tile larger than 64x64 exists
+//   3. attention per (batch, head, query tile), online softmax in exp2
+//      over 64-key tiles, so no score tile larger than 64x64 exists (f32:
+//      only the key tiles that hold a valid key, and zeros for a query tile
+//      of padded rows, which step 4's `* m` removes)
 //   4. out-projection + gated residual x1 = x + gate*out*m, kept in f32
 //   5. LN2 + modulate + mask     (one warp per row)
 //   6. conv k=3 C->F + SiLU + mask (tap GEMM, 3 taps, rows shifted -1..+1,
@@ -32,7 +34,7 @@ namespace {
 
 // Steps 1 and 5 are common.cuh's ln_mod_kernel; the epilogues of steps 2, 4, 6
 // and 7 are its QkvEpi, OutProjEpi, Conv1Epi and Conv2Epi; step 3 is
-// attention.cuh's attention_kernel on the pre-scaled q (score scale 1).
+// attention.cuh's core on the pre-scaled q (score scale 1).
 
 template <typename T>
 cudaError_t run_block(const T* x, const T* mods, const float* mask, const float* cos_t,

@@ -10,7 +10,9 @@ its [B, T, H, D] wrapper `fused_attention`) and
 and keeps their numerics: q and k arrive rotated and unscaled; the f32 scores
 are scaled by 1/sqrt(D); `mask` ([B, T], 1 = valid, or None for every key
 valid) masks keys only, with the finite bias -0.7*f32max, so padded query rows
-and items whose keys are all padded come out finite and the caller masks them;
+and items whose keys are all padded come out finite and the caller masks them
+(in f32 the kernels write zeros for a tile of padded query rows in an item with
+a valid key, and skip the tiles of padded keys, whose weights are exactly 0);
 softmax statistics in f32, the weights rounded to v's dtype before the PV
 product, the normaliser the unrounded f32 sum. The kernels take any T (ragged
 tiles are masked; the TPU kernels pad to 128 instead) and head width 64.

@@ -1,6 +1,6 @@
-"""The Vocos ConvNeXt block as CUDA kernels (csrc/convnext.cu: one fp32-FMA
-kernel in f32; in bf16 a depthwise-conv + LayerNorm kernel and two products
-on the tensor cores) and its plain PyTorch version:
+"""The Vocos ConvNeXt block as CUDA kernels (csrc/convnext.cu: a
+depthwise-conv + LayerNorm kernel and two tap-GEMM products, on the tensor
+cores in bf16 and on the FP32 pipes in f32) and its plain PyTorch version:
 
     h = dwconv_k7(x)                   # depthwise, SAME zero padding
     h = LN(h) * ln_w + ln_b            # f32 statistics, eps 1e-6
@@ -8,8 +8,8 @@ on the tensor cores) and its plain PyTorch version:
     out = x + gamma * (y @ W2 + b2)
 
 Replaces the JAX package's TPU kernel `ops/convnext_pallas.py::fused_convnext_block`.
-In bf16, h and y are rounded to bf16 where the TPU kernel rounds them; every
-product accumulates in f32.
+h and y go through device memory between the three launches, rounded to
+x's dtype where the TPU kernel rounds them; every product accumulates in f32.
 
 `convnext_block` dispatches on the tensor's device: the plain version on the
 CPU, the kernel on the GPU. `convnext_block.launches` counts
@@ -38,9 +38,9 @@ class ConvNeXtWeights(NamedTuple):
     gamma: torch.Tensor  # [C]
 
 
-def convnext_block_plain(x: torch.Tensor, w: ConvNeXtWeights, eps: float = 1e-6) -> torch.Tensor:
-    """x [B, T, C] -> [B, T, C] in x's dtype."""
-    dt = x.dtype
+def dwconv_ln_plain(x: torch.Tensor, w: ConvNeXtWeights, eps: float = 1e-6) -> torch.Tensor:
+    """The first of the kernel route's three stages (`dwconv_ln_kernel`):
+    x [B, T, C] -> h = LN(dwconv_k7(x)) * ln_w + ln_b, rounded to x's dtype."""
     xf = x.float()
     dw = w.dw_w.float()
     t = x.shape[1]
@@ -51,7 +51,14 @@ def convnext_block_plain(x: torch.Tensor, w: ConvNeXtWeights, eps: float = 1e-6)
     h = h + w.dw_b.float()
     mu = h.mean(dim=-1, keepdim=True)
     var = (h - mu).square().mean(dim=-1, keepdim=True)
-    h = ((h - mu) * torch.rsqrt(var + eps) * w.ln_w.float() + w.ln_b.float()).to(dt)
+    return ((h - mu) * torch.rsqrt(var + eps) * w.ln_w.float() + w.ln_b.float()).to(x.dtype)
+
+
+def convnext_block_plain(x: torch.Tensor, w: ConvNeXtWeights, eps: float = 1e-6) -> torch.Tensor:
+    """x [B, T, C] -> [B, T, C] in x's dtype."""
+    dt = x.dtype
+    xf = x.float()
+    h = dwconv_ln_plain(x, w, eps)
     y = h.float() @ w.w1.float() + w.b1.float()
     y = F.gelu(y, approximate="tanh" if dt == torch.bfloat16 else "none").to(dt)
     z = (y.float() @ w.w2.float() + w.b2.float()) * w.gamma.float()
@@ -65,22 +72,21 @@ def _convnext_cuda(x: torch.Tensor, w: ConvNeXtWeights, eps: float) -> torch.Ten
     f = w.w1.shape[1]
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"convnext kernel takes float32 or bfloat16, got {x.dtype}")
-    if c % 256 or c > 768 or f % 64:
-        raise ValueError(f"convnext kernel needs C in (256, 512, 768) and F % 64 == 0 (C={c}, F={f})")
+    if c not in (256, 512, 768):
+        raise ValueError(f"convnext kernel needs C in (256, 512, 768) (C={c})")
     for ten in (x, *w):
         if ten.device != x.device or ten.dtype != x.dtype or not ten.is_contiguous():
             raise ValueError("convnext kernel: every input must be a contiguous tensor of x's device and dtype")
     if w.dw_w.shape != (7, c) or w.w1.shape != (c, f) or w.w2.shape != (f, c):
         raise ValueError("convnext kernel: unexpected weight shapes")
     out = torch.empty_like(x)
-    bf16 = x.dtype == torch.bfloat16
-    # the bf16 route's h [B*T, C] and y [B*T, F] between its three launches
-    h = torch.empty(b * t * c if bf16 else 0, device=x.device, dtype=x.dtype)
-    y = torch.empty(b * t * f if bf16 else 0, device=x.device, dtype=x.dtype)
+    # h [B*T, C] and y [B*T, F] between the three launches
+    h = torch.empty(b * t * c, device=x.device, dtype=x.dtype)
+    y = torch.empty(b * t * f, device=x.device, dtype=x.dtype)
     fn = _build.load("convnext", "convnext_forward", 13, 5, 1)
     err = fn(
         x.data_ptr(), *(ten.data_ptr() for ten in w), out.data_ptr(), h.data_ptr(), y.data_ptr(),
-        b, t, c, f, int(bf16), eps,
+        b, t, c, f, int(x.dtype == torch.bfloat16), eps,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "convnext")

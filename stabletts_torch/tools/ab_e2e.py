@@ -9,7 +9,8 @@ phases at the flagship config (random weights from a seed): `phase_serving`
 (three f32 `StableTTSAPI.inference` requests, one batch request and the bf16
 bench batch), then `--reps` more f32 requests of the 313-frame sentence and
 bench batches, timed by the host clock around a call that ends on the host;
-`phase_profile` of that request (device busy ms and the idle share); and
+`phase_profile` of that request (device busy ms, the idle share, the device
+ms by the tree's kernel families and the largest kernels); and
 `phase_train_steps` (f32 `train()` at B=32, T <= 1000, steady median),
 `phase_train_bf16` (the same in bf16) and `phase_profile` of one f32 step of
 `phase_train_overfit`'s model (device busy ms, the idle share, the largest
@@ -72,7 +73,7 @@ def main() -> None:
            "serving_request_wall_ms": [r["wall_ms"] for r in by_phase["serving_request"]],
            "serving_bench_bf16_wall_ms": by_phase["serving_bench_bf16"][0]["wall_ms"],
            "profile_request_f32": {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share",
-                                                          "kernel_launches", "families_device_ms")},
+                                                          "kernel_launches", "families_device_ms", "top")},
            "profile_train_step": {k: by_phase["profile_train_step"][0][k] for k in (
                "wall_ms", "device_busy_ms", "device_idle_share", "kernel_launches", "top")},
            # the training attention core's kernels (FMA or wgmma) and D's row sums, from the profile's largest kernels

@@ -2,6 +2,7 @@
 
     python -m stabletts_torch.tools.tap_gemm_probe [--iters 50]
     python -m stabletts_torch.tools.tap_gemm_probe --dtype float32 [--b 2 --t 1024]
+    python -m stabletts_torch.tools.tap_gemm_probe --dtype float32 --shapes convnext --b 1 --t 1000
 
 Builds `csrc/tap_gemm.cu` (the tap GEMM of `csrc/common.cuh` with a plain
 store epilogue) several times, each from a copy of the sources with one
@@ -29,6 +30,9 @@ In float32 (the FMA kernel `tap_gemm_f32_kernel`) at `--b` x `--t` rows
   ring_3              a 3-deep ring: the copies two k steps ahead, not three
   tile_64, tile_128   the 64 x 64 or the 128 x 128 tile at every shape
 
+`--shapes convnext` times the ConvNeXt block's two products instead (Vocos's
+C = 512 -> F = 1536 and back, one tap each) at `--b` x `--t` rows.
+
 The builds that compute the product are checked against `tap_gemm_plain`. It prints one JSON line
 per build and product (ms of each round, TFLOP/s of the best, and for
 `as_built` and `no_epilogue` the rate at which the copies fill shared memory
@@ -51,6 +55,7 @@ import numpy as np
 import torch
 
 SHAPES = {"qkv": (1, 256, 768), "out_proj": (1, 256, 256), "conv1": (3, 256, 1024), "conv2": (3, 1024, 256)}
+CONVNEXT_SHAPES = {"convnext_w1": (1, 512, 1536), "convnext_w2": (1, 1536, 512)}
 B, T = 16, 1024
 TILE, BK = 128, 64  # the bf16 kernel's CTA tile (M and N) and k step
 
@@ -123,7 +128,9 @@ def main() -> None:
     ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     ap.add_argument("--b", type=int, default=B)
     ap.add_argument("--t", type=int, default=T)
+    ap.add_argument("--shapes", choices=("dit", "convnext"), default="dit")
     args = ap.parse_args()
+    shapes = CONVNEXT_SHAPES if args.shapes == "convnext" else SHAPES
     dtype, b, t = getattr(torch, args.dtype), args.b, args.t
     if not torch.cuda.is_available():
         raise SystemExit("tap_gemm_probe measures the kernel on a GPU; none is present")
@@ -135,7 +142,7 @@ def main() -> None:
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     inputs = {}
-    for prod, (taps, k, n) in SHAPES.items():
+    for prod, (taps, k, n) in shapes.items():
         a = torch.from_numpy(rng.standard_normal((b * t, k)).astype(np.float32)).to(dev, dtype)
         w = torch.from_numpy((rng.standard_normal((taps, k, n)) * (taps * k) ** -0.5).astype(np.float32))
         kw = dict(t_in=t, t_out=t, taps=taps, shift0=-(taps // 2), shift_step=1)
@@ -152,7 +159,7 @@ def main() -> None:
                     got, want = tap_gemm(a, w, **kw).float(), tap_gemm_plain(a, w, **kw).float()
                     row["rel_err"] = ((got - want).abs().max() / want.abs().max()).item()
     for (name, prod), row in rows.items():
-        taps, k, n = SHAPES[prod]
+        taps, k, n = shapes[prod]
         best = min(row["ms"])
         row["tflops"] = 2 * b * t * k * n * taps / best / 1e9
         if name in ("no_epilogue", "as_built") and dtype == torch.bfloat16:

@@ -95,6 +95,60 @@ def test_attention_bthd_matches_pallas_interpret(lengths):
     np.testing.assert_allclose(n(got), np.asarray(want), **TOL)
 
 
+# (batch, T, lengths, hole): masks with wholly padded 64-key tiles (whose skip the f32 kernel relies on),
+# one of them a hole in the middle of a full item
+KEY_SKIP_CASES = [(2, 256, [79, 256], None), (2, 200, [64, 130], None), (1, 256, [256], (64, 128))]
+
+
+@pytest.mark.parametrize("tminor", [False, True])
+@pytest.mark.parametrize("b,t_len,lengths,hole", KEY_SKIP_CASES)
+def test_padded_keys_contribute_nothing(b, t_len, lengths, hole, tminor):
+    """A padded key's weight is exactly 0 wherever its row has a valid key, so the f32 kernel may skip a tile
+    of padded keys: the plain attention over each item's valid keys alone equals the fully masked plain
+    attention on its valid rows (rtol 1e-6), and both match the Pallas kernel in interpret mode on those rows."""
+    heads = 2
+    q, k, v, mask = _qkv(b, t_len, heads, seed=31 + t_len, lengths=lengths)
+    if hole is not None:
+        mask[0, hole[0]:hole[1]] = 0.0
+    tr = lambda a: np.ascontiguousarray(a.transpose(0, 2, 1))
+    if tminor:
+        want = fused_attention_packed_t(_j(tr(q)), _j(tr(k)), _j(tr(v)), _j(mask), n_heads=heads, interpret=True)
+        want = np.asarray(want).transpose(0, 2, 1)
+        full = n(attention_packed_t(t(tr(q)), t(tr(k)), t(tr(v)), t(mask), n_heads=heads)).transpose(0, 2, 1)
+    else:
+        want = np.asarray(fused_attention_packed(_j(q), _j(k), _j(v), _j(mask), n_heads=heads, interpret=True))
+        full = n(attention_packed(t(q), t(k), t(v), t(mask), n_heads=heads))
+    for i in range(b):
+        keep = np.flatnonzero(mask[i] > 0)
+        sub = lambda a: t(np.ascontiguousarray(a[i:i + 1, keep]))
+        if tminor:
+            alone = n(attention_packed_t(t(tr(q[i:i + 1, keep])), t(tr(k[i:i + 1, keep])), t(tr(v[i:i + 1, keep])),
+                                         None, n_heads=heads))[0].T
+        else:
+            alone = n(attention_packed(sub(q), sub(k), sub(v), None, n_heads=heads))[0]
+        np.testing.assert_allclose(full[i, keep], alone, rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(full[i, keep], want[i, keep], **TOL)
+
+
+@pytest.mark.parametrize("tminor", [False, True])
+def test_all_masked_item_is_uniform_over_every_key(tminor):
+    """An item with no valid key gets uniform weights over every key (the mean of v on every row), which the f32
+    kernel keeps by running every key tile for it: pinned against the Pallas kernel in interpret mode at a T that
+    is a multiple of 128, where the TPU kernel adds no padding of its own to the keys."""
+    b, t_len, heads = 2, 128, 2
+    q, k, v, mask = _qkv(b, t_len, heads, seed=41, lengths=[0, 77])
+    tr = lambda a: np.ascontiguousarray(a.transpose(0, 2, 1))
+    if tminor:
+        want = fused_attention_packed_t(_j(tr(q)), _j(tr(k)), _j(tr(v)), _j(mask), n_heads=heads, interpret=True)
+        want = np.asarray(want).transpose(0, 2, 1)
+        got = n(attention_packed_t(t(tr(q)), t(tr(k)), t(tr(v)), t(mask), n_heads=heads)).transpose(0, 2, 1)
+    else:
+        want = np.asarray(fused_attention_packed(_j(q), _j(k), _j(v), _j(mask), n_heads=heads, interpret=True))
+        got = n(attention_packed(t(q), t(k), t(v), t(mask), n_heads=heads))
+    np.testing.assert_allclose(got[0], want[0], **TOL)
+    np.testing.assert_allclose(got[0], np.broadcast_to(v[0].mean(0), got[0].shape), **TOL)
+
+
 def test_attention_packed_plain_rounds_weights_to_v_dtype():
     """bf16: the weights are rounded before the PV product and the normaliser
     is the unrounded sum, so the result differs from f32 math on the same

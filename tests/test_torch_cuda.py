@@ -114,6 +114,72 @@ def test_attention_packed_kernels(dev, dtype, bar, t_len, masked, tminor):
     assert _rel(got[rows], ref[rows]) <= bar
 
 
+def _key_mask(kind, b, t_len, dev):
+    """A request's mask (every item a third of T long), an item with no valid key beside a full one, or a hole of
+    one whole 64-key tile in the middle of item 0 (a third of T short in item 1)."""
+    mask = torch.zeros(b, t_len, device=dev)
+    third = max(1, t_len // 3)
+    if kind == "request":
+        mask[:, :third] = 1.0
+    elif kind == "all_masked":
+        mask[1:] = 1.0
+    else:
+        mask[0] = 1.0
+        mask[0, 64:128] = 0.0
+        mask[1:, : t_len - third] = 1.0
+    return mask
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float32, 5e-3), (BF16, 2e-2)])
+@pytest.mark.parametrize("t_len", [97, 1024])
+@pytest.mark.parametrize("kind", ["request", "all_masked", "holed"])
+@pytest.mark.parametrize("tminor", [False, True])
+def test_attention_packed_key_masks(dev, dtype, bar, t_len, kind, tminor):
+    """Both layouts at a request's mask, an item with no valid key (its rows are held to the plain version's
+    uniform weights over every key) and a mask with a hole: the valid query rows, and every row of an item with
+    no valid key, against the plain version; padded rows finite, and in f32 (whose kernel skips the wholly
+    masked key tiles and zeroes wholly padded query tiles) zero in every wholly padded 64-row query tile of an
+    item with a valid key."""
+    from stabletts_torch.ops import attention_packed_cuda as ap
+
+    rng = np.random.default_rng(11)
+    b, c, heads = 2, 256, 4
+    q, k, v = (_rand(rng, dev, dtype, b, t_len, c) for _ in range(3))
+    mask = _key_mask(kind, b, t_len, dev)
+    fn, plain = (ap.attention_packed_t, ap.attention_packed_t_plain) if tminor else \
+        (ap.attention_packed, ap.attention_packed_plain)
+    args = [a.transpose(1, 2).contiguous() for a in (q, k, v)] if tminor else [q, k, v]
+    got, ref = fn(*args, mask, n_heads=heads), plain(*args, mask, n_heads=heads)
+    assert torch.isfinite(got).all()
+    if tminor:
+        got, ref = got.transpose(1, 2), ref.transpose(1, 2)
+    none_valid = (mask.amax(1) <= 0)[:, None]
+    rows = (mask > 0) | none_valid
+    assert _rel(got[rows], ref[rows]) <= bar
+    if dtype == torch.float32 and t_len % 64 == 0:
+        padded = ((mask.view(b, -1, 64).amax(2) <= 0) & ~none_valid).repeat_interleave(64, dim=1)
+        assert (got[padded] == 0).all()
+
+
+@pytest.mark.parametrize("t_len", [97, 1024])
+@pytest.mark.parametrize("kind", ["request", "holed"])
+def test_dit_block_key_masks_f32(dev, t_len, kind):
+    """The whole f32 DiT block (whose attention core skips masked key tiles and zeroes padded query tiles) at a
+    request's mask and a holed one, against its plain version on every row."""
+    from stabletts_torch.ops.dit_block_cuda import DiTWeights, dit_block, dit_block_plain
+
+    rng = np.random.default_rng(12)
+    b, c, f, heads = 2, 256, 1024, 4
+    w = DiTWeights(*(_rand(rng, dev, torch.float32, *s, scale=0.05) for s in
+                     [(c, 3 * c), (3 * c,), (c, c), (c,), (3, c, f), (f,), (3, f, c), (c,)]))
+    mask = _key_mask(kind, b, t_len, dev)
+    x = _rand(rng, dev, torch.float32, b, t_len, c) * mask[..., None]
+    mods = _rand(rng, dev, torch.float32, b, 6, c, scale=0.1)
+    got = dit_block(x, mods, mask, w, heads)
+    assert torch.isfinite(got).all()
+    assert _rel(got, dit_block_plain(x, mods, mask, w, heads)) <= 5e-3
+
+
 def test_kernels_raise_on_what_they_do_not_take(dev):
     from stabletts_torch.ops.attention_packed_cuda import attention_packed
 

@@ -10,9 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from stabletts_torch.ops.convnext_cuda import ConvNeXtWeights, convnext_block
+from stabletts_torch.ops.convnext_cuda import ConvNeXtWeights, convnext_block, dwconv_ln_plain
 from stabletts_torch.ops.istft import idft_matrix_windowed, istft_same_real
 from stabletts_torch.ops.istft_cuda import istft_head
+from stabletts_torch.ops.tap_gemm_cuda import tap_gemm_plain
 from stabletts_tpu.models.vocos import ConvNeXtBlock as JConvNeXt
 from stabletts_tpu.models.vocos import vocos_apply_fused
 from stabletts_tpu.ops import istft as jistft
@@ -48,6 +49,22 @@ def test_convnext_plain_matches_pallas_interpret():
     blk, pv, x, w = _convnext(32, seed=1)
     want = fused_convnext_block(jnp.asarray(x), *(jnp.asarray(n(a)) for a in w), interpret=True)
     np.testing.assert_allclose(n(convnext_block(t(x), w)), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("t_len", [32, 45])
+@pytest.mark.parametrize("c", [256, 512, 768])
+def test_convnext_f32_route_stages_match_pallas_interpret(c, t_len):
+    """The kernel route in f32 as its three plain stages: the depthwise conv + LayerNorm, the tap GEMM with the
+    erf GELU (GeluEpi), then the tap GEMM with the residual x + (acc + b2) * gamma (ResidualEpi), at each width
+    the kernel takes (F = 3C, Vocos's 512 -> 1536), against the Pallas kernel in interpret mode."""
+    _, _, x, w = _convnext(t_len, c=c, f=3 * c, seed=c + t_len)
+    b = x.shape[0]
+    h = dwconv_ln_plain(t(x), w).reshape(b * t_len, c)
+    y = torch.nn.functional.gelu(tap_gemm_plain(h, w.w1[None], t_in=t_len, t_out=t_len) + w.b1, approximate="none")
+    z = tap_gemm_plain(y, w.w2[None], t_in=t_len, t_out=t_len) + w.b2
+    got = t(x) + (z * w.gamma).reshape(b, t_len, c)
+    want = fused_convnext_block(jnp.asarray(x), *(jnp.asarray(n(a)) for a in w), interpret=True)
+    np.testing.assert_allclose(n(got), np.asarray(want), rtol=2e-4, atol=2e-4)
 
 
 def test_convnext_plain_bf16_uses_tanh_gelu():
