@@ -133,6 +133,11 @@ VARIANT_KERNELS = ("attention_packed_v2", "attention_packed_rope", "attention_pa
 # mode's error is relative to its own output's largest value like the others'
 BARS.update({name: {torch.float32: 5e-3, torch.bfloat16: 2e-2} for name in VARIANT_KERNELS})
 MPD_BAR = 2e-4  # max-abs, f32 (tests/test_mpd_pallas.py:29)
+# shapes and lengths that run each form of the MAS kernel (b, Ty, Tx, t_ys, t_xs)
+MAS_FORMS = [(4, 1000, 1024, [1000, 1000, 950, 300], [1024, 900, 1, 1000]),
+             (2, 2000, 1024, [2000, 2000], [1024, 1]),
+             (2, 300, 5000, [300, 300], [4200, 290]),
+             (4, 301, 77, [301, 250, 77, 30], [77, 61, 77, 50])]
 # the kernels built on csrc/attention.cuh's core: bf16 runs it on wgmma, f32 on FMA
 ATTENTION_CORE_KERNELS = ("dit_block", "dit_attention", "attention_packed", "attention_packed_t", *VARIANT_KERNELS)
 # the libraries that instantiate that core
@@ -206,17 +211,21 @@ TRAIN_LAUNCHES_PER_STEP = {"dit_attention_train_fwd": 9, "dit_attention_train_bw
 DT_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 # kernel-name parts whose device time the profile phases sum: the weight-gradient GEMM (wgmma, FMA) and the sum of its
 # row chunks, the column sums (one pass or two), the tap GEMM (wgmma, FMA), the training attention core's three
-# kernels (each name part covers its f32 and its bf16 form) and its row sums D, the f32 serving attention core and
-# ConvNeXt's depthwise conv + LayerNorm
+# kernels (each name part covers its f32 and its bf16 form) and its row sums D, the f32 serving attention core,
+# ConvNeXt's depthwise conv + LayerNorm and MAS's two kernels
 PROFILE_FAMILIES = ("wgrad_wgmma_kernel", "wgrad_f32_kernel", "sum_splits_kernel", "colsum", "tap_gemm_wgmma_kernel",
                     "tap_gemm_f32_kernel", "attn_fwd_kernel", "attn_bwd_dkv_kernel", "attn_bwd_dq_kernel",
-                    "rowdot_kernel", "attention_kernel_f32", "dwconv_ln_kernel")
+                    "rowdot_kernel", "attention_kernel_f32", "dwconv_ln_kernel", "mas_kernel",
+                    "mas_path_kernel")
 # the FMA (f32) forms of common.cuh's tap GEMM and weight gradient, of attention_train.cuh's training core and of
 # attention.cuh's serving core, and convnext.cu's depthwise conv + LayerNorm, whose registers and spills the `ptxas`
 # line reports
 F32_GEMM_FUNCTIONS = ("tap_gemm_f32_kernel", "wgrad_f32_kernel")
 F32_TRAIN_CORE_FUNCTIONS = ("attn_fwd_kernel_f32", "attn_bwd_dkv_kernel_f32", "attn_bwd_dq_kernel_f32")
 F32_SERVING_FUNCTIONS = ("attention_kernel_f32", "dwconv_ln_kernel")
+# MAS (mas_kernel<cells a lane, ring slots, bits in shared memory> and mas_path_kernel) and the MPD stack's
+# conv_post; the MPD stack's tap GEMMs are listed under their own key ("... in mpd_stack")
+MAS_MPD_FUNCTIONS = ("mas_kernel", "mas_path_kernel", "conv_post_kernel")
 
 
 def emit(obj) -> None:
@@ -350,10 +359,12 @@ def phase_ptxas() -> None:
     (F32_GEMM_FUNCTIONS), of the f32 training attention core
     (F32_TRAIN_CORE_FUNCTIONS) and of the f32 serving core and ConvNeXt's
     depthwise conv + LayerNorm (F32_SERVING_FUNCTIONS, both types of the
-    latter), read from the `-Xptxas -v` report that the
-    build keeps beside each library: per kernel and template (tile, w_trans)
-    the count of instantiations over all libraries, their least and most
-    registers, and each instantiation that spills."""
+    latter), and of MAS and the MPD stack (MAS_MPD_FUNCTIONS, and the f32 tap
+    GEMMs of the mpd_stack library under keys of their own), read from the
+    `-Xptxas -v` report that the build keeps beside each library: per kernel
+    and template (tile, w_trans; for MAS cells a lane, ring slots, where the
+    bits go) the count of instantiations over all libraries, their least and
+    most registers, and each instantiation that spills."""
     import re
 
     from stabletts_torch.ops import _build
@@ -369,15 +380,20 @@ def phase_ptxas() -> None:
                 m = re.search(r"Compiling entry function '(\S+)'", line)
                 if m:
                     fn = m.group(1)
-                    kind = next((k for k in (*F32_GEMM_FUNCTIONS, *F32_TRAIN_CORE_FUNCTIONS, *F32_SERVING_FUNCTIONS)
-                                 if k in fn), None)
+                    kind = next((k for k in (*F32_GEMM_FUNCTIONS, *F32_TRAIN_CORE_FUNCTIONS, *F32_SERVING_FUNCTIONS,
+                                             *MAS_MPD_FUNCTIONS) if k in fn), None)
                     row = None
                     if kind:
                         # tap_gemm_f32_kernel<BM, BN, WT, Epi> mangles as ...ILi128ELi128ELb1E<Epi>...,
                         # attention_kernel_f32<TMINOR, BQ> as ...ILb0ELi64E..., dwconv_ln_kernel<T, CW> as ...IfLi16E...
                         t = re.search(r"ILi(\d+)ELi(\d+)ELb([01])E", fn)
                         a = re.search(r"attention_kernel_f32ILb([01])ELi(\d+)E", fn)
-                        if t:
+                        if kind == "mas_kernel":
+                            key = (f"{kind}<{t.group(1)}, {t.group(2)}, "
+                                   f"{'shared' if t.group(3) == '1' else 'workspace'}>")
+                        elif kind in ("mas_path_kernel", "conv_post_kernel"):
+                            key = kind
+                        elif t:
                             key = f"{kind}<{t.group(1)}, {t.group(2)}, {'true' if t.group(3) == '1' else 'false'}>"
                         elif a:
                             key = f"{kind}<{'true' if a.group(1) == '1' else 'false'}, {a.group(2)}>"
@@ -385,6 +401,8 @@ def phase_ptxas() -> None:
                             key = f"{kind}<{'float' if 'dwconv_ln_kernelIf' in fn else 'bf16'}>"
                         else:
                             key = kind if kind in F32_TRAIN_CORE_FUNCTIONS else f"{kind}<float>"
+                        if name == "mpd_stack" and kind in F32_GEMM_FUNCTIONS:
+                            key += " in mpd_stack"
                         row = {"key": key, "library": name, "function": fn}
                         kernels.setdefault(key, []).append(row)
                     continue
@@ -955,23 +973,35 @@ def check_train(kind, b, t, dtype, rate, dev) -> list:
     return rows
 
 
-def check_mas(b, ty, tx, t_ys, t_xs, dev) -> dict:
-    """The MAS kernel against the plain DP on the same neg_cent: exact."""
+def check_mas(b, ty, tx, t_ys, t_xs, dev, time_plain=True) -> dict:
+    """The MAS kernel against the plain DP on the same neg_cent: exact. With
+    the kernel's plan for the shape (decision bits in shared memory or in a
+    workspace, chain warps, cells a lane) and one call's device ms from the
+    profiler; the plain version's time is the median of two calls, or the
+    one call of the comparison where `time_plain` is False."""
     from stabletts_torch.ops.mas import maximum_path
-    from stabletts_torch.ops.mas_cuda import maximum_path_cuda
+    from stabletts_torch.ops.mas_cuda import mas_plan, maximum_path_cuda
+    from stabletts_torch.tools.device_time import device_ms
 
     rng = np.random.default_rng(ty + tx)
     neg = torch.from_numpy(rng.standard_normal((b, ty, tx)).astype(np.float32)).to(dev)
     t_ys, t_xs = torch.tensor(t_ys, device=dev), torch.tensor(t_xs, device=dev)
     mask = ((torch.arange(ty, device=dev)[None, :] < t_ys[:, None])[:, :, None]
             & (torch.arange(tx, device=dev)[None, :] < t_xs[:, None])[:, None, :]).float()
-    got, want = maximum_path_cuda(neg, mask), maximum_path(neg, mask)
+    got = maximum_path_cuda(neg, mask)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = maximum_path(neg, mask)
+    end.record()
+    end.synchronize()
     cells = int((got != want).sum())
     ms = time_ms(lambda: maximum_path_cuda(neg, mask))
+    dev_ms, by_kernel = device_ms(lambda: maximum_path_cuda(neg, mask), calls=5)
     bound, bound_by = bound_ms(0, nbytes(neg, got), torch.float32)  # neg_cent read, path written
-    return {"kernel": "mas", "dtype": "float32", "B": b, "Ty": ty, "Tx": tx, "cells_differing": cells,
-            "max_abs_err": float((got - want).abs().max()), "bar": 0, "ok": cells == 0, "ms": ms,
-            "ms_per_mel_row": ms / ty, "plain_ms": time_ms(lambda: maximum_path(neg, mask), iters=2, warmup=1),
+    plain_ms = time_ms(lambda: maximum_path(neg, mask), iters=2, warmup=1) if time_plain else start.elapsed_time(end)
+    return {"kernel": "mas", "dtype": "float32", "B": b, "Ty": ty, "Tx": tx, "plan": mas_plan(b, ty, tx),
+            "cells_differing": cells, "max_abs_err": float((got - want).abs().max()), "bar": 0, "ok": cells == 0,
+            "ms": ms, "device_ms": dev_ms, "by_kernel": by_kernel, "ms_per_mel_row": ms / ty, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
 
 
@@ -980,9 +1010,10 @@ def phase_train_kernels(dev) -> dict:
     f32 and bf16, dropout 0 and 0.1, and at the decoder's shape in the
     trainer, (32, 1000), f32, dropout 0.1 (also in bf16, and the attention
     half in bf16 at dropout 0); MAS at [32, 1000, 384] and [32, 1000, 512] with
-    ragged lengths and at degenerate lengths. Returns the rows of the kernels
-    line: (32, 1000, dropout 0.1) f32, and bf16 for the attention half; MAS
-    at [32, 1000, 512]."""
+    ragged lengths and at degenerate lengths, and at shapes that run each
+    form of the MAS kernel. Returns the rows of the kernels line: (32, 1000,
+    dropout 0.1) f32, and bf16 for the attention half; MAS at [32, 1000,
+    512]."""
     rows, line_rows = [], {}
     f32, bf = torch.float32, torch.bfloat16
     cases = [(b, t, dt, rate) for b, t in ((32, 1024), (32, 512), (2, 97)) for dt in (f32, bf)
@@ -1009,6 +1040,13 @@ def phase_train_kernels(dev) -> dict:
     rows.append(check_mas(8, 300, 120, [300, 250, 123, 77, 300, 12, 299, 150],
                           [120, 100, 120, 50, 1, 12, 64, 120], dev))
     emit({"phase": "kernel_check", **with_core(rows[-1])})
+    # each form of the kernel (tests/test_torch_mas.py::KERNEL_FORM_CASES): four chain warps with the decision bits in
+    # shared memory ([4, 1000, 1024]) and in the workspace ([2, 2000, 1024]), five warps of 32 cells a lane
+    # ([2, 300, 5000]) and one warp with 4-byte copies (Tx % 4 != 0); each with degenerate lengths beside ragged
+    # ones (t_x = 1, t_y = t_x, t_x > t_y)
+    for b, ty, tx, t_ys, t_xs in MAS_FORMS:
+        rows.append(check_mas(b, ty, tx, t_ys, t_xs, dev, time_plain=False))
+        emit({"phase": "kernel_check", **with_core(rows[-1])})
     bad = [r for r in rows if not r["ok"]]
     if bad:
         fail(f"{len(bad)} training kernel check(s) over their bar: {bad}")
@@ -1194,11 +1232,89 @@ def mpd_flops(bsz: int, t: int, period: int) -> float:
     return fl + 2 * bsz * period * lens[6] * 3 * 1024
 
 
+def mpd_library(x, folded, period) -> tuple:
+    """What one cuDNN `F.conv2d` call a conv computes of the kernel's part
+    (convs 1-4 with their bias, before the leaky ReLU, and conv_post), each
+    on its own input from the plain version: (the five calls' median ms
+    summed, [ms of each])."""
+    import torch.nn.functional as F
+
+    from stabletts_torch.ops.mpd_cuda import LEAK, fold_period
+
+    with torch.no_grad():
+        h = fold_period(x.float(), period)
+        ins = []
+        for i in range(5):
+            w, b = folded[i]
+            if i > 0:
+                ins.append(h)
+            h = F.leaky_relu(F.conv2d(h, w.float(), b.float(), (3 if i < 4 else 1, 1), (2, 0)), LEAK)
+        ins.append(h)
+        convs = [(ins[i - 1], folded[i], (3 if i < 4 else 1, 1), (2 if i < 5 else 1, 0)) for i in range(1, 6)]
+        each = [time_ms(lambda h=h, w=w, st=st, pd=pd: F.conv2d(h, w[0].float(), w[1].float(), st, pd), iters=5)
+                for h, w, st, pd in convs]
+    return sum(each), each
+
+
+def mpd_layers(x, folded, period) -> list:
+    """Convs 1-4 one by one as the stack runs them, each the f32 tap GEMM
+    with its row stride (the bare `tap_gemm`, which stores the sums where the
+    stack's epilogue adds the bias and the leaky ReLU) on the plain version's
+    input to that conv: per layer the device ms of a launch (torch.profiler
+    over five calls: the kernel's device time over the launches it recorded),
+    the CUDA-event median of a call, its bound (operations at the f32 peak)
+    and cuDNN's `F.conv2d` of the same conv (CUDA events, TF32 off)."""
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from stabletts_torch.ops.mpd_cuda import LEAK, fold_period
+    from stabletts_torch.ops.tap_gemm_cuda import tap_gemm
+
+    def per_launch(fn, calls=5):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and "tap_gemm_f32_kernel" in e.key]
+        n = sum(e.count for e in ev)
+        return sum(e.self_device_time_total for e in ev) / max(n, 1) / 1e3, n
+
+    rows = []
+    with torch.no_grad():
+        h = F.leaky_relu(F.conv2d(fold_period(x.float(), period), folded[0][0].float(), folded[0][1].float(), (3, 1),
+                                  (2, 0)), LEAK)
+        for i in range(1, 5):
+            w, bias = folded[i]
+            stride = 3 if i < 4 else 1
+            b, c_in, l_in, p = h.shape
+            a0 = h.permute(0, 3, 2, 1).reshape(b * p * l_in, c_in).contiguous()  # streams [B * p, L, C]
+            wt = w.float()[..., 0].permute(2, 1, 0).contiguous()                  # [5, C_in, C_out]
+            l_out = (l_in - 1) // stride + 1
+            run = lambda: tap_gemm(a0, wt, t_in=l_in, t_out=l_out, taps=5, shift0=-2, shift_step=1,
+                                   row_stride=stride)
+            dev_ms, seen = per_launch(run)
+            flops = 2 * b * p * l_out * 5 * c_in * w.shape[0]
+            rows.append({"layer": i, "M": b * p * l_out, "K": 5 * c_in, "N": w.shape[0], "gflop": flops / 1e9,
+                         "device_ms": dev_ms, "launches_recorded": seen, "ms": time_ms(run, iters=5),
+                         "bound_ms": bound_ms(flops, 0, torch.float32)[0],
+                         "library_ms": time_ms(lambda: F.conv2d(h, w.float(), bias.float(), (stride, 1), (2, 0)),
+                                               iters=5)})
+            h = F.leaky_relu(F.conv2d(h, w.float(), bias.float(), (stride, 1), (2, 0)), LEAK)
+    return rows
+
+
 def check_mpd_stack(x, folded, period, disc=None) -> dict:
     """`mpd_stack` against its plain version on x [B, T] (and against
     `disc`, a DiscriminatorP holding the same weights): the logits and the
-    five feature maps, max-abs 2e-4."""
+    five feature maps, max-abs 2e-4. With the device ms of each kernel of a
+    call (`by_kernel`, torch.profiler: conv 0 and the layout copies in
+    PyTorch, the four tap GEMMs, conv_post) and the cuDNN composition of the
+    kernel's five convs (`library_ms`, TF32 off, `library_by_conv`)."""
     from stabletts_torch.ops.mpd_cuda import mpd_stack, mpd_stack_plain
+    from stabletts_torch.tools.device_time import device_ms
 
     logits, fmap = mpd_stack(x, folded, period)
     with torch.no_grad():
@@ -1217,11 +1333,14 @@ def check_mpd_stack(x, folded, period, disc=None) -> dict:
     ok = shapes_ok and max_abs <= MPD_BAR and (disc_abs is None or disc_abs <= MPD_BAR)
     with torch.no_grad():
         plain_ms = time_ms(lambda: mpd_stack_plain(x, folded, period), iters=5)
+    library, library_each = mpd_library(x, folded, period)
+    dev_ms, by_kernel = device_ms(lambda: mpd_stack(x, folded, period), calls=3)
     return {"kernel": "mpd_stack", "dtype": "float32", "B": b, "T": t, "period": period, "rel_err": errs[worst][0],
             "max_abs_err": max_abs, "worst_output": ["logits", "f1", "f2", "f3", "f4", "f5"][worst],
             "max_abs_err_vs_discriminator": disc_abs, "bar": MPD_BAR, "ok": ok,
             "ms": time_ms(lambda: mpd_stack(x, folded, period), iters=5), "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": bound_by, "library_ms": None, "gflop": mpd_flops(b, t, period) / 1e9}
+            "bound_by": bound_by, "library_ms": library, "library_by_conv": library_each, "device_ms": dev_ms,
+            "by_kernel": by_kernel, "gflop": mpd_flops(b, t, period) / 1e9}
 
 
 def phase_opt_in_train_kernels(dev) -> dict:
@@ -1264,6 +1383,8 @@ def phase_opt_in_train_kernels(dev) -> dict:
             rows.append(check_mpd_stack(x, folded, period, disc))
             if (b, period) == (16, 2):
                 line_rows["mpd_stack"] = rows[-1]
+                emit({"phase": "mpd_layers", "B": b, "T": t, "period": period,
+                      "layers": mpd_layers(x, folded, period)})
     # the ISTFT head's gradient at the GAN trainer's shape (B=16, 40 frames) and one odd shape
     rows += [check_istft_diff(b, t, dt, dev) for b, t, dt in ((16, 40, f32), (16, 40, bf), (3, 77, f32))]
     for row in rows:

@@ -46,9 +46,9 @@ constexpr int NUM_SMS = 132;  // H100 SXM
 
 // C[m, n] = sum_tap sum_k A(m, tap, k) * B(tap, k, n)
 //   output row m = b * t_out + i; A(m, tap, k) reads activation row
-//   t = i + shift0 + tap * shift_step of batch item b (zero outside
-//   [0, min(t_in, row_len[b])) ), column k (k < k_split from a0, else from
-//   a1 at k - k_split; zero for k >= k_in);
+//   t = row_stride * i + shift0 + tap * shift_step of batch item b (zero
+//   outside [0, min(t_in, row_len[b])) ), column k (k < k_split from a0, else
+//   from a1 at k - k_split; zero for k >= k_in);
 //   B(tap, k, n) = w[tap * w_tap_stride + k * ldw + n], or with w_trans
 //   w[tap * w_tap_stride + n * ldw + k] (the product with W^T).
 struct TapGemm {
@@ -69,6 +69,7 @@ struct TapGemm {
   int M;
   int N;
   int w_trans;
+  int row_stride = 1;  // a strided conv's output row i reads from input row row_stride * i
 };
 
 // Epi must provide
@@ -142,17 +143,17 @@ __device__ __forceinline__ uint4 pack8(const bf16 (&v)[8]) {
 }
 
 // The A rows a thread copies, fixed across the k loop: output row m = b *
-// t_out + i reads item b's row i + shift where 0 <= i + shift < lim (lim = -1
-// past M). The vector copies take four rows, (tid / 8) + 32 j; the element
-// copies one, tid / 2.
+// t_out + i reads item b's row row_stride * i + shift where 0 <= row_stride *
+// i + shift < lim (lim = -1 past M). The vector copies take four rows,
+// (tid / 8) + 32 j; the element copies one, tid / 2.
 struct TapRows {
   long long base[4];  // b * t_in
-  int i[4];
+  int i[4];           // row_stride * i
   int lim[4];
   __device__ __forceinline__ void set(const TapGemm& g, int j, int m) {
     const int b = m < g.M ? m / g.t_out : 0;
     base[j] = (long long)b * g.t_in;
-    i[j] = m - b * g.t_out;
+    i[j] = (m - b * g.t_out) * g.row_stride;
     lim[j] = m >= g.M ? -1 : (g.row_len ? min(g.row_len[b], g.t_in) : g.t_in);
   }
   // the source row of row j at this shift, or -1 where it reads zeros

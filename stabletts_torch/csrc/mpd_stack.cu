@@ -19,13 +19,18 @@
 // 128 f32 = 583 KB at p=2, so that design does not carry over. But every
 // layer's output is a feature map the caller needs in device memory anyway,
 // so running layer by layer loses only the re-read of each map by the next
-// layer: each layer is one launch of a strided tap GEMM over all streams (row
-// l of a stream's output gathers rows stride*l + k - 2 of its input, zero
-// outside [0, L_in) of that stream, never across streams or items; bias and
-// leaky ReLU in the epilogue), 64 x 64 tiles, fp32 FMA, no im2col buffer in
-// device memory. Layer 4's 21 MB of weights are read by every row tile and
-// stay in the 50 MB L2. conv_post has one output channel: a reduction, one
-// warp per output row over its 3 * 1024 products. Five launches per call.
+// layer: each of layers 1-4 is one launch of common.cuh's f32 tap GEMM
+// (`tap_gemm_f32_kernel`: 128 x 128 tiles at 8 x 8 outputs a thread, 64 x 64
+// on a small grid, operands by 16-byte cp.async through a 4-deep ring) over
+// all streams, with its row stride set to the conv's: output row l of a
+// stream gathers input rows stride*l + k - 2 of that stream for tap k, zero
+// outside [0, L_in) of that stream, never across streams or items, and the
+// epilogue adds the bias and applies the leaky ReLU. No im2col buffer goes to
+// device memory. Each output is one fmaf chain from 0 over the taps in order,
+// then k ascending, then the bias added, whatever the tile. Layer 4's 21 MB of
+// weights are read by every row tile and stay in the 50 MB L2. conv_post has
+// one output channel: a reduction, one warp per output row over its 3 * 1024
+// products. Five launches per call.
 #include "common.cuh"
 
 using namespace stts;
@@ -34,85 +39,19 @@ namespace {
 
 constexpr float kLeak = 0.1f;
 
-// out[s, l, n] = leaky(bias[n] + sum_{k < taps} sum_c in[s, stride*l + k - pad, c] * w[k, c, n])
-// in [S, l_in, c_in], w [taps, c_in, c_out], out [S, l_out, c_out]; M = S * l_out rows.
-__global__ void __launch_bounds__(GEMM_THREADS) strided_tap_gemm_kernel(
-    const float* in, const float* w, const float* bias, float* out, int M, int l_in, int l_out, int c_in,
-    int c_out, int taps, int stride, int pad) {
-  __shared__ __align__(16) float As[GEMM_BK][GEMM_BM + 4];
-  __shared__ __align__(16) float Bs[GEMM_BK][GEMM_BN + 4];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * GEMM_BM, n0 = blockIdx.x * GEMM_BN;
-
-  // the A rows this thread loads: fixed across the k loop
-  long long a_base[4];  // first element of the stream, or -1 for a row past M
-  int a_t0[4];          // input row of tap 0
-#pragma unroll
-  for (int l = 0; l < 4; ++l) {
-    int m = m0 + (tid + l * GEMM_THREADS) / GEMM_BK;
-    if (m < M) {
-      a_base[l] = (long long)(m / l_out) * l_in * c_in;
-      a_t0[l] = (m % l_out) * stride - pad;
-    } else {
-      a_base[l] = -1;
-      a_t0[l] = 0;
-    }
+// out[m, n] = leaky(acc + bias[n]), stored f32
+struct LeakyBiasEpi {
+  const float* bias;
+  float* out;
+  int N;
+  __device__ float prep(int m, int n, float acc) const {
+    const float y = acc + bias[n];
+    return y >= 0.f ? y : kLeak * y;
   }
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int tap = 0; tap < taps; ++tap) {
-    const float* wt = w + (long long)tap * c_in * c_out;
-    for (int k0 = 0; k0 < c_in; k0 += GEMM_BK) {
-#pragma unroll
-      for (int l = 0; l < 4; ++l) {
-        int e = tid + l * GEMM_THREADS;
-        int r = e / GEMM_BK, kk = e % GEMM_BK;
-        int k = k0 + kk, t = a_t0[l] + tap;
-        float v = 0.f;
-        if (a_base[l] >= 0 && k < c_in && t >= 0 && t < l_in) v = in[a_base[l] + (long long)t * c_in + k];
-        As[kk][r] = v;
-      }
-#pragma unroll
-      for (int l = 0; l < 4; ++l) {
-        int e = tid + l * GEMM_THREADS;
-        int kk = e / GEMM_BN, c = e % GEMM_BN;
-        int k = k0 + kk, n = n0 + c;
-        Bs[kk][c] = (k < c_in && n < c_out) ? wt[(long long)k * c_out + n] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < GEMM_BK; ++kk) {
-        float4 a4 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-        float4 b4 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-        float a[4] = {a4.x, a4.y, a4.z, a4.w};
-        float b[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
+  __device__ void store(int m, int n, const float* tile, int r, int c) const {
+    out[(long long)m * N + n] = tile[r * (GEMM_BN + 1) + c];
   }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int n = n0 + tx * 4 + j;
-      if (n >= c_out) continue;
-      float y = acc[i][j] + bias[n];
-      out[(long long)m * c_out + n] = y >= 0.f ? y : kLeak * y;
-    }
-  }
-}
+};
 
 // conv_post: out[s, l] = bias + sum_{k < 3} sum_c in[s, l + k - 1, c] * w[k, c]; one warp per (s, l)
 __global__ void conv_post_kernel(const float* in, const float* w, const float* bias, float* out, int M, int len,
@@ -133,11 +72,15 @@ __global__ void conv_post_kernel(const float* in, const float* w, const float* b
   if (lane == 0) out[m] = s + bias[0];
 }
 
+// out[s, l, n] = leaky(bias[n] + sum_{k < 5} sum_c in[s, stride*l + k - 2, c] * w[k, c, n]):
+// in [S, l_in, c_in], w [5, c_in, c_out] as it lies, out [S, l_out, c_out]
 void launch_layer(const float* in, const float* w, const float* bias, float* out, int S, int l_in, int l_out,
                   int c_in, int c_out, int stride, cudaStream_t s) {
-  const int M = S * l_out;
-  dim3 grid((c_out + GEMM_BN - 1) / GEMM_BN, (M + GEMM_BM - 1) / GEMM_BM);
-  strided_tap_gemm_kernel<<<grid, GEMM_THREADS, 0, s>>>(in, w, bias, out, M, l_in, l_out, c_in, c_out, 5, stride, 2);
+  TapGemm g{};
+  g.a0 = in; g.a1 = in; g.k_split = c_in; g.lda = c_in; g.t_in = l_in; g.t_out = l_out; g.k_in = c_in;
+  g.taps = 5; g.shift0 = -2; g.shift_step = 1; g.row_len = nullptr; g.row_stride = stride;
+  g.w = w; g.w_tap_stride = (long long)c_in * c_out; g.ldw = c_out; g.M = S * l_out; g.N = c_out; g.w_trans = 0;
+  launch_tap_gemm<float>(g, LeakyBiasEpi{bias, out, c_out}, s);
 }
 
 }  // namespace

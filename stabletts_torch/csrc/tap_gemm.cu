@@ -1,9 +1,9 @@
 // The tap GEMM of common.cuh on its own, with a plain store epilogue:
 // out[m, n] = round_T(sum_tap sum_k A(m, tap, k) B(tap, k, n)) under the
-// TapGemm contract (row-shifted A, row_len, k_split, w_trans).
+// TapGemm contract (row-shifted and row-strided A, row_len, k_split, w_trans).
 //
 // Replaces no TPU kernel by itself: it is the product inside #1, #3, #4, #5,
-// #11, #12, #13 and the bf16 ConvNeXt (where the TPU kernels' products ran
+// #11, #12, #13, #15 (strided) and ConvNeXt (where the TPU kernels' products ran
 // on the MXU), exposed so that the card can time it and test its edges
 // against `ops/tap_gemm_cuda.py::tap_gemm_plain`. bf16 runs on wgmma, f32 on
 // fp32 FMA (see common.cuh); `tap_gemm_tile` names the CTA tile either runs.
@@ -27,12 +27,13 @@ struct PlainStoreEpi {
 
 extern "C" int tap_gemm_forward(const void* a0, const void* a1, const void* row_len, const void* w, void* out,
                                 int k_split, int lda, int t_in, int t_out, int k_in, int taps, int shift0,
-                                int shift_step, int ldw, int M, int N, int w_trans, int w_tap_stride, int is_bf16,
-                                void* stream) {
+                                int shift_step, int ldw, int M, int N, int w_trans, int w_tap_stride, int row_stride,
+                                int is_bf16, void* stream) {
   TapGemm g{};
   g.a0 = a0; g.a1 = a1; g.k_split = k_split; g.lda = lda; g.t_in = t_in; g.t_out = t_out; g.k_in = k_in;
   g.taps = taps; g.shift0 = shift0; g.shift_step = shift_step; g.row_len = static_cast<const int*>(row_len);
   g.w = w; g.w_tap_stride = w_tap_stride; g.ldw = ldw; g.M = M; g.N = N; g.w_trans = w_trans;
+  g.row_stride = row_stride;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     launch_tap_gemm<bf16>(g, PlainStoreEpi<bf16>{static_cast<bf16*>(out), N}, s);

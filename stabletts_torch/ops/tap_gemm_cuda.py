@@ -4,15 +4,16 @@ PyTorch versions.
 
     out[b * t_out + i, n] = sum_tap sum_k A_tap[b, i, k] * W_tap[k, n]
 
-A_tap[b, i] is activation row t = i + shift0 + tap * shift_step of item b,
-zero outside [0, min(t_in, row_len[b])); its column k comes from a0 for
+A_tap[b, i] is activation row t = row_stride * i + shift0 + tap * shift_step
+of item b, zero outside [0, min(t_in, row_len[b])); its column k comes from a0 for
 k < k_split and from a1 (column k - k_split) otherwise, up to k_in. W_tap is
 read from w's storage at offset tap * w_tap_stride with row stride ldw, as
 [k_in, N], or with `w_trans` as [N, k_in] and transposed. This is the
 product inside the DiT kernels (k=3 convs and projections), the ISTFT head
-(4 taps over a split spectrum) and the training kernels' forward and input
-gradients; on the card bf16 runs on wgmma and f32 on fp32 FMA, in a CTA
-tile that `tap_gemm_tile` names.
+(4 taps over a split spectrum), the training kernels' forward and input
+gradients and the MPD stack's stride-3 convs (`row_stride` 3); on the card
+bf16 runs on wgmma and f32 on fp32 FMA, in a CTA tile that `tap_gemm_tile`
+names.
 
 `tap_gemm` dispatches on the tensor's device: the plain version on the CPU,
 the kernel on the GPU. `tap_gemm.launches` counts launches. The output is in
@@ -75,7 +76,7 @@ def _shape(a0, w, t_in, taps, a1, k_split, k_in, w_trans, n_out, ldw, w_tap_stri
 
 def tap_gemm_plain(a0, w, *, t_in: int, t_out: int, taps: int = 1, shift0: int = 0, shift_step: int = 0,
                    a1=None, k_split=None, k_in=None, row_len=None, w_trans: bool = False, n_out=None, ldw=None,
-                   w_tap_stride=None) -> torch.Tensor:
+                   w_tap_stride=None, row_stride: int = 1) -> torch.Tensor:
     """The TapGemm contract in plain PyTorch (f32 sums, one product per tap)."""
     s = _shape(a0, w, t_in, taps, a1, k_split, k_in, w_trans, n_out, ldw, w_tap_stride)
     a1 = a0 if a1 is None else a1
@@ -88,7 +89,7 @@ def tap_gemm_plain(a0, w, *, t_in: int, t_out: int, taps: int = 1, shift0: int =
     i = torch.arange(t_out, device=a0.device)
     out = torch.zeros(s.b * t_out, s.n, device=a0.device)
     for tap in range(taps):
-        t = i + shift0 + tap * shift_step
+        t = row_stride * i + shift0 + tap * shift_step
         valid = (t[None, :] >= 0) & (t[None, :] < lim[:, None])
         rows = af[:, t.clamp(0, t_in - 1)] * valid[..., None]
         off = wf.storage_offset() + tap * s.w_tap_stride
@@ -101,7 +102,7 @@ def tap_gemm_plain(a0, w, *, t_in: int, t_out: int, taps: int = 1, shift0: int =
 
 
 def _tap_gemm_cuda(a0, w, t_in, t_out, taps, shift0, shift_step, a1, k_split, k_in, row_len, w_trans, n_out, ldw,
-                   w_tap_stride) -> torch.Tensor:
+                   w_tap_stride, row_stride) -> torch.Tensor:
     from stabletts_torch.ops import _build
 
     if a0.dtype not in (torch.float32, torch.bfloat16):
@@ -119,11 +120,11 @@ def _tap_gemm_cuda(a0, w, t_in, t_out, taps, shift0, shift_step, a1, k_split, k_
             raise ValueError("tap_gemm kernel: row_len must be [B]")
     m = s.b * t_out
     out = torch.empty(m, s.n, device=a0.device, dtype=a0.dtype)
-    fn = _build.load("tap_gemm", "tap_gemm_forward", 5, 14)
+    fn = _build.load("tap_gemm", "tap_gemm_forward", 5, 15)
     err = fn(
         a0.data_ptr(), a1.data_ptr(), lens.data_ptr() if row_len is not None else 0, w.data_ptr(), out.data_ptr(),
         s.k_split, s.lda, t_in, t_out, s.k_in, taps, shift0, shift_step, s.ldw, m, s.n, int(w_trans),
-        s.w_tap_stride, int(a0.dtype == torch.bfloat16),
+        s.w_tap_stride, row_stride, int(a0.dtype == torch.bfloat16),
         torch.cuda.current_stream(a0.device).cuda_stream,
     )
     _build.check(err, "tap_gemm")
@@ -133,18 +134,18 @@ def _tap_gemm_cuda(a0, w, t_in, t_out, taps, shift0, shift_step, a1, k_split, k_
 
 def tap_gemm(a0, w, *, t_in: int, t_out: int, taps: int = 1, shift0: int = 0, shift_step: int = 0, a1=None,
              k_split=None, k_in=None, row_len=None, w_trans: bool = False, n_out=None, ldw=None,
-             w_tap_stride=None) -> torch.Tensor:
+             w_tap_stride=None, row_stride: int = 1) -> torch.Tensor:
     """a0 (and a1) [B * t_in, lda], w as described above -> [B * t_out, N]
     in a0's dtype, on a0's device: the plain version on the CPU, the kernel
     on the GPU."""
     if a0.device.type == "cpu":
         return tap_gemm_plain(a0, w, t_in=t_in, t_out=t_out, taps=taps, shift0=shift0, shift_step=shift_step,
                               a1=a1, k_split=k_split, k_in=k_in, row_len=row_len, w_trans=w_trans, n_out=n_out,
-                              ldw=ldw, w_tap_stride=w_tap_stride)
+                              ldw=ldw, w_tap_stride=w_tap_stride, row_stride=row_stride)
     if a0.device.type != "cuda":
         raise ValueError(f"tap_gemm runs on cpu or cuda, not {a0.device}")
     return _tap_gemm_cuda(a0, w, t_in, t_out, taps, shift0, shift_step, a1, k_split, k_in, row_len, w_trans, n_out,
-                          ldw, w_tap_stride)
+                          ldw, w_tap_stride, row_stride)
 
 
 tap_gemm.launches = 0

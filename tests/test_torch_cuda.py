@@ -423,6 +423,36 @@ def test_mas_kernel(dev, lens):
     assert torch.equal(got, maximum_path(neg, mask))
 
 
+# Each form of the MAS kernel (b, Ty, Tx, t_ys, t_xs, where its bits go, its chain warps): four warps with the bits in
+# shared memory and in the workspace, five warps of 32 cells a lane, one warp with 4-byte copies (Tx % 4 != 0); the
+# shapes of tests/test_torch_mas.py::KERNEL_FORM_CASES, where the plain version is held to the JAX oracle
+MAS_FORMS = {
+    "warps_shared": (4, 1000, 1024, [1000, 1000, 950, 300], [1024, 900, 1, 1000], "shared", 4),
+    "warps_workspace": (2, 2000, 1024, [2000, 2000], [1024, 1], "workspace", 4),
+    "wide_workspace": (2, 300, 5000, [300, 300], [4200, 290], "workspace", 5),
+    "unaligned_tx": (4, 301, 77, [301, 250, 77, 30], [77, 61, 77, 50], "shared", 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MAS_FORMS))
+def test_mas_kernel_forms(dev, case):
+    from stabletts_torch.ops.mas import maximum_path
+    from stabletts_torch.ops.mas_cuda import mas, mas_plan
+
+    b, ty, tx, t_ys, t_xs, bits, warps = MAS_FORMS[case]
+    plan = mas_plan(b, ty, tx)
+    assert (plan["bits"], plan["warps"]) == (bits, warps)
+    t_ys, t_xs = torch.tensor(t_ys, device=dev), torch.tensor(t_xs, device=dev)
+    mask = ((torch.arange(ty, device=dev)[None, :] < t_ys[:, None])[:, :, None]
+            & (torch.arange(tx, device=dev)[None, :] < t_xs[:, None])[:, None, :]).float()
+    neg = torch.from_numpy(np.random.default_rng(len(case)).standard_normal((b, ty, tx)).astype(np.float32)).to(dev)
+    before = mas.launches
+    got = mas(neg, mask)
+    assert mas.launches == before + 1
+    assert torch.equal(got, maximum_path(neg, mask))
+    assert torch.equal(mas(neg, mask), got)
+
+
 @pytest.mark.parametrize("dtype,bar", [(torch.float32, 1e-4), (BF16, 1e-3)])
 @pytest.mark.parametrize("lengths", [None, [13, 6]])
 def test_istft_kernel(dev, dtype, bar, lengths):
@@ -527,7 +557,7 @@ def test_prenet_train_kernel(dev, dtype, bar, t_len):
 
 
 @pytest.mark.parametrize("period", [2, 3, 5, 7, 11])
-@pytest.mark.parametrize("t_len", [8190, 4096])
+@pytest.mark.parametrize("t_len", [8190, 4096, 20481])
 def test_mpd_stack_kernel(dev, period, t_len):
     """Logits and the five feature maps against the plain version and the
     port's DiscriminatorP, 2e-4 max-abs."""
@@ -548,6 +578,34 @@ def test_mpd_stack_kernel(dev, period, t_len):
         assert got.shape == want.shape == plain.shape
         assert (got - plain).abs().max().item() <= 2e-4
         assert (got - want).abs().max().item() <= 2e-4
+
+
+# The MPD stack's convs 1-4 as strided tap GEMMs (S streams, L_in, C_in, C_out, stride): the [16, 20480] period-2
+# batch's first layer cut to 4 streams, the other layers at 2 streams, and a short ragged length
+STRIDED_CASES = {"conv1": (4, 10240, 32, 128, 3), "conv2": (2, 3414, 128, 512, 3), "conv3": (2, 1138, 512, 1024, 3),
+                 "conv4": (2, 380, 1024, 1024, 1), "ragged": (3, 61, 32, 128, 3)}
+
+
+@pytest.mark.parametrize("case", sorted(STRIDED_CASES))
+def test_tap_gemm_strided_equals_conv1d(dev, case):
+    """tap_gemm with row_stride (csrc/tap_gemm.cu, f32) against F.conv1d with
+    the same stride and padding 2, rel err 1e-4."""
+    import torch.nn.functional as F
+
+    from stabletts_torch.ops.tap_gemm_cuda import tap_gemm
+
+    s, l_in, c_in, c_out, stride = STRIDED_CASES[case]
+    rng = np.random.default_rng(len(case) + l_in)
+    x = _rand(rng, dev, torch.float32, s, l_in, c_in)
+    w = _rand(rng, dev, torch.float32, 5, c_in, c_out, scale=(5 * c_in) ** -0.5)
+    l_out = (l_in - 1) // stride + 1
+    before = tap_gemm.launches
+    got = tap_gemm(x.reshape(s * l_in, c_in), w, t_in=l_in, t_out=l_out, taps=5, shift0=-2, shift_step=1,
+                   row_stride=stride)
+    assert tap_gemm.launches == before + 1
+    want = F.conv1d(x.transpose(1, 2), w.permute(2, 1, 0), stride=stride, padding=2).transpose(1, 2)
+    assert got.shape == (s * l_out, c_out)
+    assert _rel(got.view(s, l_out, c_out), want) <= 1e-4
 
 
 @pytest.mark.parametrize("t_len", [40, 77])

@@ -66,12 +66,13 @@ def _nhwc(fm):
 
 # ---- discriminators -------------------------------------------------------------------
 
-@pytest.mark.parametrize("t_len,period", [(20480, 2), (8190, 3)])
+@pytest.mark.parametrize("t_len,period", [(20480, 2), (8190, 3), (4097, 5), (3001, 7)])
 def test_mpd_stack_matches_pallas_interpret_and_both_discriminators(t_len, period):
     """`mpd_stack` (its plain version on the CPU) against mpd_stack_fused in
     interpret mode, the flax DiscriminatorP and the port's, 2e-4 max-abs
-    (tests/test_mpd_pallas.py:29). Both lengths divide by their period; the
-    reflect pad is the (8191, 3) case below."""
+    (tests/test_mpd_pallas.py:29). The first two lengths divide by their
+    period; the odd lengths of periods 5 and 7, and the (8191, 3) case below,
+    take the reflect pad."""
     _check_mpd_stack(t_len, period)
 
 

@@ -44,6 +44,28 @@ def test_plain_mas_equals_jax_oracle_and_scan(name):
     np.testing.assert_array_equal(maximum_path_numpy(neg, t_ys, t_xs), jmas.maximum_path_numpy(neg, t_ys, t_xs))
 
 
+# The shapes at which the card checks each form of the CUDA kernel against this
+# plain version (chip_smoke.py, tests/test_torch_cuda.py::test_mas_kernel_forms):
+# four chain warps with the decision bits in shared memory and in the
+# workspace (Ty * Tx / 8 past the shared budget), five warps of 32 cells a lane
+# (Tx > 4096), and one warp with 4-byte copies (Tx % 4 != 0); each with
+# degenerate lengths beside ragged ones (t_x = 1, t_y = t_x, t_x > t_y, bands
+# and backtraces that cross from one chain warp's cells into another's).
+KERNEL_FORM_CASES = {
+    "warps_shared": dict(b=4, ty=1000, tx=1024, seed=11, t_ys=[1000, 1000, 950, 300], t_xs=[1024, 900, 1, 1000]),
+    "warps_workspace": dict(b=2, ty=2000, tx=1024, seed=12, t_ys=[2000, 2000], t_xs=[1024, 1]),
+    "wide_workspace": dict(b=2, ty=300, tx=5000, seed=13, t_ys=[300, 300], t_xs=[4200, 290]),
+    "unaligned_tx": dict(b=4, ty=301, tx=77, seed=14, t_ys=[301, 250, 77, 30], t_xs=[77, 61, 77, 50]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(KERNEL_FORM_CASES))
+def test_plain_mas_equals_jax_oracle_at_kernel_form_shapes(name):
+    neg, mask, t_ys, t_xs = _case(**KERNEL_FORM_CASES[name])
+    got = maximum_path(torch.from_numpy(neg), torch.from_numpy(mask)).numpy()
+    np.testing.assert_array_equal(got.astype(np.int32), jmas.maximum_path_numpy(neg, t_ys, t_xs))
+
+
 @pytest.mark.parametrize("name", ["ragged", "degenerate"])
 def test_plain_mas_equals_pallas_interpreted(name):
     neg, mask, _, _ = _case(**CASES[name])

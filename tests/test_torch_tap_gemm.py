@@ -40,6 +40,25 @@ def test_shifted_taps_match_jax_conv(k, t_len):
     np.testing.assert_allclose(got.numpy().reshape(b, t_len, n), _jax_conv(x, w), **TOL)
 
 
+@pytest.mark.parametrize("t_len", [10, 31, 32])
+@pytest.mark.parametrize("stride", [1, 3])
+def test_row_stride_is_a_strided_conv(stride, t_len):
+    """row_stride: output row i reads rows stride * i - 2 .. + 2, the MPD
+    stack's (5, 1) convs with padding 2, against lax.conv_general_dilated."""
+    rng = np.random.default_rng(stride * 100 + t_len)
+    b, c, n, k = 3, 8, 6, 5
+    x = rng.standard_normal((b, t_len, c)).astype(np.float32)
+    w = rng.standard_normal((k, c, n)).astype(np.float32)
+    t_out = (t_len - 1) // stride + 1
+    got = tap_gemm(torch.from_numpy(x).reshape(b * t_len, c), torch.from_numpy(w), t_in=t_len, t_out=t_out, taps=k,
+                   shift0=-2, shift_step=1, row_stride=stride)
+    want = jax.lax.conv_general_dilated(jnp.asarray(x), jnp.asarray(w), (stride,), [(2, 2)],
+                                        dimension_numbers=("NWC", "WIO", "NWC"),
+                                        precision=jax.lax.Precision.HIGHEST)
+    assert want.shape == (b, t_out, n)
+    np.testing.assert_allclose(got.numpy().reshape(b, t_out, n), np.asarray(want), **TOL)
+
+
 @pytest.mark.parametrize("k", [1, 3])
 def test_w_trans_is_the_input_gradient_conv(k):
     """w_trans with shift0 = (k-1)/2 and shift_step = -1 (the input gradient
