@@ -12,8 +12,9 @@ Phases, one JSON line each; any failure exits nonzero:
      library with its bf16 weight-gradient GEMM in `wgrad_wgmma_kernel`; no
      library may hold an FMA form of any of them for bf16; then the `ptxas`
      line: registers and spills of every f32 tap-GEMM and weight-gradient
-     instantiation, of the f32 attention cores and of ConvNeXt's depthwise
-     conv + LayerNorm
+     instantiation, of the f32 attention cores (the serving core under every
+     option the callers and the variants set), of #7's rotation and of
+     ConvNeXt's depthwise conv + LayerNorm
   3. each kernel against its plain PyTorch version on the card, at the main
      paths' shapes, f32 and bf16, with times and bounds and the unit of
      each kernel's products ("core": "wgmma" for bf16 on the attention cores,
@@ -35,10 +36,13 @@ Phases, one JSON line each; any failure exits nonzero:
      every gradient at dropout 0 and 0.1 (shared Philox bits); MAS exactly,
      with the time per mel row
      the attention microbenchmark variants (attention_variants.cu: v2, RoPE
-     on load, channel-major K, the three softmax decompositions) against
-     their plain versions at (2, 97), (16, 1024) and the tools' (64, 1000),
-     f32 and bf16, beside one scaled_dot_product_attention call where one
-     computes the same function; the three adapters onto the packed kernels;
+     (a rotation kernel, then the v2 core), channel-major K, the three
+     softmax decompositions) against their plain versions at (2, 97),
+     (16, 1024) and the tools' (64, 1000), f32 and bf16, beside one
+     scaled_dot_product_attention call where one computes the same function,
+     with the device ms of a call by kernel (torch.profiler) for #7 and the
+     f32 variants; the rotation alone against its plain version, bit for
+     bit; the three adapters onto the packed kernels;
      then the port's attention tools (stabletts_torch/tools/attn_bench.py and
      attn_exp.py) at (64, 1000) bf16 with the launches of each kernel
   4. serving: StableTTSAPI at the flagship config (random weights from a
@@ -132,6 +136,9 @@ VARIANT_KERNELS = ("attention_packed_v2", "attention_packed_rope", "attention_pa
 # the attention bar for every variant (tools/tpu_selftest.py:68); the matmul-only
 # mode's error is relative to its own output's largest value like the others'
 BARS.update({name: {torch.float32: 5e-3, torch.bfloat16: 2e-2} for name in VARIANT_KERNELS})
+# #7's rotation (the first of its two launches): exact, each product and the sum rounded to the dtype as in its
+# plain version
+BARS["rope_packed"] = {torch.float32: 0.0, torch.bfloat16: 0.0}
 MPD_BAR = 2e-4  # max-abs, f32 (tests/test_mpd_pallas.py:29)
 # shapes and lengths that run each form of the MAS kernel (b, Ty, Tx, t_ys, t_xs)
 MAS_FORMS = [(4, 1000, 1024, [1000, 1000, 950, 300], [1024, 900, 1, 1000]),
@@ -158,7 +165,7 @@ TAP_GEMM_KERNELS = ("adaln_ffn", "istft", "ffn_train_fwd", "ffn_train_bwd", "pre
 WGRAD_KERNELS = ("dit_attention_train_bwd", "ffn_train_bwd", "prenet_train_bwd", "wgrad")
 WGRAD_LIBS = ("dit_attention_train", "ffn_train", "prenet_train", "wgrad")
 # kernels with no product at all
-NO_PRODUCT_KERNELS = ("colsum",)
+NO_PRODUCT_KERNELS = ("colsum", "rope_packed")
 # the libraries that instantiate the bf16 tap GEMM
 TAP_GEMM_LIBS = ("adaln_ffn", "convnext", "dit_attention", "dit_attention_train", "dit_block", "ffn_train", "istft",
                  "prenet_train", "tap_gemm")
@@ -197,6 +204,8 @@ KERNEL_INFO = {
                             "stabletts_tpu/ops/attention_pallas_v2.py:67"),
     "attention_packed_rope": ("stabletts_torch/csrc/attention_variants.cu",
                               "stabletts_tpu/ops/attention_pallas.py:220"),
+    # #7's rotation of q and k, which the TPU kernel runs inside each grid cell (_attn_rope_kernel)
+    "rope_packed": ("stabletts_torch/csrc/attention_variants.cu", "stabletts_tpu/ops/attention_pallas.py:165"),
     "attention_packed_kt": ("stabletts_torch/csrc/attention_variants.cu", "tools/attn_exp4.py:71"),
     "attention_decompose_matmul": ("stabletts_torch/csrc/attention_variants.cu", "tools/attn_exp2.py:104"),
     "attention_decompose_nomax": ("stabletts_torch/csrc/attention_variants.cu", "tools/attn_exp2.py:104"),
@@ -211,21 +220,25 @@ TRAIN_LAUNCHES_PER_STEP = {"dit_attention_train_fwd": 9, "dit_attention_train_bw
 DT_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 # kernel-name parts whose device time the profile phases sum: the weight-gradient GEMM (wgmma, FMA) and the sum of its
 # row chunks, the column sums (one pass or two), the tap GEMM (wgmma, FMA), the training attention core's three
-# kernels (each name part covers its f32 and its bf16 form) and its row sums D, the f32 serving attention core,
-# ConvNeXt's depthwise conv + LayerNorm and MAS's two kernels
+# kernels (each name part covers its f32 and its bf16 form) and its row sums D, the f32 serving attention core (every
+# option), ConvNeXt's depthwise conv + LayerNorm, MAS's two kernels and #7's rotation
 PROFILE_FAMILIES = ("wgrad_wgmma_kernel", "wgrad_f32_kernel", "sum_splits_kernel", "colsum", "tap_gemm_wgmma_kernel",
                     "tap_gemm_f32_kernel", "attn_fwd_kernel", "attn_bwd_dkv_kernel", "attn_bwd_dq_kernel",
                     "rowdot_kernel", "attention_kernel_f32", "dwconv_ln_kernel", "mas_kernel",
-                    "mas_path_kernel")
+                    "mas_path_kernel", "rope_packed_kernel")
 # the FMA (f32) forms of common.cuh's tap GEMM and weight gradient, of attention_train.cuh's training core and of
-# attention.cuh's serving core, and convnext.cu's depthwise conv + LayerNorm, whose registers and spills the `ptxas`
-# line reports
+# attention.cuh's serving core (under every option), convnext.cu's depthwise conv + LayerNorm and #7's rotation (both
+# types), whose registers and spills the `ptxas` line reports
 F32_GEMM_FUNCTIONS = ("tap_gemm_f32_kernel", "wgrad_f32_kernel")
 F32_TRAIN_CORE_FUNCTIONS = ("attn_fwd_kernel_f32", "attn_bwd_dkv_kernel_f32", "attn_bwd_dq_kernel_f32")
-F32_SERVING_FUNCTIONS = ("attention_kernel_f32", "dwconv_ln_kernel")
+F32_SERVING_FUNCTIONS = ("attention_kernel_f32", "dwconv_ln_kernel", "rope_packed_kernel")
 # MAS (mas_kernel<cells a lane, ring slots, bits in shared memory> and mas_path_kernel) and the MPD stack's
 # conv_post; the MPD stack's tap GEMMs are listed under their own key ("... in mpd_stack")
 MAS_MPD_FUNCTIONS = ("mas_kernel", "mas_path_kernel", "conv_post_kernel")
+
+
+# attention.cuh's MODE values, by number
+SOFTMAX_MODES = ("SM_ONLINE", "SM_NOMAX", "SM_SCORE_LOWP", "SM_NONE")
 
 
 def emit(obj) -> None:
@@ -302,8 +315,9 @@ def phase_sass() -> None:
     weight-gradient GEMM (`wgrad_wgmma_kernel`). Fails if a library that
     instantiates a core, the bf16 tap GEMM or the bf16 weight gradient lacks
     its wgmma functions, if one of them has no HGMMA, or if any library holds
-    an FMA core (`attention_kernel`, one of the three FMA training kernels,
-    `tap_gemm_kernel` or `wgrad_kernel`) for bf16."""
+    an FMA kernel (one of the three FMA training kernels, `tap_gemm_kernel`
+    or `wgrad_kernel`) for bf16. The serving core's FMA kernel,
+    `attention_kernel_f32`, takes f32 alone."""
     import re
     import shutil
 
@@ -325,7 +339,6 @@ def phase_sass() -> None:
                 if fn is not None:
                     per_fn[fn] += 1
         core = {f: n for f, n in per_fn.items() if "attention_kernel_wgmma" in f}
-        fma_bf16 = [f for f in per_fn if "attention_kernelI13__nv_bfloat16" in f]
         train = {k: n for k in TRAIN_CORE_FUNCTIONS for f, n in per_fn.items() if f"{k}_wgmma" in f}
         train_fma_bf16 = [f for f in per_fn for k in TRAIN_CORE_FUNCTIONS if f"{k}I13__nv_bfloat16" in f]
         tap = {f: n for f, n in per_fn.items() if "tap_gemm_wgmma_kernel" in f}
@@ -334,14 +347,13 @@ def phase_sass() -> None:
         wgrad_fma_bf16 = [f for f in per_fn if "wgrad_kernelI13__nv_bfloat16" in f]
         libs[name] = {"hgmma": total, "wgmma_attention_functions": len(core),
                       "hgmma_per_attention_function": sorted(set(core.values())),
-                      "fma_bf16_attention_functions": len(fma_bf16),
                       "hgmma_per_training_attention_function": train,
                       "fma_bf16_training_attention_functions": len(train_fma_bf16),
                       "wgmma_tap_gemm_functions": len(tap), "hgmma_per_tap_gemm_function": sorted(set(tap.values())),
                       "fma_bf16_tap_gemm_functions": len(tap_fma_bf16),
                       "wgmma_wgrad_functions": len(wgrad), "hgmma_per_wgrad_function": sorted(set(wgrad.values())),
                       "fma_bf16_wgrad_functions": len(wgrad_fma_bf16)}
-        if ((name in ATTENTION_LIBS and not core) or any(n == 0 for n in core.values()) or fma_bf16
+        if ((name in ATTENTION_LIBS and not core) or any(n == 0 for n in core.values())
                 or (name in TRAIN_CORE_LIBS and len(train) != len(TRAIN_CORE_FUNCTIONS))
                 or any(n == 0 for n in train.values()) or train_fma_bf16
                 or (name in TAP_GEMM_LIBS and not tap) or any(n == 0 for n in tap.values()) or tap_fma_bf16
@@ -357,9 +369,9 @@ def phase_sass() -> None:
 def phase_ptxas() -> None:
     """Registers and spill bytes of the f32 tap GEMM and weight gradient
     (F32_GEMM_FUNCTIONS), of the f32 training attention core
-    (F32_TRAIN_CORE_FUNCTIONS) and of the f32 serving core and ConvNeXt's
-    depthwise conv + LayerNorm (F32_SERVING_FUNCTIONS, both types of the
-    latter), and of MAS and the MPD stack (MAS_MPD_FUNCTIONS, and the f32 tap
+    (F32_TRAIN_CORE_FUNCTIONS) and of the f32 serving core under each
+    option, ConvNeXt's depthwise conv + LayerNorm and #7's rotation
+    (F32_SERVING_FUNCTIONS, both types of the latter two), and of MAS and the MPD stack (MAS_MPD_FUNCTIONS, and the f32 tap
     GEMMs of the mpd_stack library under keys of their own), read from the
     `-Xptxas -v` report that the build keeps beside each library: per kernel
     and template (tile, w_trans; for MAS cells a lane, ring slots, where the
@@ -385,9 +397,10 @@ def phase_ptxas() -> None:
                     row = None
                     if kind:
                         # tap_gemm_f32_kernel<BM, BN, WT, Epi> mangles as ...ILi128ELi128ELb1E<Epi>...,
-                        # attention_kernel_f32<TMINOR, BQ> as ...ILb0ELi64E..., dwconv_ln_kernel<T, CW> as ...IfLi16E...
+                        # attention_kernel_f32<TMINOR, BQ, QPRE, KTMINOR, MODE, PAD_ZERO> as
+                        # ...ILb0ELi64ELb1ELb0ELi0ELb0E..., dwconv_ln_kernel<T, CW> as ...IfLi16E...
                         t = re.search(r"ILi(\d+)ELi(\d+)ELb([01])E", fn)
-                        a = re.search(r"attention_kernel_f32ILb([01])ELi(\d+)E", fn)
+                        a = re.search(r"attention_kernel_f32ILb([01])ELi(\d+)ELb([01])ELb([01])ELi(\d)ELb([01])E", fn)
                         if kind == "mas_kernel":
                             key = (f"{kind}<{t.group(1)}, {t.group(2)}, "
                                    f"{'shared' if t.group(3) == '1' else 'workspace'}>")
@@ -396,9 +409,11 @@ def phase_ptxas() -> None:
                         elif t:
                             key = f"{kind}<{t.group(1)}, {t.group(2)}, {'true' if t.group(3) == '1' else 'false'}>"
                         elif a:
-                            key = f"{kind}<{'true' if a.group(1) == '1' else 'false'}, {a.group(2)}>"
-                        elif kind == "dwconv_ln_kernel":
-                            key = f"{kind}<{'float' if 'dwconv_ln_kernelIf' in fn else 'bf16'}>"
+                            tf = ["false", "true"]
+                            key = (f"{kind}<{tf[int(a.group(1))]}, {a.group(2)}, {tf[int(a.group(3))]}, "
+                                   f"{tf[int(a.group(4))]}, {SOFTMAX_MODES[int(a.group(5))]}, {tf[int(a.group(6))]}>")
+                        elif kind in ("dwconv_ln_kernel", "rope_packed_kernel"):
+                            key = f"{kind}<{'float' if f'{kind}If' in fn else 'bf16'}>"
                         else:
                             key = kind if kind in F32_TRAIN_CORE_FUNCTIONS else f"{kind}<float>"
                         if name == "mpd_stack" and kind in F32_GEMM_FUNCTIONS:
@@ -763,10 +778,14 @@ def check_attention_variant(rng, name, b, t, dtype, dev, masked) -> dict:
     valid query rows (padded rows must be finite); the library yardstick is
     one scaled_dot_product_attention call with the same key mask where it
     computes the same function (v2, the channel-major K as a view, no copy,
-    and the no-max softmax, which is the softmax)."""
+    and the no-max softmax, which is the softmax). #7 and the f32 variants
+    add one call's device ms, in all and by kernel (torch.profiler), and #7
+    the bytes its rotation's round trip moves (q_r and k_r written and read
+    again: the design's own cost beside the function's bound)."""
     import torch.nn.functional as F
 
     from stabletts_torch.ops import attention_variants_cuda as av
+    from stabletts_torch.tools.device_time import device_ms
 
     c, heads, d = 256, 4, 64
     g = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev, dtype)
@@ -799,7 +818,37 @@ def check_attention_variant(rng, name, b, t, dtype, dev, masked) -> dict:
                   library=None if library is None else lambda: library().reshape(b, t, c))
     if library is not None:
         row["library_rel_err"] = rel_err(library().reshape(b, t, c)[rows], plain()[rows])[0]
+    if name == "attention_packed_rope":
+        row["rotation_round_trip_bytes"] = 2 * nbytes(q, k)
+    if name == "attention_packed_rope" or dtype == torch.float32:
+        row["device_ms"], row["by_kernel"] = device_ms(run, calls=5)
     return row
+
+
+def check_rope_packed(rng, b, t, dtype, dev) -> dict:
+    """#7's rotation kernel alone against its plain version, bit for bit
+    (both round each product and the sum to the dtype), with one call's
+    device ms; bound by its bytes: q and k read, q_r and k_r written, the
+    [T, C] cos/sin tables read once."""
+    from stabletts_torch.ops import attention_variants_cuda as av
+    from stabletts_torch.tools.device_time import device_ms
+
+    c, heads, rot = 256, 4, 32
+    g = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev, dtype)
+    q, k = g(b, t, c), g(b, t, c)
+    run = lambda: av.rope_rotate_packed(q, k, heads, rot)
+    plain = lambda: av.rope_rotate_packed_plain(q, k, heads, rot)
+    got, want = torch.stack(run()), torch.stack(plain())
+    rel, ab = rel_err(got, want)
+    cos, sin = av.rope_packed_tables(t, heads, c // heads, rot, dtype, dev)
+    # q pre-scaled, then x*cos, neg_half(x)*sin and their sum on q and k
+    bound, bound_by = bound_ms(7 * b * t * c, 2 * nbytes(q, k) + nbytes(cos, sin), dtype)
+    dev_ms, by_kernel = device_ms(run, calls=5)
+    return {"kernel": "rope_packed", "dtype": DT_NAME[dtype], "B": b, "T": t, "masked": False, "rotary_dim": rot,
+            "rel_err": rel, "max_abs_err": ab, "bar": BARS["rope_packed"][dtype],
+            "ok": bool(torch.isfinite(got).all()) and rel <= BARS["rope_packed"][dtype], "ms": time_ms(run),
+            "plain_ms": time_ms(plain, iters=5), "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+            "device_ms": dev_ms, "by_kernel": by_kernel}
 
 
 def check_variant_adapters(rng, b, t, dev) -> list:
@@ -836,13 +885,15 @@ def reset_variant_counts() -> None:
 
     ap.attention_packed.launches = 0
     av.attention_packed_v2.launches = av.attention_packed_rope.launches = av.attention_packed_kt.launches = 0
+    av.rope_rotate_packed.launches = 0
     av.attention_decompose.launches = {m: 0 for m in av.DECOMPOSE_MODES}
 
 
 def phase_attention_variants(dev) -> tuple:
     """The variant kernels against their plain versions at (2, 97),
     (16, 1024) and the tools' (64, 1000), f32 and bf16, ragged mask and none
-    where the function has a mask; the adapters; then the port's attention
+    where the function has a mask; #7's rotation alone at the same shapes;
+    the adapters; then the port's attention
     tools on the card at (64, 1000) bf16, a few iterations each, with the
     launches of every kernel per tool run. Returns the tools'-shape rows
     (bf16, no mask) keyed by kernel and the launches {kernel: {tool: n}}."""
@@ -860,6 +911,13 @@ def phase_attention_variants(dev) -> tuple:
                     rows.append(row)
                     if (b, t, dtype, masked) == (64, 1000, torch.bfloat16, False):
                         line_rows[name] = row
+    for b, t in ((2, 97), (16, 1024), (64, 1000)):
+        for dtype in (torch.float32, torch.bfloat16):
+            row = check_rope_packed(rng, b, t, dtype, dev)
+            emit({"phase": "attention_variants", **with_core(row)})
+            rows.append(row)
+            if (b, t, dtype) == (64, 1000, torch.bfloat16):
+                line_rows["rope_packed"] = row
     for row in check_variant_adapters(rng, 2, 97, dev):
         emit({"phase": "attention_variants", **with_core(row)})
         rows.append(row)
@@ -877,7 +935,7 @@ def phase_attention_variants(dev) -> tuple:
             launches.setdefault(name, {})[tool] = n
     emit({"phase": "attention_tools", "launches": launches})
     bad = [r for r in tool_rows if "rel_err" in r and (not r["finite"] or (r["rel_err"] or 0.0) > r["bar"])]
-    missing = [name for name in VARIANT_KERNELS if sum(launches[name].values()) == 0]
+    missing = [name for name in (*VARIANT_KERNELS, "rope_packed") if sum(launches[name].values()) == 0]
     if bad or missing:
         fail(f"attention tools: rows over their bar {bad}; kernels never launched {missing}")
     return line_rows, launches

@@ -13,9 +13,9 @@
 // cores, ~1 ms at the 67 TFLOP/s of fp32 FMA) against 4*B*T*H*64 elements
 // moved. So the products must run on the tensor cores: the bf16 kernel
 // (attention_kernel_wgmma, below) issues both as wgmma from shared-memory
-// tiles; f32 stays on fp32 FMA (attention_kernel_f32, and attention_kernel for
-// the variants' options), since no TF32 form has been shown to hold the f32
-// bars.
+// tiles; f32 stays on fp32 FMA (attention_kernel_f32), since no TF32 form
+// has been shown to hold the f32 bars. Each type has one kernel for every
+// caller and option.
 //
 // One CTA per (64-query tile, head, batch item). Online softmax in exp2 over
 // 64-key tiles, so no score tile larger than 64 x 64 exists and any T works
@@ -24,10 +24,10 @@
 // caller with unscaled q passes log2(e)/sqrt(D). The key bias is 0 for a valid
 // key and kNeg (finite) for a padded one, so a row whose keys are all padded
 // still gets a finite softmax; keys past T are excluded. Only keys are masked:
-// padded query rows come out as finite values the caller masks (in f32 under
-// the default options, zeros where a whole query tile is padded). The weights
-// are rounded to T before the PV product; the normaliser sums the unrounded
-// f32 weights.
+// padded query rows come out as finite values the caller masks (in f32 with
+// PAD_ZERO, zeros where a whole query tile is padded). The weights are
+// rounded to T before the PV product; the normaliser sums the unrounded f32
+// weights.
 //
 // TMINOR = false: q/k/v/out are [B, T, C] row-major (element (t, c) of an item
 // at t*C + c). TMINOR = true: they are [B, C, T] row-major (element (t, c) at
@@ -38,9 +38,6 @@
 // attention microbenchmark variants of attention_variants.cu set them):
 //   QPRE     q becomes round_T(q * log2(e)/sqrt(D)) on load (callers pass
 //            score_scale 1), the numerics of a q pre-scaled in its dtype.
-//   ROPE     the q tile (after QPRE) and every K tile are rotated on load by
-//            partial RoPE from [T, C] cos/sin tables in T, rounded op by op as
-//            round(round(x*cos) + round(neg_half(x)*sin)) ([B, T, C] only).
 //   KTMINOR  the layout of K alone (q, v and out keep TMINOR's).
 //   MODE     the softmax: SM_ONLINE as above; SM_NOMAX w = exp2(s + bias)
 //            with no max and no rescale (it overflows where exp2 does);
@@ -50,6 +47,9 @@
 //            TPU body's bf16 difference) and the normaliser the f32 sum of
 //            those rounded weights; SM_NONE the product alone,
 //            out = round_T(s) v with no bias and no normaliser.
+//   PAD_ZERO (f32 only) a 64-row tile of padded queries is written as zeros
+//            without being computed; the serving callers mask those rows.
+//            The variants compute every row, as the JAX variants do.
 #pragma once
 
 #include "common.cuh"
@@ -66,313 +66,35 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 enum { SM_ONLINE = 0, SM_NOMAX = 1, SM_SCORE_LOWP = 2, SM_NONE = 3 };
 
-constexpr int ATT_D = 64, ATT_BQ = 64, ATT_BK = 64, ATT_LD = 68;
-constexpr int ATT_SMEM = (4 * ATT_D * ATT_LD + ATT_BK) * (int)sizeof(float);
-
-// element e of a 64 x 64 (row r, feature d) tile load: the index that varies
-// fastest across threads is the one contiguous in memory
-template <bool TMINOR>
-__device__ __forceinline__ void tile_index(int e, int& r, int& d) {
-  if (TMINOR) {
-    r = e % ATT_BQ;
-    d = e / ATT_BQ;
-  } else {
-    r = e / ATT_D;
-    d = e % ATT_D;
-  }
-}
-
-// rotate the [B, T, C] tile X[d][row] (rows t0 + row, head h) in place:
-// x*cos + neg_half(x)*sin with neg_half(x)[d] = -x[d + rot/2] for d < rot/2,
-// x[d - rot/2] for d < rot, else 0; every product and the sum rounded through
-// T and never contracted into an FMA. `scratch` is a free [D][LD] tile. The
-// tile must be complete (caller syncs before); the rotated tile is complete
-// after the caller's next sync.
-template <typename T>
-__device__ __forceinline__ void rope_tile(float* X, float* scratch, int t0, int Tn, int C, int h, const T* cosv,
-                                          const T* sinv, int rot) {
-  const int half = rot / 2;
-#pragma unroll 1
-  for (int e = threadIdx.x; e < ATT_BQ * ATT_D; e += 256) {
-    const int r = e / ATT_D, d = e % ATT_D, t = t0 + r;
-    const float x = X[d * ATT_LD + r];
-    float xp = 0.f;
-    if (d < half) xp = -X[(d + half) * ATT_LD + r];
-    else if (d < rot) xp = X[(d - half) * ATT_LD + r];
-    float y = x;
-    if (t < Tn) {
-      const long long o = (long long)t * C + h * ATT_D + d;
-      const float a = round_to<T>(__fmul_rn(x, to_f(cosv[o])));
-      const float b = round_to<T>(__fmul_rn(xp, to_f(sinv[o])));
-      y = round_to<T>(__fadd_rn(a, b));
-    }
-    scratch[d * ATT_LD + r] = y;
-  }
-  __syncthreads();
-#pragma unroll 1
-  for (int e = threadIdx.x; e < ATT_BQ * ATT_D; e += 256) {
-    const int i = (e % ATT_D) * ATT_LD + e / ATT_D;
-    X[i] = scratch[i];
-  }
-}
-
-template <typename T, bool TMINOR, bool QPRE = false, bool ROPE = false, bool KTMINOR = TMINOR, int MODE = SM_ONLINE>
-__global__ void __launch_bounds__(256) attention_kernel(const T* q, const T* k, const T* v,
-                                                        const float* mask, T* out, int Tn, int C,
-                                                        float score_scale, const T* rope_cos,
-                                                        const T* rope_sin, int rot) {
-  static_assert(!(ROPE && (TMINOR || KTMINOR)), "RoPE on load takes [B, T, C] operands");
-  extern __shared__ __align__(16) float sm[];
-  float* Qt = sm;                   // [D][LD]   Qt[d][query]
-  float* Kt = Qt + ATT_D * ATT_LD;  // [D][LD]   Kt[d][key]
-  float* Vs = Kt + ATT_D * ATT_LD;  // [BK][LD]  Vs[key][d]
-  float* Pt = Vs + ATT_BK * ATT_LD; // [BK][LD]  Pt[key][query]
-  float* kb = Pt + ATT_BK * ATT_LD; // [BK]      key bias
-
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * ATT_BQ;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const long long st = TMINOR ? 1 : C, sd = TMINOR ? Tn : 1;  // strides of t and of the feature
-  const long long base = (long long)b * Tn * C + (long long)h * ATT_D * sd;
-  const long long kst = KTMINOR ? 1 : C, ksd = KTMINOR ? Tn : 1;  // K's strides
-  const long long kbase = (long long)b * Tn * C + (long long)h * ATT_D * ksd;
-
-  for (int e = tid; e < ATT_BQ * ATT_D; e += 256) {
-    int r, d;
-    tile_index<TMINOR>(e, r, d);
-    int t = q0 + r;
-    if constexpr (QPRE) {
-      const float x = t < Tn ? to_f(q[base + t * st + d * sd]) : 0.f;
-      Qt[d * ATT_LD + r] = round_to<T>(__fmul_rn(x, kLog2e / sqrtf((float)ATT_D)));
-    } else {
-      Qt[d * ATT_LD + r] = t < Tn ? to_f(q[base + t * st + d * sd]) : 0.f;
-    }
-  }
-  if constexpr (ROPE) {
-    __syncthreads();
-    rope_tile<T>(Qt, Pt, q0, Tn, C, h, rope_cos, rope_sin, rot);  // Pt is free until the first softmax
-  }
-
-  float m_i[4], l_i[4], o[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_i[i] = -INFINITY;
-    l_i[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
-  }
-
-  // K (and V) tile k0 into Kt (and Vs), key bias into kb; RoPE on K
-  auto load_kv = [&](int k0, bool with_v) {
-    if constexpr (KTMINOR == TMINOR) {
-      for (int e = tid; e < ATT_BK * ATT_D; e += 256) {
-        int r, d;
-        tile_index<TMINOR>(e, r, d);
-        int t = k0 + r;
-        bool ok = t < Tn;
-        Kt[d * ATT_LD + r] = ok ? to_f(k[base + t * st + d * sd]) : 0.f;
-        if (with_v) Vs[r * ATT_LD + d] = ok ? to_f(v[base + t * st + d * sd]) : 0.f;
-      }
-    } else {
-      for (int e = tid; e < ATT_BK * ATT_D; e += 256) {
-        int r, d;
-        tile_index<KTMINOR>(e, r, d);
-        int t = k0 + r;
-        Kt[d * ATT_LD + r] = t < Tn ? to_f(k[kbase + t * kst + d * ksd]) : 0.f;
-      }
-      for (int e = tid; with_v && e < ATT_BK * ATT_D; e += 256) {
-        int r, d;
-        tile_index<TMINOR>(e, r, d);
-        int t = k0 + r;
-        Vs[r * ATT_LD + d] = t < Tn ? to_f(v[base + t * st + d * sd]) : 0.f;
-      }
-    }
-    if (tid < ATT_BK) {
-      int t = k0 + tid;
-      float bias = -INFINITY;
-      if (t < Tn) bias = (mask == nullptr || mask[(long long)b * Tn + t] > 0.f) ? 0.f : kNeg;
-      kb[tid] = bias;
-    }
-    if constexpr (ROPE) {
-      __syncthreads();
-      rope_tile<T>(Kt, Pt, k0, Tn, C, h, rope_cos, rope_sin, rot);  // the last PV product is done
-    }
-  };
-
-  // s = Q K^T of the current tiles
-  auto scores = [&](float (&s)[4][4]) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < ATT_D; ++d) {
-      float4 a4 = *reinterpret_cast<const float4*>(&Qt[d * ATT_LD + ty * 4]);
-      float4 b4 = *reinterpret_cast<const float4*>(&Kt[d * ATT_LD + tx * 4]);
-      float a[4] = {a4.x, a4.y, a4.z, a4.w};
-      float bb[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bb[j], s[i][j]);
-    }
-  };
-
-  // SM_SCORE_LOWP: each row's max of the bf16 scores, over every key tile
-  if constexpr (MODE == SM_SCORE_LOWP) {
-    for (int k0 = 0; k0 < Tn; k0 += ATT_BK) {
-      __syncthreads();
-      load_kv(k0, false);
-      __syncthreads();
-      float s[4][4];
-      scores(s);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float mx = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          mx = fmaxf(mx, round_to<bf16>(round_to<bf16>(s[i][j] * score_scale) + round_to<bf16>(kb[tx * 4 + j])));
-#pragma unroll
-        for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-        m_i[i] = fmaxf(m_i[i], mx);
-      }
-    }
-  }
-
-  for (int k0 = 0; k0 < Tn; k0 += ATT_BK) {
-    __syncthreads();  // the previous tile's Kt/Vs/Pt are consumed
-    load_kv(k0, true);
-    __syncthreads();
-
-    float s[4][4];
-    scores(s);
-
-    if constexpr (MODE == SM_NOMAX) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float rs = 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float p = exp2f(s[i][j] * score_scale + kb[tx * 4 + j]);
-          rs += p;
-          Pt[(tx * 4 + j) * ATT_LD + ty * 4 + i] = round_to<T>(p);
-        }
-#pragma unroll
-        for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
-        l_i[i] += rs;
-      }
-    } else if constexpr (MODE == SM_SCORE_LOWP) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float rs = 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float sv = round_to<bf16>(round_to<bf16>(s[i][j] * score_scale) + round_to<bf16>(kb[tx * 4 + j]));
-          float p = round_to<bf16>(exp2f(sv - m_i[i]));
-          rs += p;
-          Pt[(tx * 4 + j) * ATT_LD + ty * 4 + i] = round_to<T>(p);
-        }
-#pragma unroll
-        for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
-        l_i[i] += rs;
-      }
-    } else if constexpr (MODE == SM_NONE) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) Pt[(tx * 4 + j) * ATT_LD + ty * 4 + i] = round_to<T>(s[i][j] * score_scale);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float mx = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = s[i][j] * score_scale + kb[tx * 4 + j];
-          mx = fmaxf(mx, s[i][j]);
-        }
-#pragma unroll
-        for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-        float m_new = fmaxf(m_i[i], mx);
-        float corr = exp2f(m_i[i] - m_new);  // 0 on the first tile (m_i = -inf)
-        float rs = 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float p = exp2f(s[i][j] - m_new);
-          rs += p;
-          Pt[(tx * 4 + j) * ATT_LD + ty * 4 + i] = round_to<T>(p);
-        }
-#pragma unroll
-        for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
-        l_i[i] = l_i[i] * corr + rs;
-        m_i[i] = m_new;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) o[i][j] *= corr;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int kk = 0; kk < ATT_BK; ++kk) {
-      float4 a4 = *reinterpret_cast<const float4*>(&Pt[kk * ATT_LD + ty * 4]);
-      float4 b4 = *reinterpret_cast<const float4*>(&Vs[kk * ATT_LD + tx * 4]);
-      float a[4] = {a4.x, a4.y, a4.z, a4.w};
-      float bb[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) o[i][j] = fmaf(a[i], bb[j], o[i][j]);
-    }
-  }
-
-  if constexpr (MODE == SM_NONE) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) l_i[i] = 1.f;
-  }
-  if (TMINOR) {
-    // stage the tile as Pt[d][query] so that the store runs along t
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Pt[(tx * 4 + j) * ATT_LD + ty * 4 + i] = o[i][j] / l_i[i];
-    __syncthreads();
-    for (int e = tid; e < ATT_BQ * ATT_D; e += 256) {
-      int r = e % ATT_BQ, d = e / ATT_BQ;
-      int t = q0 + r;
-      if (t < Tn) out[base + t * st + d * sd] = from_f<T>(Pt[d * ATT_LD + r]);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      int t = q0 + ty * 4 + i;
-      if (t >= Tn) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        out[base + (long long)t * C + tx * 4 + j] = from_f<T>(o[i][j] / l_i[i]);
-    }
-  }
-}
+constexpr int ATT_D = 64, ATT_BQ = 64, ATT_BK = 64;
 
 // ---------------------------------------------------------------- f32: FMA --
 //
-// The f32 kernel of the default options (the serving callers: the DiT block,
-// its attention half, packed attention in both layouts). The variants of
-// attention_variants.cu keep attention_kernel above in f32.
+// The f32 kernel of every caller and option: the serving callers (the DiT
+// block, its attention half, packed attention in both layouts) under the
+// default options with PAD_ZERO, and the variants of attention_variants.cu
+// (QPRE, KTMINOR, MODE, or none of them for #7's core on its rotated q and k)
+// without it. The variants take q, v and out as [B, T, C].
 //
 // What bounds it on the H100: its products on the FP32 pipes, at a request's
 // 2B = 2, T = 1024 (4 heads) 2.1 GFLOP with every key valid, 0.032 ms at 67
 // TFLOP/s; but a request pads its mel to the 1024-frame cap and fills a
-// quarter to a third of it, and most of that work multiplies by zero.
+// quarter to a third of it, and most of that work multiplies by zero. The
+// variants at the microbenchmark's B = 64, T = 1000: 65.5 GFLOP, 0.978 ms.
 //
 // Design:
 //   1. Each CTA reads its item's mask once and lists the 64-key tiles that hold
 //      a valid key; it runs only those. A tile of padded keys alone would add
-//      weights of exactly 0 (exp2 of kNeg less a finite max) with a rescale of
-//      exactly 1, or, before the first valid tile, be wiped by a rescale of 0:
-//      skipping it changes no bit. Decided from the mask, so holes work. An
-//      item with no valid key runs every tile (uniform weights over all keys).
-//   2. A query tile whose rows are all padded, in an item with a valid key, is
-//      written as zeros without being computed: every caller masks those rows
-//      (an out-projection epilogue's `* mask`, the composed blocks' `* m`).
+//      weights of exactly 0 (exp2 of kNeg less a finite max, or, without a
+//      max, exp2 of kNeg) with a rescale of exactly 1, or, before the first
+//      valid tile, be wiped by a rescale of 0: skipping it changes no bit.
+//      Decided from the mask, so holes work. An item with no valid key runs
+//      every tile (uniform weights over all keys). SM_NONE has no key bias, so
+//      it reads no mask and runs every tile.
+//   2. With PAD_ZERO, a query tile whose rows are all padded, in an item with a
+//      valid key, is written as zeros without being computed: every serving
+//      caller masks those rows (an out-projection epilogue's `* mask`, the
+//      composed blocks' `* m`).
 //   3. The tiles that remain run the training core's FMA products
 //      (fma_tiles.cuh): BQ queries a CTA of 128 threads, a thread NI = BQ / 16
 //      queries x 8 keys for S and x 8 features for o; K and V copied as they
@@ -382,16 +104,22 @@ __global__ void __launch_bounds__(256) attention_kernel(const T* q, const T* k, 
 //      BQ = 128 (8 x 8, which ptxas gives 255 registers and a 16-byte spill)
 //      at every shape measured, a request's 2 x 1024 (half the CTAs) and the
 //      bench batch's 16 x 1024 alike (tools/attn_f32_probe.py, PERF.md).
+//      QPRE scales each thread's own chunks of the Q tile once they land.
+//      SM_SCORE_LOWP runs the listed tiles twice: K alone for the row max,
+//      then K and V.
 // [B, T, C]: S = Q K^T reads Q [BQ][64] and K [64][64] (swizzled) along their
 // features (fa_mma_nt), o += P V reads V [64 keys][64] (swizzled) along its
 // features (fa_mma_nn). [B, C, T]: Q [64][BQ] and K [64][64] lie feature by
 // feature, so S is an outer product over the features (fa_mma_tn), and
 // o += P V reads V [64 features][64 keys] (swizzled) along its keys
-// (fa_mma_nt). Either way each output is the FMA kernel's fmaf chain (the
-// scores over d ascending, o over the keys ascending), the row max and the
-// rescale are the same, and each tile's row sum is added in its order (a
-// thread's keys 4 tx.. then 32 + 4 tx.., then across lanes 8, 4, 2, 1 apart):
-// a valid row has attention_kernel's bits.
+// (fa_mma_nt). K alone [B, C, T] (KTMINOR): K [64 features][64 keys]
+// (swizzled) is S's second operand read along its keys (fa_mma_nn). Every
+// way each output is one fmaf chain (the scores over d ascending, o over the
+// keys ascending), and each tile's row sum is added in one fixed order (a
+// thread's keys 4 tx.. then 32 + 4 tx.., then across lanes 4, 2, 1 apart: the
+// order of a butterfly over 16 lanes of four keys each), in every MODE; so
+// each row's bits are those of a 4 x 4-a-thread FMA layout of the same
+// function.
 constexpr int ATF_MAX_TILES = 1024;  // key tiles a CTA lists (T <= 65536); past that it runs every tile
 constexpr int ATF_BQ = 64;            // query rows a CTA
 
@@ -424,11 +152,27 @@ __device__ __forceinline__ void att_copy(float* tile, const float* src, long lon
   }
 }
 
-template <bool TMINOR, int BQ>
+// x -> x * f (rounded once) over the chunks of an unswizzled [R][W] tile that
+// this thread copied with att_copy: its own copies, visible to it once its
+// cp.async groups have completed
+template <int R, int W>
+__device__ __forceinline__ void att_scale(float* tile, float f) {
+  constexpr int CH = W / 4;
+#pragma unroll
+  for (int l = 0; l < R * CH / FA_THREADS; ++l) {
+    const int e = threadIdx.x + FA_THREADS * l;
+    float* p = tile + (e / CH) * W + 4 * (e % CH);
+    const float4 x = ld4(p);
+    st4(p, __fmul_rn(x.x, f), __fmul_rn(x.y, f), __fmul_rn(x.z, f), __fmul_rn(x.w, f));
+  }
+}
+
+template <bool TMINOR, int BQ, bool QPRE, bool KTMINOR, int MODE, bool PAD_ZERO>
 __global__ void __launch_bounds__(FA_THREADS, 2) attention_kernel_f32(const float* q, const float* k,
                                                                      const float* v, const float* mask,
                                                                      float* out, int Tn, int C, float score_scale,
                                                                      int vec) {
+  static_assert(!TMINOR || (!QPRE && KTMINOR && MODE == SM_ONLINE), "the variants take [B, T, C] q, v and out");
   using L = AttF32<BQ>;
   constexpr int NI = L::NI;
   extern __shared__ __align__(16) float af_sm[];
@@ -442,7 +186,8 @@ __global__ void __launch_bounds__(FA_THREADS, 2) attention_kernel_f32(const floa
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
   const int tid = threadIdx.x, tx = tid & 7, tr = tid >> 3, warp = tid >> 5, lane = tid & 31;
   const long long head = (long long)b * Tn * C + (long long)h * HD * (TMINOR ? Tn : 1);
-  const float* mask_b = mask == nullptr ? nullptr : mask + (long long)b * Tn;
+  const long long khead = (long long)b * Tn * C + (long long)h * HD * (KTMINOR ? Tn : 1);
+  const float* mask_b = mask == nullptr || MODE == SM_NONE ? nullptr : mask + (long long)b * Tn;
   const int nt = (Tn + TK - 1) / TK;
 
   // 1. the key tiles that hold a valid key, listed in order by warp 0
@@ -471,7 +216,7 @@ __global__ void __launch_bounds__(FA_THREADS, 2) attention_kernel_f32(const floa
   const int nrun = listed ? n_listed : nt;
 
   // 2. a query tile of padded rows only: zeros
-  if (listed) {
+  if (PAD_ZERO && listed) {
     bool padded = true;
     for (int j = q0 / TK; j < min(nt, (q0 + BQ) / TK); ++j) padded = padded && !tile_ok[j];
     if (padded) {
@@ -484,84 +229,139 @@ __global__ void __launch_bounds__(FA_THREADS, 2) attention_kernel_f32(const floa
   }
 
   // 3. the listed key tiles
-  auto issue = [&](int i) {
+  auto issue = [&](int i, bool with_v) {
     const int k0 = (listed ? tiles[i] : i) * TK;
     float* Ks = KV + (i & 1) * TK * HD;
     float* Vs = KV + (2 + (i & 1)) * TK * HD;
-    if constexpr (TMINOR) {
-      att_copy<HD, TK, false>(Ks, k + head + k0, Tn, HD, Tn - k0, vec);
+    if constexpr (KTMINOR)
+      att_copy<HD, TK, !TMINOR>(Ks, k + khead + k0, Tn, HD, Tn - k0, vec);
+    else
+      att_copy<TK, HD, true>(Ks, k + khead + (long long)k0 * C, C, Tn - k0, HD, vec);
+    if (!with_v) return;
+    if constexpr (TMINOR)
       att_copy<HD, TK, true>(Vs, v + head + k0, Tn, HD, Tn - k0, vec);
-    } else {
-      att_copy<TK, HD, true>(Ks, k + head + (long long)k0 * C, C, Tn - k0, HD, vec);
+    else
       att_copy<TK, HD, true>(Vs, v + head + (long long)k0 * C, C, Tn - k0, HD, vec);
+  };
+  // s = Q K_i^T
+  auto qk = [&](float (&s)[NI][8], int i) {
+    const float* Ks = KV + (i & 1) * TK * HD;
+    fa_zero(s);
+    if constexpr (TMINOR)
+      fa_mma_tn<BQ>(s, Qs, NI * tr, Ks, tx);
+    else if constexpr (KTMINOR)
+      fa_mma_nn(s, Qs, NI * tr, Ks, tx);
+    else
+      fa_mma_nt(s, Qs, NI * tr, Ks, 4 * tx);
+  };
+  // key bias of this thread's keys 4 tx + (c & 3) + 32 (c >> 2) of tile i
+  auto key_bias = [&](float (&kb)[8], int i) {
+    const int k0 = (listed ? tiles[i] : i) * TK;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int t = k0 + 4 * tx + (c & 3) + 32 * (c >> 2);
+      kb[c] = t < Tn ? ((mask_b == nullptr || mask_b[t] > 0.f) ? 0.f : kNeg) : -INFINITY;
     }
   };
   if constexpr (TMINOR)
     att_copy<HD, BQ, false>(Qs, q + head + q0, Tn, HD, Tn - q0, vec);
   else
     att_copy<BQ, HD, false>(Qs, q + head + (long long)q0 * C, C, Tn - q0, HD, vec);
-  issue(0);
+  issue(0, MODE != SM_SCORE_LOWP);
   cp_async_commit();
+  if constexpr (QPRE) {
+    cp_async_wait<0>();
+    att_scale<BQ, HD>(Qs, kLog2e / sqrtf((float)HD));
+  }
 
   float o[NI][8], m[NI], l[NI];
   fa_zero(o);
 #pragma unroll
   for (int i = 0; i < NI; ++i) m[i] = -INFINITY, l[i] = 0.f;
+  if constexpr (MODE == SM_SCORE_LOWP) {
+    // each row's max of the bf16 scores over every listed key tile first
+    for (int i = 0; i < nrun; ++i) {
+      cp_async_wait<0>();
+      __syncthreads();
+      if (i + 1 < nrun) issue(i + 1, false);
+      cp_async_commit();
+      float s[NI][8], kb[8];
+      qk(s, i);
+      key_bias(kb, i);
+#pragma unroll
+      for (int i2 = 0; i2 < NI; ++i2) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          mx = fmaxf(mx, round_to<bf16>(round_to<bf16>(s[i2][c] * score_scale) + round_to<bf16>(kb[c])));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        m[i2] = fmaxf(m[i2], mx);
+      }
+    }
+    __syncthreads();  // every thread is done with the last K tile
+    issue(0, true);
+    cp_async_commit();
+  }
+
   for (int i = 0; i < nrun; ++i) {
-    const int k0 = (listed ? tiles[i] : i) * TK;
-    const float* Ks = KV + (i & 1) * TK * HD;
     const float* Vs = KV + (2 + (i & 1)) * TK * HD;
     cp_async_wait<0>();  // tile i (and Q) have landed
     __syncthreads();     // ... for every thread, and every thread is done with tile i - 1 and P
-    if (i + 1 < nrun) issue(i + 1);
+    if (i + 1 < nrun) issue(i + 1, true);
     cp_async_commit();
 
-    float s[NI][8];
-    fa_zero(s);
-    if constexpr (TMINOR)
-      fa_mma_tn<BQ>(s, Qs, NI * tr, Ks, tx);
-    else
-      fa_mma_nt(s, Qs, NI * tr, Ks, 4 * tx);
-
-    float kb[8];
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int t = k0 + 4 * tx + (c & 3) + 32 * (c >> 2);
-      kb[c] = t < Tn ? ((mask_b == nullptr || mask_b[t] > 0.f) ? 0.f : kNeg) : -INFINITY;
-    }
+    float s[NI][8], kb[8];
+    qk(s, i);
+    if constexpr (MODE != SM_NONE) key_bias(kb, i);
 #pragma unroll
     for (int i2 = 0; i2 < NI; ++i2) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        s[i2][c] = s[i2][c] * score_scale + kb[c];
-        mx = fmaxf(mx, s[i2][c]);
-      }
       // the row's eight threads are the eight lanes 8 (tr % 4) .. 8 (tr % 4) + 7
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      const float m_new = fmaxf(m[i2], mx);
-      const float corr = exp2f(m[i2] - m_new);  // 0 on the first tile (m = -inf)
-      float ra = 0.f, rb = 0.f;
+      float corr = 1.f;
+      if constexpr (MODE == SM_ONLINE) {
+        float mx = -INFINITY;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[i2][c] = exp2f(s[i2][c] - m_new);
-        ra += s[i2][c];
+        for (int c = 0; c < 8; ++c) {
+          s[i2][c] = s[i2][c] * score_scale + kb[c];
+          mx = fmaxf(mx, s[i2][c]);
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        const float m_new = fmaxf(m[i2], mx);
+        corr = exp2f(m[i2] - m_new);  // 0 on the first tile (m = -inf)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) s[i2][c] = exp2f(s[i2][c] - m_new);
+        m[i2] = m_new;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) o[i2][c] *= corr;
+      } else {
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          float& x = s[i2][c];
+          if constexpr (MODE == SM_NOMAX) {
+            x = exp2f(x * score_scale + kb[c]);
+          } else if constexpr (MODE == SM_SCORE_LOWP) {
+            const float sv = round_to<bf16>(round_to<bf16>(x * score_scale) + round_to<bf16>(kb[c]));
+            x = round_to<bf16>(exp2f(sv - m[i2]));
+          } else {
+            x = x * score_scale;  // SM_NONE: the product alone
+          }
+        }
       }
+      if constexpr (MODE != SM_NONE) {
+        float ra = 0.f, rb = 0.f;
 #pragma unroll
-      for (int c = 4; c < 8; ++c) {
-        s[i2][c] = exp2f(s[i2][c] - m_new);
-        rb += s[i2][c];
+        for (int c = 0; c < 4; ++c) ra += s[i2][c];
+#pragma unroll
+        for (int c = 4; c < 8; ++c) rb += s[i2][c];
+        float rs = ra + rb;
+        rs += __shfl_xor_sync(0xffffffffu, rs, 4);
+        rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+        rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+        l[i2] = l[i2] * corr + rs;
       }
-      float rs = ra + rb;
-      rs += __shfl_xor_sync(0xffffffffu, rs, 4);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-      l[i2] = l[i2] * corr + rs;
-      m[i2] = m_new;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) o[i2][c] *= corr;
       float* pr = Ps + (NI * tr + i2) * TK + 4 * tx;
       st4(pr, s[i2][0], s[i2][1], s[i2][2], s[i2][3]);
       st4(pr + 32, s[i2][4], s[i2][5], s[i2][6], s[i2][7]);
@@ -573,6 +373,10 @@ __global__ void __launch_bounds__(FA_THREADS, 2) attention_kernel_f32(const floa
       fa_mma_nn(o, Ps, NI * tr, Vs, tx);
   }
   cp_async_wait<0>();
+  if constexpr (MODE == SM_NONE) {
+#pragma unroll
+    for (int i = 0; i < NI; ++i) l[i] = 1.f;
+  }
 
   // o / l: features 4 tx + j and 32 + 4 tx + j of rows q0 + NI tr + i
   const int r0 = q0 + NI * tr;
@@ -603,12 +407,12 @@ __global__ void __launch_bounds__(FA_THREADS, 2) attention_kernel_f32(const floa
   }
 }
 
-template <bool TMINOR, int BQ = ATF_BQ>
+template <bool TMINOR, bool QPRE, bool KTMINOR, int MODE, bool PAD_ZERO, int BQ = ATF_BQ>
 void launch_attention_f32(const float* q, const float* k, const float* v, const float* mask, float* out, int B,
                           int Tn, int H, float score_scale, cudaStream_t stream) {
   const auto aligned = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
-  const int vec = aligned(q) && aligned(k) && aligned(v) && aligned(out) && (!TMINOR || Tn % 4 == 0);
-  auto kernel = attention_kernel_f32<TMINOR, BQ>;
+  const int vec = aligned(q) && aligned(k) && aligned(v) && aligned(out) && (!(TMINOR || KTMINOR) || Tn % 4 == 0);
+  auto kernel = attention_kernel_f32<TMINOR, BQ, QPRE, KTMINOR, MODE, PAD_ZERO>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, AttF32<BQ>::SMEM);
   dim3 grid((Tn + BQ - 1) / BQ, H, B);
   kernel<<<grid, FA_THREADS, AttF32<BQ>::SMEM, stream>>>(q, k, v, mask, out, Tn, H * HD, score_scale, vec);
@@ -616,8 +420,9 @@ void launch_attention_f32(const float* q, const float* k, const float* v, const 
 
 // ------------------------------------------------------------ bf16: wgmma --
 //
-// The bf16 kernel: the same function, grid and options as attention_kernel,
-// with both products on the tensor cores (wgmma.cuh). One warpgroup (128
+// The bf16 kernel: the same function, grid and options as the f32 kernel
+// (every row computed: PAD_ZERO is f32's alone), with both products on the
+// tensor cores (wgmma.cuh). One warpgroup (128
 // threads) per CTA. Shared memory holds bf16 tiles of 64 rows x 64 values in
 // the 128-byte swizzle (wgmma.cuh): Q once, K and V double-buffered. A tile's
 // rows run along the operand's contiguous axis in device memory (t for
@@ -631,8 +436,8 @@ void launch_attention_f32(const float* q, const float* k, const float* v, const 
 // accumulate. The softmax runs on S's accumulator fragment: each row lies on
 // the 4 threads of a quad, so its max and sum take two shuffles. P is rounded
 // to bf16 on its way into the A fragment, and the normaliser sums the
-// unrounded f32 weights, the rounding points of the FMA kernel. QPRE and ROPE
-// transform the tiles in shared memory in f32 and round to bf16 in place.
+// unrounded f32 weights, the rounding points of the FMA kernel. QPRE scales
+// the Q tile in shared memory in f32 and rounds it to bf16 in place.
 // Ragged tiles: rows and keys past T are zero-filled by the copy (cp.async's
 // src-size, or the scalar loader) and their key bias is -inf. The epilogue
 // stages O / l as bf16 in Q's buffer so that the store runs along the
@@ -650,42 +455,10 @@ __device__ __forceinline__ void load_operand(uint8_t* tile, const bf16* base, in
   else load_tile(tile, base + (long long)t0 * C, C, min(ATT_BK, Tn - t0), ATT_D, vec);
 }
 
-// RoPE of a swizzled [B, T, C] tile in place (rows t0.., head h), rounded op
-// by op as rope_tile does. The tile must be complete (caller syncs before);
-// the caller fences and syncs after.
-__device__ __forceinline__ void rope_tile_bf16(uint8_t* X, int t0, int Tn, int C, int h, const bf16* cosv,
-                                               const bf16* sinv, int rot) {
-  const int half = rot / 2;
-  float y[ATT_BQ * ATT_D / WG_THREADS];
-#pragma unroll
-  for (int kk = 0; kk < ATT_BQ * ATT_D / WG_THREADS; ++kk) {
-    const int e = threadIdx.x + kk * WG_THREADS, r = e >> 6, d = e & 63, t = t0 + r;
-    const float x = ld_tile(X, r, d);
-    float xp = 0.f;
-    if (d < half) xp = -ld_tile(X, r, d + half);
-    else if (d < rot) xp = ld_tile(X, r, d - half);
-    y[kk] = x;
-    if (t < Tn) {
-      const long long o = (long long)t * C + h * ATT_D + d;
-      const float a = round_to<bf16>(__fmul_rn(x, to_f(cosv[o])));
-      const float b = round_to<bf16>(__fmul_rn(xp, to_f(sinv[o])));
-      y[kk] = round_to<bf16>(__fadd_rn(a, b));
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int kk = 0; kk < ATT_BQ * ATT_D / WG_THREADS; ++kk) {
-    const int e = threadIdx.x + kk * WG_THREADS;
-    st_tile(X, e >> 6, e & 63, y[kk]);
-  }
-}
-
-template <bool TMINOR, bool QPRE, bool ROPE, bool KTMINOR, int MODE>
+template <bool TMINOR, bool QPRE, bool KTMINOR, int MODE>
 __global__ void __launch_bounds__(WG_THREADS) attention_kernel_wgmma(const bf16* q, const bf16* k, const bf16* v,
                                                                     const float* mask, bf16* out, int Tn, int C,
-                                                                    float score_scale, const bf16* rope_cos,
-                                                                    const bf16* rope_sin, int rot) {
-  static_assert(!(ROPE && (TMINOR || KTMINOR)), "RoPE on load takes [B, T, C] operands");
+                                                                    float score_scale) {
   extern __shared__ uint8_t sm_raw[];
   // every tile 1024-byte aligned: the swizzle XORs absolute address bits
   uint8_t* sm = align_1024(sm_raw);
@@ -711,16 +484,12 @@ __global__ void __launch_bounds__(WG_THREADS) attention_kernel_wgmma(const bf16*
     load_operand<KTMINOR>(Ks(j), kb, j * ATT_BK, Tn, C, vk);
     if (with_v) load_operand<TMINOR>(Vs(j), vb, j * ATT_BK, Tn, C, vv);
   };
-  // tile j's copies have landed (the next tile's stay in flight) and, after
-  // RoPE on K, every thread's shared-memory writes are visible to wgmma's
-  // async proxy: a missing fence.proxy.async here would let wgmma read stale
-  // shared memory
-  auto arrive = [&](int j) {
+  // tile j's copies have landed (the next tile's stay in flight) and every
+  // thread's shared-memory writes (the element copies, QPRE's scaling) are
+  // visible to wgmma's async proxy: a missing fence.proxy.async here would let
+  // wgmma read stale shared memory
+  auto arrive = [&]() {
     cp_async_wait<1>();
-    if constexpr (ROPE) {
-      __syncthreads();
-      rope_tile_bf16(Ks(j), j * ATT_BK, Tn, C, h, rope_cos, rope_sin, rot);
-    }
     fence_proxy_async();
     __syncthreads();
   };
@@ -730,16 +499,10 @@ __global__ void __launch_bounds__(WG_THREADS) attention_kernel_wgmma(const bf16*
   issue(0, MODE != SM_SCORE_LOWP);
   cp_async_commit();
   cp_async_wait<1>();  // Q
-  if constexpr (QPRE || ROPE) {
+  if constexpr (QPRE) {
     __syncthreads();
-    if constexpr (QPRE) {
-      for (int e = tid; e < ATT_BQ * ATT_D; e += WG_THREADS)
-        st_tile(Qs, e >> 6, e & 63, __fmul_rn(ld_tile(Qs, e >> 6, e & 63), kLog2e / sqrtf((float)ATT_D)));
-    }
-    if constexpr (ROPE) {
-      __syncthreads();
-      rope_tile_bf16(Qs, q0, Tn, C, h, rope_cos, rope_sin, rot);
-    }
+    for (int e = tid; e < ATT_BQ * ATT_D; e += WG_THREADS)
+      st_tile(Qs, e >> 6, e & 63, __fmul_rn(ld_tile(Qs, e >> 6, e & 63), kLog2e / sqrtf((float)ATT_D)));
   }
   const uint64_t dq = make_desc<TMINOR>(smem_addr(Qs));
 
@@ -777,7 +540,7 @@ __global__ void __launch_bounds__(WG_THREADS) attention_kernel_wgmma(const bf16*
     for (int j = 0; j < nt; ++j) {
       if (j + 1 < nt) issue(j + 1, false);
       cp_async_commit();
-      arrive(j);
+      arrive();
       key_bias(j);
       qk(j);
 #pragma unroll
@@ -803,7 +566,7 @@ __global__ void __launch_bounds__(WG_THREADS) attention_kernel_wgmma(const bf16*
   for (int j = 0; j < nt; ++j) {
     if (j + 1 < nt) issue(j + 1, true);
     cp_async_commit();
-    arrive(j);
+    arrive();
     if constexpr (MODE != SM_NONE) key_bias(j);
     qk(j);
 
@@ -898,26 +661,19 @@ __global__ void __launch_bounds__(WG_THREADS) attention_kernel_wgmma(const bf16*
 }
 
 // q/k/v/out [B, T, H*64] (or [B, H*64, T] with TMINOR; K alone per KTMINOR);
-// mask [B, T] f32 or nullptr (every key valid); rope_cos/rope_sin [T, H*64]
-// in T with ROPE, else unread. bf16 runs attention_kernel_wgmma; f32 runs
-// attention_kernel_f32 under the default options, attention_kernel under the
-// variants' (fp32 FMA: the f32 bars hold no TF32 form).
-template <typename T, bool TMINOR, bool QPRE = false, bool ROPE = false, bool KTMINOR = TMINOR, int MODE = SM_ONLINE>
+// mask [B, T] f32 or nullptr (every key valid). bf16 runs
+// attention_kernel_wgmma, f32 attention_kernel_f32 (fp32 FMA: the f32 bars
+// hold no TF32 form), under every option.
+template <typename T, bool TMINOR, bool QPRE = false, bool KTMINOR = TMINOR, int MODE = SM_ONLINE, bool PAD_ZERO = true>
 void launch_attention(const T* q, const T* k, const T* v, const float* mask, T* out, int B, int Tn, int H,
-                      float score_scale, cudaStream_t stream, const T* rope_cos = nullptr,
-                      const T* rope_sin = nullptr, int rot = 0) {
-  dim3 grid((Tn + ATT_BQ - 1) / ATT_BQ, H, B);
+                      float score_scale, cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
-    auto kernel = attention_kernel_wgmma<TMINOR, QPRE, ROPE, KTMINOR, MODE>;
+    auto kernel = attention_kernel_wgmma<TMINOR, QPRE, KTMINOR, MODE>;
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ATT_WG_SMEM);
-    kernel<<<grid, WG_THREADS, ATT_WG_SMEM, stream>>>(q, k, v, mask, out, Tn, H * ATT_D, score_scale, rope_cos,
-                                                      rope_sin, rot);
-  } else if constexpr (!QPRE && !ROPE && KTMINOR == TMINOR && MODE == SM_ONLINE) {
-    launch_attention_f32<TMINOR>(q, k, v, mask, out, B, Tn, H, score_scale, stream);
+    dim3 grid((Tn + ATT_BQ - 1) / ATT_BQ, H, B);
+    kernel<<<grid, WG_THREADS, ATT_WG_SMEM, stream>>>(q, k, v, mask, out, Tn, H * ATT_D, score_scale);
   } else {
-    auto kernel = attention_kernel<T, TMINOR, QPRE, ROPE, KTMINOR, MODE>;
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ATT_SMEM);
-    kernel<<<grid, 256, ATT_SMEM, stream>>>(q, k, v, mask, out, Tn, H * ATT_D, score_scale, rope_cos, rope_sin, rot);
+    launch_attention_f32<TMINOR, QPRE, KTMINOR, MODE, PAD_ZERO>(q, k, v, mask, out, B, Tn, H, score_scale, stream);
   }
 }
 

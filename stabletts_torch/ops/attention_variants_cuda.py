@@ -8,8 +8,10 @@ Replaces the JAX package's TPU kernels
   - `ops/attention_pallas_v2.py::fused_attention_packed` -> `attention_packed_v2`:
     q pre-scaled by log2(e)/sqrt(D) and rounded to its dtype, softmax in exp2;
   - `ops/attention_pallas.py::fused_attention_packed_rope` ->
-    `attention_packed_rope`: the same on q and k rotated by partial RoPE
-    inside the kernel, each product and the sum rounded to the dtype;
+    `attention_packed_rope`: the same on q and k rotated by partial RoPE,
+    each product and the sum rounded to the dtype; on the card two kernels,
+    the rotation (`rope_rotate_packed`) and then the v2 core on the rotated
+    q and k;
   - `tools/attn_exp4.py::run_kt` -> `attention_packed_kt`: K given
     channel-major, [B, C, T];
   - `tools/attn_exp2.py::run` -> `attention_decompose(which=...)`: "matmul"
@@ -31,7 +33,8 @@ the sum of the rounded weights).
 
 The wrappers dispatch on the tensor's device: a CPU tensor takes the plain
 version, a CUDA tensor the kernel (or an error). `attention_packed_v2`,
-`attention_packed_rope` and `attention_packed_kt` count kernel launches in
+`attention_packed_rope` (one count a call: the rotation and the core),
+`rope_rotate_packed` and `attention_packed_kt` count kernel launches in
 `.launches`; `attention_decompose.launches` is a dict by mode.
 """
 
@@ -110,14 +113,22 @@ def attention_packed_v2_plain(q, k, v, mask: Optional[torch.Tensor] = None, n_he
     return _v2_core(_prescale(q, n_heads), k, v, mask, n_heads)
 
 
+def rope_rotate_packed_plain(q, k, n_heads: int = 4, rotary_dim: int = 32, tables: Optional[tuple] = None) -> tuple:
+    """(RoPE(round(q * log2(e)/sqrt(D))), RoPE(k)) in q's dtype, each product
+    and the sum rounded to it; q/k [B, T, H*D]. `tables` (cos, sin) [T, H*D]
+    in q's dtype, or None for `rope_packed_tables`."""
+    b, t, c = q.shape
+    cos, sin = tables if tables is not None else rope_packed_tables(t, n_heads, c // n_heads, rotary_dim, q.dtype,
+                                                                    q.device)
+    return (apply_rope_packed(_prescale(q, n_heads), cos, sin, n_heads, rotary_dim),
+            apply_rope_packed(k, cos, sin, n_heads, rotary_dim))
+
+
 def attention_packed_rope_plain(q, k, v, mask: Optional[torch.Tensor] = None, n_heads: int = 4,
                                 rotary_dim: int = 32) -> torch.Tensor:
-    """`attention_packed_v2_plain` on RoPE(round(q * log2(e)/sqrt(D))) and
-    RoPE(k); q/k/v unrotated [B, T, H*D]."""
-    b, t, c = q.shape
-    cos, sin = rope_packed_tables(t, n_heads, c // n_heads, rotary_dim, q.dtype, q.device)
-    qs = apply_rope_packed(_prescale(q, n_heads), cos, sin, n_heads, rotary_dim)
-    return _v2_core(qs, apply_rope_packed(k, cos, sin, n_heads, rotary_dim), v, mask, n_heads)
+    """The v2 core (q not scaled again) on `rope_rotate_packed_plain`'s
+    rotated q and k; q/k/v unrotated [B, T, H*D]."""
+    return _v2_core(*rope_rotate_packed_plain(q, k, n_heads, rotary_dim), v, mask, n_heads)
 
 
 def attention_packed_kt_plain(q, kt, v, mask: Optional[torch.Tensor] = None, n_heads: int = 4) -> torch.Tensor:
@@ -213,21 +224,52 @@ def attention_packed_v2(q, k, v, mask: Optional[torch.Tensor] = None, n_heads: i
     return out
 
 
+def _check_rotary(name: str, q, n_heads: int, rotary_dim: int) -> None:
+    if rotary_dim < 0 or rotary_dim % 2 or rotary_dim > q.shape[-1] // n_heads:
+        raise ValueError(f"{name}: rotary_dim must be even and <= head_dim, got {rotary_dim}")
+
+
+def rope_rotate_packed(q, k, n_heads: int = 4, rotary_dim: int = 32) -> tuple:
+    """The first of #7's two kernels: (RoPE(round(q * log2(e)/sqrt(D))),
+    RoPE(k)) in q's dtype, on q's device; q/k unrotated [B, T, H*D]. On the
+    card both land in one workspace [2, B, T, H*D] allocated here with
+    torch.empty (65.5 MB in bf16, 131 MB in f32 at B=64, T=1000, H=4)."""
+    _check_rotary("rope_rotate_packed", q, n_heads, rotary_dim)
+    if not _device_ok("rope_rotate_packed", q):
+        return rope_rotate_packed_plain(q, k, n_heads, rotary_dim)
+    b, t, c = q.shape
+    _check("rope_rotate_packed", q, k, k, n_heads, None)
+    cos, sin = rope_packed_tables(t, n_heads, c // n_heads, rotary_dim, q.dtype, q.device)
+    ws = torch.empty((2, b, t, c), dtype=q.dtype, device=q.device)
+    _run("rope_packed", 6, [q.data_ptr(), k.data_ptr(), cos.data_ptr(), sin.data_ptr(), ws[0].data_ptr(),
+                            ws[1].data_ptr()], [b, t, c, n_heads, rotary_dim], q)
+    rope_rotate_packed.launches += 1
+    return ws[0], ws[1]
+
+
 def attention_packed_rope(q, k, v, mask: Optional[torch.Tensor] = None, n_heads: int = 4,
                           rotary_dim: int = 32) -> torch.Tensor:
     """#7: `attention_packed_v2` with partial RoPE of `rotary_dim` features
-    per head applied to q and k inside the kernel; q/k/v unrotated."""
-    if rotary_dim < 0 or rotary_dim % 2 or rotary_dim > q.shape[-1] // n_heads:
-        raise ValueError(f"attention_packed_rope: rotary_dim must be even and <= head_dim, got {rotary_dim}")
+    per head applied to q and k; q/k/v unrotated. On the card two launches:
+    `rope_rotate_packed` (its workspace lives until the core has run), then
+    the v2 core on the rotated q and k with no pre-scaling."""
+    _check_rotary("attention_packed_rope", q, n_heads, rotary_dim)
     if not _device_ok("attention_packed_rope", q):
         return attention_packed_rope_plain(q, k, v, mask, n_heads, rotary_dim)
     b, t, c = q.shape
     mask_ptr, _keep = _check("attention_packed_rope", q, k, v, n_heads, mask)
-    cos, sin = rope_packed_tables(t, n_heads, c // n_heads, rotary_dim, q.dtype, q.device)
-    out = torch.empty_like(q)
-    _run("attention_packed_rope", 7, [q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, cos.data_ptr(),
-                                      sin.data_ptr(), out.data_ptr()], [b, t, c, n_heads, rotary_dim], q)
+    out = _rope_core(*rope_rotate_packed(q, k, n_heads, rotary_dim), v, mask_ptr, n_heads)
     attention_packed_rope.launches += 1
+    return out
+
+
+def _rope_core(qr, kr, v, mask_ptr: int, n_heads: int) -> torch.Tensor:
+    """The second of #7's kernels: the v2 core on `rope_rotate_packed`'s
+    outputs, q not scaled again (CUDA tensors, checked by the caller)."""
+    b, t, c = qr.shape
+    out = torch.empty_like(qr)
+    _run("attention_packed_rope", 5, [qr.data_ptr(), kr.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr()],
+         [b, t, c, n_heads], qr)
     return out
 
 
@@ -262,6 +304,7 @@ def attention_decompose(q, k, v, which: str = "nomax", n_heads: int = 4) -> torc
 
 attention_packed_v2.launches = 0
 attention_packed_rope.launches = 0
+rope_rotate_packed.launches = 0
 attention_packed_kt.launches = 0
 attention_decompose.launches = {mode: 0 for mode in DECOMPOSE_MODES}
 

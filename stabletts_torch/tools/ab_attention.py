@@ -9,11 +9,15 @@ Each run builds that tree's kernels and runs, three times each on the same
 seeded inputs, `chip_smoke.check_attention_packed` (#6, and #8 with
 tminor) at (2B=16, T=1024) bf16 and f32 with a ragged mask, at (2, 97)
 bf16 and at (2, 1024) f32, `chip_smoke.check_dit` (#1) at (16, 1024) bf16
-and f32, and `chip_smoke.check_attention_variant` for #9 (`attention_packed_v2`) and #7
-(`attention_packed_rope`) at the attention tools' (B=64, T=1000), every key
-valid, bf16 and f32. It prints one JSON line: the median ms of each run, the
-rel err against the plain version and a sha256 of the kernel's output on the
-case's inputs ("sha"; equal hashes = equal bits).
+and f32, and `chip_smoke.check_attention_variant` for #9 (`attention_packed_v2`), #7
+(`attention_packed_rope`), 17d (`attention_packed_kt`) and 17b
+(`attention_decompose` matmul, nomax, bf16) at the attention tools' (B=64,
+T=1000), every key valid, bf16 and f32, and for #7 also with chip_smoke's
+ragged mask. It prints one JSON line: the median ms of each run, the rel err
+against the plain version, a sha256 of the kernel's output on the case's
+inputs ("sha"; equal hashes = equal bits) and, with a mask, of its valid
+query rows ("sha_valid"); for the (64, 1000) cases also one call's device ms
+from torch.profiler, in all and by kernel ("device_ms", "by_kernel").
 
 It also runs the f32 serving core at a request's mask (2B = 2, T = 1024, both
 items 313 frames long, as a 313-frame sentence pads to the 1024-frame mel
@@ -99,31 +103,42 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     out = {"tree": sys.argv[1] if len(sys.argv) > 1 else os.getcwd()}
+    # (kind, flag, b, t, dtype): the flag is tminor for attention_packed, the ragged mask for a variant
     cases = [("attention_packed", tminor, b, t, dtype) for tminor in (False, True)
              for b, t, dtype in ((16, 1024, torch.bfloat16), (16, 1024, torch.float32), (2, 97, torch.bfloat16),
                                  (2, 1024, torch.float32))]
     cases += [("dit_block", False, 16, 1024, dtype) for dtype in (torch.bfloat16, torch.float32)]
-    cases += [(kind, False, 64, 1000, dtype) for kind in ("attention_packed_v2", "attention_packed_rope")
+    cases += [(kind, False, 64, 1000, dtype)
+              for kind in ("attention_packed_v2", "attention_packed_rope", "attention_packed_kt",
+                           "attention_decompose_matmul", "attention_decompose_nomax", "attention_decompose_bf16")
               for dtype in (torch.bfloat16, torch.float32)]
-    measure = cs.measure
+    cases += [("attention_packed_rope", True, 64, 1000, dtype) for dtype in (torch.bfloat16, torch.float32)]
+    measure, device_ms = cs.measure, _device_time()
 
     def measure_with_sha(*args, **kw):  # also the hash of the kernel's output (run, args[3]) on the case's inputs
         row = measure(*args, **kw)
-        row["sha"] = sha(args[3]())
+        o = args[3]()
+        row["sha"] = sha(o)
+        if kw.get("select") is not None:
+            row["sha_valid"] = sha(kw["select"](o))
+        if args[2].get("B") == 64:
+            row["device_ms"], row["by_kernel"] = device_ms(args[3], calls=5)
         return row
 
     cs.measure = measure_with_sha
-    for kind, tminor, b, t, dtype in cases:
+    for kind, flag, b, t, dtype in cases:
         if kind == "dit_block":
             run = lambda: cs.check_dit(np.random.default_rng(1234), b=b, t=t, dtype=dtype, dev=dev)
         elif kind != "attention_packed":
-            run = lambda: cs.check_attention_variant(np.random.default_rng(1234), kind, b, t, dtype, dev, False)
+            run = lambda: cs.check_attention_variant(np.random.default_rng(1234), kind, b, t, dtype, dev, flag)
         else:
             run = lambda: cs.check_attention_packed(np.random.default_rng(1234), b=b, t=t, dtype=dtype, dev=dev,
-                                                    masked=True, tminor=tminor)
+                                                    masked=True, tminor=flag)
         rows = [run() for _ in range(3)]
-        out[f"{rows[0]['kernel']} {b}x{t} {rows[0]['dtype']}"] = {"ms": [r["ms"] for r in rows],
-                                                                  "rel_err": rows[0]["rel_err"], "sha": rows[0]["sha"]}
+        masked = " masked" if kind.startswith("attention_packed_") and flag else ""
+        out[f"{rows[0]['kernel']} {b}x{t} {rows[0]['dtype']}{masked}"] = {
+            "ms": [r["ms"] for r in rows], "rel_err": rows[0]["rel_err"], "sha": rows[0]["sha"],
+            **{key: rows[0][key] for key in ("sha_valid", "device_ms", "by_kernel") if key in rows[0]}}
     out.update(request_cases(cs, dev))
     print(json.dumps(out), flush=True)
 

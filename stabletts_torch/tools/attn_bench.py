@@ -6,7 +6,8 @@ Times (CUDA events over `iters` calls after a warm-up, ms per call):
   rope        the packed-layout partial RoPE of q and k alone (plain PyTorch)
   kernel      attention_packed (#6) alone
   rope+kernel the two chained, as the composed attention block runs them
-  rope_fused  attention_packed_rope (#7), which fuses the two
+  rope_fused  attention_packed_rope (#7): on the card its rotation kernel,
+              then the v2 core on the rotated q and k
   variants    kernels named on the command line, each with its rel err
               against attention_packed on the same inputs and its share of
               the bf16 peak (989 TFLOP/s, H100 SXM)
@@ -72,10 +73,12 @@ VARIANTS = {
 
 
 def launch_counts() -> dict:
-    """Every attention kernel counter the tools can reach, by kernel name."""
+    """Every kernel counter the tools can reach, by kernel name (#7's
+    rotation as "rope_packed")."""
     counts = {"attention_packed": ap.attention_packed.launches,
               "attention_packed_v2": av.attention_packed_v2.launches,
               "attention_packed_rope": av.attention_packed_rope.launches,
+              "rope_packed": av.rope_rotate_packed.launches,
               "attention_packed_kt": av.attention_packed_kt.launches}
     counts.update({f"attention_decompose_{m}": n for m, n in av.attention_decompose.launches.items()})
     return counts

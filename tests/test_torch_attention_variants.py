@@ -9,6 +9,7 @@ finite."""
 
 import contextlib
 import importlib.util
+import math
 import os
 
 import jax.numpy as jnp
@@ -19,7 +20,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from stabletts_torch.ops import attention_packed_cuda as ap
 from stabletts_torch.ops import attention_variants_cuda as av
-from stabletts_tpu.nn.blocks import _rope_packed_cache
+from stabletts_tpu.nn.blocks import _rope_neg_half_matrix, _rope_packed_cache
 from stabletts_tpu.ops.attention_pallas import fused_attention_packed_rope
 from stabletts_tpu.ops.attention_pallas_v2 import fused_attention_packed as fused_attention_packed_v2
 from torch_port_utils import TOL
@@ -130,6 +131,61 @@ def test_rope_plain_is_rope_then_v2(lengths):
     assert (got - want).abs().max().item() <= 1e-6
 
 
+def _jax_rotation(q, k, rotary_dim, jd):
+    """#7's rotation as the JAX package computes it: q pre-scaled in its
+    dtype (ops/attention_pallas.py:200), then x*cos + (x @ P)*sin in the
+    dtype with the tables and signed permutation the kernel is given
+    (:165-168, :208-209), one operation at a time. Returns q_r, k_r and the
+    (cos, sin) tables."""
+    t = q.shape[1]
+    cos, sin = _rope_packed_cache(t, H, 64, rotary_dim, jd)
+    perm = _rope_neg_half_matrix(H, 64, rotary_dim).astype(jd)
+    rotate = lambda x: x * cos + jnp.dot(x, perm, preferred_element_type=jnp.float32).astype(jd) * sin
+    qs = (jnp.asarray(q, jd).astype(jnp.float32) * (math.log2(math.e) / math.sqrt(64))).astype(jd)
+    return rotate(qs), rotate(jnp.asarray(k, jd)), (cos, sin)
+
+
+def _np(a):
+    return np.array(jnp.asarray(a).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("t_len", [97, 128])
+@pytest.mark.parametrize("rotary_dim", [16, 32, 64])
+def test_rope_rotation_plain_is_the_pallas_rotation(t_len, rotary_dim, dtype):
+    """The port's plain rotation (the rotation kernel's plain version) gives
+    the JAX package's in-kernel rotation of #7 bit for bit, on the same
+    tables: the rounding order (q pre-scaled, x*cos, (x @ P)*sin, their sum,
+    each in the dtype) and the signed permutation are the same."""
+    jd, td = _DT[dtype]
+    q, k, _, _ = _inputs(2, t_len, 21)
+    want_q, want_k, (cos, sin) = _jax_rotation(q, k, rotary_dim, jd)
+    tables = tuple(torch.from_numpy(_np(a)).to(td) for a in (cos, sin))
+    got_q, got_k = av.rope_rotate_packed_plain(_t(q, td), _t(k, td), H, rotary_dim, tables=tables)
+    np.testing.assert_array_equal(got_q.float().numpy(), _np(want_q))
+    np.testing.assert_array_equal(got_k.float().numpy(), _np(want_k))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("lengths", [None, [97, 40]])
+def test_rope_plain_is_v2_core_over_the_pallas_rotation(lengths, dtype):
+    """`attention_packed_rope_plain` is the v2 core on the JAX package's
+    rotated q and k, on every row (padded query rows too): bit for bit in
+    bf16, whose tables equal the JAX package's; in f32 within 1e-6, since a
+    few f32 table entries differ from XLA's by one ulp
+    (test_rope_tables_match_jax)."""
+    jd, td = _DT[dtype]
+    q, k, v, mask = _inputs(2, 97, 22, lengths)
+    qr, kr, _ = _jax_rotation(q, k, 32, jd)
+    mask_t = _t(mask, torch.float32)
+    want = av._v2_core(torch.from_numpy(_np(qr)).to(td), torch.from_numpy(_np(kr)).to(td), _t(v, td), mask_t, H)
+    got = av.attention_packed_rope_plain(_t(q, td), _t(k, td), _t(v, td), mask_t, n_heads=H, rotary_dim=32)
+    if dtype == "bf16":
+        assert torch.equal(got, want)
+    else:
+        assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+
+
 @contextlib.contextmanager
 def _interpret():
     with pltpu.force_tpu_interpret_mode():
@@ -230,6 +286,8 @@ def test_variants_take_what_their_kernels_take():
         av.attention_decompose(q, q, q, which="softmax")
     with pytest.raises(ValueError, match="rotary_dim"):
         av.attention_packed_rope(q, q, q, rotary_dim=15)
+    with pytest.raises(ValueError, match="rotary_dim"):
+        av.rope_rotate_packed(q, q, rotary_dim=66)
     with pytest.raises(ValueError, match="kbias takes only"):
         av.attention_batch_pair(q, q, q, torch.full((2, 1, 8), -1.0))
     with pytest.raises(ValueError, match=r"\[B, 1, T\]"):

@@ -693,6 +693,80 @@ def test_attention_variant_adapters_launch_their_kernels(dev):
         assert _rel(got[rows], want[rows]) <= 5e-3
 
 
+def _variant_mask(kind, b, t_len, dev):
+    """The ragged mask of `_masked_inputs`, no mask, or one of `_key_mask`'s (a hole of one key tile in item 0 and
+    whole padded query tiles in item 1; an item with no valid key)."""
+    if kind == "none":
+        return None
+    if kind == "ragged":
+        lengths = torch.tensor([t_len - (i * 9) % max(1, t_len // 2) for i in range(b)], device=dev)
+        return (torch.arange(t_len, device=dev)[None, :] < lengths[:, None]).float()
+    return _key_mask(kind, b, t_len, dev)
+
+
+@pytest.mark.parametrize("t_len", [97, 1024])
+@pytest.mark.parametrize("kind,mask_kind", [(kind, m) for kind in ("v2", "kt")
+                                            for m in ("ragged", "none", "holed", "all_masked")]
+                         + [("matmul", "none"), ("nomax", "none"), ("bf16", "none")])
+def test_attention_variant_kernels_f32_every_row(dev, t_len, kind, mask_kind):
+    """The f32 variants (attention.cuh's f32 core under QPRE, KTMINOR and every MODE, which computes every query
+    row) against their plain versions on every row, padded query rows included, at the f32 bar: a ragged mask, no
+    mask, a hole of one whole key tile beside whole padded query tiles, and an item with no valid key."""
+    from stabletts_torch.ops import attention_variants_cuda as av
+
+    rng = np.random.default_rng(14)
+    b = 2
+    q, k, v = (_rand(rng, dev, torch.float32, b, t_len, 256) for _ in range(3))
+    run, plain, count = _variant_case(av, kind, q, k, v, _variant_mask(mask_kind, b, t_len, dev))
+    before = count()
+    got = run()
+    assert count() == before + 1 and torch.isfinite(got).all()
+    assert _rel(got, plain()) <= 5e-3
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float32, 5e-3), (BF16, 2e-2)])
+@pytest.mark.parametrize("t_len", [97, 1024])
+@pytest.mark.parametrize("rot,mask_kind", [(32, "holed"), (16, "none"), (64, "ragged"), (6, "request")])
+def test_attention_packed_rope_is_rotation_then_core(dev, dtype, bar, t_len, rot, mask_kind):
+    """#7 on the card is two launches, the rotation and the v2 core on the rotated q and k: the rotation equals its
+    plain version bit for bit (each product and the sum rounded to the dtype, never fused), #7's output equals the
+    rotation kernel followed by the core bit for bit, and it holds its bar against its plain version on the valid
+    rows (every row of an item without a valid key; padded rows finite)."""
+    from stabletts_torch.ops import attention_variants_cuda as av
+
+    rng = np.random.default_rng(15)
+    b = 2
+    q, k, v = (_rand(rng, dev, dtype, b, t_len, 256) for _ in range(3))
+    mask = _variant_mask(mask_kind, b, t_len, dev)
+    rotations, calls = av.rope_rotate_packed.launches, av.attention_packed_rope.launches
+    qr, kr = av.rope_rotate_packed(q, k, 4, rot)
+    assert av.rope_rotate_packed.launches == rotations + 1
+    want_q, want_k = av.rope_rotate_packed_plain(q, k, 4, rot)
+    assert torch.equal(qr, want_q) and torch.equal(kr, want_k)
+    got = av.attention_packed_rope(q, k, v, mask, rotary_dim=rot)
+    assert av.attention_packed_rope.launches == calls + 1 and av.rope_rotate_packed.launches == rotations + 2
+    mask_ptr = 0 if mask is None else mask.data_ptr()
+    assert torch.equal(got, av._rope_core(qr, kr, v, mask_ptr, 4)) and torch.isfinite(got).all()
+    rows = torch.ones(b, t_len, dtype=torch.bool, device=dev) if mask is None else \
+        (mask > 0) | (mask.amax(1) <= 0)[:, None]
+    assert _rel(got[rows], av.attention_packed_rope_plain(q, k, v, mask, rotary_dim=rot)[rows]) <= bar
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+def test_rope_rotation_unaligned(dev, dtype):
+    """The rotation kernel on q and k that start 4 or 8 bytes past a 16-byte boundary (element copies in place of
+    16-byte accesses) against its plain version, bit for bit."""
+    from stabletts_torch.ops import attention_variants_cuda as av
+
+    rng = np.random.default_rng(16)
+    b, t_len, c = 2, 97, 256
+    q, k = (_rand(rng, dev, dtype, b * t_len * c + 8)[2:2 + b * t_len * c].view(b, t_len, c) for _ in range(2))
+    assert q.data_ptr() % 16 and k.data_ptr() % 16
+    qr, kr = av.rope_rotate_packed(q, k, 4, 32)
+    want_q, want_k = av.rope_rotate_packed_plain(q, k, 4, 32)
+    assert torch.equal(qr, want_q) and torch.equal(kr, want_k)
+
+
 @pytest.mark.parametrize("t_len", [64, 1000])
 @pytest.mark.parametrize("kind,masked", [("packed", True), ("packed", False), ("packed_t", True), ("packed_t", False),
                                          ("v2", True), ("kt", True), ("rope16", True), ("rope32", False),
