@@ -16,7 +16,8 @@ Phases, one JSON line each; any failure exits nonzero:
      option the callers and the variants set), of #7's rotation and of
      ConvNeXt's depthwise conv + LayerNorm
   3. each kernel against its plain PyTorch version on the card, at the main
-     paths' shapes, f32 and bf16, with times and bounds and the unit of
+     paths' shapes (the serving kernels also at the bench's B=192 in bf16),
+     f32 and bf16, with times and bounds and the unit of
      each kernel's products ("core": "wgmma" for bf16 on the attention cores,
      the tap GEMM or the weight-gradient GEMM, else "fma"; "projections" for
      the tap GEMMs beside an attention core; "wgrad" for a backward's
@@ -54,7 +55,15 @@ Phases, one JSON line each; any failure exits nonzero:
      adapter, the all-library block), each against the default's mel with
      its exact launch counts, and the bench batch under two of them; one
      request per ODE solver with its estimator calls; one request through
-     the FireflyGAN vocoder, and that vocoder on the GPU against the CPU
+     the FireflyGAN vocoder, and that vocoder on the GPU against the CPU;
+     one request each in Japanese, Chinese (from pinned phoneme ids: the
+     machine with the card has no jieba) and mixed ja+en text
+     (`serving_languages`); a reference clip written as WAV and FLAC (and mp3
+     and ogg where their codec libraries are here), each reference mel held
+     to the WAV's, and a request from each compressed file
+     (`serving_ref_formats`); the port's serving bench at its defaults (B=192,
+     1000 frames, CFG 1, bf16; CFG 3 at B=96; the B=1 latency) behind its
+     kernel gate, its JSON line and then the `bench` record
   5. device time by kernel over one request (torch.profiler)
   6. one request on the GPU (kernels) against the same request on the CPU
      (plain versions), same weights and noise
@@ -81,7 +90,8 @@ Phases, one JSON line each; any failure exits nonzero:
      against the trainer's `DiscriminatorP`; one step on the GPU against the
      CPU from the same state
  10. the `kernels` line (launches: over the main paths' runs, the
-     `inference` requests of phase 4, the requests of phase 4's block
+     `inference`, language and reference-format requests and the bench's
+     timed iterations of phase 4, the requests of phase 4's block
      configurations that run the kernel, the `train_steps` run of phase 7,
      the `train_config` runs that run the kernel and the `mpd_in_gan` run;
      times: the bf16 bench shape for serving kernels; the decoder's shape in
@@ -113,32 +123,10 @@ import torch
 
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # H100 SXM, dense, no tensor-core f32
 PEAK_BYTES = 3.35e12
-BARS = {"dit_block": {torch.float32: 5e-3, torch.bfloat16: 2e-2},
-        "dit_attention": {torch.float32: 5e-3, torch.bfloat16: 2e-2},
-        "adaln_ffn": {torch.float32: 5e-3, torch.bfloat16: 2e-2},
-        # tools/tpu_selftest.py:68 in bf16
-        "attention_packed": {torch.float32: 5e-3, torch.bfloat16: 2e-2},
-        "attention_packed_t": {torch.float32: 5e-3, torch.bfloat16: 2e-2},
-        "convnext": {torch.float32: 2e-2, torch.bfloat16: 2e-2},
-        "istft": {torch.float32: 1e-4, torch.bfloat16: 1e-3},
-        # forward and every gradient (tools/tpu_selftest.py:96, 155, 209 in bf16)
-        "ffn_train": {torch.float32: 5e-3, torch.bfloat16: 2e-2},
-        "dit_attention_train": {torch.float32: 5e-3, torch.bfloat16: 2e-2},
-        "attention_train": {torch.float32: 5e-3, torch.bfloat16: 2e-2},
-        "prenet_train": {torch.float32: 5e-3, torch.bfloat16: 2e-2},
-        # the bare tap GEMM: f32 sums in another order (bf16: the DiT block's bar)
-        "tap_gemm": {torch.float32: 1e-4, torch.bfloat16: 2e-2},
-        # the bare weight gradient and column sums: f32 sums of the same (bf16: exact) products in another order
-        "wgrad": {torch.float32: 1e-4, torch.bfloat16: 1e-3},
-        "colsum": {torch.float32: 1e-4, torch.bfloat16: 1e-4}}
-VARIANT_KERNELS = ("attention_packed_v2", "attention_packed_rope", "attention_packed_kt",
-                   "attention_decompose_matmul", "attention_decompose_nomax", "attention_decompose_bf16")
-# the attention bar for every variant (tools/tpu_selftest.py:68); the matmul-only
-# mode's error is relative to its own output's largest value like the others'
-BARS.update({name: {torch.float32: 5e-3, torch.bfloat16: 2e-2} for name in VARIANT_KERNELS})
-# #7's rotation (the first of its two launches): exact, each product and the sum rounded to the dtype as in its
-# plain version
-BARS["rope_packed"] = {torch.float32: 0.0, torch.bfloat16: 0.0}
+try:  # every kernel's bar, shared with the serving bench's gate (stabletts_torch/tools/selftest.py)
+    from stabletts_torch.ops.bars import BARS, VARIANT_KERNELS
+except ImportError:  # outside the repository: main() says so and exits non-zero
+    BARS, VARIANT_KERNELS = {}, ()
 MPD_BAR = 2e-4  # max-abs, f32 (tests/test_mpd_pallas.py:29)
 # shapes and lengths that run each form of the MAS kernel (b, Ty, Tx, t_ys, t_xs)
 MAS_FORMS = [(4, 1000, 1024, [1000, 1000, 950, 300], [1024, 900, 1, 1000]),
@@ -750,6 +738,9 @@ def phase_kernels(dev) -> dict:
     cases += [(fn, dict(b=b, t=t, dtype=dt)) for fn in (check_convnext, check_istft)
               for b, t in ((1, 1000), (8, 1000), (1, 333)) for dt in (f32, bf)]
     cases.append((check_istft, dict(b=8, t=1000, dtype=f32, with_lengths=True)))
+    # the serving bench's batch (stabletts_torch/tools/bench.py: B=192, 1000 frames, bf16; the DiT block at T=1024)
+    cases += [(check_dit, dict(b=192, t=1024, dtype=bf)), (check_convnext, dict(b=192, t=1000, dtype=bf)),
+              (check_istft, dict(b=192, t=1000, dtype=bf))]
     cases += [(check_tap_gemm, dict(b=16, t=1024, dtype=dt, product=p)) for p in TAP_GEMM_SHAPES for dt in (f32, bf)]
     # f32 also at a request's shape (2B = 2, the mel cap) and the training step's (B = 32, T = 1000)
     cases += [(check_tap_gemm, dict(b=b, t=t, dtype=f32, product=p)) for b, t in ((2, 1024), (32, 1000))
@@ -1507,20 +1498,22 @@ SENTENCES = [
 ]
 
 
+# the requests of phase `serving_languages`. The machine with the card has no jieba, so the Chinese request starts from
+# its sentence's phoneme ids (cleaned_text_to_sequence(chinese_to_cnm3(ZH_SENTENCE)), before the blanks), pinned here
+# and held to both packages' frontends by tests/test_torch_frontends.py. The mixed sentence has nothing between or
+# after its spans: the router reads such punctuation through the Chinese g2p, which needs jieba.
+JA_SENTENCE = "明日の朝八時に駅で会いましょう"
+ZH_SENTENCE = "今天天气很好，我们一起去公园散步吧。"
+ZH_IDS = [144, 154, 279, 169, 334, 279, 169, 334, 279, 102, 157, 176, 251, 281, 176, 241, 316, 1, 106, 151, 168, 253,
+          283, 69, 154, 101, 156, 102, 187, 179, 369, 344, 70, 380, 280, 142, 277, 282, 117, 202, 114, 194, 2]
+AUTO_SENTENCE = "今日の会議はZoomで行います"
+
+
 def phase_serving(dev, card: str) -> tuple:
-    import stabletts_torch.api as api_mod
     from stabletts_torch.api import StableTTSAPI
     from stabletts_torch.models.sampler import cast_model, synthesise
     from stabletts_torch.text import symbols
 
-    n_synth = [0]
-    real_synth = api_mod.synthesise
-
-    def counting_synth(*a, **k):
-        n_synth[0] += 1
-        return real_synth(*a, **k)
-
-    api_mod.synthesise = counting_synth
     api = StableTTSAPI(device=dev)
     randomise(api.tts_model, seed=7)
     tts_m, voc_m = api.get_params()
@@ -1528,40 +1521,40 @@ def phase_serving(dev, card: str) -> tuple:
     ref = reference_wave(3)
     sr, hop = api.mel_config.sample_rate, api.mel_config.hop_length
 
-    api.inference(SENTENCES[0], ref, "english", step=10, cfg=3.0)  # warm: allocator, cuDNN plans
-    torch.cuda.synchronize()
-    main_counts = expected_counts()  # summed over the inference requests
-    for i, text in enumerate(SENTENCES):
+    with counting_synthesise() as n_synth:
+        api.inference(SENTENCES[0], ref, "english", step=10, cfg=3.0)  # warm: allocator, cuDNN plans
+        torch.cuda.synchronize()
+        main_counts = expected_counts()  # summed over the inference requests
+        for i, text in enumerate(SENTENCES):
+            reset_counts()
+            n_synth[0] = 0
+            t0 = time.time()
+            wav, mel = api.inference(text, ref, "english", step=10, cfg=3.0, seed=i)
+            wall = time.time() - t0
+            counts = read_counts()
+            for k, v in counts.items():
+                main_counts[k] += v
+            expect = expected_counts(dit_block=63 * n_synth[0], convnext=8, istft=1)
+            ok = counts == expect and np.isfinite(wav).all() and wav.shape[1] == mel.shape[2] * hop
+            emit({"phase": "serving_request", "text_chars": len(text), "frames": int(mel.shape[2]),
+                  "wall_ms": wall * 1e3, "audio_s_per_s": wav.shape[1] / sr / wall, "launches": counts,
+                  "expected_launches": expect, "card": card, "ok": bool(ok)})
+            if not ok:
+                fail(f"serving request {i}: launches {counts} vs {expect}, or bad output shape/values")
+
         reset_counts()
         n_synth[0] = 0
         t0 = time.time()
-        wav, mel = api.inference(text, ref, "english", step=10, cfg=3.0, seed=i)
+        wavs = api.batch_inference([(s, "english") for s in SENTENCES], ref, step=10, cfg=3.0)
         wall = time.time() - t0
         counts = read_counts()
-        for k, v in counts.items():
-            main_counts[k] += v
         expect = expected_counts(dit_block=63 * n_synth[0], convnext=8, istft=1)
-        ok = counts == expect and np.isfinite(wav).all() and wav.shape[1] == mel.shape[2] * hop
-        emit({"phase": "serving_request", "text_chars": len(text), "frames": int(mel.shape[2]),
-              "wall_ms": wall * 1e3, "audio_s_per_s": wav.shape[1] / sr / wall, "launches": counts,
+        ok = counts == expect and len(wavs) == len(SENTENCES) and all(np.isfinite(w).all() for w in wavs)
+        emit({"phase": "serving_batch", "items": len(wavs), "wall_ms": wall * 1e3,
+              "audio_s_per_s": sum(w.shape[0] for w in wavs) / sr / wall, "launches": counts,
               "expected_launches": expect, "card": card, "ok": bool(ok)})
         if not ok:
-            fail(f"serving request {i}: launches {counts} vs {expect}, or bad output shape/values")
-
-    reset_counts()
-    n_synth[0] = 0
-    t0 = time.time()
-    wavs = api.batch_inference([(s, "english") for s in SENTENCES], ref, step=10, cfg=3.0)
-    wall = time.time() - t0
-    counts = read_counts()
-    expect = expected_counts(dit_block=63 * n_synth[0], convnext=8, istft=1)
-    ok = counts == expect and len(wavs) == len(SENTENCES) and all(np.isfinite(w).all() for w in wavs)
-    emit({"phase": "serving_batch", "items": len(wavs), "wall_ms": wall * 1e3,
-          "audio_s_per_s": sum(w.shape[0] for w in wavs) / sr / wall, "launches": counts,
-          "expected_launches": expect, "card": card, "ok": bool(ok)})
-    if not ok:
-        fail(f"batch_inference: launches {counts} vs {expect}, or bad outputs")
-    api_mod.synthesise = real_synth
+            fail(f"batch_inference: launches {counts} vs {expect}, or bad outputs")
 
     # bench shape: B=8, 96 phoneme ids, 1000 frames, 10 Euler steps, CFG 3, bf16
     b, frames, tx = 8, 1000, 96
@@ -1596,6 +1589,187 @@ def phase_serving(dev, card: str) -> tuple:
     if not ok:
         fail(f"bf16 bench batch: launches {counts} vs {expect}, or bad output")
     return api, main_counts, pipeline
+
+
+@contextlib.contextmanager
+def counting_synthesise():
+    """Counts the API's synthesise calls (the mel cap's regrowth calls it
+    again) in the yielded one-element list."""
+    import stabletts_torch.api as api_mod
+
+    real, n_synth = api_mod.synthesise, [0]
+
+    def counting(*a, **k):
+        n_synth[0] += 1
+        return real(*a, **k)
+
+    api_mod.synthesise = counting
+    try:
+        yield n_synth
+    finally:
+        api_mod.synthesise = real
+
+
+def phase_serving_languages(api, card: str) -> dict:
+    """One f32 request (10 Euler steps, CFG 3) in Japanese, in Chinese and in
+    mixed ja+en text through `StableTTSAPI.inference`, each twice (the first
+    call loads the frontend's dictionaries): wall ms of both, frames, the
+    launches of the second against 63 DiT blocks a synthesis, 8 ConvNeXt
+    blocks and 1 ISTFT, finite output. The Chinese g2p is the pinned table of
+    ZH_IDS. Returns the launches summed over the second calls."""
+    from stabletts_torch.text import symbols
+
+    ref = reference_wave(4)
+    total = expected_counts()
+    real_zh = api.g2p_mapping["chinese"]
+    api.g2p_mapping["chinese"] = {ZH_SENTENCE: [symbols[i] for i in ZH_IDS]}.__getitem__
+    try:
+        with counting_synthesise() as n_synth:
+            for lang, text in (("japanese", JA_SENTENCE), ("chinese", ZH_SENTENCE), ("auto", AUTO_SENTENCE)):
+                t0 = time.time()
+                api.inference(text, ref, lang, step=10, cfg=3.0, seed=0)
+                first = time.time() - t0
+                reset_counts()
+                n_synth[0] = 0
+                t0 = time.time()
+                wav, mel = api.inference(text, ref, lang, step=10, cfg=3.0, seed=0)
+                wall = time.time() - t0
+                counts = read_counts()
+                for k, v in counts.items():
+                    total[k] += v
+                expect = expected_counts(dit_block=63 * n_synth[0], convnext=8, istft=1)
+                ok = bool(counts == expect and np.isfinite(wav).all() and np.isfinite(mel).all()
+                          and wav.shape[1] == mel.shape[2] * api.mel_config.hop_length)
+                emit({"phase": "serving_languages", "language": lang, "text": text,
+                      "phoneme_ids": len(api._phonemes(text, lang)), "frames": int(mel.shape[2]),
+                      "wall_ms": wall * 1e3, "wall_ms_first_call": first * 1e3, "launches": counts,
+                      "expected_launches": expect, "card": card, "ok": ok})
+                if not ok:
+                    fail(f"serving_languages {lang}: launches {counts} vs {expect}, or bad output")
+    finally:
+        api.g2p_mapping["chinese"] = real_zh
+    return total
+
+
+def _codec_fixtures():
+    """tests/torch_codec_fixtures.py (the clip writers), loaded by path."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_codec_fixtures.py")
+    spec = importlib.util.spec_from_file_location("torch_codec_fixtures", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# the JAX package's bar for a lossy codec's round trip: the aligned waveforms' correlation (tests/test_codecs.py:82)
+LOSSY_CORRELATION = 0.98
+
+
+def _aligned_correlation(ref: np.ndarray, got: np.ndarray, max_lag: int = 4000) -> float:
+    """Best normalised correlation of got against ref over lags 0..max_lag (a codec's delay)."""
+    n = min(len(ref), len(got)) - max_lag
+    a = ref[:n]
+    return max(float(np.dot(a, got[lag:lag + n]) / (np.linalg.norm(a) * np.linalg.norm(got[lag:lag + n]) + 1e-12))
+               for lag in range(max_lag))
+
+
+def reference_formats(api, root: str, wave: np.ndarray) -> list:
+    """`wave` written under `root` as WAV and FLAC, and as mp3 and ogg where
+    their codec libraries are on this machine, each read back as the API
+    reads a reference path. FLAC is lossless: its reference mel must equal
+    the WAV's. mp3 and ogg must keep LOSSY_CORRELATION with the WAV's
+    samples; their mels differ by the codec's delay and loss. One row a
+    format, with its path."""
+    from stabletts_torch.utils.audio_io import load_and_resample_audio, save_wav
+
+    fx = _codec_fixtures()
+    sr = api.mel_config.sample_rate
+    wav_path = os.path.join(root, "ref.wav")
+    save_wav(wav_path, wave, sr)
+    base_mel = api._reference_mel(wav_path)[0]
+    base_wave = load_and_resample_audio(wav_path, sr)
+    rows = []
+    for fmt, libs, write in (("flac", (), fx.write_flac), ("mp3", fx.MP3_LIBS, fx.write_mp3),
+                             ("ogg", fx.OGG_LIBS, fx.write_ogg)):
+        if not fx.have(*libs):
+            rows.append({"format": fmt, "decoded": False, "missing_libraries": [l for l in libs if not fx.have(l)],
+                         "ok": True})
+            continue
+        path = os.path.join(root, f"ref.{fmt}")
+        write(path, wave, sr)
+        mel = api._reference_mel(path)[0]
+        row = {"format": fmt, "decoded": True, "path": path, "frames": int(mel.shape[1]),
+               "frames_wav": int(base_mel.shape[1])}
+        if fmt == "flac":
+            same = mel.shape == base_mel.shape
+            row["mel_max_abs_err_vs_wav"] = (mel - base_mel).abs().max().item() if same else math.inf
+            row.update(bar=0.0, ok=row["mel_max_abs_err_vs_wav"] == 0.0)
+        else:
+            row["correlation_vs_wav"] = _aligned_correlation(base_wave, load_and_resample_audio(path, sr))
+            row.update(bar=LOSSY_CORRELATION, ok=row["correlation_vs_wav"] >= LOSSY_CORRELATION)
+        rows.append(row)
+    return rows
+
+
+def phase_serving_ref_formats(api, card: str) -> dict:
+    """`reference_formats` of a clip from a seed, then one f32 request (10
+    Euler steps, CFG 3) for each decoded compressed format with that file's
+    path as its reference: launches, finite output. Returns the launches
+    summed."""
+    total = expected_counts()
+    with tempfile.TemporaryDirectory() as root, counting_synthesise() as n_synth:
+        for row in reference_formats(api, root, reference_wave(9)):
+            if row["decoded"]:
+                reset_counts()
+                n_synth[0] = 0
+                t0 = time.time()
+                wav, mel = api.inference(SENTENCES[1], row["path"], "english", step=10, cfg=3.0, seed=0)
+                row["wall_ms"] = (time.time() - t0) * 1e3
+                counts = read_counts()
+                for k, v in counts.items():
+                    total[k] += v
+                expect = expected_counts(dit_block=63 * n_synth[0], convnext=8, istft=1)
+                row.update(launches=counts, expected_launches=expect,
+                           ok=bool(row["ok"] and counts == expect and np.isfinite(wav).all()))
+                row.pop("path")
+            emit({"phase": "serving_ref_formats", **row, "card": card})
+            if not row["ok"]:
+                fail(f"serving_ref_formats: {row}")
+    return total
+
+
+def phase_bench(card: str) -> dict:
+    """The port's serving bench (stabletts_torch/tools/bench.py) at its
+    defaults with the gate on: its JSON line, then a record of it with the
+    peak device memory over the bench. The
+    launches of its timed iterations (the headline's and CFG 3's) must be 63
+    DiT blocks, 8 ConvNeXt blocks and 1 ISTFT an iteration; they are
+    returned, summed."""
+    from stabletts_torch.tools import bench as bench_mod
+
+    args = bench_mod.parse_args([])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    result = bench_mod.main([])
+    seconds = time.time() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9  # with the earlier phases' models still resident
+    d = result["detail"]
+    iters = {"dit_block": 63 * args.iters, "convnext": 8 * args.iters, "istft": args.iters}
+    total = expected_counts()
+    for launches in (d["launches"], d["cfg3"]["launches"]):
+        for k, v in launches.items():
+            total[k] += v
+    ok = bool(d["kernel_selftest"] == "pass" and d["platform"] == "gpu" and d["launches"] == iters
+              and d["cfg3"]["launches"] == iters and d["cfg3"]["batch"] == 96 and math.isfinite(result["value"])
+              and result["value"] > 0 and d["b1"]["latency_ms"] > 0)
+    emit({"phase": "bench", "iters": args.iters, "seconds": seconds, "peak_memory_gb": peak_gb,
+          "audio_s_per_s": result["value"], "cfg3_audio_s_per_s": d["cfg3"]["audio_s_per_s"],
+          "b1_latency_ms": d["b1"]["latency_ms"], "expected_launches_per_measurement": iters, "card": card, "ok": ok})
+    if not ok:
+        fail(f"bench: {result}")
+    torch.cuda.empty_cache()
+    return total
 
 
 BLOCK_VARIABLES = ("STABLETTS_DIT_BLOCK", "STABLETTS_DIT_FUSED", "STABLETTS_FFN_IMPL", "STABLETTS_ATTN_IMPL",
@@ -2473,13 +2647,16 @@ def main() -> None:
     config_counts = phase_serving_configs(api, bench_pipeline, card)
     phase_serving_solvers(api, card)
     phase_serving_ffgan(dev, card)
+    main_path_counts = [phase_serving_languages(api, card), phase_serving_ref_formats(api, card), phase_bench(card)]
     ref = reference_wave(5)
     phase_profile("request_f32", lambda: api.inference(SENTENCES[2], ref, "english", step=10, cfg=3.0), card)
     phase_profile("bench_bf16", bench_pipeline, card)
     phase_gpu_vs_cpu(api, reference_wave(3))
-    # the default path's launches from its `inference` requests, the other DiT
-    # kernels' from the requests of the configurations that run them
-    counts = {k: (v if k in ("dit_block", "convnext", "istft") else config_counts[k]) for k, v in counts.items()}
+    # the default path's launches from its `inference` requests and the language,
+    # reference-format and bench phases, the other DiT kernels' from the requests
+    # of the configurations that run them
+    counts = {k: (v + sum(c[k] for c in main_path_counts) if k in ("dit_block", "convnext", "istft")
+                  else config_counts[k]) for k, v in counts.items()}
     missing = [k for k, v in counts.items() if v == 0]
     if missing:
         fail(f"kernels never launched on the serving paths: {missing}")

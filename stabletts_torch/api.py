@@ -27,6 +27,9 @@ from stabletts_torch.models.vocos import Vocos
 from stabletts_torch.ops.stft import log_mel_spectrogram
 from stabletts_torch.text import cleaned_text_to_sequence, intersperse
 from stabletts_torch.text.english import english_to_ipa2
+from stabletts_torch.text.japanese import japanese_to_ipa2
+from stabletts_torch.text.mandarin import chinese_to_cnm3
+from stabletts_torch.text.router import auto_g2p
 from stabletts_torch.utils.convert import load_ffgan_state_dict, load_torch_state_dict
 from stabletts_torch.utils.device import resolve_device
 
@@ -82,7 +85,13 @@ class StableTTSAPI:
         self.tts_model.to(self.device)
         self.vocoder_model.to(self.device)
 
-        self.g2p_mapping = {"english": english_to_ipa2}
+        self.g2p_mapping = {
+            "chinese": chinese_to_cnm3,
+            "japanese": japanese_to_ipa2,
+            "english": english_to_ipa2,
+            # mixed-language routing by script (text/router.py)
+            "auto": auto_g2p,
+        }
         self.supported_languages = self.g2p_mapping.keys()
         self._shape_ladder = warmup_lengths is not None
         if warmup_lengths:
@@ -99,15 +108,15 @@ class StableTTSAPI:
         return intersperse(cleaned_text_to_sequence(phonemizer(text)), 0)
 
     def _reference_mel(self, ref_audio) -> tuple:
-        """numpy waveform, or the path of a WAV file (resampled to the mel
-        config's rate) -> ([1, Tref, n_mels] mel, mask or None), bucketed in
+        """numpy waveform, or the path of a WAV, FLAC, mp3 or ogg file
+        (resampled to the mel config's rate) -> ([1, Tref, n_mels] mel, mask or None), bucketed in
         ladder mode."""
         if isinstance(ref_audio, str):
             from stabletts_torch.utils.audio_io import load_and_resample_audio
 
             ref_audio = load_and_resample_audio(ref_audio, self.mel_config.sample_rate)
             if ref_audio is None:
-                raise ValueError("could not load the reference audio file (WAV and FLAC are decodable here)")
+                raise ValueError("could not load the reference audio file (WAV, FLAC, mp3 and ogg are decodable)")
         wav = torch.from_numpy(np.asarray(ref_audio, dtype=np.float32)).to(self.device)
         ref_mel = log_mel_spectrogram(wav[None, :], self.mel_config)
         if not self._shape_ladder:

@@ -1,12 +1,14 @@
-"""Host-side audio IO: WAV and FLAC decode with resampling.
+"""Host-side audio IO: WAV, FLAC, mp3 and ogg decode with resampling.
 
 The port's copy of the JAX package's `utils/audio_io.py` (reference:
-utils/audio.py:59-74). `load_and_resample_audio` takes the port's native
-loader first (`stabletts_torch/native`: WAV and FLAC decode, windowed-sinc
-resampling), as the JAX package does, and scipy's WAV reader with polyphase
-resampling where the library cannot be built. `load_audio` reads WAV only:
-the Python FLAC decoder and the mp3 and ogg decoders are not ported yet and
-raise.
+utils/audio.py:59-74). `load_audio` sniffs the container by its magic bytes:
+WAV decodes via scipy, FLAC via the numpy decoder (`utils/flac_py.py`), mp3
+and ogg/vorbis via the system codec libraries (`utils/codecs.py`: libmpg123
+and libvorbisfile, loaded at first use). `load_and_resample_audio` takes the
+port's native loader first (`stabletts_torch/native`: WAV and FLAC decode,
+windowed-sinc resampling), as the JAX package does, and `load_audio` with
+scipy's polyphase resampling where the library cannot be built or does not
+read the file.
 """
 
 from __future__ import annotations
@@ -22,12 +24,28 @@ def load_audio(path: str) -> tuple[np.ndarray, int]:
     # sniff by magic bytes, not extension
     with open(path, "rb") as fh:
         magic = fh.read(4)
+    if magic == b"fLaC":
+        from stabletts_torch.utils.flac_py import decode_flac
+
+        with open(path, "rb") as fh:
+            return decode_flac(fh.read())
+    if magic == b"OggS":
+        from stabletts_torch.utils.codecs import decode_ogg
+
+        wav, sr = decode_ogg(path)
+        return wav[:, 0], sr  # mono via first channel, as the WAV path
+    if magic[:3] == b"ID3" or (
+        len(magic) >= 2 and magic[0] == 0xFF and (magic[1] & 0xE0) == 0xE0
+    ):
+        from stabletts_torch.utils.codecs import decode_mp3
+
+        wav, sr = decode_mp3(path)
+        return wav[:, 0], sr
     if magic != b"RIFF":
         ext = os.path.splitext(path)[1].lower()
         raise ValueError(
             f"unsupported audio format {ext!r} (WAV, FLAC, mp3 and ogg are "
-            "decodable in this environment; convert others offline): "
-            "FLAC, mp3 and ogg decoding is not ported yet, only WAV is read here"
+            "decodable in this environment; convert others offline)"
         )
     from scipy.io import wavfile
 

@@ -1,6 +1,7 @@
 """stabletts_torch.api against the JAX package's API on the CPU: phoneme ids,
 the reference log-mel, sentence splitting, and the shapes that inference,
-batch_inference and inference_long return with the same weights."""
+batch_inference and inference_long return with the same weights, in every
+language the API maps and from a reference file in each decodable format."""
 
 import dataclasses
 
@@ -180,3 +181,56 @@ def test_vocoder_choice_matches_jax(ffgan_checkpoint, name, with_path):
         got = n(ours.vocoder_model(torch.from_numpy(mel)))
         assert got.shape == want.shape == (1, 12 * 512)
         assert float(np.abs(got - want).max() / np.abs(want).max()) <= 1e-3
+
+
+# a sentence per non-English language of the API's map
+LANGUAGE_SENTENCES = {"chinese": "今天天气很好，我们一起去公园散步吧。", "japanese": "明日の朝八時に駅で会いましょう",
+                      "auto": "今日の会議はZoomで行います。Hello 世界, this is mixed text."}
+
+
+def test_api_maps_the_languages_of_jax(apis):
+    japi, ours = apis
+    assert list(ours.supported_languages) == list(japi.supported_languages) == ["chinese", "japanese", "english", "auto"]
+    from stabletts_tpu.text import cleaned_text_to_sequence as jseq
+    from stabletts_tpu.text import intersperse as jinter
+
+    for lang, text in LANGUAGE_SENTENCES.items():
+        ids = ours._phonemes(text, lang)
+        assert ids == jinter(jseq(japi.g2p_mapping[lang](text)), 0) and len(ids) > 10
+
+
+@pytest.mark.parametrize("lang", list(LANGUAGE_SENTENCES))
+def test_inference_in_each_language_matches_jax_shapes(apis, lang):
+    japi, ours = apis
+    ref = _wave(seed=6)
+    kw = dict(step=1, cfg=1.0)
+    jwav, jmel = japi.inference(LANGUAGE_SENTENCES[lang], ref, lang, **kw)
+    wav, mel = ours.inference(LANGUAGE_SENTENCES[lang], ref, lang, **kw)
+    assert wav.shape == jwav.shape and mel.shape == jmel.shape
+    assert wav.shape[1] == mel.shape[2] * MEL_CFG.hop_length and np.isfinite(wav).all()
+
+
+@pytest.mark.parametrize("fmt", ["flac", "mp3", "ogg"])
+def test_api_reads_a_compressed_reference(apis, tmp_path, fmt):
+    """A FLAC, mp3 or ogg path as `ref_audio`: the JAX API's output shapes, and
+    for lossless FLAC what the same clip's WAV path gives, bit for bit."""
+    import torch_codec_fixtures as fx
+    from stabletts_torch.utils.audio_io import save_wav
+
+    libs = {"flac": (), "mp3": fx.MP3_LIBS, "ogg": fx.OGG_LIBS}[fmt]
+    if not fx.have(*libs):
+        pytest.skip(f"{fmt} codec libraries not found")
+    japi, ours = apis
+    sr = ours.mel_config.sample_rate
+    wave = _wave(seed=8, sr=sr)
+    wav_path, path = str(tmp_path / "ref.wav"), str(tmp_path / f"ref.{fmt}")
+    save_wav(wav_path, wave, sr)
+    getattr(fx, f"write_{fmt}")(path, wave, sr)
+    kw = dict(step=1, cfg=1.0, seed=4)
+    text = LANGUAGE_SENTENCES["japanese"]
+    wav, mel = ours.inference(text, path, "japanese", **kw)
+    jwav, jmel = japi.inference(text, path, "japanese", **kw)
+    assert wav.shape == jwav.shape and mel.shape == jmel.shape and np.isfinite(wav).all()
+    if fmt == "flac":
+        wav_w, mel_w = ours.inference(text, wav_path, "japanese", **kw)
+        assert np.array_equal(mel, mel_w) and np.array_equal(wav, wav_w)

@@ -129,13 +129,17 @@ def test_port_imports_nothing_of_jax():
                           if m.split(".")[0] in FORBIDDEN]
     assert not offenders, offenders
     assert len(_port_files()) > 20
-    # the training slices' files are among those searched
+    # the training slices' files, and the frontends, decoders and bench of the serving slice, are among those searched
     searched = {os.path.relpath(p, REPO) for p in _port_files()}
     assert {"chip_smoke.py", "stabletts_torch/ops/attention_train_cuda.py", "stabletts_torch/ops/prenet_train_cuda.py",
             "stabletts_torch/ops/mpd_cuda.py", "stabletts_torch/models/discriminators.py",
             "stabletts_torch/models/gan_losses.py", "stabletts_torch/train/train_vocos.py",
             "stabletts_torch/data/vocos_dataset.py", "stabletts_torch/utils/audio_io.py",
-            "stabletts_torch/tools/ab_dit_attention_train.py"} <= searched
+            "stabletts_torch/tools/ab_dit_attention_train.py", "stabletts_torch/text/numbers_zh.py",
+            "stabletts_torch/text/pinyin.py", "stabletts_torch/text/mandarin.py", "stabletts_torch/text/numbers_ja.py",
+            "stabletts_torch/text/japanese.py", "stabletts_torch/text/router.py", "stabletts_torch/utils/flac_py.py",
+            "stabletts_torch/utils/codecs.py", "stabletts_torch/ops/bars.py", "stabletts_torch/tools/bench.py",
+            "stabletts_torch/tools/selftest.py"} <= searched
 
 
 def _port_modules():

@@ -800,3 +800,46 @@ def test_attention_core_bf16_tiles(dev, t_len, kind, masked):
         got, ref = got.transpose(1, 2), ref.transpose(1, 2)
     rows = torch.ones(b, t_len, dtype=torch.bool, device=dev) if mask is None else mask > 0
     assert _rel(got[rows], ref[rows]) <= 2e-2
+
+
+def test_serving_bench_gate_passes(dev):
+    """The serving bench's gate (stabletts_torch/tools/selftest.py): #1, #2
+    and #3 within their bars of their plain versions on the card."""
+    from stabletts_torch.tools import selftest
+
+    before = {name: fn.launches for name, fn in _serving_kernels().items()}
+    rows = selftest.run(dev)
+    assert len(rows) == 8 and all(r["ok"] for r in rows), rows
+    # the gate ran the kernels, not their plain versions
+    assert {name: fn.launches - before[name] for name, fn in _serving_kernels().items()} == {
+        "dit_block": 2, "convnext": 2, "istft": 4}
+
+
+def _serving_kernels():
+    from stabletts_torch.ops.convnext_cuda import convnext_block
+    from stabletts_torch.ops.dit_block_cuda import dit_block
+    from stabletts_torch.ops.istft_cuda import istft_head
+
+    return {"dit_block": dit_block, "convnext": convnext_block, "istft": istft_head}
+
+
+@pytest.mark.parametrize("name", ["dit_block", "convnext_block", "istft_head"])
+def test_serving_bench_gate_fails_on_a_perturbed_kernel(dev, monkeypatch, capsys, name):
+    """A kernel wrapper whose output is 10% off makes the bench exit non-zero
+    before it measures, and print no metric line."""
+    from stabletts_torch.ops import convnext_cuda, dit_block_cuda, istft_cuda
+    from stabletts_torch.tools import bench
+
+    module = {"dit_block": dit_block_cuda, "convnext_block": convnext_cuda, "istft_head": istft_cuda}[name]
+    real = getattr(module, name)
+
+    def perturbed(*a, **k):
+        return real(*a, **k) * 1.1
+
+    perturbed.launches = 0  # the wrapper counts its launch on the module's attribute
+    monkeypatch.setattr(module, name, perturbed)
+    with pytest.raises(SystemExit) as e:
+        bench.main(["--batch", "2", "--frames", "64", "--steps", "1", "--iters", "1", "--skip-cfg3", "--skip-b1"])
+    assert e.value.code == 1
+    captured = capsys.readouterr()
+    assert "metric" not in captured.out and "kernel selftest failed" in captured.err
