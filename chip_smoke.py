@@ -89,11 +89,26 @@ Phases, one JSON line each; any failure exits nonzero:
      on the trainer's folded MPD weights and a real and a generated batch
      against the trainer's `DiscriminatorP`; one step on the GPU against the
      CPU from the same state
+  9b. the training workflow's entry points: the port's train bench
+     (stabletts_torch/tools/train_bench.py) at its defaults (B=32, 1000
+     frames, text 384, f32), with --dtype bfloat16, --remat and --from-disk
+     (`train_bench`: each JSON line and its record, the launches a timed step
+     held to 9/9/9/9/1, 15 forward of #11 and #12 under remat), their ratios
+     (`train_bench_ratios`); one f32 step with and without
+     ModelConfig.remat at that shape, dropout 0.1 (`remat_step`: losses and
+     gradients within the training bar, the generator's state equal, bits,
+     wall and memory); the port's Vocos GAN bench at its defaults
+     (`vocos_bench`: the training Vocos 768 / 2048 / 12, B=16); and the CLI
+     (`cli`: preprocess over 8 WAVs, train, preprocess-vocos, train-vocos,
+     synth with a random Vocos and through get_vocoder, each WAV against the
+     API's waveform)
  10. the `kernels` line (launches: over the main paths' runs, the
      `inference`, language and reference-format requests and the bench's
      timed iterations of phase 4, the requests of phase 4's block
      configurations that run the kernel, the `train_steps` run of phase 7,
-     the `train_config` runs that run the kernel and the `mpd_in_gan` run;
+     the `train_config` runs that run the kernel, the `mpd_in_gan` run, and
+     the training workflow's runs of phase 9b (the benches' timed steps and
+     the CLI's `train`);
      times: the bf16 bench shape for serving kernels; the decoder's shape in
      the trainer, f32 at B=32, T=1000, dropout 0.1, for the training kernels,
      and the same shape in bf16 for the training attention core ("_bf16",
@@ -1056,7 +1071,8 @@ def check_mas(b, ty, tx, t_ys, t_xs, dev, time_plain=True) -> dict:
 
 def phase_train_kernels(dev) -> dict:
     """The training kernels at (B=32, T=1024), (32, 512) and a ragged (2, 97),
-    f32 and bf16, dropout 0 and 0.1, and at the decoder's shape in the
+    f32 and bf16, dropout 0 and 0.1, at the train bench's encoder shape (32,
+    384), f32 and bf16, dropout 0.1, and at the decoder's shape in the
     trainer, (32, 1000), f32, dropout 0.1 (also in bf16, and the attention
     half in bf16 at dropout 0); MAS at [32, 1000, 384] and [32, 1000, 512] with
     ragged lengths and at degenerate lengths, and at shapes that run each
@@ -1066,7 +1082,7 @@ def phase_train_kernels(dev) -> dict:
     rows, line_rows = [], {}
     f32, bf = torch.float32, torch.bfloat16
     cases = [(b, t, dt, rate) for b, t in ((32, 1024), (32, 512), (2, 97)) for dt in (f32, bf)
-             for rate in (0.0, 0.1)] + [(32, 1000, f32, 0.1)]
+             for rate in (0.0, 0.1)] + [(32, 1000, f32, 0.1), (32, 384, f32, 0.1), (32, 384, bf, 0.1)]
     for kind in ("ffn_train", "dit_attention_train"):
         extra = [(32, 1000, bf, 0.1), (32, 1000, bf, 0.0)] if kind == "dit_attention_train" else [(32, 1000, bf, 0.1)]
         for b, t, dt, rate in cases + extra:
@@ -2614,6 +2630,221 @@ def phase_gan_gpu_vs_cpu(state, audio, cfg) -> None:
         fail(f"GAN step, GPU vs CPU: {rel}")
 
 
+# ------------------------------------------------- the training workflow --
+
+# the train bench's runs (stabletts_torch/tools/train_bench.py at its defaults, then one flag each)
+TRAIN_BENCH_RUNS = {"f32": [], "bf16": ["--dtype", "bfloat16"], "remat": ["--remat"], "from_disk": ["--from-disk"]}
+# under remat the 6 estimator blocks run their forward kernels again in the backward
+REMAT_LAUNCHES_PER_STEP = {**TRAIN_LAUNCHES_PER_STEP, "dit_attention_train_fwd": 15, "ffn_train_fwd": 15}
+
+
+def phase_train_bench(card: str) -> dict:
+    """The port's train bench at its defaults (B=32, 1000 frames, text 384,
+    f32), then with `--dtype bfloat16`, `--remat` and `--from-disk`: each JSON
+    line, then a record of it. The launches a timed step must be 9 of #11 and
+    #12 forward and backward and 1 of MAS (15 forward under remat); the value
+    finite and positive. Then the ratios between the runs. Returns the timed
+    steps' launches, summed over the runs (the bf16 run's training attention
+    core under its "_bf16" names, as the kernels line has them)."""
+    from stabletts_torch.tools import train_bench
+
+    total = {k: 0 for k in (*TRAIN_LAUNCHES_PER_STEP, "dit_attention_train_fwd_bf16", "dit_attention_train_bwd_bf16")}
+    runs = {}
+    for name, argv in TRAIN_BENCH_RUNS.items():
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        result = train_bench.main(argv)
+        d = result["detail"]
+        expect = REMAT_LAUNCHES_PER_STEP if name == "remat" else TRAIN_LAUNCHES_PER_STEP
+        for k, v in d["launches_per_step"].items():
+            total[f"{k}_bf16" if name == "bf16" and k.startswith("dit_attention") else k] += round(v * d["iters"])
+        ok = bool(d["platform"] == "gpu" and d["launches_per_step"] == expect and math.isfinite(result["value"])
+                  and result["value"] > 0 and math.isfinite(d["loss"])
+                  and (name != "from_disk" or d["from_disk"]["prefetch_ms_per_step"] > 0))
+        runs[name] = d
+        emit({"phase": "train_bench", "run": name, "argv": argv, "audio_s_per_s": result["value"],
+              "ms_per_step": d["ms_per_step"], "dtype": d["dtype"], "remat": d["remat"],
+              "peak_memory_gb": d["peak_memory_gb"], "peak_memory_over_resident_gb": d["peak_memory_over_resident_gb"],
+              "launches_per_step": d["launches_per_step"], "expected_launches_per_step": expect, "mas_ms": d["mas_ms"],
+              "from_disk": d["from_disk"], "seconds": time.time() - t0, "card": card, "ok": ok})
+        if not ok:
+            fail(f"train_bench {name}: {result}")
+    f32, remat = runs["f32"], runs["remat"]
+    emit({"phase": "train_bench_ratios", "bf16_speedup": f32["ms_per_step"] / runs["bf16"]["ms_per_step"],
+          "remat_step_time_ratio": remat["ms_per_step"] / f32["ms_per_step"],
+          "remat_peak_memory_over_resident_ratio": remat["peak_memory_over_resident_gb"]
+          / f32["peak_memory_over_resident_gb"],
+          "from_disk_prefetch_overhead": runs["from_disk"]["from_disk"]["overhead_vs_synthetic"], "card": card})
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_remat_step(dev, card: str) -> None:
+    """One f32 training step (forward and backward, no update) at the train
+    bench's shape and inputs, dropout 0.1, with and without remat, from the
+    same weights (seeded, adaLN randomised) and the generator at the same
+    seed: the three losses and every gradient within the training bar of
+    ops/bars.py (max-abs-err over max-abs per tensor), the generator's state
+    after the step equal, the launches 9/9/9/9/1 and 15/9/15/9/1. Reports
+    whether the bits are equal, and whether two calls of the step without
+    remat give equal bits (which says whether a difference comes from remat
+    or from the step itself), each step's wall and peak memory (the second
+    of two calls)."""
+    from stabletts_torch.config import ModelConfig
+    from stabletts_torch.models import build_stabletts
+    from stabletts_torch.ops.bars import BARS
+    from stabletts_torch.tools.train_bench import synthetic_batch
+    from stabletts_torch.train.train_tts import model_losses
+
+    bar = BARS["dit_attention_train"][torch.float32]
+    batch, _ = synthetic_batch(32, 1000, 384, 128, dev)
+    out = {}
+    for remat in (False, True):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            model = build_stabletts(ModelConfig(remat=remat), device=dev)
+        randomise(model, seed=9)
+        model.train()
+        gen = torch.Generator(device=dev)
+        first = None
+        for call in range(2):
+            if call == 1:
+                first = {k: p.grad for k, p in model.named_parameters() if p.grad is not None}
+            model.zero_grad(set_to_none=True)
+            gen.manual_seed(1)
+            reset_train_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            t0 = time.time()
+            dur, diff, prior, _ = model_losses(model, batch, gen)
+            (dur + diff + prior).backward()
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        out[remat] = {"losses": torch.stack([dur, diff, prior]).detach(), "launches": read_train_counts(),
+                      "grads": {k: p.grad for k, p in model.named_parameters() if p.grad is not None},
+                      "gen_state": gen.get_state(), "wall_ms": wall * 1e3, "first_grads": first,
+                      "peak_memory_over_resident_gb": (torch.cuda.max_memory_allocated() - resident) / 1e9}
+        del model
+    a, b = out[False], out[True]
+    rel = lambda x, y: float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+    loss_rel = rel(b["losses"], a["losses"])
+    grad_rel = {k: rel(b["grads"][k], g) for k, g in a["grads"].items()}
+    worst = max(grad_rel, key=grad_rel.get)
+    bits = torch.equal(a["losses"], b["losses"]) and all(torch.equal(a["grads"][k], b["grads"][k]) for k in a["grads"])
+    repeat_bits = all(torch.equal(a["first_grads"][k], g) for k, g in a["grads"].items())
+    ok = bool(a["grads"].keys() == b["grads"].keys() and loss_rel <= bar and grad_rel[worst] <= bar
+              and torch.equal(a["gen_state"], b["gen_state"]) and a["launches"] == TRAIN_LAUNCHES_PER_STEP
+              and b["launches"] == REMAT_LAUNCHES_PER_STEP)
+    emit({"phase": "remat_step", "B": 32, "Ty": 1000, "Tx": 384, "dropout": 0.1, "losses": a["losses"].tolist(),
+          "loss_rel_err": loss_rel, "grad_rel_err": grad_rel[worst], "worst_grad": worst, "bar": bar,
+          "bits_equal": bits, "bits_equal_between_two_steps_without_remat": repeat_bits, "generator_state_equal": torch.equal(a["gen_state"], b["gen_state"]),
+          "launches": a["launches"], "launches_remat": b["launches"], "wall_ms": a["wall_ms"],
+          "wall_ms_remat": b["wall_ms"], "peak_memory_over_resident_gb": a["peak_memory_over_resident_gb"],
+          "peak_memory_over_resident_gb_remat": b["peak_memory_over_resident_gb"], "card": card, "ok": ok})
+    if not ok:
+        fail(f"remat_step: loss rel {loss_rel}, grad rel {grad_rel[worst]} at {worst}, launches {a['launches']} / "
+             f"{b['launches']}, or the generator's state differs")
+    del out
+    torch.cuda.empty_cache()
+
+
+def phase_vocos_bench(card: str) -> None:
+    """The port's Vocos GAN bench at its defaults (the training Vocos 768 /
+    2048 / 12, B=16, segment 20480, f32): its JSON line, then a record of it."""
+    from stabletts_torch.tools import vocos_bench
+
+    t0 = time.time()
+    result = vocos_bench.main([])
+    d = result["detail"]
+    ok = bool(d["platform"] == "gpu" and math.isfinite(result["value"]) and result["value"] > 0
+              and math.isfinite(d["gen_loss_total"]))
+    emit({"phase": "vocos_bench", "audio_s_per_s": result["value"], "ms_per_step": d["ms_per_step"],
+          "peak_memory_gb": d["peak_memory_gb"], "seconds": time.time() - t0, "card": card, "ok": ok})
+    if not ok:
+        fail(f"vocos_bench: {result}")
+    torch.cuda.empty_cache()
+
+
+CLI_TEXTS = ["Hello world, this is a test.", "The quick brown fox jumps.", "Good morning to you all.",
+             "We love speech synthesis.", "A small step for a model.", "Training on random data.",
+             "One more sentence here.", "The end of the list."]
+
+
+def phase_cli(dev, card: str, root: str) -> dict:
+    """The training workflow through `python -m stabletts_torch.cli`'s entry
+    point (`cli.main`, on the card), in a temporary directory: `preprocess`
+    over 8 English WAVs written from a seed, `train --epochs 1 --batch-size
+    4`, `preprocess-vocos`, `train-vocos --epochs 1 --batch-size 4`, then
+    `synth` from the TTS checkpoint, once with no vocoder checkpoint (a random
+    Vocos) and once with the trained generator through `get_vocoder`. Checks
+    the files, that every mel and checkpoint is finite, the training kernels'
+    launches (9 of each of #11 and #12 and 1 of MAS a step), and each WAV
+    against the API's waveform from the same checkpoints: the same length,
+    within 1e-3. Returns the launches of the `train` run."""
+    from scipy.io import wavfile
+
+    from stabletts_torch import cli
+    from stabletts_torch.api import StableTTSAPI
+
+    work = os.path.join(root, "cli")
+    wavs = os.path.join(work, "wavs")
+    os.makedirs(wavs)
+    rng = np.random.default_rng(11)
+    with open(os.path.join(work, "input.txt"), "w") as f:
+        for i, text in enumerate(CLI_TEXTS):
+            n = int(44100 * rng.uniform(0.8, 1.2))
+            t = np.arange(n) / 44100
+            wav = 0.3 * np.sin(2 * np.pi * rng.uniform(100, 300) * t) + 0.02 * rng.standard_normal(n)
+            wavfile.write(os.path.join(wavs, f"u{i}.wav"), 44100, (np.clip(wav, -1, 1) * 32767).astype(np.int16))
+            f.write(f"{os.path.join(wavs, f'u{i}.wav')}|{text}\n")
+    p = lambda *parts: os.path.join(work, *parts)
+    finite = lambda sd: all(bool(torch.isfinite(v).all()) for v in sd.values() if v.is_floating_point())
+    load = lambda path: torch.load(path, map_location="cpu", weights_only=True)
+    t0 = time.time()
+    cli.main(["preprocess", "--input", p("input.txt"), "--output", p("fl", "filelist.json"), "--mel-dir", p("mels"),
+              "--language", "english"])
+    with open(p("fl", "filelist.json")) as f:
+        records = [json.loads(line) for line in f]
+    mels_ok = len(records) == len(CLI_TEXTS) and all(
+        np.isfinite(m).all() and m.shape == (r["mel_length"], 128) for r in records for m in [np.load(r["mel_path"])])
+    reset_train_counts()
+    cli.main(["train", "--dataset", p("fl", "filelist.json"), "--epochs", "1", "--batch-size", "4", "--save-path",
+              p("ckpt")])
+    launches = read_train_counts()
+    steps = launches["mas"]
+    cli.main(["preprocess-vocos", "--input", wavs, "--output", p("fl", "vocos.txt")])
+    with open(p("fl", "vocos.txt")) as f:
+        vocos_list = f.read().splitlines()
+    cli.main(["train-vocos", "--dataset", p("fl", "vocos.txt"), "--epochs", "1", "--batch-size", "4", "--save-path",
+              p("vckpt")])
+    files = sorted(os.listdir(p("ckpt"))) + sorted(os.listdir(p("vckpt")))
+    ckpts_ok = files == ["checkpoint_0.pt", "optimizer_0.pt", "generator_0.pt", "mpd_0.pt", "mrd_0.pt",
+                         "optimizerd_0.pt", "optimizerg_0.pt"] and finite(load(p("ckpt", "checkpoint_0.pt"))) \
+        and finite(load(p("vckpt", "generator_0.pt")))
+    synths = []
+    for name, voc in (("random_vocos", []), ("get_vocoder", ["--vocoder-ckpt", p("vckpt", "generator_0.pt")])):
+        out = p(f"{name}.wav")
+        cli.main(["synth", "--text", "Hello there, how are you?", "--ref", os.path.join(wavs, "u0.wav"), "--tts-ckpt",
+                  p("ckpt", "checkpoint_0.pt"), *voc, "--vocoder", "vocos", "--out", out])
+        sr, got = wavfile.read(out)
+        api = StableTTSAPI(p("ckpt", "checkpoint_0.pt"), voc[1] if voc else None, "vocos", device=dev)
+        want, mel = api.inference("Hello there, how are you?", os.path.join(wavs, "u0.wav"), "english")
+        err = float(np.abs(got / 32767.0 - np.clip(want[0], -1, 1)).max()) if got.shape == want[0].shape else None
+        synths.append({"vocoder": name, "samples": int(got.shape[0]), "api_samples": int(want.shape[1]),
+                       "frames": int(mel.shape[2]), "sample_rate": sr, "max_abs_err_vs_api": err,
+                       "ok": bool(sr == 44100 and got.shape == (mel.shape[2] * 512,) == want[0].shape
+                                  and np.isfinite(want).all() and np.abs(got).max() > 0 and err <= 1e-3)})
+    ok = bool(mels_ok and ckpts_ok and len(vocos_list) == len(CLI_TEXTS) and steps >= 1
+              and launches == {k: v * steps for k, v in TRAIN_LAUNCHES_PER_STEP.items()} and all(s["ok"] for s in synths))
+    emit({"phase": "cli", "records": len(records), "mels_finite": mels_ok, "train_steps": steps,
+          "train_launches": launches, "vocos_filelist": len(vocos_list), "checkpoint_files": files,
+          "checkpoints_finite": ckpts_ok, "synth": synths, "seconds": time.time() - t0, "card": card, "ok": ok})
+    if not ok:
+        fail(f"cli: mels {mels_ok}, checkpoints {files} ({ckpts_ok}), launches {launches}, synth {synths}")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU")
@@ -2668,6 +2899,11 @@ def main() -> None:
         bf16_counts = phase_train_bf16(dev, card, root, f32_first_loss, f32_wall_ms)
         step_fn, step_fn_bf16 = phase_train_overfit(dev, card, root)
         gan_state, gan_audio, gan_cfg = phase_gan(dev, card, root)
+        # the training workflow's own entry points: the two benches and the CLI
+        workflow_counts = [phase_train_bench(card)]
+        phase_remat_step(dev, card)
+        phase_vocos_bench(card)
+        workflow_counts.append(phase_cli(dev, card, root))
     train_counts["mpd_stack"] = phase_mpd_in_gan(gan_state, gan_audio, card)
     phase_profile("train_step", step_fn, card)
     phase_profile("train_bf16", step_fn_bf16, card)
@@ -2677,6 +2913,9 @@ def main() -> None:
     # the opt-in kernels' launches come from the `train_config` runs that run them
     train_counts.update({k: v for k, v in config_train_counts.items() if k not in train_counts})
     train_counts.update(bf16_counts)
+    for counts_of_run in workflow_counts:
+        for k, v in counts_of_run.items():
+            train_counts[k] += v
     missing = [k for k, v in train_counts.items() if v == 0]
     if missing:
         fail(f"kernels never launched on the training paths: {missing}")

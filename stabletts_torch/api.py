@@ -36,6 +36,24 @@ from stabletts_torch.utils.device import resolve_device
 logger = logging.getLogger("stabletts_torch.api")
 
 
+def get_vocoder(model_path: str, model_name: str = "ffgan", device=None,
+                vocos_config: Optional[VocosConfig] = None, mel_config: Optional[MelConfig] = None):
+    """The named vocoder, FireflyGAN ("ffgan") or Vocos ("vocos"), loaded from
+    a reference PyTorch state dict and returned on `device` (the GPU unless
+    the caller passes "cpu") in eval mode (reference: api.py:19-36; the JAX
+    package's `get_vocoder` returns the module with its variables). Vocos is
+    built at `vocos_config` / `mel_config`, the defaults unless given."""
+    if model_name == "ffgan":
+        model = FireflyGANBase(device="cpu")
+        model.load_state_dict(load_ffgan_state_dict(load_torch_state_dict(model_path)))
+    elif model_name == "vocos":
+        model = Vocos(vocos_config or VocosConfig(), mel_config or MelConfig(), device="cpu")
+        model.load_state_dict(load_torch_state_dict(model_path))
+    else:
+        raise NotImplementedError(f"Unsupported vocoder: {model_name}")
+    return model.to(resolve_device(device)).eval()
+
+
 class StableTTSAPI:
     # serving shape ladder: text padded to 64-id buckets, reference mels to
     # 512-frame buckets; masks keep the computation exact on the padding
@@ -70,18 +88,16 @@ class StableTTSAPI:
             self.tts_model = build_stabletts(self.tts_model_config, self.mel_config, device="cpu")
             torch.manual_seed(1)
             # the named vocoder only from a checkpoint; else a random Vocos
-            if vocoder_model_path is not None and vocoder_name == "ffgan":
-                self.vocoder_model = FireflyGANBase(device="cpu")
-            else:
+            if vocoder_model_path is None:
                 self.vocoder_model = Vocos(self._vocos_config, self.mel_config, device="cpu")
+            else:
+                self.vocoder_model = get_vocoder(vocoder_model_path, vocoder_name, "cpu", self._vocos_config,
+                                                 self.mel_config)
         # Vocos takes per-item lengths (the fixed-shape serving mode);
         # FireflyGAN callers trim the mel instead
         self._vocoder_supports_lengths = isinstance(self.vocoder_model, Vocos)
         if tts_model_path is not None:
             self.tts_model.load_state_dict(load_torch_state_dict(tts_model_path))
-        if vocoder_model_path is not None:
-            sd = load_torch_state_dict(vocoder_model_path)
-            self.vocoder_model.load_state_dict(load_ffgan_state_dict(sd) if vocoder_name == "ffgan" else sd)
         self.tts_model.to(self.device)
         self.vocoder_model.to(self.device)
 

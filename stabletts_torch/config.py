@@ -46,6 +46,10 @@ class ModelConfig:
     kernel_size: int = 3
     p_dropout: float = 0.1
     gin_channels: int = 256
+    # recompute each estimator block in the backward (torch.utils.checkpoint):
+    # one more forward of those blocks for less activation memory in training;
+    # no effect on inference or on the state dict
+    remat: bool = False
 
 
 @dataclass(frozen=True)

@@ -25,5 +25,6 @@ def build_stabletts(model_cfg: ModelConfig | None = None, mel_cfg: MelConfig | N
         kernel_size=model_cfg.kernel_size,
         gin_channels=model_cfg.gin_channels,
         p_dropout=model_cfg.p_dropout,
+        remat=model_cfg.remat,
         device=device,
     )

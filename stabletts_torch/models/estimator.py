@@ -8,6 +8,7 @@ import os
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from stabletts_torch.nn.blocks import (
     DiTConVBlock,
@@ -34,19 +35,48 @@ class DitWrapper(nn.Module):
         return self.block(x, c, mask, gen)
 
 
+def checkpointed(block: nn.Module, gen, *args):
+    """`block(*args, gen)` under `torch.utils.checkpoint` (non-reentrant): its
+    activations are dropped after the forward and recomputed in the backward.
+
+    checkpoint saves and restores only the default generators, and the
+    blocks draw every dropout mask and kernel seed from the trainer's own
+    `gen`. So the forward draws from `gen`, which then stands where a call
+    without checkpoint leaves it, and the recompute draws the same values
+    from a copy of `gen` set to its state before the forward. The recompute
+    also runs on the tensors the forward ran on: the block's parameters as
+    they are now (bf16 casts under a compute-dtype `functional_call`, gone by
+    the time the backward runs)."""
+    params = dict(block.named_parameters())
+    state = None if gen is None else gen.get_state()
+    recompute = False
+
+    def run(*xs):
+        nonlocal recompute
+        g = gen
+        if recompute and gen is not None:
+            g = torch.Generator(device=gen.device)
+            g.set_state(state)
+        recompute = True
+        return torch.func.functional_call(block, params, (*xs, g))
+
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 class Decoder(nn.Module):
     """Velocity network v(t, x | mu, c). x/mu [B, T, C], t [B], c [B, gin],
     mask [B, T]. The t-independent mu prenet is exposed as `precompute_mu` so
     the sampler runs it once per synthesis."""
 
     def __init__(self, noise_channels, cond_channels, hidden_channels, out_channels, filter_channels,
-                 n_layers=1, n_heads=4, kernel_size=3, gin_channels=0, p_dropout=0.0):
+                 n_layers=1, n_heads=4, kernel_size=3, gin_channels=0, p_dropout=0.0, remat=False):
         super().__init__()
         if n_layers % 2 != 0:
             raise ValueError(f"n_layers must be even for the U-Net skips (got {n_layers})")
         pad = kernel_size // 2
         self.hidden_channels = hidden_channels
         self.kernel_size = kernel_size
+        self.remat = remat
         self.time_mlp = TimestepEmbedding(hidden_channels, hidden_channels, filter_channels)
         self.cond_proj = nn.Sequential(
             nn.Conv1d(cond_channels, filter_channels, kernel_size, padding=pad), nn.SiLU(),
@@ -81,7 +111,9 @@ class Decoder(nn.Module):
         return conv1d_same(h, c4)
 
     def forward(self, t, x, mask, mu, c, mu_is_precomputed: bool = False, gen=None):
-        """`gen` draws the blocks' dropout in training (none when None). The
+        """`gen` draws the blocks' dropout in training (none when None). With
+        `remat`, each block is `checkpointed` in training when a gradient is
+        taken (the 6 estimator blocks only, as in the JAX package). The
         JAX package's training forward pads T to a multiple of 128 for its
         TPU kernels; the port's kernels take any T, and the block stack is
         mask-invariant, so it does not pad."""
@@ -90,13 +122,14 @@ class Decoder(nn.Module):
         h = conv1d_same(torch.cat([x, h_mu], dim=-1), self.in_proj)  # (noise, mu) order
 
         n_lsc = len(self.lsc_layers)
+        remat = self.remat and self.training and torch.is_grad_enabled()
         skips = []
         for idx, block in enumerate(self.blocks):
             if idx < n_lsc:
                 skips.append(h)
             else:
                 h = conv1d_same(torch.cat([h, skips.pop()], dim=-1), self.lsc_layers[idx - n_lsc])
-            h = block(h, c, t_emb, mask, gen)
+            h = checkpointed(block, gen, h, c, t_emb, mask) if remat else block(h, c, t_emb, mask, gen)
 
         m = mask.to(h.dtype)[..., None]
         return conv1d_same(h * m, self.final_proj) * m

@@ -14,14 +14,15 @@ from stabletts_torch.models.estimator import Decoder
 
 class CFMDecoder(nn.Module):
     def __init__(self, noise_channels, cond_channels, hidden_channels, out_channels, filter_channels,
-                 n_heads, n_layers, kernel_size, gin_channels, p_dropout=0.0, sigma_min: float = 1e-4):
+                 n_heads, n_layers, kernel_size, gin_channels, p_dropout=0.0, sigma_min: float = 1e-4,
+                 remat: bool = False):
         super().__init__()
         self.sigma_min = sigma_min
         self.estimator = Decoder(
             noise_channels=noise_channels, cond_channels=cond_channels,
             hidden_channels=hidden_channels, out_channels=out_channels,
             filter_channels=filter_channels, n_layers=n_layers, n_heads=n_heads,
-            kernel_size=kernel_size, gin_channels=gin_channels, p_dropout=p_dropout,
+            kernel_size=kernel_size, gin_channels=gin_channels, p_dropout=p_dropout, remat=remat,
         )
 
     def forward(self, t, x, mask, mu, c, mu_is_precomputed: bool = False):

@@ -36,7 +36,7 @@ class StableTTS(nn.Module):
     def __init__(self, n_vocab: int, mel_channels: int, hidden_channels: int = 256,
                  filter_channels: int = 1024, n_heads: int = 4, n_enc_layers: int = 3,
                  n_dec_layers: int = 6, kernel_size: int = 3, gin_channels: int = 256,
-                 p_dropout: float = 0.1, cfg_dropout: float = 0.2, device=None):
+                 p_dropout: float = 0.1, cfg_dropout: float = 0.2, remat: bool = False, device=None):
         super().__init__()
         self.mel_channels = mel_channels
         self.gin_channels = gin_channels
@@ -47,7 +47,8 @@ class StableTTS(nn.Module):
                                            style_kernel_size=5, dropout=0.25)
         self.dp = DurationPredictor(hidden_channels, filter_channels, kernel_size, gin_channels, 0.5)
         self.decoder = CFMDecoder(mel_channels, mel_channels, hidden_channels, mel_channels,
-                                  filter_channels, n_heads, n_dec_layers, kernel_size, gin_channels, p_dropout)
+                                  filter_channels, n_heads, n_dec_layers, kernel_size, gin_channels, p_dropout,
+                                  remat=remat)
         # learned unconditional embeddings for CFG (reference layouts)
         self.fake_speaker = nn.Parameter(torch.zeros(1, gin_channels))
         self.fake_content = nn.Parameter(torch.zeros(1, mel_channels, 1))

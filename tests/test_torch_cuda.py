@@ -843,3 +843,55 @@ def test_serving_bench_gate_fails_on_a_perturbed_kernel(dev, monkeypatch, capsys
     assert e.value.code == 1
     captured = capsys.readouterr()
     assert "metric" not in captured.out and "kernel selftest failed" in captured.err
+
+
+@pytest.mark.parametrize("compute_dtype", [None, BF16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("t_len", [64, 77])
+def test_remat_step_on_the_card(dev, compute_dtype, t_len):
+    """A training forward and backward with ModelConfig.remat against one
+    without, at the flagship widths (1 encoder and 2 decoder blocks, dropout
+    0.1, the generator at one seed): #11 and #12 run their forward again for
+    each estimator block in the backward, with the same Philox seeds (the
+    losses and every gradient within the training bar), and the generator
+    stands where it stands without remat."""
+    import dataclasses
+
+    from stabletts_torch.config import ModelConfig
+    from stabletts_torch.models import build_stabletts
+    from stabletts_torch.ops.dit_attention_train_cuda import dit_attention_train_fwd
+    from stabletts_torch.ops.ffn_train_cuda import ffn_train_fwd
+    from stabletts_torch.train.train_tts import model_losses
+
+    bar = 5e-3 if compute_dtype is None else 2e-2
+    rng = np.random.default_rng(0)
+    b, tx = 2, 20
+    batch = (torch.from_numpy(rng.integers(1, 300, (b, tx)).astype(np.int32)).to(dev),
+             torch.tensor([tx, tx - 5], device=dev), _rand(rng, dev, torch.float32, b, t_len, 128),
+             torch.tensor([t_len, t_len - 9], device=dev), _rand(rng, dev, torch.float32, b, 32, 128),
+             torch.tensor([32, 30], device=dev))
+    out = {}
+    for remat in (False, True):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            model = build_stabletts(ModelConfig(n_enc_layers=1, n_dec_layers=2, remat=remat), device=dev)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if "adaLN_modulation" in name:
+                    p.copy_(_rand(np.random.default_rng(9), dev, torch.float32, *p.shape, scale=0.1))
+        model.train()
+        gen = torch.Generator(device=dev).manual_seed(3)
+        before = (dit_attention_train_fwd.launches, ffn_train_fwd.launches)
+        dur, diff, prior, _ = model_losses(model, batch, gen, compute_dtype)
+        (dur + diff + prior).backward()
+        launched = (dit_attention_train_fwd.launches - before[0], ffn_train_fwd.launches - before[1])
+        out[remat] = (torch.stack([dur, diff, prior]).detach().float(), launched, gen.get_state(),
+                      {k: p.grad for k, p in model.named_parameters() if p.grad is not None})
+    (la, na, ga, grads_a), (lb, nb, gb, grads_b) = out[False], out[True]
+    assert na == (3, 3) and nb == (5, 5)
+    assert torch.equal(ga, gb)
+    assert _rel(lb, la) <= bar
+    assert grads_a.keys() == grads_b.keys()
+    # each gradient against its own largest value (a zero gradient, such as the CFG embedding's when no item of
+    # the batch drew the unconditional branch, must come out zero)
+    bad = [k for k, g in grads_a.items() if float((grads_b[k] - g).abs().max()) > bar * float(g.abs().max())]
+    assert not bad, bad

@@ -128,3 +128,20 @@ def ffgan_reference_state_dict(seed=0):
             sd[key] = arr
     sd["backbone.num_batches_tracked"] = np.asarray(3, np.int64)
     return sd
+
+
+def private_jax_native_lib(tmp_path_factory):
+    """Points the JAX package's native loader at a private library path, so
+    both packages take their native loaders (scipy's fallback resampler
+    differs by ~4e-2; see tests/test_torch_native_audio.py). Use as a
+    module-scoped fixture body (a generator); the attributes are restored."""
+    import pytest
+
+    import stabletts_tpu.native as jax_native
+
+    path = str(tmp_path_factory.mktemp("jax_native") / "libstabletts_native.so")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_native, "_LIB_PATH", path)
+        mp.setattr(jax_native, "_lib", None)
+        mp.setattr(jax_native, "_build_failed", False)
+        yield path
