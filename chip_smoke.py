@@ -34,7 +34,9 @@ Phases, one JSON line each; any failure exits nonzero:
      training step's four products at B=32, T=1000 beside one matmul or
      cuDNN convolution_backward call, and the bare column sums beside one
      torch.sum call); the training kernels' forward and
-     every gradient at dropout 0 and 0.1 (shared Philox bits); MAS exactly,
+     every gradient at dropout 0 and 0.1 (shared Philox bits), and #10-#12
+     over a rank's rows [16, 32) of B=32 with the row offset 16 against the
+     full call's rows, bit for bit (`row_offset`); MAS exactly,
      with the time per mel row
      the attention microbenchmark variants (attention_variants.cu: v2, RoPE
      (a rotation kernel, then the v2 core), channel-major K, the three
@@ -63,7 +65,11 @@ Phases, one JSON line each; any failure exits nonzero:
      to the WAV's, and a request from each compressed file
      (`serving_ref_formats`); the port's serving bench at its defaults (B=192,
      1000 frames, CFG 1, bf16; CFG 3 at B=96; the B=1 latency) behind its
-     kernel gate, its JSON line and then the `bench` record
+     kernel gate, its JSON line and then the `bench` record; the web UI
+     (`webui`: the port's server over the f32 API, two English requests at
+     once and a Japanese one, each WAV against a direct call, the launches of
+     #1-#3, `evaluate_pair` on the card, one request under `MetricWriter` and
+     `profile_trace`)
   5. device time by kernel over one request (torch.profiler)
   6. one request on the GPU (kernels) against the same request on the CPU
      (plain versions), same weights and noise
@@ -102,13 +108,22 @@ Phases, one JSON line each; any failure exits nonzero:
      (`cli`: preprocess over 8 WAVs, train, preprocess-vocos, train-vocos,
      synth with a random Vocos and through get_vocoder, each WAV against the
      API's waveform)
+  9c. data parallelism: two gloo ranks of `train()` on the one card (this
+     script started with --ddp-rank; B=16 a rank, 1000 frames, f32, dropout
+     0.1, 2 steps: the ranks bit-equal, within the training bar of a
+     one-process run over the same global batches, the launches of each rank;
+     `ddp_train`), one NCCL rank against a run without a group
+     (`ddp_nccl_world1`), and two gloo ranks of `train_vocos()` at the flagship
+     Vocos, B=8 a rank (`ddp_vocos`). Two ranks sharing one card is not a
+     scaling measurement
  10. the `kernels` line (launches: over the main paths' runs, the
      `inference`, language and reference-format requests and the bench's
      timed iterations of phase 4, the requests of phase 4's block
      configurations that run the kernel, the `train_steps` run of phase 7,
      the `train_config` runs that run the kernel, the `mpd_in_gan` run, and
      the training workflow's runs of phase 9b (the benches' timed steps and
-     the CLI's `train`);
+     the CLI's `train`, the web UI's requests, and each rank of `ddp_train` and
+     `ddp_nccl_world1`);
      times: the bf16 bench shape for serving kernels; the decoder's shape in
      the trainer, f32 at B=32, T=1000, dropout 0.1, for the training kernels,
      and the same shape in bf16 for the training attention core ("_bf16",
@@ -124,6 +139,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import io
 import json
 import math
 import os
@@ -2845,6 +2861,471 @@ def phase_cli(dev, card: str, root: str) -> dict:
     return launches
 
 
+# ------------------------------------------------ data parallelism and the web UI --
+
+def _row_offset_case(kind, dtype, b, t, rows, dev) -> dict:
+    """One training kernel pair (#10, #11 or #12) over the whole batch
+    (row0 = 0) and over `rows` alone with row0 = rows.start, dropout 0.1: the
+    outputs and the per-row gradients (dx; dq, dk, dv for #10) of the rows
+    must be the full call's bits; dmod (its column sums chunk by batch size)
+    within the kernel's bar. Also row0 = 0 given explicitly against the
+    argument left out, bit for bit."""
+    from stabletts_torch.ops import philox
+    from stabletts_torch.ops.attention_train_cuda import attention_train
+    from stabletts_torch.ops.bars import BARS
+    from stabletts_torch.ops.dit_attention_train_cuda import dit_attention_train
+    from stabletts_torch.ops.ffn_train_cuda import ffn_train
+
+    seed = philox.draw_seed(torch.Generator(device=dev).manual_seed(b + t), dev)
+    x, mod, mask, ws, cot = _train_inputs("ffn_train" if kind == "ffn_train" else "dit_attention_train", b, t, dtype,
+                                          dev)
+    if kind == "attention_train":
+        g = np.random.default_rng(b + 3 * t)
+        q, k, v = (torch.from_numpy(g.standard_normal((b, t, 256)).astype(np.float32)).to(dev, dtype) for _ in range(3))
+        ins, run = [q, k, v], lambda a, m, kw: attention_train(*a, m, 0.1, seed, 4, **kw)
+        per_row = (0, 1, 2, 3)  # out, dq, dk, dv
+    elif kind == "dit_attention_train":
+        ins = [x, mod, *ws]
+        run = lambda a, m, kw: dit_attention_train(a[0], a[1], m, *a[2:], 4, 0.1, seed, **kw)
+        per_row = (0, 1)  # out, dx
+    else:
+        ins = [x, mod, *ws]
+        run = lambda a, m, kw: ffn_train(a[0], a[1], m, *a[2:], 0.1, seed, **kw)
+        per_row = (0, 1)
+
+    n_rows = 3 if kind == "attention_train" else 2  # the inputs with a batch dimension
+
+    def call(sel, kw):
+        leaves = [(a[sel] if i < n_rows else a).detach().clone().requires_grad_() for i, a in enumerate(ins)]
+        out = run(leaves, mask[sel], kw)
+        grads = torch.autograd.grad(out, leaves, cot[sel])
+        return [out.detach(), *grads]
+
+    full = call(slice(None), {})
+    explicit = call(slice(None), {"row0": 0})
+    part = call(rows, {"row0": rows.start})
+    bits = all(torch.equal(full[i][rows], part[i]) for i in per_row)
+    zero_bits = all(torch.equal(a, c) for a, c in zip(full, explicit))
+    bar = BARS[kind][dtype]
+    dmod_rel = None
+    if kind != "attention_train":
+        dmod_rel = float((full[2][rows] - part[2]).abs().max() / full[2][rows].abs().max().clamp_min(1e-30))
+    ok = bits and zero_bits and (dmod_rel is None or dmod_rel <= bar)
+    return {"phase": "row_offset", "kernel": kind, "dtype": DT_NAME[dtype], "B": b, "T": t,
+            "rows": [rows.start, rows.stop], "dropout": 0.1, "rows_bits_equal": bits,
+            "row0_zero_bits_equal_default": zero_bits, "dmod_rel_err": dmod_rel, "bar": bar, "ok": ok}
+
+
+def phase_row_offset(dev) -> None:
+    """#10-#12 with a row offset at the trainer's shape (B=32, T=1000, the
+    ranks' rows [16, 32) of a 2-rank step), f32 and bf16."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for kind in ("dit_attention_train", "ffn_train", "attention_train"):
+            row = _row_offset_case(kind, dtype, 32, 1000, slice(16, 32), dev)
+            emit(row)
+            if not row["ok"]:
+                fail(f"row_offset: {row}")
+    torch.cuda.empty_cache()
+
+
+WEBUI_REQUESTS = [("english", SENTENCES[0]), ("english", SENTENCES[1]), ("japanese", JA_SENTENCE)]
+
+
+def _post(address, body: bytes) -> tuple:
+    import http.client
+
+    conn = http.client.HTTPConnection(*address, timeout=300)
+    t0 = time.time()
+    conn.request("POST", "/synthesize", body=body)
+    r = conn.getresponse()
+    data = r.read()
+    return r.status, data, time.time() - t0
+
+
+def phase_webui(api, card: str) -> dict:
+    """The port's web UI (`stabletts_torch.webui.make_handler`) over the
+    flagship f32 API on 127.0.0.1:0: two English requests sent at once, then
+    a Japanese one (10 Euler steps, CFG 3, from a WAV reference), wall ms
+    each; each response's WAV against a direct `inference` call with the same
+    arguments (bits equal, or within 1e-3, and which); the launches of #1-#3
+    over the three requests (63 DiT blocks a synthesis, 8 ConvNeXt blocks and
+    1 ISTFT a request); `evaluate_pair` on the card against the CPU (2e-4
+    rel); then one more request under `MetricWriter` and `profile_trace`, whose
+    Chrome trace must name the DiT block's attention kernel. Returns the
+    launches of the three requests."""
+    import base64
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from stabletts_torch import webui
+    from stabletts_torch.utils.audio_io import save_wav
+    from stabletts_torch.utils.eval import evaluate_pair
+    from stabletts_torch.utils.metrics import MetricWriter, annotate, profile_trace
+
+    buf = io.BytesIO()
+    save_wav(buf, reference_wave(6), 44100)
+    ref_bytes = buf.getvalue()
+    body = lambda lang, text: json.dumps({"text": text, "language": lang, "solver": "euler", "step": 10, "cfg": 3.0,
+                                          "ref_audio_b64": base64.b64encode(ref_bytes).decode()}).encode()
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), webui.make_handler(api))
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        _post(srv.server_address, body(*WEBUI_REQUESTS[0]))  # warm
+        replies = [None] * len(WEBUI_REQUESTS)
+        with counting_synthesise() as n_synth:
+            reset_counts()
+            n_synth[0] = 0
+
+            def send(i):
+                replies[i] = _post(srv.server_address, body(*WEBUI_REQUESTS[i]))
+
+            both = [threading.Thread(target=send, args=(i,)) for i in (0, 1)]
+            for th in both:
+                th.start()
+            for th in both:
+                th.join()
+            send(2)
+            counts, synths = read_counts(), n_synth[0]
+        expect = expected_counts(dit_block=63 * synths, convnext=8 * len(WEBUI_REQUESTS), istft=len(WEBUI_REQUESTS))
+        with tempfile.TemporaryDirectory() as tmp:
+            ref_path = os.path.join(tmp, "ref.wav")
+            with open(ref_path, "wb") as f:
+                f.write(ref_bytes)
+            rows = []
+            for (lang, text), (status, data, wall) in zip(WEBUI_REQUESTS, replies):
+                out = json.loads(data) if status == 200 else {}
+                got = base64.b64decode(out.get("wav_b64", ""))
+                wav, mel = api.inference(text, ref_path, lang, step=10, cfg=3.0)
+                audio = wav[0] / max(1.0, float(np.abs(wav[0]).max()))
+                want = io.BytesIO()
+                save_wav(want, audio, 44100)
+                want = want.getvalue()
+                same = got == want
+                err = None
+                if not same and len(got) == len(want):
+                    err = float(np.abs(np.frombuffer(got[44:], np.int16).astype(np.float64)
+                                       - np.frombuffer(want[44:], np.int16)).max() / 32767.0)
+                rows.append({"language": lang, "status": status, "wall_ms": wall * 1e3, "frames": int(mel.shape[2]),
+                             "seconds": out.get("seconds"), "wav_bits_equal_direct_call": same,
+                             "wav_max_abs_err_vs_direct_call": 0.0 if same else err,
+                             "png": bool(out.get("mel_png_b64")),
+                             "ok": status == 200 and (same or (err is not None and err <= 1e-3))})
+            est = np.frombuffer(base64.b64decode(json.loads(replies[0][1])["wav_b64"])[44:], np.int16) / 32767.0
+            ref_wave6 = reference_wave(6)
+            scores = {d: evaluate_pair(ref_wave6, est, device=d) for d in ("cuda", "cpu")}
+            eval_rel = max(abs(scores["cuda"][k] - scores["cpu"][k]) / max(abs(scores["cpu"][k]), 1e-30)
+                           for k in scores["cpu"])
+            # one request traced, its metrics written
+            writer = MetricWriter(os.path.join(tmp, "metrics"))
+            trace_dir = os.path.join(tmp, "trace")
+            with profile_trace(trace_dir):
+                with annotate("webui_request"):
+                    status, data, wall = _post(srv.server_address, body(*WEBUI_REQUESTS[0]))
+                torch.cuda.synchronize()
+            writer.add_scalars({"wall_ms": wall * 1e3, **scores["cuda"]}, 0, prefix="webui/")
+            writer.close()
+            traces = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+            names = set()
+            for path in traces:
+                with open(path) as f:
+                    names |= {e.get("name", "") for e in json.load(f)["traceEvents"]}
+            traced = {"files": len(traces), "annotated": "webui_request" in names,
+                      "dit_block_attention_kernel": any("attention_kernel_f32" in n for n in names),
+                      "metrics_lines": sum(1 for _ in open(os.path.join(tmp, "metrics", "metrics.jsonl")))}
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    ok = bool(all(r["ok"] for r in rows) and counts == expect and eval_rel <= 2e-4 and status == 200
+              and traced["files"] == 1 and traced["annotated"] and traced["dit_block_attention_kernel"]
+              and traced["metrics_lines"] == 1)
+    emit({"phase": "webui", "requests": rows, "launches": counts, "expected_launches": expect,
+          "evaluate_pair_cuda": scores["cuda"], "evaluate_pair_rel_err_vs_cpu": eval_rel, "traced_request": traced,
+          "card": card, "ok": ok})
+    if not ok:
+        fail(f"webui: requests {rows}, launches {counts} vs {expect}, eval rel {eval_rel}, trace {traced}")
+    return counts
+
+
+# one rank of the data-parallel phases: python3 chip_smoke.py --ddp-rank R --ddp-world W --ddp-kind K --ddp-dir D
+# --ddp-backend B (every rank on cuda:0; NCCL refuses two ranks on one card, so two ranks take gloo)
+DDP_STEPS = 2
+
+
+def ddp_tts_config(root: str, batch: int):
+    from stabletts_torch.config import TrainConfig
+
+    return TrainConfig(train_dataset_path=os.path.join(root, "filelist.jsonl"), batch_size=batch, num_epochs=1,
+                       model_save_path=os.path.join(root, "ckpt"), log_interval=1, warmup_steps=1, loader_workers=2)
+
+
+def ddp_vocos_config(root: str, batch: int):
+    from stabletts_torch.config import VocosTrainConfig
+
+    return VocosTrainConfig(train_dataset_path=os.path.join(root, "wavs"), batch_size=batch, num_epochs=1,
+                            model_save_path=os.path.join(root, "ckpt"), log_interval=1, warmup_steps=1,
+                            loader_workers=2)
+
+
+def ddp_worker(argv) -> None:
+    import argparse
+
+    import torch.distributed as dist
+
+    from stabletts_torch.parallel import mesh as mesh_lib
+    from stabletts_torch.train.train_tts import train
+    from stabletts_torch.train.train_vocos import train_vocos
+
+    ap = argparse.ArgumentParser()
+    for flag in ("--ddp-rank", "--ddp-world", "--ddp-batch"):
+        ap.add_argument(flag, type=int, required=True)
+    for flag in ("--ddp-kind", "--ddp-dir", "--ddp-backend"):
+        ap.add_argument(flag, required=True)
+    a = ap.parse_args(argv)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["LOCAL_RANK"] = "0"  # every rank on the one card
+    mesh = mesh_lib.init_distributed(a.ddp_backend, "cuda", f"file://{os.path.join(a.ddp_dir, 'rdzv')}",
+                                     a.ddp_rank, a.ddp_world)
+    shard = mesh_lib.shard_batch(mesh, a.ddp_batch)
+    assert (mesh.rank, mesh.world, str(mesh.device)) == (a.ddp_rank, a.ddp_world, "cuda:0")
+    assert (shard.global_rows, shard.row0) == (a.ddp_world * a.ddp_batch, a.ddp_rank * a.ddp_batch)
+    info = {"rank": mesh.rank, "world": mesh.world, "device": str(mesh.device), "backend": dist.get_backend()}
+    if a.ddp_backend == "nccl":
+        info["nccl_version"] = ".".join(map(str, torch.cuda.nccl.version()))
+    logged, last = [], [0.0]
+
+    def log_fn(step, metrics):
+        now = time.time()
+        logged.append({"step": step, "wall_ms": (now - last[0]) * 1e3, **metrics})
+        last[0] = now
+
+    reset_train_counts()
+    torch.cuda.synchronize()
+    t0 = last[0] = time.time()
+    if a.ddp_kind == "tts":
+        state = train(ddp_tts_config(a.ddp_dir, a.ddp_batch), log_fn=log_fn, device="cuda")
+        final = state.model.state_dict()
+    else:
+        state = train_vocos(ddp_vocos_config(a.ddp_dir, a.ddp_batch), log_fn=log_fn, device="cuda")
+        final = {f"{n}.{k}": v for n in ("gen", "mpd", "mrd") for k, v in getattr(state, n).state_dict().items()}
+    torch.cuda.synchronize()
+    info.update(train_s=time.time() - t0, steps=state.step, launches=read_train_counts(), logged=logged)
+    torch.save({k: v.cpu() for k, v in final.items()}, os.path.join(a.ddp_dir, f"final_rank{a.ddp_rank}.pt"))
+    with open(os.path.join(a.ddp_dir, f"info_rank{a.ddp_rank}.json"), "w") as f:
+        json.dump(info, f)
+    dist.destroy_process_group()
+
+
+def run_ranks(root: str, kind: str, world: int, batch: int, backend: str) -> tuple:
+    """Start `world` ranks of this script on the card, wait for them (600 s),
+    and return (their final states, their infos)."""
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--ddp-rank", str(r), "--ddp-world",
+                               str(world), "--ddp-batch", str(batch), "--ddp-kind", kind, "--ddp-dir", root,
+                               "--ddp-backend", backend], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    except subprocess.TimeoutExpired:
+        fail(f"{kind}: the ranks did not finish in 600 s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"{kind} rank {r} failed (exit {p.returncode}): {text[-3000:]}")
+    finals = [torch.load(os.path.join(root, f"final_rank{r}.pt"), weights_only=True) for r in range(world)]
+    infos = []
+    for r in range(world):
+        with open(os.path.join(root, f"info_rank{r}.json")) as f:
+            infos.append(json.load(f))
+    return finals, infos
+
+
+def _tensor_rel(got: dict, want: dict) -> tuple:
+    """(the worst tensor, its max-abs-err over max-abs) of two state dicts."""
+    rel = {k: float((got[k].float() - want[k].float()).abs().max() / want[k].float().abs().max().clamp_min(1e-30))
+           for k in want if want[k].is_floating_point()}
+    worst = max(rel, key=rel.get)
+    return worst, rel[worst]
+
+
+def _metric_rel(got: list, want: list, keys) -> float:
+    return max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-30) for g, w in zip(got, want) for k in keys)
+
+
+def tts_replay(root: str, world: int, batch: int, dev) -> tuple:
+    """`train()`'s data-parallel run on one process: each step's global batch
+    is the ranks' shards concatenated, the draws from the generator at (seed,
+    step). Returns (final state dict, per-step metrics with wall ms)."""
+    from stabletts_torch.config import MelConfig, ModelConfig
+    from stabletts_torch.data.dataset import StableDataset, collate
+    from stabletts_torch.data.sampler import DistributedBucketSampler
+    from stabletts_torch.models import build_stabletts
+    from stabletts_torch.train.scheduler import make_scheduler
+    from stabletts_torch.train.train_tts import make_optimizer, train_step
+
+    cfg = ddp_tts_config(root, batch)
+    dataset = StableDataset(cfg.train_dataset_path)
+    samplers = [DistributedBucketSampler(dataset.lengths, batch, list(cfg.bucket_boundaries), num_replicas=world,
+                                         rank=r) for r in range(world)]
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.seed)
+        model = build_stabletts(ModelConfig(), MelConfig(), device=dev)
+    model.train()
+    opt = make_optimizer(model, cfg)
+    sched = make_scheduler(opt, cfg.learning_rate, cfg.warmup_steps, cfg.num_epochs * len(samplers[0]))
+    gen = torch.Generator(device=dev)
+    rows = []
+    for s in samplers:
+        s.set_epoch(0)
+    for step, works in enumerate(zip(*samplers)):
+        parts = [collate(dataset, idx, s.bucket_mel_len(bucket), cfg.max_text_len, 128, (cfg.seed, 0)).as_tuple()
+                 for s, (bucket, idx) in zip(samplers, works)]
+        batch_t = tuple(torch.from_numpy(np.concatenate(p)).to(dev) for p in zip(*parts))
+        gen.manual_seed((cfg.seed + 1) * 2 ** 32 + step)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        metrics = {k: float(v) for k, v in train_step(model, opt, sched, batch_t, gen).items()}
+        rows.append({"step": step, "wall_ms": (time.time() - t0) * 1e3, **metrics})
+    return {k: v.cpu() for k, v in model.state_dict().items()}, rows
+
+
+def phase_ddp_train(dev, card: str, root: str) -> dict:
+    """Two gloo ranks of `train()` on cuda:0 (this script started twice) on
+    train_b32's data: B=16 a rank (global 32), mels of 901-1000 frames padded
+    to 1000, f32, dropout 0.1, 2 steps. The ranks' final parameters must be
+    bit-equal; rank 0's logged losses and grad_norm (the global batch's) and
+    the final parameters within the training bar (ops/bars.py) of a
+    one-process run over the same global batches; each rank's launches
+    9/9/9/9/1 a step. The step time of two ranks sharing one card is not a
+    scaling number. Returns the launches summed over the ranks."""
+    from stabletts_torch.ops.bars import BARS
+
+    work = os.path.join(root, "ddp_train")
+    os.makedirs(work)
+    write_filelist(work, n=2 * 16 * DDP_STEPS)
+    finals, infos = run_ranks(work, "tts", 2, 16, "gloo")
+    bits = all(torch.equal(v, finals[1][k]) for k, v in finals[0].items())
+    want, rows = tts_replay(work, 2, 16, dev)
+    bar = BARS["dit_attention_train"][torch.float32]
+    worst, param_rel = _tensor_rel(finals[0], want)
+    metric_rel = _metric_rel(infos[0]["logged"], rows, ("loss", "dur_loss", "diff_loss", "prior_loss", "grad_norm"))
+    expect = {k: v * DDP_STEPS for k, v in TRAIN_LAUNCHES_PER_STEP.items()}
+    ok = bool(bits and param_rel <= bar and metric_rel <= bar and all(i["launches"] == expect for i in infos)
+              and [i["steps"] for i in infos] == [DDP_STEPS] * 2 and len(infos[0]["logged"]) == DDP_STEPS
+              and not infos[1]["logged"])
+    emit({"phase": "ddp_train", "ranks": 2, "backend": infos[0]["backend"], "devices": [i["device"] for i in infos],
+          "B_per_rank": 16, "frames": 1000, "steps": DDP_STEPS, "dropout": 0.1, "ranks_bits_equal": bits,
+          "param_rel_err_vs_one_process": param_rel, "worst_param": worst, "metric_rel_err_vs_one_process": metric_rel,
+          "bar": bar, "rank0_steps": infos[0]["logged"], "one_process_steps": rows,
+          "step_ms_two_ranks_one_card_not_a_scaling_number": infos[0]["logged"][-1]["wall_ms"],
+          "one_process_step_ms": rows[-1]["wall_ms"], "train_s": [i["train_s"] for i in infos],
+          "launches_per_rank": [i["launches"] for i in infos], "expected_launches_per_rank": expect,
+          "card": card, "ok": ok})
+    if not ok:
+        fail(f"ddp_train: bits {bits}, params {param_rel} at {worst}, metrics {metric_rel}, "
+             f"launches {[i['launches'] for i in infos]}")
+    total = {k: sum(i["launches"][k] for i in infos) for k in expect}
+    nccl = phase_ddp_nccl_world1(dev, card, root)
+    return {k: total[k] + nccl[k] for k in total}
+
+
+def phase_ddp_nccl_world1(dev, card: str, root: str) -> dict:
+    """One NCCL rank (world 1) of `train()`: B=16, 2 steps, dropout 0.1,
+    against `train()` in this process without a group on the same data: the
+    logged metrics and the final parameters within the training bar (the f32
+    step on the card is not bit-reproducible). Prints the NCCL version.
+    Returns the rank's launches."""
+    from stabletts_torch.ops.bars import BARS
+    from stabletts_torch.train.train_tts import train
+
+    work = os.path.join(root, "ddp_nccl")
+    os.makedirs(work)
+    write_filelist(work, n=16 * DDP_STEPS)
+    finals, infos = run_ranks(work, "tts", 1, 16, "nccl")
+    alone_rows = []
+    cfg = dataclasses.replace(ddp_tts_config(work, 16), model_save_path=os.path.join(work, "ckpt_alone"))
+    state = train(cfg, log_fn=lambda step, m: alone_rows.append(m), device=dev)
+    want = {k: v.cpu() for k, v in state.model.state_dict().items()}
+    bar = BARS["dit_attention_train"][torch.float32]
+    worst, param_rel = _tensor_rel(finals[0], want)
+    metric_rel = _metric_rel(infos[0]["logged"], alone_rows, ("loss", "grad_norm"))
+    bits = all(torch.equal(v, want[k]) for k, v in finals[0].items())
+    ok = bool(param_rel <= bar and metric_rel <= bar and infos[0]["backend"] == "nccl" and infos[0]["steps"] == DDP_STEPS)
+    emit({"phase": "ddp_nccl_world1", "backend": infos[0]["backend"], "nccl_version": infos[0].get("nccl_version"),
+          "device": infos[0]["device"], "B": 16, "steps": DDP_STEPS, "param_rel_err_vs_no_group": param_rel,
+          "worst_param": worst, "metric_rel_err_vs_no_group": metric_rel, "bits_equal_no_group": bits, "bar": bar,
+          "step_ms": infos[0]["logged"][-1]["wall_ms"], "card": card, "ok": ok})
+    if not ok:
+        fail(f"ddp_nccl_world1: params {param_rel} at {worst}, metrics {metric_rel}, {infos[0]}")
+    del state
+    torch.cuda.empty_cache()
+    return infos[0]["launches"]
+
+
+def vocos_replay(root: str, world: int, batch: int, dev) -> tuple:
+    """`train_vocos()`'s data-parallel run on one process: each step's batch
+    is the ranks' crops concatenated. Returns (final states, per-step metrics)."""
+    from stabletts_torch.config import MelConfig, VocosConfig
+    from stabletts_torch.data.vocos_dataset import VocosDataset
+    from stabletts_torch.train.train_vocos import init_vocos_training, vocos_train_step
+
+    cfg = ddp_vocos_config(root, batch)
+    dataset = VocosDataset(cfg.train_dataset_path, cfg.segment_size, 44100)
+    steps = len(dataset) // world // batch
+    state = init_vocos_training(VocosConfig(), MelConfig(), cfg, steps, cfg.seed, dev)
+    order = np.random.default_rng(0).permutation(len(dataset))
+    rows = []
+    for b in range(steps):
+        parts = [dataset.batch(order[r::world][b * batch:(b + 1) * batch],
+                               np.random.default_rng(np.random.SeedSequence([cfg.seed, 0, r, b]))) for r in range(world)]
+        audio = torch.from_numpy(np.concatenate(parts)).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        m = {k: float(v) for k, v in vocos_train_step(state, audio, MelConfig(), cfg.mel_loss_coeff,
+                                                       cfg.grad_clip).items()}
+        rows.append({"step": b, "wall_ms": (time.time() - t0) * 1e3, **m})
+    final = {f"{n}.{k}": v.cpu() for n in ("gen", "mpd", "mrd") for k, v in getattr(state, n).state_dict().items()}
+    return final, rows
+
+
+def phase_ddp_vocos(dev, card: str, root: str) -> None:
+    """Two gloo ranks of `train_vocos()` on cuda:0 at the flagship Vocos with
+    the MPD and MRD: B=8 a rank (global 16), segment 20480, f32, 2 steps over
+    32 WAVs. The ranks' final states must be bit-equal; rank 0's logged
+    metrics (the losses averaged over the ranks, the norms after the
+    reduction) within the GAN step's bars of `gan_gpu_vs_cpu` (losses 1e-3,
+    gradient norms 2e-2) of a one-process run over the ranks' crops, and the
+    final states within 2e-2 (max-abs-err over max-abs per tensor)."""
+    work = os.path.join(root, "ddp_vocos")
+    os.makedirs(work)
+    write_wavs(os.path.join(work, "wavs"), count=2 * 8 * DDP_STEPS)
+    finals, infos = run_ranks(work, "vocos", 2, 8, "gloo")
+    bits = all(torch.equal(v, finals[1][k]) for k, v in finals[0].items())
+    want, rows = vocos_replay(work, 2, 8, dev)
+    logged = infos[0]["logged"]
+    losses = [k for k in rows[0] if k not in ("step", "wall_ms") and not k.startswith("grad_norm")]
+    loss_rel = _metric_rel(logged, rows, losses)
+    norm_rel = _metric_rel(logged, rows, ("grad_norm_g", "grad_norm_mpd", "grad_norm_mrd"))
+    worst, param_rel = _tensor_rel(finals[0], want)
+    ok = bool(bits and loss_rel <= 1e-3 and norm_rel <= 2e-2 and param_rel <= 2e-2 and len(logged) == DDP_STEPS
+              and not infos[1]["logged"] and [i["steps"] for i in infos] == [DDP_STEPS] * 2)
+    emit({"phase": "ddp_vocos", "ranks": 2, "backend": infos[0]["backend"], "B_per_rank": 8, "segment": 20480,
+          "steps": DDP_STEPS, "ranks_bits_equal": bits, "loss_rel_err_vs_one_process": loss_rel,
+          "grad_norm_rel_err_vs_one_process": norm_rel, "param_rel_err_vs_one_process": param_rel,
+          "worst_param": worst, "bars": {"loss": 1e-3, "grad_norm": 2e-2, "param": 2e-2},
+          "step_ms_two_ranks_one_card_not_a_scaling_number": logged[-1]["wall_ms"],
+          "one_process_step_ms": rows[-1]["wall_ms"], "train_s": [i["train_s"] for i in infos], "card": card,
+          "ok": ok})
+    if not ok:
+        fail(f"ddp_vocos: bits {bits}, loss {loss_rel}, norms {norm_rel}, params {param_rel} at {worst}")
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU")
@@ -2872,6 +3353,7 @@ def main() -> None:
     variant_rows, variant_launches = phase_attention_variants(dev)
     train_rows = phase_train_kernels(dev)
     train_rows.update(phase_opt_in_train_kernels(dev))
+    phase_row_offset(dev)
     api, counts, bench_pipeline = phase_serving(dev, card)
     # the host-clock phases come before the profiler's: once torch.profiler has
     # traced, every later launch costs the host more
@@ -2879,6 +3361,7 @@ def main() -> None:
     phase_serving_solvers(api, card)
     phase_serving_ffgan(dev, card)
     main_path_counts = [phase_serving_languages(api, card), phase_serving_ref_formats(api, card), phase_bench(card)]
+    main_path_counts.append(phase_webui(api, card))
     ref = reference_wave(5)
     phase_profile("request_f32", lambda: api.inference(SENTENCES[2], ref, "english", step=10, cfg=3.0), card)
     phase_profile("bench_bf16", bench_pipeline, card)
@@ -2904,6 +3387,9 @@ def main() -> None:
         phase_remat_step(dev, card)
         phase_vocos_bench(card)
         workflow_counts.append(phase_cli(dev, card, root))
+        # data parallelism: two ranks on the one card (gloo), one NCCL rank
+        workflow_counts.append(phase_ddp_train(dev, card, root))
+        phase_ddp_vocos(dev, card, root)
     train_counts["mpd_stack"] = phase_mpd_in_gan(gan_state, gan_audio, card)
     phase_profile("train_step", step_fn, card)
     phase_profile("train_bf16", step_fn_bf16, card)
@@ -2950,4 +3436,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--ddp-rank"]:
+        ddp_worker(sys.argv[1:])
+    else:
+        main()

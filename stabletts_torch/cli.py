@@ -10,6 +10,10 @@ Usage:
   python -m stabletts_torch.cli synth --text "hello" --ref ref.wav --language english \\
       --tts-ckpt checkpoints/checkpoint_9.pt --vocoder-ckpt vocos.pt --vocoder vocos --out out.wav
 
+`train` and `train-vocos` run data-parallel under torchrun (one process per
+card; NCCL on the GPU, gloo with `--device cpu`):
+  torchrun --nproc_per_node 4 -m stabletts_torch.cli train --dataset filelists/filelist.json
+
 `--tts-ckpt` is a `.pt` state dict with the reference StableTTS names: the
 `checkpoint_{epoch}.pt` that `train` writes, or a reference checkpoint. The
 JAX package's `convert` and `export` (orbax <-> `.pt`) have no counterpart:
@@ -21,10 +25,19 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 
 
 def _log(step, metrics):
     print(json.dumps({"step": step, **{k: float(v) for k, v in metrics.items()}}))
+
+
+def _join_group(device) -> None:
+    """Join torchrun's process group when it started more than one process."""
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        from stabletts_torch.parallel.mesh import init_distributed
+
+        init_distributed(device=device)
 
 
 def cmd_preprocess(args):
@@ -55,6 +68,7 @@ def cmd_train(args):
         compute_dtype=args.compute_dtype or cfg.compute_dtype,
     )
     model_cfg = dataclasses.replace(ModelConfig(), remat=args.remat)
+    _join_group(args.device)
     train(cfg, model_cfg, log_fn=_log, device=args.device)
 
 
@@ -69,6 +83,7 @@ def cmd_train_vocos(args):
         batch_size=args.batch_size or cfg.batch_size,
         model_save_path=args.save_path or cfg.model_save_path,
     )
+    _join_group(args.device)
     train_vocos(cfg, num_epochs=args.epochs, log_fn=_log, device=args.device)
 
 

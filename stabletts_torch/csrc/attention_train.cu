@@ -45,10 +45,10 @@ using namespace stts::atr;
 
 extern "C" int attention_train_forward(const void* q, const void* k, const void* v, const void* mask,
                                        const void* seed, void* o, void* o_lo, void* lse, int B, int T, int C,
-                                       int H, int is_bf16, int thresh, float keep_scale, void* stream) {
+                                       int H, int is_bf16, int thresh, int row0, float keep_scale, void* stream) {
   if (H <= 0 || C != H * HD) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Dropout drop = make_dropout(seed, thresh, keep_scale);
+  Dropout drop = make_dropout(seed, thresh, keep_scale, row0);
   const float* mk = static_cast<const float*>(mask);
   float* ls = static_cast<float*>(lse);
   const float sm_scale = 1.f / sqrtf((float)HD);
@@ -65,10 +65,10 @@ extern "C" int attention_train_backward(const void* q, const void* k, const void
                                         const void* seed, const void* o, const void* o_lo, const void* lse,
                                         const void* d_o, void* Dv, void* dq, void* dk, void* dv, void* ds_ws, int B,
                                         int T, int C, int H,
-                                        int is_bf16, int thresh, float keep_scale, void* stream) {
+                                        int is_bf16, int thresh, int row0, float keep_scale, void* stream) {
   if (H <= 0 || C != H * HD) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Dropout drop = make_dropout(seed, thresh, keep_scale);
+  Dropout drop = make_dropout(seed, thresh, keep_scale, row0);
   const float* mk = static_cast<const float*>(mask);
   const float* ls = static_cast<const float*>(lse);
   float* dvr = static_cast<float*>(Dv);

@@ -12,8 +12,9 @@
 // are garbage the caller masks. Natural-exp softmax in f32; the dropped
 // weights are rounded to T before the PV product, ds and the outputs after
 // theirs. Dropout: weight (b, h, q, key) keeps when Philox word key%4 of
-// counter (key/4, q, b*H + h, 0) under the call's key is >= thresh, so the
-// backward regenerates the forward's mask.
+// counter (key/4, q, (b + row0)*H + h, 0) under the call's key is >= thresh
+// (row0: the batch's first row in a data-parallel step's global batch), so
+// the backward regenerates the forward's mask.
 //
 // Two sets of kernels compute this. f32 runs the fp32-FMA *_f32 kernels (the
 // f32 bars hold no TF32 form; their forward is one online pass, see below).
@@ -113,7 +114,7 @@ constexpr int TQ = 64;
 // reads lse as before.
 //
 // Dropout: weight (b, h, q, key) keeps when Philox word key % 4 of counter
-// (key / 4, q, b*H + h, 0) is >= thresh. A thread's keys are aligned groups of
+// (key / 4, q, (b + row0)*H + h, 0) is >= thresh. A thread's keys are aligned groups of
 // four, so one Philox call serves four weights in every kernel.
 
 constexpr int FA_FWD_BQ = 128;    // the forward's query rows a CTA
@@ -169,6 +170,7 @@ __global__ void __launch_bounds__(FA_THREADS, 2) attn_fwd_kernel_f32(const float
   const uint32_t bh = b * H + h;
   const bool dropping = drop.seed != nullptr;
   const uint32_t key0 = dropping ? (uint32_t)drop.seed[0] : 0u, key1 = dropping ? (uint32_t)drop.seed[1] : 0u;
+  const uint32_t cbh = drop.row_head(b, H, h);  // the counter's (global row, head) word
   const int nt = (Tn + TK - 1) / TK;
 
   fa_copy<FA_FWD_BQ, false>(Qs, q + base, C, q0, Tn, vec);
@@ -212,8 +214,8 @@ __global__ void __launch_bounds__(FA_THREADS, 2) attn_fwd_kernel_f32(const float
       uint4 w0 = make_uint4(0u, 0u, 0u, 0u), w1 = w0;
       if (dropping) {
         const uint32_t row = q0 + 8 * tr + i;
-        w0 = philox4x32_10(make_uint4((k0 >> 2) + tx, row, bh, 0u), key0, key1);
-        w1 = philox4x32_10(make_uint4((k0 >> 2) + 8 + tx, row, bh, 0u), key0, key1);
+        w0 = philox4x32_10(make_uint4((k0 >> 2) + tx, row, cbh, 0u), key0, key1);
+        w1 = philox4x32_10(make_uint4((k0 >> 2) + 8 + tx, row, cbh, 0u), key0, key1);
       }
       float rs = 0.f;
 #pragma unroll
@@ -298,6 +300,7 @@ __global__ void __launch_bounds__(FA_THREADS, 2) attn_bwd_dkv_kernel_f32(const f
   const uint32_t bh = b * H + h;
   const bool dropping = drop.seed != nullptr;
   const uint32_t key0 = dropping ? (uint32_t)drop.seed[0] : 0u, key1 = dropping ? (uint32_t)drop.seed[1] : 0u;
+  const uint32_t cbh = drop.row_head(b, H, h);  // the counter's (global row, head) word
   const float* row_src = (tid < BQ ? lse : Dv) + (long long)bh * Tn;
   const int nt = (Tn + BQ - 1) / BQ;
 
@@ -345,7 +348,7 @@ __global__ void __launch_bounds__(FA_THREADS, 2) attn_bwd_dkv_kernel_f32(const f
       uint4 w[4];
 #pragma unroll
       for (int c = 0; c < 4; ++c)
-        w[c] = dropping ? philox4x32_10(make_uint4((k0 >> 2) + 2 * tr + g, q0 + 4 * tx + c, bh, 0u), key0, key1)
+        w[c] = dropping ? philox4x32_10(make_uint4((k0 >> 2) + 2 * tr + g, q0 + 4 * tx + c, cbh, 0u), key0, key1)
                         : make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
@@ -654,6 +657,7 @@ __global__ void __launch_bounds__(WG_THREADS) attn_fwd_kernel_wgmma(const bf16* 
   const bool vq = rows_aligned(q, C), vk = rows_aligned(k, C), vv = rows_aligned(v, C);
   const bool dropping = drop.seed != nullptr;
   const uint32_t key0 = dropping ? (uint32_t)drop.seed[0] : 0u, key1 = dropping ? (uint32_t)drop.seed[1] : 0u;
+  const uint32_t cbh = drop.row_head(b, H, h);  // the counter's (global row, head) word
 
   const int nt = (Tn + TK - 1) / TK;
   auto issue = [&](int j, bool with_v) {
@@ -737,7 +741,7 @@ __global__ void __launch_bounds__(WG_THREADS) attn_fwd_kernel_wgmma(const bf16* 
     arrive();
     key_bias16(kb, mask_b, j * TK, Tn);
     qk(j);
-    const uint32_t keep = dropping ? keep_rows_q(key0, key1, drop.thresh, j * TK, q0 + r0, bh) : 0u;
+    const uint32_t keep = dropping ? keep_rows_q(key0, key1, drop.thresh, j * TK, q0 + r0, cbh) : 0u;
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int c = 2 * (i / 4) + i % 2, hh = (i / 2) % 2;
@@ -786,6 +790,7 @@ __global__ void __launch_bounds__(WG_THREADS) attn_bwd_dkv_kernel_wgmma(const bf
   const bool vq = rows_aligned(q, C), vo = rows_aligned(datt, C);
   const bool dropping = drop.seed != nullptr;
   const uint32_t key0 = dropping ? (uint32_t)drop.seed[0] : 0u, key1 = dropping ? (uint32_t)drop.seed[1] : 0u;
+  const uint32_t cbh = drop.row_head(b, H, h);  // the counter's (global row, head) word
   const float* row_src = (tid < TQ ? lse : Dv) + (long long)bh * Tn;
 
   const int nt = (Tn + TQ - 1) / TQ;
@@ -830,7 +835,7 @@ __global__ void __launch_bounds__(WG_THREADS) attn_bwd_dkv_kernel_wgmma(const bf
     fence_regs(dp);
 
     const float* rs = Rs(j);
-    const uint32_t keep = dropping ? keep_rows_k(key0, key1, drop.thresh, k0, j * TQ, bh) : 0u;
+    const uint32_t keep = dropping ? keep_rows_k(key0, key1, drop.thresh, k0, j * TQ, cbh) : 0u;
 #pragma unroll
     for (int c = 0; c < 16; ++c) {
       const int col = 8 * (c / 2) + cq + c % 2;
@@ -889,6 +894,7 @@ __global__ void __launch_bounds__(WG_THREADS) attn_bwd_dq_kernel_wgmma(const bf1
   const bool vk = rows_aligned(k, C), vv = rows_aligned(v, C);
   const bool dropping = drop.seed != nullptr;
   const uint32_t key0 = dropping ? (uint32_t)drop.seed[0] : 0u, key1 = dropping ? (uint32_t)drop.seed[1] : 0u;
+  const uint32_t cbh = drop.row_head(b, H, h);  // the counter's (global row, head) word
 
   const int nt = (Tn + TK - 1) / TK;
   auto issue = [&](int j) {
@@ -931,7 +937,7 @@ __global__ void __launch_bounds__(WG_THREADS) attn_bwd_dq_kernel_wgmma(const bf1
     fence_regs(s);
     fence_regs(dp);
 
-    const uint32_t keep = dropping ? keep_rows_q(key0, key1, drop.thresh, j * TK, q0 + r0, bh) : 0u;
+    const uint32_t keep = dropping ? keep_rows_q(key0, key1, drop.thresh, j * TK, q0 + r0, cbh) : 0u;
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int c = 2 * (i / 4) + i % 2, hh = (i / 2) % 2;

@@ -822,10 +822,18 @@ __device__ __forceinline__ uint32_t word_of(uint4 w, int i) {
 // Dropout of one call: the key comes from a device int64 [2] tensor (drawn
 // from the trainer's generator), an element is kept when its word is at
 // least `thresh`, and kept values are scaled by `scale` = 1 / (1 - rate).
+// `row0` is the first row of this call's batch in the global batch of a
+// data-parallel step: a counter holds the global row b + row0, so each rank
+// draws its own rows of the one-process mask (0 on one process).
 struct Dropout {
   const long long* seed;  // nullptr: no dropout
   unsigned int thresh;
   float scale;
+  int row0;
+  // the counter word of batch row b, head h (of H)
+  __device__ __forceinline__ uint32_t row_head(int b, int H, int h) const {
+    return (uint32_t)(b + row0) * (uint32_t)H + (uint32_t)h;
+  }
   // multiplier of the element whose counter is (c0, c1, c2, c3), word i
   __device__ __forceinline__ float factor(uint4 words, int i) const {
     return word_of(words, i) >= thresh ? scale : 0.f;
@@ -836,8 +844,8 @@ struct Dropout {
 };
 
 // from a C entry point's arguments (thresh is the unsigned threshold passed as int)
-inline Dropout make_dropout(const void* seed, int thresh, float scale) {
-  return Dropout{static_cast<const long long*>(seed), (unsigned int)thresh, scale};
+inline Dropout make_dropout(const void* seed, int thresh, float scale, int row0) {
+  return Dropout{static_cast<const long long*>(seed), (unsigned int)thresh, scale, row0};
 }
 
 // ---- LayerNorm + modulate backward ----------------------------------------

@@ -45,7 +45,7 @@
 // query rows are garbage that `* m` removes. In bf16 q/k/v are rounded
 // before RoPE, p before PV, ds and dq/dk/dv after their products. Dropout:
 // weight (b, h, q, key) keeps when Philox word key%4 of counter
-// (key/4, q, b*H + h, 0) under the call's key is >= thresh. The projections
+// (key/4, q, (b + row0)*H + h, 0) under the call's key is >= thresh. The projections
 // (tap GEMMs, common.cuh) and attention's products (attention_train.cuh) run
 // on wgmma (tensor cores) in bf16 and on fp32 FMA in f32, and so do the
 // weight gradients. Head dim 64.
@@ -189,10 +189,10 @@ extern "C" int dit_attention_train_forward(const void* x, const void* mod, const
                                            const void* sin_t, const void* wqkv, const void* bqkv, const void* wo,
                                            const void* bo, const void* seed, void* h, void* q, void* k, void* v,
                                            void* att, void* att_lo, void* lse, void* out, int B, int T, int C,
-                                           int H, int is_bf16, int thresh, float keep_scale, float eps, void* stream) {
+                                           int H, int is_bf16, int thresh, int row0, float keep_scale, float eps, void* stream) {
   if (C / H != HD || C % 64) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Dropout drop = make_dropout(seed, thresh, keep_scale);
+  Dropout drop = make_dropout(seed, thresh, keep_scale, row0);
   const float* mk = static_cast<const float*>(mask);
   const float* cs = static_cast<const float*>(cos_t);
   const float* sn = static_cast<const float*>(sin_t);
@@ -210,11 +210,11 @@ extern "C" int dit_attention_train_backward(
     const void* bqkv, const void* wo, const void* bo, const void* seed, const void* att, const void* att_lo,
     const void* lse, const void* dout, void* h, void* q, void* k, void* v, void* pz, void* dzc, void* datt, void* Dv, void* dq_r,
     void* dk_r, void* dqkv, void* dh0, void* dh0n, void* dx, void* dmod, void* dwqkv, void* dbqkv, void* dwo,
-    void* dbo, void* ws, void* ds_ws, int B, int T, int C, int H, int is_bf16, int thresh, int ws_floats,
+    void* dbo, void* ws, void* ds_ws, int B, int T, int C, int H, int is_bf16, int thresh, int row0, int ws_floats,
     float keep_scale, float eps, void* stream) {
   if (C / H != HD || C % 64) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Dropout drop = make_dropout(seed, thresh, keep_scale);
+  Dropout drop = make_dropout(seed, thresh, keep_scale, row0);
   const float* mk = static_cast<const float*>(mask);
   const float* cs = static_cast<const float*>(cos_t);
   const float* sn = static_cast<const float*>(sin_t);

@@ -37,7 +37,8 @@
 // fp32 FMA in f32, and so do the weight gradients; in bf16 the
 // values are rounded where the TPU kernel rounds them (h, sd, dz, dy, dx).
 // Dropout: element (b, t, f) keeps when Philox word f%4 of counter
-// (f/4, t, b, 1) under the call's key is >= thresh.
+// (f/4, t, b + row0, 1) under the call's key is >= thresh (row0: the batch's
+// first row in a data-parallel step's global batch).
 #include "common.cuh"
 
 #include <math.h>
@@ -60,7 +61,7 @@ struct Conv1DropEpi {
   __device__ void store(int m, int n, const float* tile, int r, int c) const {
     float y = tile[r * (GEMM_BN + 1) + c];
     float s = y / (1.f + expf(-y));
-    if (drop.seed) s *= drop.factor(drop.bits(n >> 2, m % T_, m / T_, 1u), n & 3);
+    if (drop.seed) s *= drop.factor(drop.bits(n >> 2, m % T_, m / T_ + drop.row0, 1u), n & 3);
     const long long i = (long long)m * F + n;
     if (y_out) y_out[i] = y;
     sd[i] = from_f<T>(s * mask[m]);
@@ -106,7 +107,7 @@ struct DsdEpi {
   __device__ void store(int m, int n, const float* tile, int r, int c) const {
     const long long i = (long long)m * F + n;
     float ds = tile[r * (GEMM_BN + 1) + c] * mask[m];
-    if (drop.seed) ds *= drop.factor(drop.bits(n >> 2, m % T_, m / T_, 1u), n & 3);
+    if (drop.seed) ds *= drop.factor(drop.bits(n >> 2, m % T_, m / T_ + drop.row0, 1u), n & 3);
     float yy = y[i];
     float sig = 1.f / (1.f + expf(-yy));
     float dy = ds * (sig * (1.f + yy * (1.f - sig)));
@@ -171,11 +172,11 @@ cudaError_t backward(const T* x, const T* mod, const float* mask, const T* w1, c
 
 extern "C" int ffn_train_forward(const void* x, const void* mod, const void* mask, const void* w1, const void* b1,
                                  const void* w2, const void* b2, const void* seed, void* h, void* sd, void* out,
-                                 int B, int T, int C, int F, int is_bf16, int thresh, float keep_scale, float eps,
+                                 int B, int T, int C, int F, int is_bf16, int thresh, int row0, float keep_scale, float eps,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* mk = static_cast<const float*>(mask);
-  Dropout drop = make_dropout(seed, thresh, keep_scale);
+  Dropout drop = make_dropout(seed, thresh, keep_scale, row0);
 #define STTS_ARGS(TY)                                                                                     \
   (const TY*)x, (const TY*)mod, mk, (const TY*)w1, (const TY*)b1, (const TY*)w2, (const TY*)b2, drop,     \
       (TY*)h, (TY*)sd, (TY*)out, B, T, C, F, eps, s
@@ -189,11 +190,11 @@ extern "C" int ffn_train_backward(const void* x, const void* mod, const void* ma
                                   const void* dout, void* h, void* y, void* sd, void* pz, void* dzf, void* dzc,
                                   void* dyf, void* dyc, void* dh0, void* dh0n, void* dx, void* dmod, void* dw1,
                                   void* db1, void* dw2, void* db2, void* ws, int B, int T, int C, int F,
-                                  int is_bf16, int thresh, int ws_floats, float keep_scale, float eps,
+                                  int is_bf16, int thresh, int row0, int ws_floats, float keep_scale, float eps,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* mk = static_cast<const float*>(mask);
-  Dropout drop = make_dropout(seed, thresh, keep_scale);
+  Dropout drop = make_dropout(seed, thresh, keep_scale, row0);
   float* f32[] = {static_cast<float*>(y), static_cast<float*>(pz), static_cast<float*>(dzf),
                   static_cast<float*>(dyf), static_cast<float*>(dh0), static_cast<float*>(dh0n),
                   static_cast<float*>(dmod), static_cast<float*>(dw1), static_cast<float*>(db1),

@@ -34,6 +34,7 @@ class DurationPredictor(nn.Module):
         return conv1d_same(x * m, self.proj) * m
 
 
-def duration_loss(logw, logw_, lengths):
-    """MSE over log-durations normalised by the total text length, in f32."""
-    return ((logw - logw_).float() ** 2).sum() / lengths.sum()
+def duration_loss(logw, logw_, lengths, total=None):
+    """MSE over log-durations normalised by the total text length, in f32;
+    `total` stands for lengths.sum() (a data-parallel step's global sum)."""
+    return ((logw - logw_).float() ** 2).sum() / (lengths.sum() if total is None else total)

@@ -18,6 +18,7 @@ from stabletts_torch.nn.blocks import (
     sinusoidal_pos_emb,
 )
 from stabletts_torch.ops.prenet_train_cuda import prenet_train
+from stabletts_torch.parallel import mesh
 
 
 class DitWrapper(nn.Module):
@@ -48,15 +49,14 @@ def checkpointed(block: nn.Module, gen, *args):
     they are now (bf16 casts under a compute-dtype `functional_call`, gone by
     the time the backward runs)."""
     params = dict(block.named_parameters())
-    state = None if gen is None else gen.get_state()
+    state = None if gen is None else mesh.generator_of(gen).get_state()
     recompute = False
 
     def run(*xs):
         nonlocal recompute
         g = gen
         if recompute and gen is not None:
-            g = torch.Generator(device=gen.device)
-            g.set_state(state)
+            g = mesh.forked(gen, state)
         recompute = True
         return torch.func.functional_call(block, params, (*xs, g))
 

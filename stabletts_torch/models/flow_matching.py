@@ -28,15 +28,17 @@ class CFMDecoder(nn.Module):
     def forward(self, t, x, mask, mu, c, mu_is_precomputed: bool = False):
         return self.estimator(t, x, mask, mu, c, mu_is_precomputed)
 
-    def compute_loss(self, x1, mask, mu, c, t_rand, noise, gen=None):
+    def compute_loss(self, x1, mask, mu, c, t_rand, noise, gen=None, mask_total=None):
         """OT-CFM loss with the cosine timestep warp
         (reference: flow_matching.py:69-100). x1: target mel [B, T, C];
         t_rand: U[0, 1) [B]; noise: standard normal like x1. Loss = masked
-        sum of squares / (sum(mask) * C), reduced in f32. Returns (loss, y)."""
+        sum of squares / (sum(mask) * C), reduced in f32; `mask_total` stands
+        for sum(mask) (a data-parallel step's global sum). Returns (loss, y)."""
         t = 1 - torch.cos(t_rand * 0.5 * math.pi)
         t3 = t[:, None, None]
         y = (1 - (1 - self.sigma_min) * t3) * noise + t3 * x1
         u = x1 - (1 - self.sigma_min) * noise
         pred = self.estimator(t, y, mask, mu, c, gen=gen)
-        loss = ((pred - u).float() ** 2).sum() / (mask.float().sum() * u.shape[-1])
+        total = mask.float().sum() if mask_total is None else mask_total
+        loss = ((pred - u).float() ** 2).sum() / (total * u.shape[-1])
         return loss, y

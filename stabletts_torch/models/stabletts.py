@@ -18,6 +18,7 @@ from stabletts_torch.models.reference_encoder import MelStyleEncoder
 from stabletts_torch.models.text_encoder import TextEncoder
 from stabletts_torch.ops.mas_cuda import mas
 from stabletts_torch.ops.mask import sequence_mask
+from stabletts_torch.parallel.mesh import rows_rand
 from stabletts_torch.utils.device import resolve_device
 
 
@@ -114,27 +115,32 @@ class StableTTS(nn.Module):
         cond, uncond = out[:b], out[b:]
         return uncond + cfg_strength * (cond - uncond)
 
-    def forward(self, x, x_lengths, y, y_lengths, z, z_lengths, gen: Optional[torch.Generator] = None,
-                cfg_mask=None, t_rand=None, noise=None):
+    def forward(self, x, x_lengths, y, y_lengths, z, z_lengths, gen=None, cfg_mask=None, t_rand=None, noise=None,
+                norms=None):
         """Training forward: returns (dur_loss, diff_loss, prior_loss, attn
         [B, Ty, Tx]) (reference: models/model.py:114-178).
 
         x [B, Tx] ids; y [B, Ty, n_mels] target mel; z [B, Tz, n_mels] sliced
-        reference mel. `gen` (a torch.Generator on the model's device) draws
-        every dropout and whichever of cfg_mask [B, 1] (1 = conditional),
-        t_rand [B] and noise (like y) is not passed; gen=None turns dropout
-        off, and then the three draws must be passed."""
+        reference mel. `gen` (a torch.Generator on the model's device, or a
+        `parallel.mesh.RowWindow` over it) draws every dropout and whichever
+        of cfg_mask [B, 1] (1 = conditional), t_rand [B] and noise (like y) is
+        not passed; gen=None turns dropout off, and then the three draws must
+        be passed. `norms` = (sum of x_lengths, sum of the mel mask) over the
+        global batch of a data-parallel step: the losses' denominators, so
+        each rank's loss is its share of the global loss (None: this batch's
+        own sums)."""
         b = y.shape[0]
         if gen is None and (cfg_mask is None or t_rand is None or noise is None):
             raise ValueError("StableTTS.forward: without a generator, pass cfg_mask, t_rand and noise")
         y_mask = sequence_mask(y_lengths, y.shape[1], dtype=y.dtype)
         z_mask = sequence_mask(z_lengths, z.shape[1], dtype=z.dtype)
         if cfg_mask is None:
-            cfg_mask = (torch.rand((b, 1), generator=gen, device=y.device) > self.cfg_dropout).to(y.dtype)
+            cfg_mask = (rows_rand(gen, (b, 1), y.device) > self.cfg_dropout).to(y.dtype)
         if t_rand is None:
-            t_rand = torch.rand((b,), generator=gen, device=y.device, dtype=y.dtype)
+            t_rand = rows_rand(gen, (b,), y.device, y.dtype)
         if noise is None:
-            noise = torch.randn(y.shape, generator=gen, device=y.device, dtype=y.dtype)
+            noise = rows_rand(gen, y.shape, y.device, y.dtype, normal=True)
+        text_total, mel_total = (None, None) if norms is None else norms
 
         # one CFG mask for speaker and content
         c = self.ref_encoder(z, z_mask, gen)
@@ -153,14 +159,14 @@ class StableTTS(nn.Module):
             attn = mas(neg_cent, y_mask[:, :, None] * x_mask[:, None, :]).to(y.dtype)
 
         logw_ = torch.log(1e-8 + attn.sum(dim=1))[..., None] * x_mask[..., None]
-        dur = duration_loss(logw, logw_, x_lengths)
+        dur = duration_loss(logw, logw_, x_lengths, text_total)
 
         mu_y = torch.matmul(attn, mu_x)  # [B, Ty, n_mels]
         cfg3 = cfg_mask[..., None]
         mu_y_masked = mu_y * cfg3 + (1 - cfg3) * self.fake_content[:, :, 0][:, None, :]
-        diff, _ = self.decoder.compute_loss(y, y_mask, mu_y_masked, c, t_rand, noise, gen)
+        diff, _ = self.decoder.compute_loss(y, y_mask, mu_y_masked, c, t_rand, noise, gen, mel_total)
 
         resid = (y - mu_y).float()
         prior = (0.5 * (resid ** 2 + math.log(2 * math.pi)) * y_mask[..., None].float()).sum()
-        prior = prior / (y_mask.float().sum() * self.mel_channels)
+        prior = prior / ((y_mask.float().sum() if mel_total is None else mel_total) * self.mel_channels)
         return dur, diff, prior, attn

@@ -7,8 +7,9 @@ layouts (1x1 projections are Conv1d [out, in, 1]); activations are
 channels-last [B, T, C], conditioning vectors [B, C], masks [B, T].
 
 Training modules take `gen`, the trainer's `torch.Generator` on the
-activations' device: every dropout draws from it, and `gen=None` means no
-dropout (the JAX package's `deterministic=True`).
+activations' device or a `parallel.mesh.RowWindow` over it (a data-parallel
+rank's rows of the global batch): every dropout draws from it, and
+`gen=None` means no dropout (the JAX package's `deterministic=True`).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from stabletts_torch.ops import philox
+from stabletts_torch.parallel import mesh
 from stabletts_torch.ops.adaln_ffn_cuda import adaln_ffn
 from stabletts_torch.ops.attention import attn_bias_from_mask, masked_attention, resolve_impl
 from stabletts_torch.ops.attention_packed_cuda import attention_packed_t
@@ -32,13 +34,14 @@ from stabletts_torch.ops.dit_block_cuda import DiTWeights, apply_rope, dit_block
 from stabletts_torch.ops.ffn_train_cuda import ffn_train
 
 
-def dropout(x: torch.Tensor, p: float, gen: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, p: float, gen) -> torch.Tensor:
     """Inverted dropout drawing its mask from `gen` (identity when gen is
     None or p == 0), as flax's nn.Dropout: keep with probability 1 - p and
-    scale kept values by 1 / (1 - p)."""
+    scale kept values by 1 / (1 - p). x's first dimension is the batch: a
+    `RowWindow` draws the global batch's mask and keeps its rows."""
     if gen is None or p == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=gen, device=x.device) >= p
+    keep = mesh.rows_rand(gen, x.shape, x.device) >= p
     return x * keep.to(x.dtype) / (1.0 - p)
 
 
@@ -122,9 +125,9 @@ class MultiHeadAttention(nn.Module):
         if train:
             rate = p_dropout if gen is not None else 0.0
             if resolve_impl(None, x.device) == "fused":
-                seed = philox.draw_seed(gen, x.device) if rate > 0.0 else None
+                seed = philox.draw_seed(mesh.generator_of(gen), x.device) if rate > 0.0 else None
                 out = attention_train(q.reshape(b, t, c), k.reshape(b, t, c), v.reshape(b, t, c), mask, rate, seed,
-                                      self.n_heads)
+                                      self.n_heads, mesh.row0_of(gen))
             else:
                 logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(d))
                 if mask is not None:
@@ -279,19 +282,20 @@ class DiTConVBlock(nn.Module):
             return self._inference(x.contiguous(), mods.contiguous(), mask)
         env = os.environ.get
         rate = self.p_dropout if gen is not None else 0.0
-        seed = lambda: philox.draw_seed(gen, x.device) if rate > 0.0 else None
+        seed = lambda: philox.draw_seed(mesh.generator_of(gen), x.device) if rate > 0.0 else None
+        row0 = mesh.row0_of(gen)
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mods[:, :, None, :].unbind(1)
         if env("STABLETTS_ATTN_TRAIN", "fused") == "fused":
             dense = lambda conv: conv.weight[..., 0].t()
             a = self.attn
             x = dit_attention_train(x, mods[:, :3], mask, dense(a.conv_q), a.conv_q.bias, dense(a.conv_k),
                                     a.conv_k.bias, dense(a.conv_v), a.conv_v.bias, dense(a.conv_o), a.conv_o.bias,
-                                    self.num_heads, rate, seed())
+                                    self.num_heads, rate, seed(), row0=row0)
         else:
             h = _modulate(F.layer_norm(x, (ch,), eps=1e-5), shift_msa, scale_msa)
             x = x + gate_msa * self.attn(h, mask, True, self.p_dropout, gen) * mask.to(x.dtype)[..., None]
         if env("STABLETTS_FFN_TRAIN", "fused") == "fused" and self.kernel_size == 3:
             return ffn_train(x, mods[:, 3:], mask, self.mlp.conv_1.weight.permute(2, 1, 0), self.mlp.conv_1.bias,
-                             self.mlp.conv_2.weight.permute(2, 1, 0), self.mlp.conv_2.bias, rate, seed())
+                             self.mlp.conv_2.weight.permute(2, 1, 0), self.mlp.conv_2.bias, rate, seed(), row0=row0)
         h = _modulate(F.layer_norm(x, (ch,), eps=1e-5), shift_mlp, scale_mlp)
         return x + gate_mlp * self.mlp(h, mask, self.p_dropout, gen)

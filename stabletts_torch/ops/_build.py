@@ -4,12 +4,16 @@ Every `stabletts_torch/csrc/*.cu` is compiled by its own `nvcc` process (all
 started together) into a shared library with a plain C interface, then bound
 with `ctypes`. The build runs at first CUDA use, never at import, and writes
 to `build/stabletts_torch_kernels/` beside the package (listed in
-`.gitignore`). A library newer than every source is reused.
+`.gitignore`). A library newer than every source is reused. Processes that
+build at once (the ranks of a data-parallel run on one machine) take turns
+on a file lock in that directory, and each writes its own temporary file, so
+the second finds the first's libraries and builds nothing.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import glob
 import os
 import shutil
@@ -56,31 +60,38 @@ def build_all() -> dict:
         if _libs:
             return _libs
         os.makedirs(BUILD_DIR, exist_ok=True)
-        sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
-        headers = glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
-        procs = {}
-        for src in sources:
-            name = os.path.splitext(os.path.basename(src))[0]
-            lib = os.path.join(BUILD_DIR, f"lib{name}.so")
-            if _stale(src, lib, headers):
-                cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", lib + ".tmp", src]
-                procs[name] = (lib, subprocess.Popen(
-                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        errors = []
-        for name, (lib, proc) in procs.items():
-            out, _ = proc.communicate()
-            with open(os.path.join(BUILD_DIR, f"{name}.log"), "w") as f:
-                f.write(out)
-            if proc.returncode != 0:
-                errors.append(f"nvcc failed for {name}.cu:\n{out}")
-            else:
-                os.replace(lib + ".tmp", lib)
-        if errors:
-            raise RuntimeError("\n".join(errors))
-        for src in sources:
-            name = os.path.splitext(os.path.basename(src))[0]
-            _libs[name] = ctypes.CDLL(os.path.join(BUILD_DIR, f"lib{name}.so"))
+        with open(os.path.join(BUILD_DIR, "lock"), "w") as lock_file:
+            fcntl.flock(lock_file, fcntl.LOCK_EX)  # released when the file closes
+            _build_locked()
         return _libs
+
+
+def _build_locked() -> None:
+    """build_all's work, under the file lock."""
+    sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+    headers = glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+    procs = {}
+    for src in sources:
+        name = os.path.splitext(os.path.basename(src))[0]
+        lib = os.path.join(BUILD_DIR, f"lib{name}.so")
+        if _stale(src, lib, headers):
+            cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", f"{lib}.{os.getpid()}.tmp", src]
+            procs[name] = (lib, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    errors = []
+    for name, (lib, proc) in procs.items():
+        out, _ = proc.communicate()
+        with open(os.path.join(BUILD_DIR, f"{name}.log"), "w") as f:
+            f.write(out)
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {name}.cu:\n{out}")
+        else:
+            os.replace(f"{lib}.{os.getpid()}.tmp", lib)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    for src in sources:
+        name = os.path.splitext(os.path.basename(src))[0]
+        _libs[name] = ctypes.CDLL(os.path.join(BUILD_DIR, f"lib{name}.so"))
 
 
 def load(name: str, fn: str, n_ptr: int, n_int: int, n_float: int = 0, stream: bool = True):

@@ -38,9 +38,10 @@ from stabletts_torch.ops import philox
 from stabletts_torch.ops.dit_block_cuda import _NEG
 
 
-def attention_train_plain(q, k, v, mask=None, rate: float = 0.0, seed=None, n_heads: int = 4):
+def attention_train_plain(q, k, v, mask=None, rate: float = 0.0, seed=None, n_heads: int = 4, row0: int = 0):
     """q, k, v [B, T, H*D]; mask [B, T] key validity (1 = valid) or None;
-    seed int64 [2] when rate > 0. Differentiable plain PyTorch; returns
+    seed int64 [2] when rate > 0; row0 the batch's first row in the global
+    batch (`ops/philox.py`). Differentiable plain PyTorch; returns
     [B, T, H*D] in q's dtype."""
     dt = q.dtype
     b, t, c = q.shape
@@ -51,7 +52,7 @@ def attention_train_plain(q, k, v, mask=None, rate: float = 0.0, seed=None, n_he
         s = s + torch.where(mask > 0, 0.0, _NEG).float()[:, None, None, :]
     p = torch.softmax(s, dim=-1)
     if rate > 0.0:
-        p = p * philox.attention_keep(seed, b, n_heads, t, rate)
+        p = p * philox.attention_keep(seed, b, n_heads, t, rate, row0)
     return torch.einsum("bhqk,bkhd->bqhd", p.to(dt).float(), heads(v)).reshape(b, t, c).to(dt)
 
 
@@ -69,20 +70,20 @@ def _check(q, k, v, mask, n_heads):
         raise ValueError("attention_train kernel: mask must be a contiguous f32 [B, T] on q's device")
 
 
-def attention_train_fwd(q, k, v, mask, n_heads, rate, seed):
+def attention_train_fwd(q, k, v, mask, n_heads, rate, seed, row0: int = 0):
     """One launch of the forward kernel; mask f32 [B, T]. Returns
     (o [B, T, C], lse [B, H, T] f32, o_lo like o in bf16, None in f32)."""
     from stabletts_torch.ops import _build
 
     _check(q, k, v, mask, n_heads)
     b, t, c = q.shape
-    seed_ptr, thresh, keep_scale = philox.kernel_args(rate, seed, "attention_train")
+    seed_ptr, thresh, row0, keep_scale = philox.kernel_args(rate, seed, "attention_train", row0)
     o = torch.empty_like(q)
     o_lo = torch.empty_like(q) if q.dtype == torch.bfloat16 else None
     lse = torch.empty(b, n_heads, t, device=q.device, dtype=torch.float32)
-    fn = _build.load("attention_train", "attention_train_forward", 8, 6, 1)
+    fn = _build.load("attention_train", "attention_train_forward", 8, 7, 1)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), seed_ptr, o.data_ptr(),
-             None if o_lo is None else o_lo.data_ptr(), lse.data_ptr(), b, t, c, n_heads, int(q.dtype == torch.bfloat16), thresh, keep_scale,
+             None if o_lo is None else o_lo.data_ptr(), lse.data_ptr(), b, t, c, n_heads, int(q.dtype == torch.bfloat16), thresh, row0, keep_scale,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "attention_train_fwd")
     attention_train_fwd.launches += 1
@@ -99,7 +100,7 @@ def ds_workspace(b: int, n_heads: int, t: int, like: torch.Tensor):
     return torch.empty(b * n_heads * tp * tp, device=like.device, dtype=torch.float32)
 
 
-def attention_train_bwd(q, k, v, mask, n_heads, rate, seed, o, lse, d_o, o_lo=None):
+def attention_train_bwd(q, k, v, mask, n_heads, rate, seed, o, lse, d_o, o_lo=None, row0: int = 0):
     """One launch of the backward kernel on the forward's (o, lse, o_lo);
     returns (dq, dk, dv) like q."""
     from stabletts_torch.ops import _build
@@ -111,15 +112,15 @@ def attention_train_bwd(q, k, v, mask, n_heads, rate, seed, o, lse, d_o, o_lo=No
         if ten.shape != q.shape or ten.dtype != q.dtype or not ten.is_contiguous():
             raise ValueError("attention_train_bwd: o and d_o must be contiguous tensors like q")
     b, t, c = q.shape
-    seed_ptr, thresh, keep_scale = philox.kernel_args(rate, seed, "attention_train")
+    seed_ptr, thresh, row0, keep_scale = philox.kernel_args(rate, seed, "attention_train", row0)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     d_rows = torch.empty(b, n_heads, t, device=q.device, dtype=torch.float32)
     ds_ws = ds_workspace(b, n_heads, t, q)
-    fn = _build.load("attention_train", "attention_train_backward", 14, 6, 1)
+    fn = _build.load("attention_train", "attention_train_backward", 14, 7, 1)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), seed_ptr, o.data_ptr(),
              None if o_lo is None else o_lo.data_ptr(), lse.data_ptr(), d_o.data_ptr(), d_rows.data_ptr(),
              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), None if ds_ws is None else ds_ws.data_ptr(),
-             b, t, c, n_heads, int(q.dtype == torch.bfloat16), thresh, keep_scale,
+             b, t, c, n_heads, int(q.dtype == torch.bfloat16), thresh, row0, keep_scale,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "attention_train_bwd")
     attention_train_bwd.launches += 1
@@ -135,31 +136,32 @@ class AttentionTrainFn(torch.autograd.Function):
     (in bf16 with its rounding remainder) and the log-sum-exp."""
 
     @staticmethod
-    def forward(ctx, q, k, v, maskf, n_heads, rate, seed):
+    def forward(ctx, q, k, v, maskf, n_heads, rate, seed, row0):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        o, lse, o_lo = attention_train_fwd(q, k, v, maskf, n_heads, rate, seed)
+        o, lse, o_lo = attention_train_fwd(q, k, v, maskf, n_heads, rate, seed, row0)
         ctx.save_for_backward(q, k, v, maskf, seed, o, lse, o_lo)
-        ctx.n_heads, ctx.rate = n_heads, rate
+        ctx.n_heads, ctx.rate, ctx.row0 = n_heads, rate, row0
         return o
 
     @staticmethod
     def backward(ctx, d_o):
         q, k, v, maskf, seed, o, lse, o_lo = ctx.saved_tensors
         dq, dk, dv = attention_train_bwd(q, k, v, maskf, ctx.n_heads, ctx.rate, seed, o, lse, d_o.contiguous(),
-                                         o_lo)
-        return dq, dk, dv, None, None, None, None
+                                         o_lo, ctx.row0)
+        return dq, dk, dv, None, None, None, None, None
 
 
-def attention_train(q, k, v, mask=None, rate: float = 0.0, seed=None, n_heads: int = 4):
+def attention_train(q, k, v, mask=None, rate: float = 0.0, seed=None, n_heads: int = 4, row0: int = 0):
     """Differentiable packed-head attention on q's device: plain PyTorch on
     the CPU, the CUDA kernels on the GPU. seed: int64 [2]
-    (`philox.draw_seed`), needed when rate > 0."""
+    (`philox.draw_seed`), needed when rate > 0; row0: the batch's first row
+    in a data-parallel step's global batch."""
     if q.device.type == "cpu":
-        return attention_train_plain(q, k, v, mask, rate, seed, n_heads)
+        return attention_train_plain(q, k, v, mask, rate, seed, n_heads, row0)
     if q.device.type != "cuda":
         raise ValueError(f"attention_train runs on cpu or cuda, not {q.device}")
     b, t, _ = q.shape
     maskf = (torch.ones(b, t, device=q.device) if mask is None else mask.float()).contiguous()
     if seed is None:
         seed = torch.zeros(2, device=q.device, dtype=torch.int64)
-    return AttentionTrainFn.apply(q, k, v, maskf, n_heads, rate, seed)
+    return AttentionTrainFn.apply(q, k, v, maskf, n_heads, rate, seed, row0)

@@ -7,8 +7,12 @@ each element's counter is built from its coordinates, so the kernels and
 these plain versions give the same keep mask bit for bit, and a backward
 pass regenerates its forward's mask instead of storing it:
 
-  attention weight (b, h, q, k):  counter (k // 4, q, b * H + h, 0), word k % 4
-  FFN activation (b, t, f):       counter (f // 4, t, b, 1),         word f % 4
+  attention weight (b, h, q, k):  counter (k // 4, q, (b + row0) * H + h, 0), word k % 4
+  FFN activation (b, t, f):       counter (f // 4, t, b + row0, 1),         word f % 4
+
+`row0` is the first row of the batch in the global batch of a data-parallel
+step (0 on one process): each rank then draws its own rows of the mask that
+one process would draw over the whole batch.
 
 An element is kept when its 32-bit word is >= thresh = min(int(rate * 2**32),
 2**32 - 1) (the TPU kernels' rule on their own bits, which cannot be
@@ -33,15 +37,17 @@ def threshold(rate: float) -> int:
     return min(int(rate * float(2 ** 32)), 2 ** 32 - 1)
 
 
-def kernel_args(rate: float, seed, what: str):
-    """(seed pointer, threshold as a C int, keep scale) for a CUDA kernel's
-    `Dropout` (csrc/common.cuh); a null pointer turns dropout off."""
+def kernel_args(rate: float, seed, what: str, row0: int = 0):
+    """(seed pointer, threshold as a C int, row0, keep scale) for a CUDA
+    kernel's `Dropout` (csrc/common.cuh); a null pointer turns dropout off."""
+    if row0 < 0:
+        raise ValueError(f"{what}: row0 must be >= 0, got {row0}")
     if rate <= 0.0:
-        return 0, 0, 1.0
+        return 0, 0, row0, 1.0
     if seed is None or seed.dtype != torch.int64 or seed.numel() != 2:
         raise ValueError(f"{what}: dropout needs an int64 [2] seed on x's device")
     thresh = threshold(rate)
-    return seed.data_ptr(), thresh - 2 ** 32 if thresh >= 2 ** 31 else thresh, 1.0 / (1.0 - rate)
+    return seed.data_ptr(), thresh - 2 ** 32 if thresh >= 2 ** 31 else thresh, row0, 1.0 / (1.0 - rate)
 
 
 def _mulhilo(a: torch.Tensor, m: int):
@@ -77,21 +83,23 @@ def _keep(words: torch.Tensor, n: int, rate: float) -> torch.Tensor:
     return keep.float() * (1.0 / (1.0 - rate))
 
 
-def attention_keep(seed: torch.Tensor, b: int, h: int, t: int, rate: float) -> torch.Tensor:
-    """Dropout multiplier of the attention weights, [B, H, Tq, Tk] f32."""
+def attention_keep(seed: torch.Tensor, b: int, h: int, t: int, rate: float, row0: int = 0) -> torch.Tensor:
+    """Dropout multiplier of the attention weights, [B, H, Tq, Tk] f32, for
+    global rows row0 .. row0 + B - 1."""
     dev = seed.device
     ar = lambda n: torch.arange(n, device=dev, dtype=torch.int64)
     c0 = ar((t + 3) // 4)[None, None, None, :]
     c1 = ar(t)[None, None, :, None]
-    c2 = (ar(b)[:, None] * h + ar(h)[None, :])[:, :, None, None]
+    c2 = ((ar(b)[:, None] + row0) * h + ar(h)[None, :])[:, :, None, None]
     words = philox4x32(c0, c1, c2, torch.zeros((), device=dev, dtype=torch.int64), seed.tolist())
     return _keep(words, t, rate)
 
 
-def ffn_keep(seed: torch.Tensor, b: int, t: int, f: int, rate: float) -> torch.Tensor:
-    """Dropout multiplier of the FFN activations, [B, T, F] f32."""
+def ffn_keep(seed: torch.Tensor, b: int, t: int, f: int, rate: float, row0: int = 0) -> torch.Tensor:
+    """Dropout multiplier of the FFN activations, [B, T, F] f32, for global
+    rows row0 .. row0 + B - 1."""
     dev = seed.device
     ar = lambda n: torch.arange(n, device=dev, dtype=torch.int64)
-    words = philox4x32(ar((f + 3) // 4)[None, None, :], ar(t)[None, :, None], ar(b)[:, None, None],
+    words = philox4x32(ar((f + 3) // 4)[None, None, :], ar(t)[None, :, None], ar(b)[:, None, None] + row0,
                        torch.ones((), device=dev, dtype=torch.int64), seed.tolist())
     return _keep(words, f, rate)

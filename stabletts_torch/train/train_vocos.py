@@ -25,7 +25,15 @@ As in the JAX package's step:
 
 `ops.mpd_cuda.mpd_stack`, the port of the TPU kernel mpd_stack_fused, is an
 entry point beside `DiscriminatorP` and has no gradient in either package:
-the step does not call it. Data parallelism across cards is not ported yet.
+the step does not call it.
+
+Data parallelism (`parallel/mesh.py`), as the JAX package's `train_vocos`:
+in a process group each rank takes `order[rank::W]` of every epoch's
+permutation and the same number of steps, crops its clips from the seed
+(seed, epoch, rank, batch), and averages each optimizer's gradients over the
+ranks before the clips: every GAN loss is a mean over equal-sized shards, so
+the mean of the ranks' gradients is the global batch's. Rank 0 writes the
+checkpoints and calls `log_fn` with the metrics averaged over the ranks.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ from stabletts_torch.models.gan_losses import (
 )
 from stabletts_torch.models.vocos import Vocos
 from stabletts_torch.ops.stft import log_mel_spectrogram
+from stabletts_torch.parallel import mesh as mesh_lib
 from stabletts_torch.train.scheduler import make_scheduler
 from stabletts_torch.train.state import continue_training_vocos, optimizer_steps, save_checkpoint_named
 from stabletts_torch.train.train_tts import _to_device, cast_params, resolve_compute_dtype
@@ -102,11 +111,14 @@ def _fill_missing_grads(params) -> None:
 
 
 def vocos_train_step(state: VocosTrainState, audio: torch.Tensor, mel_cfg: MelConfig, mel_loss_coeff: float,
-                     grad_clip: float = 1000.0, compute_dtype=None) -> dict:
+                     grad_clip: float = 1000.0, compute_dtype=None, mesh: Optional[mesh_lib.Mesh] = None) -> dict:
     """One GAN update on audio [B, segment_size] (f32, on the models'
     device): the discriminator step first, then the generator step against
-    the updated discriminators (reference: train.py:95-132). Returns the
-    JAX step's metrics as 0-dim f32 tensors."""
+    the updated discriminators (reference: train.py:95-132). With a `mesh`
+    in a process group, `audio` is this rank's shard and each optimizer's
+    gradients are averaged over the ranks before the clips. Returns the JAX
+    step's metrics as 0-dim f32 tensors (this rank's losses; the norms after
+    the reduction)."""
     gen, mpd, mrd = state.gen, state.mpd, state.mrd
     ms_cfgs = multi_scale_mel_configs(mel_cfg)
     cast = (lambda a: a) if compute_dtype is None else (lambda a: a.to(compute_dtype))
@@ -130,6 +142,8 @@ def vocos_train_step(state: VocosTrainState, audio: torch.Tensor, mel_cfg: MelCo
     (loss_disc_f + loss_disc_s).backward()
     p_mpd, p_mrd = list(mpd.parameters()), list(mrd.parameters())
     _fill_missing_grads(p_mpd + p_mrd)
+    if mesh is not None:
+        mesh_lib.all_reduce_grads(mesh, p_mpd + p_mrd, average=True)
     grad_norm_mpd = _clip_by_norm(p_mpd, grad_clip)
     grad_norm_mrd = _clip_by_norm(p_mrd, grad_clip)
     state.opt_d.step()
@@ -153,6 +167,8 @@ def vocos_train_step(state: VocosTrainState, audio: torch.Tensor, mel_cfg: MelCo
     loss_g.backward()
     p_g = list(gen.parameters())
     _fill_missing_grads(p_g)
+    if mesh is not None:
+        mesh_lib.all_reduce_grads(mesh, p_g, average=True)
     grad_norm_g = _clip_by_norm(p_g, grad_clip)
     state.opt_g.step()
     state.sched_g.step()
@@ -187,9 +203,11 @@ def train_vocos(train_cfg: Optional[VocosTrainConfig] = None, vocos_cfg: Optiona
                 mel_cfg: Optional[MelConfig] = None, num_epochs: Optional[int] = None,
                 log_fn: Callable[[int, dict], None] = None, device=None) -> VocosTrainState:
     """Full GAN training entry point (reference: vocoders/vocos/train.py:43-165),
-    on `device`: the GPU unless the caller passes "cpu". Resumes from
-    `train_cfg.model_save_path` as `train.state.continue_training_vocos` says;
-    `log_fn(step, metrics)` gets float metrics every `log_interval` steps."""
+    on `device`: the GPU unless the caller passes "cpu" (cuda:LOCAL_RANK in a
+    process group). Resumes from `train_cfg.model_save_path` as
+    `train.state.continue_training_vocos` says; on rank 0 `log_fn(step,
+    metrics)` gets float metrics every `log_interval` steps. In a process
+    group each call is one rank of a data-parallel run (module docstring)."""
     from stabletts_torch.data.prefetch import prefetch
     from stabletts_torch.data.vocos_dataset import VocosDataset
 
@@ -198,19 +216,23 @@ def train_vocos(train_cfg: Optional[VocosTrainConfig] = None, vocos_cfg: Optiona
     mel_cfg = mel_cfg or MelConfig()
     if vocos_cfg.input_channels != mel_cfg.n_mels:
         raise ValueError("input_channels and n_mels must be equal.")
-    device = resolve_device(device)
+    mesh = mesh_lib.make_mesh(device)
+    device = mesh.device
     compute_dtype = resolve_compute_dtype(train_cfg.compute_dtype)
 
     dataset = VocosDataset(train_cfg.train_dataset_path, train_cfg.segment_size, mel_cfg.sample_rate)
     n_epochs = num_epochs or train_cfg.num_epochs
-    steps_per_epoch = len(dataset) // train_cfg.batch_size
+    # the same on every rank (each rank's slice of the order holds at least
+    # per_rank clips), so every rank takes the same collective steps
+    steps_per_epoch = len(dataset) // mesh.world // train_cfg.batch_size
     if steps_per_epoch == 0:
-        raise ValueError(f"dataset ({len(dataset)} clips) is smaller than one batch (batch_size "
-                         f"{train_cfg.batch_size})")
+        raise ValueError(f"dataset ({len(dataset)} clips) is smaller than one global batch ({mesh.world} ranks x "
+                         f"batch_size {train_cfg.batch_size})")
     total_steps = n_epochs * steps_per_epoch
 
     state = init_vocos_training(vocos_cfg, mel_cfg, train_cfg, total_steps, train_cfg.seed, device)
     state.start_epoch = continue_training_vocos(train_cfg.model_save_path, state.parts())
+    mesh_lib.replicate(mesh, state.gen, state.mpd, state.mrd, state.opt_g, state.opt_d)
     # the schedules go on from the optimizers' own update counts
     for opt, name in ((state.opt_g, "sched_g"), (state.opt_d, "sched_d")):
         setattr(state, name, make_scheduler(opt, train_cfg.learning_rate, train_cfg.warmup_steps, total_steps,
@@ -218,16 +240,16 @@ def train_vocos(train_cfg: Optional[VocosTrainConfig] = None, vocos_cfg: Optiona
     state.step = state.start_epoch * steps_per_epoch
 
     for epoch in range(state.start_epoch, n_epochs):
-        order = np.random.default_rng(epoch).permutation(len(dataset))
+        order = np.random.default_rng(epoch).permutation(len(dataset))[mesh.rank::mesh.world]
         t0 = time.time()
         metrics = {}
 
         def make_device_batch(b):
             # on loader threads: wav decode, crop, pinned copy and H2D. Crop
-            # offsets are seeded per (seed, epoch, rank 0, batch), so results
+            # offsets are seeded per (seed, epoch, rank, batch), so results
             # do not depend on worker scheduling
             idx = order[b * train_cfg.batch_size : (b + 1) * train_cfg.batch_size]
-            rng = np.random.default_rng(np.random.SeedSequence([train_cfg.seed, epoch, 0, b]))
+            rng = np.random.default_rng(np.random.SeedSequence([train_cfg.seed, epoch, mesh.rank, b]))
             return _to_device(dataset.batch(idx, rng), device)
 
         steps = range(steps_per_epoch)  # always full batches
@@ -238,12 +260,19 @@ def train_vocos(train_cfg: Optional[VocosTrainConfig] = None, vocos_cfg: Optiona
             batches = map(make_device_batch, steps)
         for b, audio in enumerate(batches):
             metrics = vocos_train_step(state, audio, mel_cfg, train_cfg.mel_loss_coeff, train_cfg.grad_clip,
-                                       compute_dtype)
-            if log_fn is not None and b % train_cfg.log_interval == 0:
-                log_fn(epoch * steps_per_epoch + b, {k: float(v) for k, v in metrics.items()})
+                                       compute_dtype, mesh)
+            if b % train_cfg.log_interval == 0:
+                if mesh.group:  # every rank takes part; the norms are taken after the reduction already
+                    losses = [k for k in metrics if not k.startswith("grad_norm")]
+                    avg = mesh_lib.all_reduce_sum(mesh, torch.stack([metrics[k] for k in losses])) / mesh.world
+                    metrics.update(zip(losses, avg))
+                if mesh.rank == 0 and log_fn is not None:
+                    log_fn(epoch * steps_per_epoch + b, {k: float(v) for k, v in metrics.items()})
         if epoch % train_cfg.save_interval == 0:
-            save_checkpoint_named(train_cfg.model_save_path, epoch,
-                                  {name: part.state_dict() for name, part in state.parts().items()})
+            if mesh.rank == 0:
+                save_checkpoint_named(train_cfg.model_save_path, epoch,
+                                      {name: part.state_dict() for name, part in state.parts().items()})
+            mesh_lib.barrier(mesh)  # every rank resumes from the same files
         if metrics:
             logger.info("epoch %d gen_loss %.4f (%.1fs)", epoch, float(metrics["gen_loss_total"]), time.time() - t0)
     return state

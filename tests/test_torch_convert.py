@@ -129,8 +129,8 @@ def test_port_imports_nothing_of_jax():
                           if m.split(".")[0] in FORBIDDEN]
     assert not offenders, offenders
     assert len(_port_files()) > 20
-    # the training slices' files, the frontends, decoders and bench of the serving slice, and the training workflow's
-    # entry points are among those searched
+    # the training slices' files, the frontends, decoders and bench of the serving slice, the training workflow's
+    # entry points, data parallelism, the web UI, eval and metrics are among those searched
     searched = {os.path.relpath(p, REPO) for p in _port_files()}
     assert {"chip_smoke.py", "stabletts_torch/ops/attention_train_cuda.py", "stabletts_torch/ops/prenet_train_cuda.py",
             "stabletts_torch/ops/mpd_cuda.py", "stabletts_torch/models/discriminators.py",
@@ -142,7 +142,9 @@ def test_port_imports_nothing_of_jax():
             "stabletts_torch/utils/codecs.py", "stabletts_torch/ops/bars.py", "stabletts_torch/tools/bench.py",
             "stabletts_torch/tools/selftest.py", "stabletts_torch/tools/train_bench.py",
             "stabletts_torch/tools/vocos_bench.py", "stabletts_torch/data/preprocess.py",
-            "stabletts_torch/data/recipes.py", "stabletts_torch/cli.py"} <= searched
+            "stabletts_torch/data/recipes.py", "stabletts_torch/cli.py", "stabletts_torch/webui.py",
+            "stabletts_torch/parallel/mesh.py", "stabletts_torch/utils/eval.py",
+            "stabletts_torch/utils/metrics.py"} <= searched
 
 
 def _port_modules():

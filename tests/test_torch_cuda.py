@@ -895,3 +895,69 @@ def test_remat_step_on_the_card(dev, compute_dtype, t_len):
     # the batch drew the unconditional branch, must come out zero)
     bad = [k for k, g in grads_a.items() if float((grads_b[k] - g).abs().max()) > bar * float(g.abs().max())]
     assert not bad, bad
+
+
+def _row_offset_calls(dev, kind, dtype, b, t_len, rows, kw_rows):
+    """(full-batch results, results over `rows` with the keywords `kw_rows`)
+    of one training kernel pair at dropout 0.1: the output and the gradients
+    of every input (inputs with a batch dimension sliced to `rows`)."""
+    from stabletts_torch.ops import philox
+    from stabletts_torch.ops.attention_train_cuda import attention_train
+
+    rng = np.random.default_rng(21)
+    seed = philox.draw_seed(torch.Generator(device=dev).manual_seed(5), dev)
+    if kind == "attention_train":
+        _, mask = _masked_inputs(rng, dev, dtype, b, t_len, 256)
+        ins = [_rand(rng, dev, dtype, b, t_len, 256) for _ in range(3)]
+        n_rows = 3
+        run = lambda a, m, kw: attention_train(*a, m, 0.1, seed, 4, **kw)
+    else:
+        _, _, ins = _train_case("ffn" if kind == "ffn_train" else "attention", dev, dtype, b, t_len, 0.1)
+        from stabletts_torch.ops.dit_attention_train_cuda import dit_attention_train
+        from stabletts_torch.ops.ffn_train_cuda import ffn_train
+
+        lengths = torch.tensor([t_len - (i * 13) % max(1, t_len // 2) for i in range(b)], device=dev)
+        mask = (torch.arange(t_len, device=dev)[None, :] < lengths[:, None]).float()
+        n_rows = 2
+        if kind == "ffn_train":
+            run = lambda a, m, kw: ffn_train(a[0], a[1], m, *a[2:], 0.1, seed, **kw)
+        else:
+            run = lambda a, m, kw: dit_attention_train(a[0], a[1], m, *a[2:], 4, 0.1, seed, **kw)
+    cot = _rand(rng, dev, dtype, b, t_len, 256)
+
+    def call(sel, kw):
+        leaves = [(a[sel] if i < n_rows else a).detach().clone().requires_grad_() for i, a in enumerate(ins)]
+        out = run(leaves, mask[sel], kw)
+        return [out.detach(), *torch.autograd.grad(out, leaves, cot[sel])]
+
+    return call(slice(None), {}), call(rows, kw_rows), n_rows
+
+
+@pytest.mark.parametrize("kind", ["attention_train", "dit_attention_train", "ffn_train"])
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("start", [1, 2])
+def test_train_kernels_row_offset_is_rows_of_the_full_batch(dev, kind, dtype, start):
+    """A call over rows [k, k + 2) of a batch of 4 with row0 = k draws those
+    rows' dropout bits of the full call: its output and its per-row gradients
+    (dx; dq, dk, dv) are those rows of the full call, bit for bit. dmod's
+    column sums chunk by the batch size, so it is held to the kernel's bar."""
+    from stabletts_torch.ops.bars import BARS
+
+    rows = slice(start, start + 2)
+    full, part, n_rows = _row_offset_calls(dev, kind, dtype, 4, 97, rows, {"row0": start})
+    per_row = [0, *range(1, 1 + n_rows)] if kind == "attention_train" else [0, 1]
+    for i in per_row:
+        assert torch.equal(full[i][rows], part[i]), i
+    if kind != "attention_train":
+        assert _rel(part[2], full[2][rows]) <= BARS[kind][dtype]
+    # and a different offset draws other bits
+    _, other, _ = _row_offset_calls(dev, kind, dtype, 4, 97, rows, {"row0": start + 1})
+    assert not torch.equal(other[0], part[0])
+
+
+@pytest.mark.parametrize("kind", ["attention_train", "dit_attention_train", "ffn_train"])
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+def test_train_kernels_row0_zero_is_the_call_without_it(dev, kind, dtype):
+    full, explicit, _ = _row_offset_calls(dev, kind, dtype, 2, 97, slice(None), {"row0": 0})
+    for a, b in zip(full, explicit):
+        assert torch.equal(a, b)
