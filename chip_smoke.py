@@ -9,12 +9,15 @@ Phases, one JSON line each; any failure exits nonzero:
      library with attention.cuh's bf16 core must have them in that core, both
      libraries with attention_train.cuh's in its three bf16 kernels, every
      library with common.cuh's bf16 tap GEMM in its wgmma kernel, and every
-     library with its bf16 weight-gradient GEMM in `wgrad_wgmma_kernel`; no
+     library with its bf16 weight-gradient GEMM in `wgrad_wgmma_kernel`, and
+     the ISTFT's bf16 product in `istft_wgmma_kernel`, whose cp.async copies
+     and those of its f32 product must all be 16 bytes wide; no
      library may hold an FMA form of any of them for bf16; then the `ptxas`
      line: registers and spills of every f32 tap-GEMM and weight-gradient
      instantiation, of the f32 attention cores (the serving core under every
-     option the callers and the variants set), of #7's rotation and of
-     ConvNeXt's depthwise conv + LayerNorm
+     option the callers and the variants set), of #7's rotation, of
+     ConvNeXt's depthwise conv + LayerNorm and of the ISTFT head's three
+     kernels (its spectrum pass and its two products)
   3. each kernel against its plain PyTorch version on the card, at the main
      paths' shapes (the serving kernels also at the bench's B=192 in bf16),
      f32 and bf16, with times and bounds and the unit of
@@ -27,7 +30,9 @@ Phases, one JSON line each; any failure exits nonzero:
      and in f32 the block and packed attention at a request's mask, at a mask
      with a hole of one key tile and, for packed attention, with an item that
      has no valid key; under a mask the bound counts the valid rows' work,
-     ConvNeXt, ISTFT, and the bare tap GEMM at the DiT block's four products
+     ConvNeXt, the ISTFT head's product (also at a request's (1, 313) and
+     at (1, 1024) with length 313, with device ms) and its spectrum pass from
+     the head's logits (bit for bit), and the bare tap GEMM at the DiT block's four products
      beside one matmul or conv1d call (in f32 also at a request's 2 x 1024
      rows and the training step's 32 x 1000; each row names its CTA tile,
      "tile"); the bare weight-gradient GEMM at the
@@ -177,16 +182,19 @@ TRAIN_CORE_FUNCTIONS = ("attn_fwd_kernel", "attn_bwd_dkv_kernel", "attn_bwd_dq_k
 # (the projections and convs of the DiT kernels), or as all of their products (ConvNeXt in both types since its f32
 # route moved onto the f32 tap GEMM)
 TAP_GEMM_PROJECTIONS = ("dit_block", "dit_attention", "dit_attention_train_fwd", "dit_attention_train_bwd")
-TAP_GEMM_KERNELS = ("adaln_ffn", "istft", "ffn_train_fwd", "ffn_train_bwd", "prenet_train_fwd", "prenet_train_bwd",
+TAP_GEMM_KERNELS = ("adaln_ffn", "ffn_train_fwd", "ffn_train_bwd", "prenet_train_fwd", "prenet_train_bwd",
                     "convnext", "tap_gemm", "wgrad")
+# the ISTFT head's product (csrc/istft.cu, its own kernels since PR 18: bf16 on wgmma, f32 on FMA) and its spectrum
+# pass (no product); the SASS and ptxas lines list their functions
+ISTFT_FUNCTIONS = ("istft_wgmma_kernel", "istft_f32_kernel", "istft_spectrum_kernel")
 # kernels whose weight gradients are common.cuh's launch_wgrad (bf16 on wgmma, f32 on the FMA wgrad_kernel): the
 # three backwards and the bare entry; and the libraries that instantiate its bf16 form
 WGRAD_KERNELS = ("dit_attention_train_bwd", "ffn_train_bwd", "prenet_train_bwd", "wgrad")
 WGRAD_LIBS = ("dit_attention_train", "ffn_train", "prenet_train", "wgrad")
 # kernels with no product at all
-NO_PRODUCT_KERNELS = ("colsum", "rope_packed")
+NO_PRODUCT_KERNELS = ("colsum", "rope_packed", "istft_spectrum")
 # the libraries that instantiate the bf16 tap GEMM
-TAP_GEMM_LIBS = ("adaln_ffn", "convnext", "dit_attention", "dit_attention_train", "dit_block", "ffn_train", "istft",
+TAP_GEMM_LIBS = ("adaln_ffn", "convnext", "dit_attention", "dit_attention_train", "dit_block", "ffn_train",
                  "prenet_train", "tap_gemm")
 KERNEL_INFO = {
     "dit_block": ("stabletts_torch/csrc/dit_block.cu", "stabletts_tpu/ops/dit_block_pallas.py:98"),
@@ -196,6 +204,9 @@ KERNEL_INFO = {
     "attention_packed_t": ("stabletts_torch/csrc/attention_packed.cu", "stabletts_tpu/ops/attention_pallas_t.py:64"),
     "convnext": ("stabletts_torch/csrc/convnext.cu", "stabletts_tpu/ops/convnext_pallas.py:84"),
     "istft": ("stabletts_torch/csrc/istft.cu", "stabletts_tpu/ops/istft_pallas.py:55"),
+    # #3's input pass (the head's exp / clip / cos / sin and the kernel's concatenate and cast, which XLA fuses into
+    # the TPU kernel's input)
+    "istft_spectrum": ("stabletts_torch/csrc/istft.cu", "stabletts_tpu/ops/istft_pallas.py:55"),
     "dit_attention_train_fwd": ("stabletts_torch/csrc/dit_attention_train.cu",
                                 "stabletts_tpu/ops/dit_attention_pallas_train.py:273"),
     "dit_attention_train_bwd": ("stabletts_torch/csrc/dit_attention_train.cu",
@@ -244,7 +255,7 @@ DT_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 PROFILE_FAMILIES = ("wgrad_wgmma_kernel", "wgrad_f32_kernel", "sum_splits_kernel", "colsum", "tap_gemm_wgmma_kernel",
                     "tap_gemm_f32_kernel", "attn_fwd_kernel", "attn_bwd_dkv_kernel", "attn_bwd_dq_kernel",
                     "rowdot_kernel", "attention_kernel_f32", "dwconv_ln_kernel", "mas_kernel",
-                    "mas_path_kernel", "rope_packed_kernel")
+                    "mas_path_kernel", "rope_packed_kernel", *ISTFT_FUNCTIONS)
 # the FMA (f32) forms of common.cuh's tap GEMM and weight gradient, of attention_train.cuh's training core and of
 # attention.cuh's serving core (under every option), convnext.cu's depthwise conv + LayerNorm and #7's rotation (both
 # types), whose registers and spills the `ptxas` line reports
@@ -300,7 +311,7 @@ def with_core(row: dict) -> dict:
     attention core, and "wgrad" that of a backward's weight-gradient GEMM
     (wgmma in bf16, FMA in f32)."""
     kernel, bf16 = row.get("kernel"), row.get("dtype") == "bfloat16"
-    wgmma = bf16 and kernel in (*ATTENTION_CORE_KERNELS, *TRAIN_CORE_KERNELS, *TAP_GEMM_KERNELS)
+    wgmma = bf16 and kernel in (*ATTENTION_CORE_KERNELS, *TRAIN_CORE_KERNELS, *TAP_GEMM_KERNELS, "istft")
     row["core"] = "none" if kernel in NO_PRODUCT_KERNELS else ("wgmma" if wgmma else "fma")
     if kernel in TAP_GEMM_PROJECTIONS:
         row["projections"] = "wgmma" if bf16 else "fma"
@@ -336,7 +347,10 @@ def phase_sass() -> None:
     its wgmma functions, if one of them has no HGMMA, or if any library holds
     an FMA kernel (one of the three FMA training kernels, `tap_gemm_kernel`
     or `wgrad_kernel`) for bf16. The serving core's FMA kernel,
-    `attention_kernel_f32`, takes f32 alone."""
+    `attention_kernel_f32`, takes f32 alone. The istft library's line adds
+    `istft_products`: HGMMA in `istft_wgmma_kernel`, and the cp.async
+    copies (LDGSTS) of both ISTFT products by width; it fails unless the bf16
+    one has HGMMA and every copy of both is 16 bytes (.128)."""
     import re
     import shutil
 
@@ -347,7 +361,7 @@ def phase_sass() -> None:
     for name in sorted(_build._libs):
         sass = subprocess.run([tool, "-sass", os.path.join(_build.BUILD_DIR, f"lib{name}.so")], capture_output=True,
                               text=True, check=False).stdout
-        fn, per_fn, total = None, {}, 0
+        fn, per_fn, total, copies = None, {}, 0, {}
         for line in sass.splitlines():
             m = re.search(r"Function : (\S+)", line)
             if m:
@@ -357,6 +371,9 @@ def phase_sass() -> None:
                 total += 1
                 if fn is not None:
                     per_fn[fn] += 1
+            if fn is not None and "LDGSTS" in line:  # cp.async: 16-byte copies show as .128
+                c = copies.setdefault(fn, [0, 0])
+                c[0 if ".128" in line else 1] += 1
         core = {f: n for f, n in per_fn.items() if "attention_kernel_wgmma" in f}
         train = {k: n for k in TRAIN_CORE_FUNCTIONS for f, n in per_fn.items() if f"{k}_wgmma" in f}
         train_fma_bf16 = [f for f in per_fn for k in TRAIN_CORE_FUNCTIONS if f"{k}I13__nv_bfloat16" in f]
@@ -372,17 +389,26 @@ def phase_sass() -> None:
                       "fma_bf16_tap_gemm_functions": len(tap_fma_bf16),
                       "wgmma_wgrad_functions": len(wgrad), "hgmma_per_wgrad_function": sorted(set(wgrad.values())),
                       "fma_bf16_wgrad_functions": len(wgrad_fma_bf16)}
+        if name == "istft":
+            # the ISTFT's product kernels: HGMMA in the bf16 one, and every cp.async of theirs 16 bytes wide
+            istft = {next(k for k in ISTFT_FUNCTIONS if k in f): {"hgmma": n, "ldgsts_128": copies.get(f, [0, 0])[0],
+                                                                  "ldgsts_narrower": copies.get(f, [0, 0])[1]}
+                     for f, n in per_fn.items() if any(k in f for k in ISTFT_FUNCTIONS[:2])}
+            libs[name]["istft_products"] = istft
+            if (istft.get("istft_wgmma_kernel", {}).get("hgmma", 0) == 0 or "istft_f32_kernel" not in istft
+                    or any(v["ldgsts_128"] == 0 or v["ldgsts_narrower"] for v in istft.values())):
+                bad.append(name)
         if ((name in ATTENTION_LIBS and not core) or any(n == 0 for n in core.values())
                 or (name in TRAIN_CORE_LIBS and len(train) != len(TRAIN_CORE_FUNCTIONS))
                 or any(n == 0 for n in train.values()) or train_fma_bf16
                 or (name in TAP_GEMM_LIBS and not tap) or any(n == 0 for n in tap.values()) or tap_fma_bf16
                 or (name in WGRAD_LIBS and not wgrad) or any(n == 0 for n in wgrad.values()) or wgrad_fma_bf16):
             bad.append(name)
-    ok = not bad and all(name in libs for name in (*ATTENTION_LIBS, *TRAIN_CORE_LIBS, *TAP_GEMM_LIBS, *WGRAD_LIBS))
+    ok = not bad and all(name in libs for name in (*ATTENTION_LIBS, *TRAIN_CORE_LIBS, *TAP_GEMM_LIBS, *WGRAD_LIBS, "istft"))
     emit({"phase": "sass", "tool": tool, "libraries": libs, "ok": ok})
     if not ok:
-        fail(f"sass: libraries without wgmma in a bf16 attention core, tap GEMM or weight gradient, or with an FMA one "
-             f"in bf16: {bad}")
+        fail(f"sass: libraries without wgmma in a bf16 attention core, tap GEMM, weight gradient or ISTFT product, with "
+             f"an FMA one in bf16, or with an ISTFT product copying narrower than 16 bytes: {bad}")
 
 
 def phase_ptxas() -> None:
@@ -395,7 +421,9 @@ def phase_ptxas() -> None:
     `-Xptxas -v` report that the build keeps beside each library: per kernel
     and template (tile, w_trans; for MAS cells a lane, ring slots, where the
     bits go) the count of instantiations over all libraries, their least and
-    most registers, and each instantiation that spills."""
+    most registers, and each instantiation that spills; and the same for the
+    ISTFT head's kernels (ISTFT_FUNCTIONS: the f32 product by tile, the
+    spectrum pass by its input)."""
     import re
 
     from stabletts_torch.ops import _build
@@ -412,7 +440,7 @@ def phase_ptxas() -> None:
                 if m:
                     fn = m.group(1)
                     kind = next((k for k in (*F32_GEMM_FUNCTIONS, *F32_TRAIN_CORE_FUNCTIONS, *F32_SERVING_FUNCTIONS,
-                                             *MAS_MPD_FUNCTIONS) if k in fn), None)
+                                             *MAS_MPD_FUNCTIONS, *ISTFT_FUNCTIONS) if k in fn), None)
                     row = None
                     if kind:
                         # tap_gemm_f32_kernel<BM, BN, WT, Epi> mangles as ...ILi128ELi128ELb1E<Epi>...,
@@ -420,7 +448,14 @@ def phase_ptxas() -> None:
                         # ...ILb0ELi64ELb1ELb0ELi0ELb0E..., dwconv_ln_kernel<T, CW> as ...IfLi16E...
                         t = re.search(r"ILi(\d+)ELi(\d+)ELb([01])E", fn)
                         a = re.search(r"attention_kernel_f32ILb([01])ELi(\d+)ELb([01])ELb([01])ELi(\d)ELb([01])E", fn)
-                        if kind == "mas_kernel":
+                        bm = re.search(r"istft_f32_kernelILi(\d+)EE", fn)  # istft_f32_kernel<BM>
+                        if kind == "istft_f32_kernel":
+                            key = f"{kind}<{bm.group(1)}>"
+                        elif kind == "istft_spectrum_kernel":  # <Tin, Tout, LOGITS>: ...Lb1EE... from the logits
+                            key = f"{kind}<{'logits' if 'Lb1EE' in fn else 're, im'}>"
+                        elif kind == "istft_wgmma_kernel":
+                            key = kind
+                        elif kind == "mas_kernel":
                             key = (f"{kind}<{t.group(1)}, {t.group(2)}, "
                                    f"{'shared' if t.group(3) == '1' else 'workspace'}>")
                         elif kind in ("mas_path_kernel", "conv_post_kernel"):
@@ -635,9 +670,28 @@ def check_convnext(rng, b, t, dtype, dev):
                    lambda: convnext_block_plain(x, w), 4 * b * t * c * f + 14 * b * t * c, nbytes(x, *w, x))
 
 
+def _istft_lengths(b, t, lengths, dev):
+    """None, the ragged lengths of `check_istft` (lengths=True), or the given list."""
+    if lengths is None or lengths is False:
+        return None
+    if lengths is True:
+        lengths = [t - (i * 53) % max(1, t // 2) for i in range(b)]
+    return torch.tensor(lengths, device=dev)
+
+
 def check_istft(rng, b, t, dtype, dev, with_lengths=False):
+    """#3's product (`istft_product`, bf16 on wgmma, f32 on FMA) on the
+    operand the spectrum pass makes from re / im, against its plain version
+    (`product_plain`); the row adds the whole `istft_head(re, im)` (both
+    launches) against `istft_same_real` ("head_ms", "head_rel_err"), one
+    call's device ms by kernel, and at B >= 8 in bf16 one `torch.matmul` of
+    the frames product alone (spec [B*T, 2050] @ W [2050, 2048], the same
+    FLOPs, no overlap-add: a yardstick that is not the same function, so
+    `library_ms` stays null). The bound counts the valid frames."""
     from stabletts_torch.ops.istft import idft_matrix_windowed
-    from stabletts_torch.ops.istft_cuda import istft_head
+    from stabletts_torch.ops.istft_cuda import (istft_head, istft_product, istft_spectrum, packed_weight,
+                                                product_plain)
+    from stabletts_torch.tools.device_time import device_ms
 
     n_fft, hop = 2048, 512
     nf = n_fft // 2 + 1
@@ -645,15 +699,48 @@ def check_istft(rng, b, t, dtype, dev, with_lengths=False):
     phase = rng.uniform(-np.pi, np.pi, (b, t, nf))
     re = torch.from_numpy((mag * np.cos(phase)).astype(np.float32)).to(dev)
     im = torch.from_numpy((mag * np.sin(phase)).astype(np.float32)).to(dev)
-    lengths = None
-    if with_lengths:
-        lengths = torch.tensor([t - (i * 53) % max(1, t // 2) for i in range(b)], device=dev)
+    lengths = _istft_lengths(b, t, with_lengths, dev)
     md = None if dtype == torch.float32 else dtype
-    w = idft_matrix_windowed(n_fft, n_fft, dev, dtype)
-    io = 2 * b * t * nf * w.element_size() + nbytes(w) + b * t * hop * 4
-    return measure("istft", dtype, {"B": b, "T": t, "lengths": with_lengths},
-                   lambda: istft_head(re, im, n_fft, hop, md, lengths),
-                   lambda: _istft_plain_on(re, im, n_fft, hop, md, lengths), 2 * b * t * (n_fft + 2) * n_fft, io)
+    a = istft_spectrum(re, n_fft, md, lengths, im=im)
+    frames = float(b * t if lengths is None else lengths.clamp(0, t).sum().item())
+    io = nbytes(a, packed_weight(n_fft, dev, dtype)) + b * t * hop * 4
+    row = measure("istft", dtype, {"B": b, "T": t, "lengths": None if lengths is None else lengths.tolist()},
+                  lambda: istft_product(a, b, t, n_fft, hop, lengths),
+                  lambda: product_plain(a, b, t, n_fft, hop, lengths), 2 * frames * (n_fft + 2) * n_fft, io)
+    head = lambda: istft_head(re, im, n_fft, hop, md, lengths)
+    row["head_rel_err"] = rel_err(head(), _istft_plain_on(re, im, n_fft, hop, md, lengths))[0]
+    row["head_ms"] = time_ms(head)
+    row["ok"] = row["ok"] and row["head_rel_err"] <= row["bar"]
+    row["device_ms"], row["by_kernel"] = device_ms(head)
+    if md is not None and b >= 8:
+        spec = torch.cat([re, im], -1).reshape(b * t, 2 * nf).to(dtype)
+        w = idft_matrix_windowed(n_fft, n_fft, dev, dtype)
+        row["frames_matmul_ms_not_the_same_function"] = time_ms(lambda: torch.matmul(spec, w))
+    return row
+
+
+def check_istft_spectrum(rng, b, t, dtype, dev, lengths=None):
+    """The spectrum pass from the head's Dense output [B, T, 2050] (in the
+    model's dtype, the matmul dtype) against the plain chain (exp, clamp,
+    cos, sin in f32, rounded once) packed by `spectrum_plain`: bit for bit
+    (bar 0). Bound by bytes: the logits read once, the operand written once;
+    its operations (exp, clamp, cos, sin and two products a frequency)
+    against the f32 peak."""
+    from stabletts_torch.ops.istft import spectrum_from_logits
+    from stabletts_torch.ops.istft_cuda import istft_spectrum, spectrum_plain
+
+    n_fft = 2048
+    nf = n_fft // 2 + 1
+    logits = np.concatenate([rng.standard_normal((b, t, nf)) * 2.0, rng.standard_normal((b, t, nf)) * 6.0], -1)
+    x = torch.from_numpy(logits.astype(np.float32)).to(dev, dtype)
+    lens = _istft_lengths(b, t, lengths, dev)
+    md = None if dtype == torch.float32 else dtype
+    got = istft_spectrum(x, n_fft, md, lens)
+    row = measure("istft_spectrum", dtype, {"B": b, "T": t, "lengths": None if lens is None else lens.tolist()},
+                  lambda: istft_spectrum(x, n_fft, md, lens),
+                  lambda: spectrum_plain(*spectrum_from_logits(x), n_fft, md, lens), 6 * b * t * nf, nbytes(x, got))
+    row["ok"] = row["ok"] and row["max_abs_err"] == 0.0
+    return row
 
 
 # the tap GEMM's products on the bench batch's DiT block: (taps, K, N)
@@ -766,12 +853,17 @@ def phase_kernels(dev) -> dict:
     cases += [(check_dit, dict(b=2, t=1024, dtype=f32, mask_kind=kind)) for kind in ("request", "holed")]
     cases += [(check_attention_packed, dict(b=2, t=1024, dtype=f32, masked=True, tminor=tminor, mask_kind=kind))
               for tminor in (False, True) for kind in ("request", "all_masked", "holed")]
-    cases += [(fn, dict(b=b, t=t, dtype=dt)) for fn in (check_convnext, check_istft)
+    cases += [(fn, dict(b=b, t=t, dtype=dt)) for fn in (check_convnext, check_istft, check_istft_spectrum)
               for b, t in ((1, 1000), (8, 1000), (1, 333)) for dt in (f32, bf)]
     cases.append((check_istft, dict(b=8, t=1000, dtype=f32, with_lengths=True)))
+    # #3 at a request's vocode: the trimmed (1, 313) and the fixed-shape mode's cap with its length
+    cases += [(check_istft, dict(b=1, t=313, dtype=f32)), (check_istft, dict(b=1, t=1024, dtype=f32,
+                                                                              with_lengths=[313]))]
+    cases += [(check_istft_spectrum, dict(b=1, t=313, dtype=f32)),
+              (check_istft_spectrum, dict(b=1, t=1024, dtype=f32, lengths=[313]))]
     # the serving bench's batch (stabletts_torch/tools/bench.py: B=192, 1000 frames, bf16; the DiT block at T=1024)
     cases += [(check_dit, dict(b=192, t=1024, dtype=bf)), (check_convnext, dict(b=192, t=1000, dtype=bf)),
-              (check_istft, dict(b=192, t=1000, dtype=bf))]
+              (check_istft, dict(b=192, t=1000, dtype=bf)), (check_istft_spectrum, dict(b=192, t=1000, dtype=bf))]
     cases += [(check_tap_gemm, dict(b=16, t=1024, dtype=dt, product=p)) for p in TAP_GEMM_SHAPES for dt in (f32, bf)]
     # f32 also at a request's shape (2B = 2, the mel cap) and the training step's (B = 32, T = 1000)
     cases += [(check_tap_gemm, dict(b=b, t=t, dtype=f32, product=p)) for b, t in ((2, 1024), (32, 1000))
@@ -783,9 +875,9 @@ def phase_kernels(dev) -> dict:
         row = fn(rng, dev=dev, **kw)
         emit({"phase": "kernel_check", **with_core(row)})
         rows.append(row)
-        at_bench = kw["b"] == (8 if fn in (check_convnext, check_istft) else 16) and kw["t"] >= 1000
+        at_bench = kw["b"] == (8 if fn in (check_convnext, check_istft, check_istft_spectrum) else 16) and kw["t"] >= 1000
         if (kw["dtype"] == bf and at_bench and kw.get("masked", True) and "mask_kind" not in kw
-                and row["kernel"] not in ("tap_gemm", "wgrad", "colsum")):
+                and not kw.get("with_lengths") and row["kernel"] not in ("tap_gemm", "wgrad", "colsum")):
             bench_rows[row["kernel"]] = row
     rows.append(check_flash_adapter(rng, 2, 1000, dev))
     emit({"phase": "kernel_check", **with_core(rows[-1])})
@@ -1485,14 +1577,17 @@ def counters():
     from stabletts_torch.ops.convnext_cuda import convnext_block
     from stabletts_torch.ops.dit_attention_cuda import dit_attention
     from stabletts_torch.ops.dit_block_cuda import dit_block
-    from stabletts_torch.ops.istft_cuda import istft_head
+    from stabletts_torch.ops.istft_cuda import istft_head, istft_spectrum
 
     return {"dit_block": dit_block, "dit_attention": dit_attention, "adaln_ffn": adaln_ffn,
             "attention_packed": attention_packed, "attention_packed_t": attention_packed_t,
-            "convnext": convnext_block, "istft": istft_head}
+            "convnext": convnext_block, "istft": istft_head, "istft_spectrum": istft_spectrum}
 
 
 def expected_counts(**nonzero) -> dict:
+    """0 for every serving kernel but those given; the ISTFT head is two
+    launches, its spectrum pass with each product, unless given apart."""
+    nonzero.setdefault("istft_spectrum", nonzero.get("istft", 0))
     return {**{name: 0 for name in counters()}, **nonzero}
 
 
@@ -1787,7 +1882,8 @@ def phase_bench(card: str) -> dict:
     seconds = time.time() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9  # with the earlier phases' models still resident
     d = result["detail"]
-    iters = {"dit_block": 63 * args.iters, "convnext": 8 * args.iters, "istft": args.iters}
+    iters = {"dit_block": 63 * args.iters, "convnext": 8 * args.iters, "istft": args.iters,
+             "istft_spectrum": args.iters}
     total = expected_counts()
     for launches in (d["launches"], d["cfg3"]["launches"]):
         for k, v in launches.items():
@@ -3369,7 +3465,7 @@ def main() -> None:
     # the default path's launches from its `inference` requests and the language,
     # reference-format and bench phases, the other DiT kernels' from the requests
     # of the configurations that run them
-    counts = {k: (v + sum(c[k] for c in main_path_counts) if k in ("dit_block", "convnext", "istft")
+    counts = {k: (v + sum(c[k] for c in main_path_counts) if k in ("dit_block", "convnext", "istft", "istft_spectrum")
                   else config_counts[k]) for k, v in counts.items()}
     missing = [k for k, v in counts.items() if v == 0]
     if missing:

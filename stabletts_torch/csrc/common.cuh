@@ -1,11 +1,11 @@
 // Shared device code of the port's kernels: float/bf16 conversion; a tiled
 // "tap GEMM" whose A operand is a row-shifted view of activations, so k-tap
-// convolutions along time (and the ISTFT overlap-add) run as one product
-// without materialising shifted copies; its transposed product for weight
-// gradients; LayerNorm + adaLN modulate forward and backward; deterministic
-// column sums; the epilogues of the inference DiT block (QKV with partial RoPE,
-// out-projection and the two FFN convs), shared by the whole-block kernel and
-// its two halves; Philox4x32-10 dropout.
+// convolutions along time run as one product without materialising shifted
+// copies; its transposed product for weight gradients; LayerNorm + adaLN
+// modulate forward and backward; deterministic column sums; the epilogues of
+// the inference DiT block (QKV with partial RoPE, out-projection and the two
+// FFN convs), shared by the whole-block kernel and its two halves;
+// Philox4x32-10 dropout.
 //
 // The tap GEMM has two kernels behind one launch. f32 goes to the fp32-FMA
 // `tap_gemm_f32_kernel` (true-f32 products on the FP32 pipes; a register-
@@ -115,11 +115,12 @@ inline TapGemm conv_gemm(const void* a, int k_in, const void* w, int n_out, int 
 // flight: PERF.md). A row outside [0, min(t_in, row_len[b])) and a column
 // past k_in or N read nothing: cp.async zero-fills them. Where lda or ldw is
 // not a multiple of 8, a pointer is not 16-byte aligned, or a 16-byte chunk
-// would straddle k_split, the copies are element by element (the ISTFT's
-// lda = k_split = 1025): right, not fast. The epilogue stages each
-// warpgroup's 64 x 128 sums as two 64 x 64 sub-tiles of row stride
-// GEMM_BN + 1 in the ring's memory and calls the unchanged prep and store,
-// so a store reads neighbours within its 64 columns as on FMA.
+// would straddle k_split, the copies are element by element (an odd lda or
+// k_split such as 1025; no kernel of the port's paths takes them): right,
+// not fast. The epilogue stages each warpgroup's 64 x 128 sums as two 64 x 64
+// sub-tiles of row stride GEMM_BN + 1 in the ring's memory and calls the
+// unchanged prep and store, so a store reads neighbours within its 64 columns
+// as on FMA.
 constexpr int TG_BM = 128, TG_BN = 128, TG_BK = 64, TG_STAGES = 3, TG_THREADS = 256;
 constexpr int TG_INFLIGHT = 1;  // product groups a warpgroup keeps in flight across a k step
 constexpr int TG_CTAS_PER_SM = 2;
@@ -382,7 +383,7 @@ inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 
 // conflicts). Rows outside [0, min(t_in, row_len[b])) and columns at or past
 // k_in read zeros (cp.async zero-fills); where lda or ldw is not a multiple of
 // 4, a pointer is not 16-byte aligned or k_split is not a multiple of 4, the
-// copies are element by element (the ISTFT's lda = 1025). Each output is one
+// copies are element by element (an odd lda such as 1025). Each output is one
 // fmaf chain from 0 over the taps in order, then k ascending, padded with
 // zeros to a multiple of 16: the f32 callers' bits are this order's, whatever
 // the tile. The epilogue stages the tile as 64 x 64 sub-tiles of row stride

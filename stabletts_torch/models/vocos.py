@@ -3,11 +3,13 @@ forward pass (reference: vocoders/vocos/models/{model,backbone,module,head}.py).
 
 In eval mode the forward is the inference path of the JAX package's
 `vocos_apply_fused`: each ConvNeXt block is one
-`ops.convnext_cuda.convnext_block` call and the head one
-`ops.istft_cuda.istft_head` call (the CUDA kernels on the GPU), under
-`torch.no_grad()`. In train mode it is the differentiable composed path GAN
-training needs, as the JAX generator trains through `model.apply`: library
-convs and linears in the blocks and the plain linear ISTFT (or, with
+`ops.convnext_cuda.convnext_block` call and the head, from its Dense output,
+one `ops.istft_cuda.istft_head_from_logits` call (the spectrum pass and the
+product: two CUDA kernels on the GPU; a `record_function` range
+"vocos.istft_head" for the profiler), under `torch.no_grad()`. In train mode
+it is the differentiable composed path GAN training needs, as the JAX
+generator trains through `model.apply`: library convs and linears in the
+blocks and the plain linear ISTFT (or, with
 STABLETTS_ISTFT_IMPL=fused, `istft_head_diff`: the kernel forward with the
 transpose of the plain ISTFT as its backward).
 Layout: mel [B, T, n_mels] -> waveform [B, T * hop].
@@ -24,8 +26,8 @@ import torch.nn.functional as F
 from stabletts_torch.config import MelConfig, VocosConfig
 from stabletts_torch.nn.blocks import conv1d_same
 from stabletts_torch.ops.convnext_cuda import ConvNeXtWeights, convnext_block
-from stabletts_torch.ops.istft import istft_same_real
-from stabletts_torch.ops.istft_cuda import istft_head, istft_head_diff
+from stabletts_torch.ops.istft import istft_same_real, spectrum_from_logits
+from stabletts_torch.ops.istft_cuda import istft_head_diff, istft_head_from_logits
 from stabletts_torch.utils.device import resolve_device
 
 
@@ -101,12 +103,12 @@ class ISTFTHead(nn.Module):
         self.out = nn.Linear(dim, n_fft + 2)
 
     def forward(self, x, lengths=None):
-        mag, p = self.out(x).float().chunk(2, dim=-1)
-        mag = torch.clamp(torch.exp(mag), max=1e2)
+        logits = self.out(x)
         matmul_dtype = x.dtype if x.dtype != torch.float32 else None
-        re, im = mag * torch.cos(p), mag * torch.sin(p)
         if not self.training:
-            return istft_head(re, im, self.n_fft, self.hop_length, matmul_dtype, lengths)
+            with torch.profiler.record_function("vocos.istft_head"):
+                return istft_head_from_logits(logits, self.n_fft, self.hop_length, matmul_dtype, lengths)
+        re, im = spectrum_from_logits(logits)
         if lengths is not None:
             raise ValueError("Vocos: the fixed-shape `lengths` mode is a serving mode (eval)")
         if os.environ.get("STABLETTS_ISTFT_IMPL", "auto") == "fused":

@@ -18,6 +18,9 @@ BARS = {"dit_block": {torch.float32: 5e-3, torch.bfloat16: 2e-2},
         "attention_packed_t": {torch.float32: 5e-3, torch.bfloat16: 2e-2},
         "convnext": {torch.float32: 2e-2, torch.bfloat16: 2e-2},
         "istft": {torch.float32: 1e-4, torch.bfloat16: 1e-3},
+        # the ISTFT head's spectrum pass: the plain chain's own f32 operations (exp, clamp, cos, sin, two
+        # products), rounded once to the matmul dtype, so exact
+        "istft_spectrum": {torch.float32: 0.0, torch.bfloat16: 0.0},
         # forward and every gradient (tools/tpu_selftest.py:96, 155, 209 in bf16)
         "ffn_train": {torch.float32: 5e-3, torch.bfloat16: 2e-2},
         "dit_attention_train": {torch.float32: 5e-3, torch.bfloat16: 2e-2},

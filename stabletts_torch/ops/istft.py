@@ -30,6 +30,15 @@ def overlap_add(frames: torch.Tensor, hop_length: int) -> torch.Tensor:
     return out
 
 
+def spectrum_from_logits(x: torch.Tensor) -> tuple:
+    """The Vocos head's Dense output [B, T, n_fft + 2] (log-magnitude |
+    phase) -> (re, im) [B, T, n_fft//2 + 1] in f32: magnitude exp(.) clipped
+    at 1e2, times cos and sin of the phase."""
+    mag, p = x.float().chunk(2, dim=-1)
+    mag = torch.clamp(torch.exp(mag), max=1e2)
+    return mag * torch.cos(p), mag * torch.sin(p)
+
+
 def window_envelope(window: np.ndarray, n_frames: int, hop_length: int) -> np.ndarray:
     """Sum of squared windows at each output sample, summed in float64 and
     returned in the window's dtype."""

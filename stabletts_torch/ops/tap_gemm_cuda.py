@@ -9,8 +9,8 @@ of item b, zero outside [0, min(t_in, row_len[b])); its column k comes from a0 f
 k < k_split and from a1 (column k - k_split) otherwise, up to k_in. W_tap is
 read from w's storage at offset tap * w_tap_stride with row stride ldw, as
 [k_in, N], or with `w_trans` as [N, k_in] and transposed. This is the
-product inside the DiT kernels (k=3 convs and projections), the ISTFT head
-(4 taps over a split spectrum), the training kernels' forward and input
+product inside the DiT kernels (k=3 convs and projections), ConvNeXt, the
+training kernels' forward and input
 gradients and the MPD stack's stride-3 convs (`row_stride` 3); on the card
 bf16 runs on wgmma and f32 on fp32 FMA, in a CTA tile that `tap_gemm_tile`
 names.

@@ -8,7 +8,9 @@ Each run builds that tree's kernels and runs, three times each on the same
 seeded inputs, that tree's `chip_smoke` checks at the shapes of PERF.md's
 kernel table: #1 `check_dit`, #4 `check_dit_attention` and #5
 `check_adaln_ffn` at (2B=16, T=1024), #2 `check_convnext` and #3
-`check_istft` at (B=8, T=1000), each in bf16 and f32; the forward and
+`check_istft` at (B=8, T=1000) (#3's product: the tap GEMM in a tree
+before the ISTFT head's own kernels, csrc/istft.cu's in one with them),
+each in bf16 and f32; the forward and
 backward of #11 and #12 (`check_train`, (32, 1000), dropout 0.1) and of #13
 (`check_prenet_train`, (32, 1000)), bf16 and f32; and, where the tree has it,
 `check_tap_gemm` at the DiT block's four products at (16, 1024) in both

@@ -31,7 +31,8 @@ kernel's launches during the timed iterations.
 `--profile DIR` traces 2 steady calls of each batched measurement with
 torch.profiler: DIR/trace_b{B}_cfg{cfg}.json (a Chrome trace) and
 DIR/summary_b{B}_cfg{cfg}.json (wall, device busy ms and idle share, launches,
-device ms by kernel).
+device ms by kernel, and by `record_function` range of the port: "vocos.istft_head"
+is the ISTFT head from its Dense output to the waveform).
 """
 
 from __future__ import annotations
@@ -53,13 +54,15 @@ from stabletts_torch.models.sampler import cast_model, synthesise
 from stabletts_torch.models.vocos import Vocos
 from stabletts_torch.ops.convnext_cuda import convnext_block
 from stabletts_torch.ops.dit_block_cuda import dit_block
-from stabletts_torch.ops.istft_cuda import istft_head
+from stabletts_torch.ops.istft_cuda import istft_head, istft_spectrum
 from stabletts_torch.utils.device import resolve_device
 
 TEXT_LEN = 96
 REF_FRAMES = 300
 # the kernels of the default serving path, by the name their launches are reported under
-KERNELS = {"dit_block": dit_block, "convnext": convnext_block, "istft": istft_head}
+# the port's record_function ranges whose device ms the profile summary reports
+RANGES = ("vocos.istft_head",)
+KERNELS = {"dit_block": dit_block, "convnext": convnext_block, "istft": istft_head, "istft_spectrum": istft_spectrum}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -92,7 +95,8 @@ def launch_counts() -> dict:
 
 def profile_summary(fn, path: str) -> dict:
     """Traces two calls of fn; writes the Chrome trace to `path` and returns
-    wall ms, device busy ms, idle share, launches and device ms by kernel."""
+    wall ms, device busy ms, idle share, launches, device ms by kernel and by
+    range (RANGES: the device time of the kernels launched inside each)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -103,15 +107,17 @@ def profile_summary(fn, path: str) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.time() - t0) * 1e6
     prof.export_chrome_trace(path)
-    by = {}
+    by, ranges = {}, {}
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+        if e.key in RANGES:
+            ranges[e.key] = max(ranges.get(e.key, 0.0), e.device_time_total / 1e3)
+        elif e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
             by[e.key[:120]] = by.get(e.key[:120], 0.0) + e.self_device_time_total / 1e3
     busy_ms = sum(by.values())
     return {"calls": 2, "wall_ms": wall_us / 1e3, "device_busy_ms": busy_ms,
             "device_idle_share": max(0.0, 1.0 - busy_ms * 1e3 / wall_us),
             "kernel_launches": sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-            "device_ms_by_kernel": dict(sorted(by.items(), key=lambda kv: -kv[1]))}
+            "device_ms_by_kernel": dict(sorted(by.items(), key=lambda kv: -kv[1])), "device_ms_by_range": ranges}
 
 
 def main(argv=None) -> dict:

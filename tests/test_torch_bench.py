@@ -49,7 +49,7 @@ def test_bench_prints_bench_py_schema_on_cpu(capsys):
     assert (d["batch"], d["mel_frames"], d["ode_steps"], d["cfg"], d["dtype"]) == (2, 32, 2, 1.0, "bfloat16")
     # CFG 3 at half the batch: the headline's estimator batch; the CPU path launches no kernel
     assert d["cfg3"]["batch"] == 1 and d["b1"]["cfg"] == 3.0
-    assert d["launches"] == d["cfg3"]["launches"] == {"dit_block": 0, "convnext": 0, "istft": 0}
+    assert d["launches"] == d["cfg3"]["launches"] == {"dit_block": 0, "convnext": 0, "istft": 0, "istft_spectrum": 0}
 
 
 def test_bench_defaults_are_bench_py_defaults():

@@ -144,7 +144,7 @@ def test_port_imports_nothing_of_jax():
             "stabletts_torch/tools/vocos_bench.py", "stabletts_torch/data/preprocess.py",
             "stabletts_torch/data/recipes.py", "stabletts_torch/cli.py", "stabletts_torch/webui.py",
             "stabletts_torch/parallel/mesh.py", "stabletts_torch/utils/eval.py",
-            "stabletts_torch/utils/metrics.py"} <= searched
+            "stabletts_torch/utils/metrics.py", "stabletts_torch/tools/ab_istft.py"} <= searched
 
 
 def _port_modules():

@@ -467,6 +467,66 @@ def test_istft_kernel(dev, dtype, bar, lengths):
     assert _rel(got.cpu(), ref) <= bar
 
 
+def _logits(rng, dev, dtype, b, t_len, nf=1025):
+    """A Dense output of the ISTFT head: log-magnitudes (some past log 100), phases over several turns."""
+    return torch.cat([_rand(rng, dev, torch.float32, b, t_len, nf, scale=2.0),
+                      _rand(rng, dev, torch.float32, b, t_len, nf, scale=6.0)], -1).to(dtype)
+
+
+@pytest.mark.parametrize("matmul_dtype", [torch.float32, BF16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("logits_dtype", [torch.float32, BF16], ids=["logits_f32", "logits_bf16"])
+@pytest.mark.parametrize("lengths", [None, [37, 0, 12]])
+def test_istft_spectrum_kernel_is_the_plain_chain_bit_for_bit(dev, matmul_dtype, logits_dtype, lengths):
+    """The spectrum pass from the head's Dense output, and from re / im,
+    gives the bits of the plain chain (exp, clamp, cos, sin in f32, rounded
+    once to the matmul dtype) packed, with the lengths' frames zeroed."""
+    from stabletts_torch.ops.istft import spectrum_from_logits
+    from stabletts_torch.ops.istft_cuda import istft_spectrum, spectrum_plain
+
+    rng = np.random.default_rng(23)
+    x = _logits(rng, dev, logits_dtype, 3, 37)
+    md = None if matmul_dtype == torch.float32 else matmul_dtype
+    lens = None if lengths is None else torch.tensor(lengths, device=dev)
+    re, im = spectrum_from_logits(x)
+    want = spectrum_plain(re, im, 2048, md, lens)
+    before = istft_spectrum.launches
+    got = istft_spectrum(x, 2048, md, lens)
+    assert istft_spectrum.launches == before + 1 and got.dtype == matmul_dtype
+    assert torch.equal(got, want)
+    assert torch.equal(istft_spectrum(re, 2048, md, lens, im=im), want)
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float32, 1e-4), (BF16, 1e-3)])
+@pytest.mark.parametrize("b,t_len,lengths", [(1, 313, None), (2, 1024, [313, 1000]), (3, 200, [0, 130, 200])],
+                         ids=["request", "lengths", "empty_item"])
+def test_istft_head_from_logits_kernel(dev, dtype, bar, b, t_len, lengths):
+    """The head from its Dense output on the card (spectrum pass + product:
+    two launches) against the CPU path, at a request's (1, 313), at the
+    fixed-shape mode's T = 1024 with lengths (tiles past a length skipped)
+    and with an item of no frame; f32 also at each CTA tile of its product."""
+    from stabletts_torch.ops.istft_cuda import (istft_head, istft_head_from_logits, istft_product, istft_spectrum,
+                                                product_plain)
+
+    rng = np.random.default_rng(29)
+    x = _logits(rng, dev, dtype, b, t_len)
+    md = None if dtype == torch.float32 else dtype
+    lens = None if lengths is None else torch.tensor(lengths)
+    before = (istft_head.launches, istft_spectrum.launches)
+    got = istft_head_from_logits(x, 2048, 512, md, None if lens is None else lens.to(dev))
+    assert (istft_head.launches, istft_spectrum.launches) == (before[0] + 1, before[1] + 1)
+    ref = istft_head_from_logits(x.cpu(), 2048, 512, md, lens)
+    assert _rel(got.cpu(), ref) <= bar
+    if lengths is not None:
+        for i, ln in enumerate(lengths):
+            assert not got[i, ln * 512 + 768:].any()
+    if dtype == torch.float32:
+        a = istft_spectrum(x, 2048, md, None if lens is None else lens.to(dev))
+        want = product_plain(a, b, t_len, 2048, 512, None if lens is None else lens.to(dev))
+        for tile in (64, 128):
+            assert _rel(istft_product(a, b, t_len, 2048, 512, None if lens is None else lens.to(dev), tile=tile),
+                        want) <= bar
+
+
 @pytest.mark.parametrize("dtype,bar", [(torch.float32, 5e-3), (BF16, 2e-2)])
 @pytest.mark.parametrize("t_len,rate", [(64, 0.0), (97, 0.1)])
 def test_attention_train_kernel(dev, dtype, bar, t_len, rate):
