@@ -3047,8 +3047,11 @@ def phase_webui(api, card: str) -> dict:
     over the three requests (63 DiT blocks a synthesis, 8 ConvNeXt blocks and
     1 ISTFT a request); `evaluate_pair` on the card against the CPU (2e-4
     rel); then one more request under `MetricWriter` and `profile_trace`, whose
-    Chrome trace must name the DiT block's attention kernel. Returns the
-    launches of the three requests."""
+    Chrome trace must name the DiT block's attention kernel and the span
+    around the request, and of one direct `inference` call after it on the
+    profiler's thread (the server's threads are not traced), the API's own
+    `stts.api.request` (one call in `snapshot()`). Returns the launches of
+    the three requests."""
     import base64
     import threading
     from http.server import ThreadingHTTPServer
@@ -3056,7 +3059,7 @@ def phase_webui(api, card: str) -> dict:
     from stabletts_torch import webui
     from stabletts_torch.utils.audio_io import save_wav
     from stabletts_torch.utils.eval import evaluate_pair
-    from stabletts_torch.utils.metrics import MetricWriter, annotate, profile_trace
+    from stabletts_torch.utils.metrics import MetricWriter, profile_trace, snapshot, span
 
     buf = io.BytesIO()
     save_wav(buf, reference_wave(6), 44100)
@@ -3115,24 +3118,32 @@ def phase_webui(api, card: str) -> dict:
             writer = MetricWriter(os.path.join(tmp, "metrics"))
             trace_dir = os.path.join(tmp, "trace")
             with profile_trace(trace_dir):
-                with annotate("webui_request"):
+                with span("webui.request"):
                     status, data, wall = _post(srv.server_address, body(*WEBUI_REQUESTS[0]))
+                torch.cuda.synchronize()
+                # the server's thread is not traced (the profiler is thread-local): the API's own
+                # spans come from one direct call on this thread
+                lang, text = WEBUI_REQUESTS[0]
+                api.inference(text, ref_path, lang, step=10, cfg=3.0)
                 torch.cuda.synchronize()
             writer.add_scalars({"wall_ms": wall * 1e3, **scores["cuda"]}, 0, prefix="webui/")
             writer.close()
-            traces = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+            traces = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir) if f.startswith("trace_")]
             names = set()
             for path in traces:
                 with open(path) as f:
                     names |= {e.get("name", "") for e in json.load(f)["traceEvents"]}
-            traced = {"files": len(traces), "annotated": "webui_request" in names,
+            spans = snapshot()["spans"]
+            traced = {"files": len(traces), "annotated": "stts.webui.request" in names,
+                      "api_spans": "stts.api.request" in names and spans.get("api.request", {}).get("calls") == 1,
                       "dit_block_attention_kernel": any("attention_kernel_f32" in n for n in names),
                       "metrics_lines": sum(1 for _ in open(os.path.join(tmp, "metrics", "metrics.jsonl")))}
     finally:
         srv.shutdown()
         srv.server_close()
     ok = bool(all(r["ok"] for r in rows) and counts == expect and eval_rel <= 2e-4 and status == 200
-              and traced["files"] == 1 and traced["annotated"] and traced["dit_block_attention_kernel"]
+              and traced["files"] == 1 and traced["annotated"] and traced["api_spans"]
+              and traced["dit_block_attention_kernel"]
               and traced["metrics_lines"] == 1)
     emit({"phase": "webui", "requests": rows, "launches": counts, "expected_launches": expect,
           "evaluate_pair_cuda": scores["cuda"], "evaluate_pair_rel_err_vs_cpu": eval_rel, "traced_request": traced,

@@ -32,6 +32,7 @@ from stabletts_torch.text.mandarin import chinese_to_cnm3
 from stabletts_torch.text.router import auto_g2p
 from stabletts_torch.utils.convert import load_ffgan_state_dict, load_torch_state_dict
 from stabletts_torch.utils.device import resolve_device
+from stabletts_torch.utils.metrics import count, span
 
 logger = logging.getLogger("stabletts_torch.api")
 
@@ -121,27 +122,29 @@ class StableTTSAPI:
         phonemizer = self.g2p_mapping.get(language)
         if phonemizer is None:
             raise ValueError(f"language {language!r} not in {list(self.supported_languages)}")
-        return intersperse(cleaned_text_to_sequence(phonemizer(text)), 0)
+        with span("api.g2p"):
+            return intersperse(cleaned_text_to_sequence(phonemizer(text)), 0)
 
     def _reference_mel(self, ref_audio) -> tuple:
         """numpy waveform, or the path of a WAV, FLAC, mp3 or ogg file
         (resampled to the mel config's rate) -> ([1, Tref, n_mels] mel, mask or None), bucketed in
         ladder mode."""
-        if isinstance(ref_audio, str):
-            from stabletts_torch.utils.audio_io import load_and_resample_audio
+        with span("api.ref_mel"):
+            if isinstance(ref_audio, str):
+                from stabletts_torch.utils.audio_io import load_and_resample_audio
 
-            ref_audio = load_and_resample_audio(ref_audio, self.mel_config.sample_rate)
-            if ref_audio is None:
-                raise ValueError("could not load the reference audio file (WAV, FLAC, mp3 and ogg are decodable)")
-        wav = torch.from_numpy(np.asarray(ref_audio, dtype=np.float32)).to(self.device)
-        ref_mel = log_mel_spectrogram(wav[None, :], self.mel_config)
-        if not self._shape_ladder:
-            return ref_mel, None
-        t = ref_mel.shape[1]
-        t_pad = self._round_up(t, self._REF_BUCKET)
-        ref_mel = torch.nn.functional.pad(ref_mel, (0, 0, 0, t_pad - t))
-        mask = (torch.arange(t_pad, device=self.device)[None, :] < t).float()
-        return ref_mel, mask
+                ref_audio = load_and_resample_audio(ref_audio, self.mel_config.sample_rate)
+                if ref_audio is None:
+                    raise ValueError("could not load the reference audio file (WAV, FLAC, mp3 and ogg are decodable)")
+            wav = torch.from_numpy(np.asarray(ref_audio, dtype=np.float32)).to(self.device)
+            ref_mel = log_mel_spectrogram(wav[None, :], self.mel_config)
+            if not self._shape_ladder:
+                return ref_mel, None
+            t = ref_mel.shape[1]
+            t_pad = self._round_up(t, self._REF_BUCKET)
+            ref_mel = torch.nn.functional.pad(ref_mel, (0, 0, 0, t_pad - t))
+            mask = (torch.arange(t_pad, device=self.device)[None, :] < t).float()
+            return ref_mel, mask
 
     def _noise(self, b: int, cap: int, seed: int) -> torch.Tensor:
         gen = torch.Generator().manual_seed(seed)
@@ -151,21 +154,23 @@ class StableTTSAPI:
         """synthesise, doubling the mel cap (up to 8192) while any item's
         predicted length exceeds it."""
         while True:
-            out = synthesise(
-                self.tts_model, x, x_lengths, self._noise(x.shape[0], max_mel_len, seed), ref_mel,
-                max_mel_len=max_mel_len, y_ref_mask=ref_mask, device=self.device, **kw,
-            )
-            if not bool(out["y_clamped"].any()) or max_mel_len >= 8192:
-                return out
+            with span("api.synthesise"):
+                out = synthesise(
+                    self.tts_model, x, x_lengths, self._noise(x.shape[0], max_mel_len, seed), ref_mel,
+                    max_mel_len=max_mel_len, y_ref_mask=ref_mask, device=self.device, **kw,
+                )
+                if not bool(out["y_clamped"].any()) or max_mel_len >= 8192:
+                    return out
             max_mel_len *= 2
             logger.warning("predicted length exceeded the mel cap; regrowing to %d", max_mel_len)
 
     def _vocode(self, mel: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         """The whole padded mel through the vocoder, with the per-item lengths
         where the vocoder takes them."""
-        if self._vocoder_supports_lengths:
-            return self.vocoder_model(mel, lengths)
-        return self.vocoder_model(mel)
+        with span("api.vocode"):
+            if self._vocoder_supports_lengths:
+                return self.vocoder_model(mel, lengths)
+            return self.vocoder_model(mel)
 
     def warmup(self, lengths: Sequence[int] = (1024, 2048), text_buckets: Sequence[int] = (64, 128),
                ref_buckets: Sequence[int] = (512,), step: int = 10, solver: str = "euler",
@@ -195,55 +200,63 @@ class StableTTSAPI:
                   length_scale: float = 1.0, solver: str = "euler", cfg: float = 3.0,
                   max_mel_len: Optional[int] = None, seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
         """text + reference waveform -> (waveform [1, T_wav], mel [1, n_mels, T])."""
-        max_mel_len = max_mel_len or self._default_max_mel_len
-        ids = self._phonemes(text, language)
-        true_len = len(ids)
-        if self._shape_ladder:
-            ids = ids + [0] * (self._round_up(true_len, self._TEXT_BUCKET) - true_len)
-        x = torch.tensor([ids], dtype=torch.long, device=self.device)
-        x_lengths = torch.tensor([true_len], device=self.device)
-        ref_mel, ref_mask = self._reference_mel(ref_audio)
-        out = self._synthesise_regrow(
-            x, x_lengths, ref_mel, ref_mask, max_mel_len, seed, n_timesteps=step,
-            temperature=temperature, length_scale=length_scale, solver=solver, cfg=cfg,
-        )
-        y_len = int(out["y_lengths"][0])
-        if self._shape_ladder and self._vocoder_supports_lengths:
-            # fixed shape: the full cap with a length mask (exact, see Vocos)
-            audio = self.vocoder_model(out["decoder_outputs"], out["y_lengths"])
-            audio = audio[:, : y_len * self.mel_config.hop_length]
-        else:
-            audio = self.vocoder_model(out["decoder_outputs"][:, :y_len])
-        mel = out["decoder_outputs"][:, :y_len]
-        return audio.cpu().numpy(), mel.cpu().numpy().transpose(0, 2, 1)
+        with span("api.request", new_unit=True):
+            count("api.requests")
+            max_mel_len = max_mel_len or self._default_max_mel_len
+            ids = self._phonemes(text, language)
+            true_len = len(ids)
+            if self._shape_ladder:
+                ids = ids + [0] * (self._round_up(true_len, self._TEXT_BUCKET) - true_len)
+            x = torch.tensor([ids], dtype=torch.long, device=self.device)
+            x_lengths = torch.tensor([true_len], device=self.device)
+            ref_mel, ref_mask = self._reference_mel(ref_audio)
+            out = self._synthesise_regrow(
+                x, x_lengths, ref_mel, ref_mask, max_mel_len, seed, n_timesteps=step,
+                temperature=temperature, length_scale=length_scale, solver=solver, cfg=cfg,
+            )
+            y_len = int(out["y_lengths"][0])
+            with span("api.vocode"):
+                if self._shape_ladder and self._vocoder_supports_lengths:
+                    # fixed shape: the full cap with a length mask (exact, see Vocos)
+                    audio = self.vocoder_model(out["decoder_outputs"], out["y_lengths"])
+                    audio = audio[:, : y_len * self.mel_config.hop_length]
+                else:
+                    audio = self.vocoder_model(out["decoder_outputs"][:, :y_len])
+            mel = out["decoder_outputs"][:, :y_len]
+            with span("api.to_host"):
+                return audio.cpu().numpy(), mel.cpu().numpy().transpose(0, 2, 1)
 
     def batch_inference(self, items: list, ref_audio, step: int = 10, temperature: float = 1.0,
                         length_scale: float = 1.0, solver: str = "euler", cfg: float = 3.0,
                         max_mel_len: Optional[int] = None, seed: int = 0) -> list:
         """items: (text, language) pairs sharing one reference voice, run as
         one batch. Returns a list of waveforms trimmed to each item's length."""
-        max_mel_len = max_mel_len or self._default_max_mel_len
-        id_lists = [self._phonemes(text, language) for text, language in items]
-        b = len(id_lists)
-        tx = max(len(ids) for ids in id_lists)
-        if self._shape_ladder:
-            tx = self._round_up(tx, self._TEXT_BUCKET)
-        x = np.zeros((b, tx), dtype=np.int64)
-        for i, ids in enumerate(id_lists):
-            x[i, : len(ids)] = ids
-        x_lengths = torch.tensor([len(ids) for ids in id_lists], device=self.device)
-        ref_mel, ref_mask = self._reference_mel(ref_audio)
-        ref_mel = ref_mel.expand(b, -1, -1)
-        if ref_mask is not None:
-            ref_mask = ref_mask.expand(b, -1)
-        out = self._synthesise_regrow(
-            torch.from_numpy(x).to(self.device), x_lengths, ref_mel, ref_mask, max_mel_len, seed,
-            n_timesteps=step, temperature=temperature, length_scale=length_scale, solver=solver, cfg=cfg,
-        )
-        audio = self._vocode(out["decoder_outputs"], out["y_lengths"]).cpu().numpy()
-        y_lengths = out["y_lengths"].cpu().numpy()
-        hop = self.mel_config.hop_length
-        return [audio[i, : y_lengths[i] * hop] for i in range(b)]
+        with span("api.request", new_unit=True):
+            count("api.requests")
+            max_mel_len = max_mel_len or self._default_max_mel_len
+            id_lists = [self._phonemes(text, language) for text, language in items]
+            b = len(id_lists)
+            tx = max(len(ids) for ids in id_lists)
+            if self._shape_ladder:
+                tx = self._round_up(tx, self._TEXT_BUCKET)
+            x = np.zeros((b, tx), dtype=np.int64)
+            for i, ids in enumerate(id_lists):
+                x[i, : len(ids)] = ids
+            x_lengths = torch.tensor([len(ids) for ids in id_lists], device=self.device)
+            ref_mel, ref_mask = self._reference_mel(ref_audio)
+            ref_mel = ref_mel.expand(b, -1, -1)
+            if ref_mask is not None:
+                ref_mask = ref_mask.expand(b, -1)
+            out = self._synthesise_regrow(
+                torch.from_numpy(x).to(self.device), x_lengths, ref_mel, ref_mask, max_mel_len, seed,
+                n_timesteps=step, temperature=temperature, length_scale=length_scale, solver=solver, cfg=cfg,
+            )
+            audio = self._vocode(out["decoder_outputs"], out["y_lengths"])
+            with span("api.to_host"):
+                audio = audio.cpu().numpy()
+                y_lengths = out["y_lengths"].cpu().numpy()
+            hop = self.mel_config.hop_length
+            return [audio[i, : y_lengths[i] * hop] for i in range(b)]
 
     _SENT_SPLIT = re.compile(r"(?<=[.!?;。！？；…])\s*")
     _CLAUSE_SPLIT = re.compile(r"(?<=[,:、，：])\s*")

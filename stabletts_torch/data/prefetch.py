@@ -19,6 +19,8 @@ import collections
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterable, Iterator, TypeVar
 
+from stabletts_torch.utils.metrics import span
+
 T = TypeVar("T")
 U = TypeVar("U")
 
@@ -35,7 +37,8 @@ def prefetch(
     A worker exception propagates at the yield position of its item (the
     remaining in-flight work is drained first so no thread outlives the
     generator). depth >= n_workers keeps every worker busy while the consumer
-    holds the newest result.
+    holds the newest result. The consumer's wait for each item is the span
+    "data.wait" (`utils.metrics`); the workers open none.
     """
     if depth < 1:
         raise ValueError(f"depth must be >= 1, got {depth}")
@@ -48,11 +51,14 @@ def prefetch(
                 if len(futures) >= depth:
                     break
             for item in it:
-                out = futures.popleft().result()
+                with span("data.wait"):
+                    out = futures.popleft().result()
                 futures.append(ex.submit(fn, item))
                 yield out
             while futures:
-                yield futures.popleft().result()
+                with span("data.wait"):
+                    out = futures.popleft().result()
+                yield out
         finally:
             # generator closed early or an item raised: let queued work finish
             # (cancel what hasn't started) so no worker outlives this scope

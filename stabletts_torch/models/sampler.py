@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from stabletts_torch.models.stabletts import StableTTS
 from stabletts_torch.ops.ode import ADAPTIVE_SOLVERS, odeint
 from stabletts_torch.utils.device import resolve_device
+from stabletts_torch.utils.metrics import count, span
 
 
 def _as_tensor(a, device, dtype=None):
@@ -66,8 +67,12 @@ def synthesise(model: StableTTS, x, x_lengths, noise, y_ref, n_timesteps: int = 
     if max_mel_len != requested_len:
         noise = F.pad(noise, (0, 0, 0, max_mel_len - requested_len))
 
-    prep = model.prepare_synthesis(x, x_lengths, y_ref, max_mel_len, length_scale, y_ref_mask,
-                                   requested_len)
+    with span("sampler.prepare"):
+        prep = model.prepare_synthesis(x, x_lengths, y_ref, max_mel_len, length_scale, y_ref_mask,
+                                       requested_len)
+    # each item's frames (clipped at the requested length), and the rows times the frames the estimator runs
+    count("sampler.frames_valid", prep["y_lengths"])
+    count("sampler.frames_computed", noise.shape[0] * max_mel_len)
     mu_y, c, y_mask = prep["mu_y"], prep["c"], prep["y_mask"]
     h_mu = model.precompute_mu(mu_y)
     cfg_on = cfg != 1.0
@@ -87,7 +92,8 @@ def synthesise(model: StableTTS, x, x_lengths, noise, y_ref, n_timesteps: int = 
         # added for the 256 multiple have zero velocity and would deflate it
         frame_valid = (torch.arange(max_mel_len, device=device) < requested_len)[None, :, None]
         ode_kwargs = dict(err_weight=frame_valid, err_count=noise.shape[0] * requested_len * noise.shape[2])
-    mel = odeint(f, noise * temperature, t_span, method=solver, **ode_kwargs)
+    with span("sampler.ode"):
+        mel = odeint(f, noise * temperature, t_span, method=solver, **ode_kwargs)
     return {
         "encoder_outputs": mu_y[:, :requested_len].float(),
         "decoder_outputs": mel[:, :requested_len].float(),

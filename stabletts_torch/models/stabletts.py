@@ -20,6 +20,7 @@ from stabletts_torch.ops.mas_cuda import mas
 from stabletts_torch.ops.mask import sequence_mask
 from stabletts_torch.parallel.mesh import rows_rand
 from stabletts_torch.utils.device import resolve_device
+from stabletts_torch.utils.metrics import span
 
 
 def generate_path(duration: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -62,8 +63,10 @@ class StableTTS(nn.Module):
         encoder output mu_y [B, max_mel_len, n_mels], style vector, masks and
         the (clipped) lengths."""
         c = self.ref_encoder(y_ref, y_ref_mask)
-        h, mu_x, x_mask = self.encoder(x, c, x_lengths)
-        logw = self.dp(h, x_mask, c)  # [B, Tx, 1]
+        with span("text_encoder"):
+            h, mu_x, x_mask = self.encoder(x, c, x_lengths)
+        with span("duration_predictor"):
+            logw = self.dp(h, x_mask, c)  # [B, Tx, 1]
 
         # durations and frame positions stay f32 under bf16: above frame 512
         # bf16's ulp is 4 and would merge consecutive frame positions

@@ -5,11 +5,11 @@ In eval mode the forward is the inference path of the JAX package's
 `vocos_apply_fused`: each ConvNeXt block is one
 `ops.convnext_cuda.convnext_block` call and the head, from its Dense output,
 one `ops.istft_cuda.istft_head_from_logits` call (the spectrum pass and the
-product: two CUDA kernels on the GPU; a `record_function` range
-"vocos.istft_head" for the profiler), under `torch.no_grad()`. In train mode
-it is the differentiable composed path GAN training needs, as the JAX
-generator trains through `model.apply`: library convs and linears in the
-blocks and the plain linear ISTFT (or, with
+product: two CUDA kernels on the GPU; the span "vocoder.istft_head" of
+`utils.metrics` inside the forward's span "vocoder"), under
+`torch.no_grad()`. In train mode it is the differentiable composed path GAN
+training needs, as the JAX generator trains through `model.apply`: library
+convs and linears in the blocks and the plain linear ISTFT (or, with
 STABLETTS_ISTFT_IMPL=fused, `istft_head_diff`: the kernel forward with the
 transpose of the plain ISTFT as its backward).
 Layout: mel [B, T, n_mels] -> waveform [B, T * hop].
@@ -29,6 +29,7 @@ from stabletts_torch.ops.convnext_cuda import ConvNeXtWeights, convnext_block
 from stabletts_torch.ops.istft import istft_same_real, spectrum_from_logits
 from stabletts_torch.ops.istft_cuda import istft_head_diff, istft_head_from_logits
 from stabletts_torch.utils.device import resolve_device
+from stabletts_torch.utils.metrics import span
 
 
 class ConvNeXtBlock(nn.Module):
@@ -106,7 +107,7 @@ class ISTFTHead(nn.Module):
         logits = self.out(x)
         matmul_dtype = x.dtype if x.dtype != torch.float32 else None
         if not self.training:
-            with torch.profiler.record_function("vocos.istft_head"):
+            with span("vocoder.istft_head"):
                 return istft_head_from_logits(logits, self.n_fft, self.hop_length, matmul_dtype, lengths)
         re, im = spectrum_from_logits(logits)
         if lengths is not None:
@@ -138,10 +139,11 @@ class Vocos(nn.Module):
         are treated as absent: the input and every block's output are zeroed
         there and the ISTFT envelope covers the valid frames only, so the
         result equals vocoding the trimmed mel and zero-padding the waveform."""
-        if self.training:
-            return self._forward(mel, lengths)
-        with torch.no_grad():
-            return self._forward(mel, lengths)
+        with span("vocoder"):
+            if self.training:
+                return self._forward(mel, lengths)
+            with torch.no_grad():
+                return self._forward(mel, lengths)
 
     def _forward(self, mel, lengths):
         rowmask = None

@@ -13,6 +13,8 @@ from typing import Callable, Optional
 
 import torch
 
+from stabletts_torch.utils.metrics import span
+
 FIXED_SOLVERS = ("euler", "midpoint", "heun2", "heun3", "rk4", "implicit_adams")
 ADAPTIVE_SOLVERS = ("dopri5", "bosh3", "fehlberg2", "adaptive_heun")
 
@@ -60,8 +62,9 @@ def odeint_fixed(f: Field, y0: torch.Tensor, t_span: torch.Tensor, method: str =
     stepper = _STEPPERS[method]
     y = y0
     for i in range(t_span.shape[0] - 1):
-        t, dt = t_span[i], t_span[i + 1] - t_span[i]
-        y = stepper(f, y, t, dt).to(y0.dtype)
+        with span("ode.step"):
+            t, dt = t_span[i], t_span[i + 1] - t_span[i]
+            y = stepper(f, y, t, dt).to(y0.dtype)
     return y
 
 
@@ -120,29 +123,30 @@ def _odeint_implicit_adams(f: Field, y0, t_span, rtol: float = 1e-7, atol: float
     y = y0.float()
     hist: list = []  # f at past grid points, newest first
     for i in range(ts.shape[0] - 1):
-        t0, t1 = ts[i], ts[i + 1]
-        dt = t1 - t0
-        f0 = f32_eval(t0, y)
-        hist = [f0] + hist[: hist_cap - 1]
-        order = len(hist)
-        if order < _ADAMS_MIN_ORDER - 1:
-            k1 = f0
-            k2 = f32_eval(t0 + dt / 3, y + dt * k1 / 3)
-            k3 = f32_eval(t0 + dt * 2 / 3, y + dt * (k2 - k1 / 3))
-            k4 = f32_eval(t1, y + dt * (k1 - k2 + k3))
-            dy = (k1 + 3 * (k2 + k3) + k4) * dt * 0.125
-        else:
-            ab, am = _AB_COEFFS[order], _AM_COEFFS[order + 1]
-            dy = dt * sum(ab[j] * hist[j] for j in range(order))
-            delta = dt * sum(am[j + 1] * hist[j] for j in range(order))
-            for _ in range(_ADAMS_MAX_ITERS):
-                dy_new = dt * am[0] * f32_eval(t1, y + dy) + delta
-                scale = atol + rtol * torch.maximum(dy.abs(), dy_new.abs())
-                converged = bool(((dy - dy_new).abs() / scale).max() < 1.0)
-                dy = dy_new
-                if converged:
-                    break
-        y = y + dy
+        with span("ode.step"):
+            t0, t1 = ts[i], ts[i + 1]
+            dt = t1 - t0
+            f0 = f32_eval(t0, y)
+            hist = [f0] + hist[: hist_cap - 1]
+            order = len(hist)
+            if order < _ADAMS_MIN_ORDER - 1:
+                k1 = f0
+                k2 = f32_eval(t0 + dt / 3, y + dt * k1 / 3)
+                k3 = f32_eval(t0 + dt * 2 / 3, y + dt * (k2 - k1 / 3))
+                k4 = f32_eval(t1, y + dt * (k1 - k2 + k3))
+                dy = (k1 + 3 * (k2 + k3) + k4) * dt * 0.125
+            else:
+                ab, am = _AB_COEFFS[order], _AM_COEFFS[order + 1]
+                dy = dt * sum(ab[j] * hist[j] for j in range(order))
+                delta = dt * sum(am[j + 1] * hist[j] for j in range(order))
+                for _ in range(_ADAMS_MAX_ITERS):
+                    dy_new = dt * am[0] * f32_eval(t1, y + dy) + delta
+                    scale = atol + rtol * torch.maximum(dy.abs(), dy_new.abs())
+                    converged = bool(((dy - dy_new).abs() / scale).max() < 1.0)
+                    dy = dy_new
+                    if converged:
+                        break
+            y = y + dy
     return y.to(y_dtype)
 
 
@@ -303,22 +307,23 @@ def odeint_adaptive(f: Field, y0: torch.Tensor, t0, t1, method: str = "dopri5", 
     coeffs = None
     accepted = rejected = 0
     while t_cur_host < t1_host and accepted + rejected < max_steps:
-        y_new, f_new, err, y_mid = rk_step(t_cur, dt, y, fc)
-        e = rms(err / (atol + rtol * torch.maximum(y.abs(), y_new.abs())))
-        t_next = t_cur + dt
-        e_host, t_next_host = torch.stack([e, t_next]).tolist()
-        # never shrink on an accepted step (dfactor 1); e = 0 gives the largest growth
-        dfac = torch.where(e < 1.0, f32(1.0), f32(0.2))
-        efac = 0.9 * torch.clamp_min(e, 1e-10) ** (-1.0 / order)
-        fac = torch.minimum(f32(10.0), torch.maximum(efac, dfac))
-        if e_host <= 1.0:
-            coeffs = interp_fit(y, y_new, y_mid, fc, f_new, dt)
-            t_prev, t_cur, t_cur_host = t_cur, t_next, t_next_host
-            y, fc = y_new, f_new
-            accepted += 1
-        else:
-            rejected += 1
-        dt = dt * fac
+        with span("ode.step"):
+            y_new, f_new, err, y_mid = rk_step(t_cur, dt, y, fc)
+            e = rms(err / (atol + rtol * torch.maximum(y.abs(), y_new.abs())))
+            t_next = t_cur + dt
+            e_host, t_next_host = torch.stack([e, t_next]).tolist()
+            # never shrink on an accepted step (dfactor 1); e = 0 gives the largest growth
+            dfac = torch.where(e < 1.0, f32(1.0), f32(0.2))
+            efac = 0.9 * torch.clamp_min(e, 1e-10) ** (-1.0 / order)
+            fac = torch.minimum(f32(10.0), torch.maximum(efac, dfac))
+            if e_host <= 1.0:
+                coeffs = interp_fit(y, y_new, y_mid, fc, f_new, dt)
+                t_prev, t_cur, t_cur_host = t_cur, t_next, t_next_host
+                y, fc = y_new, f_new
+                accepted += 1
+            else:
+                rejected += 1
+            dt = dt * fac
     if stats is not None:
         stats.update(accepted=accepted, rejected=rejected, f_evals=f_evals[0])
 

@@ -31,8 +31,8 @@ kernel's launches during the timed iterations.
 `--profile DIR` traces 2 steady calls of each batched measurement with
 torch.profiler: DIR/trace_b{B}_cfg{cfg}.json (a Chrome trace) and
 DIR/summary_b{B}_cfg{cfg}.json (wall, device busy ms and idle share, launches,
-device ms by kernel, and by `record_function` range of the port: "vocos.istft_head"
-is the ISTFT head from its Dense output to the waveform).
+device ms by kernel, and by span of the port: "stts.vocoder.istft_head" is the
+ISTFT head from its Dense output to the waveform).
 """
 
 from __future__ import annotations
@@ -60,8 +60,8 @@ from stabletts_torch.utils.device import resolve_device
 TEXT_LEN = 96
 REF_FRAMES = 300
 # the kernels of the default serving path, by the name their launches are reported under
-# the port's record_function ranges whose device ms the profile summary reports
-RANGES = ("vocos.istft_head",)
+# the port's spans (utils/metrics.py) whose device ms the profile summary reports
+RANGES = ("stts.vocoder.istft_head",)
 KERNELS = {"dit_block": dit_block, "convnext": convnext_block, "istft": istft_head, "istft_spectrum": istft_spectrum}
 
 

@@ -37,6 +37,7 @@ from stabletts_torch.models import build_stabletts
 from stabletts_torch.parallel import mesh as mesh_lib
 from stabletts_torch.train.scheduler import make_scheduler
 from stabletts_torch.train.state import continue_training, optimizer_steps, save_checkpoint
+from stabletts_torch.utils.metrics import count, span
 
 logger = logging.getLogger("stabletts_torch.train")
 
@@ -99,22 +100,27 @@ def train_step(model, optimizer, scheduler, batch, gen, compute_dtype=None,
     global batch's (module docstring). Returns 0-dim tensors loss, dur_loss,
     diff_loss, prior_loss (the global batch's) and grad_norm (the global L2
     norm of the gradients)."""
-    dp = mesh is not None and mesh.group
-    norms = loss_norms(mesh, batch) if dp else None
-    optimizer.zero_grad(set_to_none=True)
-    dur, diff, prior, _ = model_losses(model, batch, gen, compute_dtype, norms, **draws)
-    loss = dur + diff + prior
-    loss.backward()
-    params = [p for group in optimizer.param_groups for p in group["params"]]
-    for p in params:
-        if p.grad is None:  # optax decays every parameter, with or without a gradient
-            p.grad = torch.zeros_like(p)
-    if dp:
-        mesh_lib.all_reduce_grads(mesh, params)
-        loss, dur, diff, prior = mesh_lib.all_reduce_sum(mesh, torch.stack([loss, dur, diff, prior]).detach())
-    grad_norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(p.grad) for p in params]))
-    optimizer.step()
-    scheduler.step()
+    with span("train.step", new_unit=True):
+        count("train.steps")
+        dp = mesh is not None and mesh.group
+        norms = loss_norms(mesh, batch) if dp else None
+        optimizer.zero_grad(set_to_none=True)
+        with span("train.forward"):
+            dur, diff, prior, _ = model_losses(model, batch, gen, compute_dtype, norms, **draws)
+            loss = dur + diff + prior
+        with span("train.backward"):
+            loss.backward()
+        with span("train.update"):
+            params = [p for group in optimizer.param_groups for p in group["params"]]
+            for p in params:
+                if p.grad is None:  # optax decays every parameter, with or without a gradient
+                    p.grad = torch.zeros_like(p)
+            if dp:
+                mesh_lib.all_reduce_grads(mesh, params)
+                loss, dur, diff, prior = mesh_lib.all_reduce_sum(mesh, torch.stack([loss, dur, diff, prior]).detach())
+            grad_norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(p.grad) for p in params]))
+            optimizer.step()
+            scheduler.step()
     return {"loss": loss.detach(), "dur_loss": dur.detach(), "diff_loss": diff.detach(),
             "prior_loss": prior.detach(), "grad_norm": grad_norm}
 

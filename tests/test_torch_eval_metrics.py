@@ -84,29 +84,23 @@ def test_metric_writer_matches_jax(tmp_path):
     assert scalars["lr"] == [(2, float(np.float32(1e-4)))]  # TensorBoard keeps f32
 
 
-def test_step_timer_matches_jax(monkeypatch):
-    ticks = [10.0, 10.5, 11.25, 11.5, 13.0]
-    timers = {}
-    for name, mod in (("port", tmetrics), ("jax", jmetrics)):
-        clock = iter(ticks)
-        monkeypatch.setattr(mod.time, "time", lambda: next(clock))
-        timer = mod.StepTimer(window=3)
-        assert timer.mean_step_s is None and timer.audio_seconds_per_s(1.0) is None
-        timers[name] = ([timer.tick() for _ in ticks], timer.mean_step_s, timer.audio_seconds_per_s(7.0))
-    assert timers["port"] == timers["jax"]
-    assert timers["port"][0] == [None, 0.5, 0.75, 0.25, 1.5] and timers["port"][1] == pytest.approx(2.5 / 3)
-
-
 def test_profile_trace_writes_a_trace_with_the_annotated_range(tmp_path):
     with tmetrics.profile_trace(str(tmp_path / "trace")) as prof:
-        with tmetrics.annotate("stts_test_range"):
+        with tmetrics.span("test_range"):
             torch.ones(64, 64) @ torch.ones(64, 64)
     assert prof is not None
     files = glob.glob(os.path.join(tmp_path, "trace", "trace_*.json"))
     assert len(files) == 1
     with open(files[0]) as f:
         events = json.load(f)["traceEvents"]
-    assert any(e.get("name") == "stts_test_range" for e in events)
+    assert any(e.get("name") == "stts.test_range" for e in events)
+    assert tmetrics.snapshot()["spans"]["test_range"]["calls"] == 1
+    spans = glob.glob(os.path.join(tmp_path, "trace", "spans_*.jsonl"))
+    assert [os.path.basename(p)[6:] for p in spans] == [os.path.basename(files[0])[6:-5] + ".jsonl"]
+    with open(spans[0]) as f:
+        assert [json.loads(line) for line in f] == [
+            {"name": "test_range", "start_ns": r[1], "end_ns": r[2], "parent": -1, "unit": None}
+            for r in tmetrics.records()]
     assert any("mm" in str(e.get("name")) for e in events)
     with tmetrics.profile_trace(None) as prof:  # no-op
         pass

@@ -1,0 +1,193 @@
+"""The port's spans and counters (stabletts_torch/utils/metrics.py): off and
+free while no profiler records; under torch.profiler each span is a `stts.*`
+range with its parent, unit and self time kept in memory; an API request
+that regrows shows its two passes; and a traced benchmark run of every cell
+reads each per-layer metric that is computed from them."""
+
+import logging
+import os
+import sys
+import threading
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from stabletts_torch.api import StableTTSAPI
+from stabletts_torch.utils import metrics
+from torch_port_utils import MEL_CFG, MODEL_CFG, VOCOS_CFG
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(REPO, "perfbench", "tests"))
+
+import pb_helpers  # noqa: E402
+from perfbench.lib import core  # noqa: E402
+
+torch.set_num_threads(2)
+
+
+def _profiled():
+    return profile(activities=[ProfilerActivity.CPU])
+
+
+def test_without_a_profiler_span_is_the_shared_noop():
+    metrics.reset()
+    a, b = metrics.span("x"), metrics.span("y", new_unit=True)
+    assert a is b
+    with a:
+        metrics.count("c")
+        metrics.count("c", torch.ones(3))
+    assert metrics.snapshot() == {"spans": {}, "counters": {}, "dropped": 0}
+
+
+def test_spans_under_the_profiler_nest_and_add_up():
+    metrics.reset()
+    with _profiled() as prof:
+        for _ in range(2):
+            with metrics.span("outer", new_unit=True):
+                metrics.count("items", 2)
+                metrics.count("frames", torch.tensor([3, 4], dtype=torch.int32))
+                for _ in range(2):
+                    with metrics.span("inner"):
+                        torch.ones(32, 32) @ torch.ones(32, 32)
+        with metrics.span("loose"):
+            pass
+    names = [e.name for e in prof.events()]
+    assert names.count("stts.outer") == 2 and names.count("stts.inner") == 4 and "stts.loose" in names
+    recs = metrics.records()
+    assert [r[0] for r in recs] == ["outer", "inner", "inner", "outer", "inner", "inner", "loose"]
+    assert [r[3] for r in recs] == [-1, 0, 0, -1, 3, 3, -1]  # parent index
+    assert [r[4] for r in recs] == [0, 0, 0, 1, 1, 1, None]  # unit: one a new_unit span
+    snap = metrics.snapshot()
+    assert snap["counters"] == {"items": 4, "frames": 14} and snap["dropped"] == 0
+    outer, inner = snap["spans"]["outer"], snap["spans"]["inner"]
+    assert outer["calls"] == 2 and inner["calls"] == 4 and inner["self_ns"] == inner["total_ns"]
+    assert outer["self_ns"] + inner["total_ns"] == outer["total_ns"] and outer["self_ns"] > 0
+    metrics.reset()
+    assert metrics.snapshot() == {"spans": {}, "counters": {}, "dropped": 0}
+
+
+def test_store_is_capped_and_threads_nest_their_own_spans():
+    """The profiler records on its own thread only: there spans nest and fill
+    the capped store; another thread's span is the shared no-op and its count
+    is dropped, so nothing of it lands among the profiler thread's spans."""
+    metrics.TRACER.capacity = 3
+    try:
+        metrics.reset()
+        seen = {}
+
+        def other():
+            seen["span"] = metrics.span("b")
+            with seen["span"]:
+                metrics.count("other")
+
+        with _profiled():
+            with metrics.span("a", new_unit=True):
+                t = threading.Thread(target=other)
+                t.start()
+                t.join(timeout=10)
+                with metrics.span("c"):
+                    metrics.count("v", torch.ones(2))
+                metrics.count("w", torch.ones(2))  # past the cap
+                with metrics.span("d"):  # past the cap
+                    pass
+        assert not t.is_alive() and seen["span"] is metrics.span("x")
+        recs = metrics.records()
+        assert [r[0] for r in recs] == ["a", "c"]
+        assert [r[3] for r in recs] == [-1, 0] and [r[4] for r in recs] == [0, 0]
+        snap = metrics.snapshot()
+        assert snap["dropped"] == 2 and snap["counters"] == {"v": 2}
+        assert snap["spans"]["a"]["calls"] == 1 and "b" not in snap["spans"] and "d" not in snap["spans"]
+    finally:
+        metrics.TRACER.capacity = metrics.CAPACITY
+        metrics.reset()
+
+
+@pytest.fixture(scope="module")
+def api():
+    return StableTTSAPI(model_config=MODEL_CFG, mel_config=MEL_CFG, vocos_config=VOCOS_CFG, max_mel_len=256,
+                        device="cpu")
+
+
+def _wave(seconds=1.0, sr=44100):
+    tt = np.arange(int(seconds * sr)) / sr
+    return (0.3 * np.sin(2 * np.pi * 220 * tt)).astype(np.float32)
+
+
+def test_a_regrown_request_shows_both_passes(api, caplog):
+    text, ref, steps = "The quick brown fox jumps over the lazy dog.", _wave(), 2
+    kw = dict(step=steps, cfg=1.0, seed=3)
+    _, mel = api.inference(text, ref, "english", max_mel_len=4096, **kw)
+    frames = mel.shape[2]
+    cap = (frames + 1) // 2  # one regrow: cap < frames <= 2 cap
+    assert cap < frames <= 2 * cap
+    wav_off, mel_off = api.inference(text, ref, "english", max_mel_len=cap, **kw)
+    metrics.reset()
+    caplog.clear()
+    with caplog.at_level(logging.WARNING, logger="stabletts_torch.api"), _profiled():
+        wav_on, mel_on = api.inference(text, ref, "english", max_mel_len=cap, **kw)
+    np.testing.assert_array_equal(wav_on, wav_off)  # tracing changes no result
+    np.testing.assert_array_equal(mel_on, mel_off)
+    assert [r.getMessage() for r in caplog.records] == [
+        f"predicted length exceeded the mel cap; regrowing to {2 * cap}"]
+    snap = metrics.snapshot()
+    spans, counters = snap["spans"], snap["counters"]
+    assert counters["api.requests"] == 1
+    assert set(counters) == {"api.requests", "sampler.frames_valid", "sampler.frames_computed"}
+    assert {k: spans[k]["calls"] for k in ("api.request", "api.g2p", "api.ref_mel", "api.vocode", "api.to_host",
+                                           "vocoder", "vocoder.istft_head")} == dict.fromkeys(
+        ("api.request", "api.g2p", "api.ref_mel", "api.vocode", "api.to_host", "vocoder", "vocoder.istft_head"), 1)
+    for name in ("api.synthesise", "sampler.prepare", "text_encoder", "duration_predictor", "sampler.ode"):
+        assert spans[name]["calls"] == 2, name
+    assert spans["ode.step"]["calls"] == 2 * steps
+    round_up = lambda n: -(-n // 256) * 256
+    assert counters["sampler.frames_computed"] == round_up(cap) + round_up(2 * cap)
+    assert counters["sampler.frames_valid"] == cap + frames  # the first pass's length clipped at its cap
+    recs = metrics.records()
+    assert {r[4] for r in recs} == {0}  # every span belongs to the one request
+    by_index = {i: r for i, r in enumerate(recs)}
+    parents = {r[0]: by_index[r[3]][0] for r in recs if r[3] >= 0}
+    assert parents["api.synthesise"] == "api.request" and parents["sampler.ode"] == "api.synthesise"
+    assert parents["ode.step"] == "sampler.ode" and parents["text_encoder"] == "sampler.prepare"
+    assert parents["vocoder.istft_head"] == "vocoder" and parents["vocoder"] == "api.vocode"
+
+
+@pytest.fixture(scope="module")
+def bench_root(tmp_path_factory):
+    return pb_helpers.tiny_copy(tmp_path_factory.mktemp("tracing"), pb_helpers.TINY_TRAFFIC)
+
+
+NEW_METRICS = {
+    "serve_batch_bf16": ["estimator_padding_share.serve"],
+    "serve_api_batch_f32": ["estimator_padding_share.serve"],
+    "serve_request_f32": ["ode_passes.request", "frontend_ms.request", "ode_step_host_ms.request"],
+    "train_f32_b32": ["update_ms.train", "feed_wait_ms.train"],
+}
+
+
+@pytest.mark.parametrize("cell", sorted(NEW_METRICS))
+def test_traced_run_reads_the_program_metrics(bench_root, cell):
+    run = core.load_module(os.path.join(bench_root, "perfbench", "run.py"), "pb_run_tracing")
+    metrics.reset()
+    res = run.run(core.Cell(cell, bench_root), 2000000123, 0.5, True, "cpu")
+    got = {k: v["value"] for k, v in res["metrics"].items()}
+    for name in NEW_METRICS[cell]:
+        assert isinstance(got.get(name), float) and got[name] >= 0.0, (name, got)
+    if cell == "serve_request_f32":
+        assert got["ode_passes.request"] == pytest.approx(1.0 + got["regrow_share.request"] / 100.0, abs=1e-9)
+        assert got["frontend_ms.request"] > 0 and got["ode_step_host_ms.request"] > 0
+    elif cell == "train_f32_b32":
+        assert 0.0 < got["feed_wait_ms.train"] <= got["data_wait_ms.train"] and got["update_ms.train"] > 0
+    else:
+        assert got["estimator_padding_share.serve"] == pytest.approx(got["padding_share.serve"], abs=1e-9)
+    assert metrics.snapshot()["dropped"] == 0
+
+
+def test_readers_find_nothing_in_a_program_without_spans(monkeypatch):
+    """A program that keeps no spans (no `snapshot`): each reader returns None."""
+    monkeypatch.delattr(metrics, "snapshot")
+    for names in NEW_METRICS.values():
+        for name in names:
+            reader = core.load_module(os.path.join(core.PKG_DIR, "metrics", f"{name}.py"), "pb_tracing_" + name)
+            assert reader.read({}) is None, name
