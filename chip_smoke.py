@@ -141,6 +141,7 @@ Phases, one JSON line each; any failure exits nonzero:
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import dataclasses
@@ -1648,20 +1649,20 @@ def phase_serving(dev, card: str) -> tuple:
     ref = reference_wave(3)
     sr, hop = api.mel_config.sample_rate, api.mel_config.hop_length
 
-    with counting_synthesise() as n_synth:
+    with counting_passes() as n_passes:
         api.inference(SENTENCES[0], ref, "english", step=10, cfg=3.0)  # warm: allocator, cuDNN plans
         torch.cuda.synchronize()
         main_counts = expected_counts()  # summed over the inference requests
         for i, text in enumerate(SENTENCES):
             reset_counts()
-            n_synth[0] = 0
+            n_passes.clear()
             t0 = time.time()
             wav, mel = api.inference(text, ref, "english", step=10, cfg=3.0, seed=i)
             wall = time.time() - t0
             counts = read_counts()
             for k, v in counts.items():
                 main_counts[k] += v
-            expect = expected_counts(dit_block=63 * n_synth[0], convnext=8, istft=1)
+            expect = expected_counts(dit_block=api_dit_blocks(n_passes), convnext=8, istft=1)
             ok = counts == expect and np.isfinite(wav).all() and wav.shape[1] == mel.shape[2] * hop
             emit({"phase": "serving_request", "text_chars": len(text), "frames": int(mel.shape[2]),
                   "wall_ms": wall * 1e3, "audio_s_per_s": wav.shape[1] / sr / wall, "launches": counts,
@@ -1670,12 +1671,12 @@ def phase_serving(dev, card: str) -> tuple:
                 fail(f"serving request {i}: launches {counts} vs {expect}, or bad output shape/values")
 
         reset_counts()
-        n_synth[0] = 0
+        n_passes.clear()
         t0 = time.time()
         wavs = api.batch_inference([(s, "english") for s in SENTENCES], ref, step=10, cfg=3.0)
         wall = time.time() - t0
         counts = read_counts()
-        expect = expected_counts(dit_block=63 * n_synth[0], convnext=8, istft=1)
+        expect = expected_counts(dit_block=api_dit_blocks(n_passes), convnext=8, istft=1)
         ok = counts == expect and len(wavs) == len(SENTENCES) and all(np.isfinite(w).all() for w in wavs)
         emit({"phase": "serving_batch", "items": len(wavs), "wall_ms": wall * 1e3,
               "audio_s_per_s": sum(w.shape[0] for w in wavs) / sr / wall, "launches": counts,
@@ -1719,22 +1720,32 @@ def phase_serving(dev, card: str) -> tuple:
 
 
 @contextlib.contextmanager
-def counting_synthesise():
-    """Counts the API's synthesise calls (the mel cap's regrowth calls it
-    again) in the yielded one-element list."""
+def counting_passes():
+    """Counts the API's `prepare` calls (one more a doubling of the mel cap)
+    and `sample` calls (one ODE pass a request) in the yielded Counter."""
     import stabletts_torch.api as api_mod
 
-    real, n_synth = api_mod.synthesise, [0]
+    real, n_passes = {k: getattr(api_mod, k) for k in ("prepare", "sample")}, collections.Counter()
 
-    def counting(*a, **k):
-        n_synth[0] += 1
-        return real(*a, **k)
+    def counting(name):
+        def call(*a, **k):
+            n_passes[name] += 1
+            return real[name](*a, **k)
+        return call
 
-    api_mod.synthesise = counting
+    for name in real:
+        setattr(api_mod, name, counting(name))
     try:
-        yield n_synth
+        yield n_passes
     finally:
-        api_mod.synthesise = real
+        for name, fn in real.items():
+            setattr(api_mod, name, fn)
+
+
+def api_dit_blocks(n_passes) -> int:
+    """DiT block launches of the API's counted passes at 10 Euler steps: the
+    text encoder's 3 a `prepare`, the estimator's 6 a step a `sample`."""
+    return 3 * n_passes["prepare"] + 60 * n_passes["sample"]
 
 
 def phase_serving_languages(api, card: str) -> dict:
@@ -1751,20 +1762,20 @@ def phase_serving_languages(api, card: str) -> dict:
     real_zh = api.g2p_mapping["chinese"]
     api.g2p_mapping["chinese"] = {ZH_SENTENCE: [symbols[i] for i in ZH_IDS]}.__getitem__
     try:
-        with counting_synthesise() as n_synth:
+        with counting_passes() as n_passes:
             for lang, text in (("japanese", JA_SENTENCE), ("chinese", ZH_SENTENCE), ("auto", AUTO_SENTENCE)):
                 t0 = time.time()
                 api.inference(text, ref, lang, step=10, cfg=3.0, seed=0)
                 first = time.time() - t0
                 reset_counts()
-                n_synth[0] = 0
+                n_passes.clear()
                 t0 = time.time()
                 wav, mel = api.inference(text, ref, lang, step=10, cfg=3.0, seed=0)
                 wall = time.time() - t0
                 counts = read_counts()
                 for k, v in counts.items():
                     total[k] += v
-                expect = expected_counts(dit_block=63 * n_synth[0], convnext=8, istft=1)
+                expect = expected_counts(dit_block=api_dit_blocks(n_passes), convnext=8, istft=1)
                 ok = bool(counts == expect and np.isfinite(wav).all() and np.isfinite(mel).all()
                           and wav.shape[1] == mel.shape[2] * api.mel_config.hop_length)
                 emit({"phase": "serving_languages", "language": lang, "text": text,
@@ -1845,18 +1856,18 @@ def phase_serving_ref_formats(api, card: str) -> dict:
     path as its reference: launches, finite output. Returns the launches
     summed."""
     total = expected_counts()
-    with tempfile.TemporaryDirectory() as root, counting_synthesise() as n_synth:
+    with tempfile.TemporaryDirectory() as root, counting_passes() as n_passes:
         for row in reference_formats(api, root, reference_wave(9)):
             if row["decoded"]:
                 reset_counts()
-                n_synth[0] = 0
+                n_passes.clear()
                 t0 = time.time()
                 wav, mel = api.inference(SENTENCES[1], row["path"], "english", step=10, cfg=3.0, seed=0)
                 row["wall_ms"] = (time.time() - t0) * 1e3
                 counts = read_counts()
                 for k, v in counts.items():
                     total[k] += v
-                expect = expected_counts(dit_block=63 * n_synth[0], convnext=8, istft=1)
+                expect = expected_counts(dit_block=api_dit_blocks(n_passes), convnext=8, istft=1)
                 row.update(launches=counts, expected_launches=expect,
                            ok=bool(row["ok"] and counts == expect and np.isfinite(wav).all()))
                 row.pop("path")
@@ -3071,9 +3082,9 @@ def phase_webui(api, card: str) -> dict:
     try:
         _post(srv.server_address, body(*WEBUI_REQUESTS[0]))  # warm
         replies = [None] * len(WEBUI_REQUESTS)
-        with counting_synthesise() as n_synth:
+        with counting_passes() as n_passes:
             reset_counts()
-            n_synth[0] = 0
+            n_passes.clear()
 
             def send(i):
                 replies[i] = _post(srv.server_address, body(*WEBUI_REQUESTS[i]))
@@ -3084,8 +3095,8 @@ def phase_webui(api, card: str) -> dict:
             for th in both:
                 th.join()
             send(2)
-            counts, synths = read_counts(), n_synth[0]
-        expect = expected_counts(dit_block=63 * synths, convnext=8 * len(WEBUI_REQUESTS), istft=len(WEBUI_REQUESTS))
+            counts, blocks = read_counts(), api_dit_blocks(n_passes)
+        expect = expected_counts(dit_block=blocks, convnext=8 * len(WEBUI_REQUESTS), istft=len(WEBUI_REQUESTS))
         with tempfile.TemporaryDirectory() as tmp:
             ref_path = os.path.join(tmp, "ref.wav")
             with open(ref_path, "wb") as f:

@@ -22,7 +22,7 @@ import torch
 from stabletts_torch.config import MelConfig, ModelConfig, VocosConfig
 from stabletts_torch.models import build_stabletts
 from stabletts_torch.models.ffgan import FireflyGANBase
-from stabletts_torch.models.sampler import synthesise
+from stabletts_torch.models.sampler import prepare, sample, synthesise
 from stabletts_torch.models.vocos import Vocos
 from stabletts_torch.ops.stft import log_mel_spectrogram
 from stabletts_torch.text import cleaned_text_to_sequence, intersperse
@@ -150,19 +150,25 @@ class StableTTSAPI:
         gen = torch.Generator().manual_seed(seed)
         return torch.randn((b, cap, self.mel_config.n_mels), generator=gen).to(self.device)
 
-    def _synthesise_regrow(self, x, x_lengths, ref_mel, ref_mask, max_mel_len, seed, **kw) -> dict:
-        """synthesise, doubling the mel cap (up to 8192) while any item's
-        predicted length exceeds it."""
-        while True:
-            with span("api.synthesise"):
-                out = synthesise(
-                    self.tts_model, x, x_lengths, self._noise(x.shape[0], max_mel_len, seed), ref_mel,
-                    max_mel_len=max_mel_len, y_ref_mask=ref_mask, device=self.device, **kw,
-                )
-                if not bool(out["y_clamped"].any()) or max_mel_len >= 8192:
-                    return out
-            max_mel_len *= 2
-            logger.warning("predicted length exceeded the mel cap; regrowing to %d", max_mel_len)
+    def _synthesise_regrow(self, x, x_lengths, ref_mel, ref_mask, max_mel_len, seed, length_scale,
+                           **kw) -> tuple:
+        """synthesise at the mel cap doubled (up to 8192) until it holds every
+        item's predicted length. The lengths come from `prepare`, before the
+        flow, so the flow runs once, at the final cap with the noise drawn
+        there. Returns synthesise's dict and the lengths on the host."""
+        with span("api.synthesise"):
+            while True:
+                prep = prepare(self.tts_model, x, x_lengths, ref_mel, max_mel_len, length_scale,
+                               y_ref_mask=ref_mask, device=self.device)
+                # drawn on the host while the device runs prepare
+                noise = self._noise(x.shape[0], max_mel_len, seed)
+                # prepare has finished (the noise's copy waited for it): read what the cap and the trimming
+                # need, so the request waits on the device again only at its copy back
+                lengths, clamped = prep["y_lengths"].cpu(), prep["y_clamped"].cpu()
+                if max_mel_len >= 8192 or not bool(clamped.any()):
+                    return sample(self.tts_model, prep, noise, device=self.device, **kw), lengths
+                max_mel_len *= 2
+                logger.warning("predicted length exceeded the mel cap; regrowing to %d", max_mel_len)
 
     def _vocode(self, mel: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         """The whole padded mel through the vocoder, with the per-item lengths
@@ -210,11 +216,11 @@ class StableTTSAPI:
             x = torch.tensor([ids], dtype=torch.long, device=self.device)
             x_lengths = torch.tensor([true_len], device=self.device)
             ref_mel, ref_mask = self._reference_mel(ref_audio)
-            out = self._synthesise_regrow(
+            out, lengths = self._synthesise_regrow(
                 x, x_lengths, ref_mel, ref_mask, max_mel_len, seed, n_timesteps=step,
                 temperature=temperature, length_scale=length_scale, solver=solver, cfg=cfg,
             )
-            y_len = int(out["y_lengths"][0])
+            y_len = int(lengths[0])
             with span("api.vocode"):
                 if self._shape_ladder and self._vocoder_supports_lengths:
                     # fixed shape: the full cap with a length mask (exact, see Vocos)
@@ -247,16 +253,15 @@ class StableTTSAPI:
             ref_mel = ref_mel.expand(b, -1, -1)
             if ref_mask is not None:
                 ref_mask = ref_mask.expand(b, -1)
-            out = self._synthesise_regrow(
+            out, lengths = self._synthesise_regrow(
                 torch.from_numpy(x).to(self.device), x_lengths, ref_mel, ref_mask, max_mel_len, seed,
                 n_timesteps=step, temperature=temperature, length_scale=length_scale, solver=solver, cfg=cfg,
             )
             audio = self._vocode(out["decoder_outputs"], out["y_lengths"])
             with span("api.to_host"):
                 audio = audio.cpu().numpy()
-                y_lengths = out["y_lengths"].cpu().numpy()
             hop = self.mel_config.hop_length
-            return [audio[i, : y_lengths[i] * hop] for i in range(b)]
+            return [audio[i, : int(lengths[i]) * hop] for i in range(b)]
 
     _SENT_SPLIT = re.compile(r"(?<=[.!?;。！？；…])\s*")
     _CLAUSE_SPLIT = re.compile(r"(?<=[,:、，：])\s*")

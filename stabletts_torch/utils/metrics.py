@@ -29,7 +29,7 @@ nor counted. Trace a server by calling the API on the profiler's thread.
 Spans the program opens (and the counters beside them):
 
   api.request (new unit; api.requests), api.g2p, api.ref_mel,
-  api.synthesise (one a pass of the regrow loop), api.vocode,
+  api.synthesise (the regrow loop, one a request), api.vocode,
   api.to_host                                                   api.py
   sampler.prepare (text_encoder, duration_predictor inside it), sampler.ode
   (sampler.frames_valid, sampler.frames_computed)      models/sampler.py

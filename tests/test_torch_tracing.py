@@ -1,7 +1,8 @@
 """The port's spans and counters (stabletts_torch/utils/metrics.py): off and
 free while no profiler records; under torch.profiler each span is a `stts.*`
 range with its parent, unit and self time kept in memory; an API request
-that regrows shows its two passes; and a traced benchmark run of every cell
+that regrows shows its two `prepare` passes and its one ODE pass, with the
+bits it had when the flow ran at every cap; and a traced benchmark run of every cell
 reads each per-layer metric that is computed from them."""
 
 import logging
@@ -116,6 +117,8 @@ def _wave(seconds=1.0, sr=44100):
 
 
 def test_a_regrown_request_shows_both_passes(api, caplog):
+    """A request past its cap shows both passes of `prepare`, at the cap and
+    at twice it, and one ODE pass, at twice the cap."""
     text, ref, steps = "The quick brown fox jumps over the lazy dog.", _wave(), 2
     kw = dict(step=steps, cfg=1.0, seed=3)
     _, mel = api.inference(text, ref, "english", max_mel_len=4096, **kw)
@@ -135,22 +138,94 @@ def test_a_regrown_request_shows_both_passes(api, caplog):
     spans, counters = snap["spans"], snap["counters"]
     assert counters["api.requests"] == 1
     assert set(counters) == {"api.requests", "sampler.frames_valid", "sampler.frames_computed"}
-    assert {k: spans[k]["calls"] for k in ("api.request", "api.g2p", "api.ref_mel", "api.vocode", "api.to_host",
-                                           "vocoder", "vocoder.istft_head")} == dict.fromkeys(
-        ("api.request", "api.g2p", "api.ref_mel", "api.vocode", "api.to_host", "vocoder", "vocoder.istft_head"), 1)
-    for name in ("api.synthesise", "sampler.prepare", "text_encoder", "duration_predictor", "sampler.ode"):
+    # api.synthesise is the whole regrow loop: one a request
+    once = ("api.request", "api.g2p", "api.ref_mel", "api.synthesise", "sampler.ode", "api.vocode", "api.to_host",
+            "vocoder", "vocoder.istft_head")
+    assert {k: spans[k]["calls"] for k in once} == dict.fromkeys(once, 1)
+    for name in ("sampler.prepare", "text_encoder", "duration_predictor"):
         assert spans[name]["calls"] == 2, name
-    assert spans["ode.step"]["calls"] == 2 * steps
+    assert spans["ode.step"]["calls"] == steps
     round_up = lambda n: -(-n // 256) * 256
-    assert counters["sampler.frames_computed"] == round_up(cap) + round_up(2 * cap)
-    assert counters["sampler.frames_valid"] == cap + frames  # the first pass's length clipped at its cap
+    assert counters["sampler.frames_computed"] == round_up(2 * cap)  # the ODE's pass alone
+    assert counters["sampler.frames_valid"] == frames
     recs = metrics.records()
     assert {r[4] for r in recs} == {0}  # every span belongs to the one request
     by_index = {i: r for i, r in enumerate(recs)}
     parents = {r[0]: by_index[r[3]][0] for r in recs if r[3] >= 0}
     assert parents["api.synthesise"] == "api.request" and parents["sampler.ode"] == "api.synthesise"
+    assert parents["sampler.prepare"] == "api.synthesise"
     assert parents["ode.step"] == "sampler.ode" and parents["text_encoder"] == "sampler.prepare"
     assert parents["vocoder.istft_head"] == "vocoder" and parents["vocoder"] == "api.vocode"
+
+
+LONG = "The quick brown fox jumps over the lazy dog, and then it runs all the way back home again."
+BATCH = [("Hi.", "english"), (LONG, "english"), ("A short line.", "english")]
+
+
+def _frames(api, case, kw):
+    """Each item's frames at a cap no item reaches."""
+    if case == "batch":
+        hop = api.mel_config.hop_length
+        return [len(w) // hop for w in api.batch_inference(BATCH, _wave(), max_mel_len=1024, **kw)]
+    return [api.inference(LONG, _wave(), "english", max_mel_len=1024, **kw)[1].shape[2]]
+
+
+def _as_the_parent_returned(api, case, cap, kw):
+    """What the regrow loop returned before it settled the cap ahead of the
+    flow: `synthesise` at the final cap with the noise drawn there, then the
+    vocoder."""
+    from stabletts_torch.models.sampler import synthesise
+
+    id_lists = [api._phonemes(t, lang) for t, lang in (BATCH if case == "batch" else [(LONG, "english")])]
+    x = np.zeros((len(id_lists), max(map(len, id_lists))), dtype=np.int64)
+    for i, ids in enumerate(id_lists):
+        x[i, : len(ids)] = ids
+    ref_mel, _ = api._reference_mel(_wave())
+    ref_mel = ref_mel.expand(len(id_lists), -1, -1)
+    out = synthesise(api.tts_model, torch.from_numpy(x), torch.tensor([len(i) for i in id_lists]),
+                     api._noise(len(id_lists), cap, kw["seed"]), ref_mel, n_timesteps=kw["step"], cfg=kw["cfg"],
+                     max_mel_len=cap, device="cpu")
+    mel, lengths = out["decoder_outputs"], out["y_lengths"]
+    if case == "batch":
+        hop = api.mel_config.hop_length
+        audio = api.vocoder_model(mel, lengths).numpy()
+        return [audio[i, : int(lengths[i]) * hop] for i in range(len(id_lists))]
+    y_len = int(lengths[0])
+    return api.vocoder_model(mel[:, :y_len]).numpy(), mel[:, :y_len].numpy().transpose(0, 2, 1)
+
+
+@pytest.mark.parametrize("case,regrows", [("under", 0), ("once", 1), ("twice", 2), ("batch", 1)])
+def test_the_cap_is_settled_before_the_one_ode_pass(api, caplog, case, regrows):
+    """The regrow loop doubles the cap on the predicted lengths alone and runs
+    the flow once, returning the bits the loop returned when it ran the flow
+    at every cap it tried. "batch": three items, only one past the cap."""
+    kw = dict(step=2, cfg=1.0, seed=5)
+    frames = _frames(api, case, kw)
+    longest = max(frames)
+    if case == "batch":
+        cap = max(sorted(frames)[-2], -(-longest // 2))
+    else:
+        cap = {"under": longest, "once": -(-longest // 2), "twice": -(-longest // 4)}[case]
+    final = cap << regrows
+    assert final >= longest and (regrows == 0 or final // 2 < longest)
+    want = _as_the_parent_returned(api, case, final, kw)
+    metrics.reset()
+    caplog.clear()
+    with caplog.at_level(logging.WARNING, logger="stabletts_torch.api"), _profiled():
+        if case == "batch":
+            got = api.batch_inference(BATCH, _wave(), max_mel_len=cap, **kw)
+        else:
+            got = api.inference(LONG, _wave(), "english", max_mel_len=cap, **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert [r.getMessage() for r in caplog.records] == [
+        f"predicted length exceeded the mel cap; regrowing to {cap << i}" for i in range(1, regrows + 1)]
+    snap = metrics.snapshot()
+    spans = {k: v["calls"] for k, v in snap["spans"].items()}
+    assert spans["sampler.prepare"] == spans["text_encoder"] == 1 + regrows
+    assert spans["sampler.ode"] == spans["api.synthesise"] == 1 and spans["ode.step"] == kw["step"]
+    assert snap["counters"]["sampler.frames_computed"] == len(frames) * -(-final // 256) * 256
+    assert snap["counters"]["sampler.frames_valid"] == sum(frames)
 
 
 @pytest.fixture(scope="module")
@@ -175,7 +250,8 @@ def test_traced_run_reads_the_program_metrics(bench_root, cell):
     for name in NEW_METRICS[cell]:
         assert isinstance(got.get(name), float) and got[name] >= 0.0, (name, got)
     if cell == "serve_request_f32":
-        assert got["ode_passes.request"] == pytest.approx(1.0 + got["regrow_share.request"] / 100.0, abs=1e-9)
+        # one ODE pass a request, whether or not its cap doubled
+        assert got["ode_passes.request"] == 1.0 and isinstance(got.get("regrow_share.request"), float)
         assert got["frontend_ms.request"] > 0 and got["ode_step_host_ms.request"] > 0
     elif cell == "train_f32_b32":
         assert 0.0 < got["feed_wait_ms.train"] <= got["data_wait_ms.train"] and got["update_ms.train"] > 0
