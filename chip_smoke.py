@@ -70,7 +70,11 @@ Phases, one JSON line each; any failure exits nonzero:
      to the WAV's, and a request from each compressed file
      (`serving_ref_formats`); the port's serving bench at its defaults (B=192,
      1000 frames, CFG 1, bf16; CFG 3 at B=96; the B=1 latency) behind its
-     kernel gate, its JSON line and then the `bench` record; the web UI
+     kernel gate, its JSON line and then the `bench` record; F5-TTS v1 Base
+     (`f5`: #1 in its form at the `serve_f5_batch_bf16` batch's 16 x 2,068
+     rows and the 24 kHz ISTFT head at 8 x 1,500 frames against their plain
+     versions, then one bf16 batch of 8 through `synthesise` and the 24 kHz
+     Vocos with its launch counts: 704 of #1, 8 of #2, one head); the web UI
      (`webui`: the port's server over the f32 API, two English requests at
      once and a Japanese one, each WAV against a direct call, the launches of
      #1-#3, `evaluate_pair` on the card, one request under `MetricWriter` and
@@ -550,25 +554,33 @@ def _shape(b, t, kind) -> dict:
     return {"B": b, "T": t, **({} if kind == "ragged" else {"mask": kind})}
 
 
-def check_dit(rng, b, t, dtype, dev, mask_kind="ragged"):
-    """The whole DiT block against its plain version on every row (padded rows
-    are masked in both). The bound counts the work of the valid rows: the
-    projections and convs of each item's valid rows, its attention's valid
-    queries x valid keys."""
+# the DiT block's two forms: C, F, heads, the FFN's taps, and dit_block's keyword arguments
+DIT_FORMS = {"stabletts": (256, 1024, 4, 3, {}),
+             "f5tts": (1024, 2048, 16, 1, {"eps": 1e-6, "rot": 64, "act": "gelu_tanh"})}
+
+
+def check_dit(rng, b, t, dtype, dev, mask_kind="ragged", form="stabletts"):
+    """The whole DiT block in one of its forms (`DIT_FORMS`) against its
+    plain version on every row (padded rows are masked in both). The bound
+    counts the work of the valid rows: the projections and convs of each
+    item's valid rows, its attention's valid queries x valid keys."""
     from stabletts_torch.ops.dit_block_cuda import DiTWeights, dit_block, dit_block_plain
 
-    c, f, heads = 256, 1024, 4
+    c, f, heads, taps, kw = DIT_FORMS[form]
     g = lambda *s, scale=1.0: torch.from_numpy((rng.standard_normal(s) * scale).astype(np.float32)).to(dev, dtype)
     w = DiTWeights(g(c, 3 * c, scale=c ** -0.5), g(3 * c, scale=0.02), g(c, c, scale=c ** -0.5),
-                   g(c, scale=0.02), g(3, c, f, scale=(3 * c) ** -0.5), g(f, scale=0.02),
-                   g(3, f, c, scale=(3 * f) ** -0.5), g(c, scale=0.02))
+                   g(c, scale=0.02), g(taps, c, f, scale=(taps * c) ** -0.5), g(f, scale=0.02),
+                   g(taps, f, c, scale=(taps * f) ** -0.5), g(c, scale=0.02))
     mask = _mask(mask_kind, b, t, dev)
     x = g(b, t, c) * mask[..., None].to(dtype)
     mods = g(b, 6, c, scale=0.1)
     n = _valid(mask, b, t)
-    flops = float(2 * n.sum() * c * 4 * c + 4 * heads * (n * n).sum() * (c // heads) + 4 * n.sum() * 3 * c * f)
-    return measure("dit_block", dtype, _shape(b, t, mask_kind), lambda: dit_block(x, mods, mask, w, heads),
-                   lambda: dit_block_plain(x, mods, mask, w, heads), flops, nbytes(x, mods, mask, *w, x))
+    flops = float(2 * n.sum() * c * 4 * c + 4 * heads * (n * n).sum() * (c // heads) + 4 * n.sum() * taps * c * f)
+    shape = _shape(b, t, mask_kind)
+    if form != "stabletts":
+        shape.update(form=form, C=c, F=f, heads=heads, taps=taps, **kw)
+    return measure("dit_block", dtype, shape, lambda: dit_block(x, mods, mask, w, heads, **kw),
+                   lambda: dit_block_plain(x, mods, mask, w, heads, **kw), flops, nbytes(x, mods, mask, *w, x))
 
 
 def check_dit_attention(rng, b, t, dtype, dev):
@@ -680,21 +692,21 @@ def _istft_lengths(b, t, lengths, dev):
     return torch.tensor(lengths, device=dev)
 
 
-def check_istft(rng, b, t, dtype, dev, with_lengths=False):
+def check_istft(rng, b, t, dtype, dev, with_lengths=False, n_fft=2048, hop=512):
     """#3's product (`istft_product`, bf16 on wgmma, f32 on FMA) on the
     operand the spectrum pass makes from re / im, against its plain version
     (`product_plain`); the row adds the whole `istft_head(re, im)` (both
     launches) against `istft_same_real` ("head_ms", "head_rel_err"), one
     call's device ms by kernel, and at B >= 8 in bf16 one `torch.matmul` of
-    the frames product alone (spec [B*T, 2050] @ W [2050, 2048], the same
+    the frames product alone (spec [B*T, n_fft + 2] @ W [n_fft + 2, n_fft], the same
     FLOPs, no overlap-add: a yardstick that is not the same function, so
-    `library_ms` stays null). The bound counts the valid frames."""
+    `library_ms` stays null). The bound counts the valid frames. n_fft and
+    hop: the 44.1 kHz Vocos's (the default) or the 24 kHz one's (1024, 256)."""
     from stabletts_torch.ops.istft import idft_matrix_windowed
     from stabletts_torch.ops.istft_cuda import (istft_head, istft_product, istft_spectrum, packed_weight,
                                                 product_plain)
     from stabletts_torch.tools.device_time import device_ms
 
-    n_fft, hop = 2048, 512
     nf = n_fft // 2 + 1
     mag = np.exp(np.clip(rng.standard_normal((b, t, nf)), None, math.log(100.0)))
     phase = rng.uniform(-np.pi, np.pi, (b, t, nf))
@@ -705,7 +717,10 @@ def check_istft(rng, b, t, dtype, dev, with_lengths=False):
     a = istft_spectrum(re, n_fft, md, lengths, im=im)
     frames = float(b * t if lengths is None else lengths.clamp(0, t).sum().item())
     io = nbytes(a, packed_weight(n_fft, dev, dtype)) + b * t * hop * 4
-    row = measure("istft", dtype, {"B": b, "T": t, "lengths": None if lengths is None else lengths.tolist()},
+    shape = {"B": b, "T": t, "lengths": None if lengths is None else lengths.tolist()}
+    if (n_fft, hop) != (2048, 512):
+        shape.update(n_fft=n_fft, hop=hop)
+    row = measure("istft", dtype, shape,
                   lambda: istft_product(a, b, t, n_fft, hop, lengths),
                   lambda: product_plain(a, b, t, n_fft, hop, lengths), 2 * frames * (n_fft + 2) * n_fft, io)
     head = lambda: istft_head(re, im, n_fft, hop, md, lengths)
@@ -2037,6 +2052,88 @@ def phase_serving_solvers(api, card: str) -> None:
                 fail(f"serving_solver {solver}: {got_calls} estimator calls (expected {calls}, ode {stats})")
     finally:
         sampler_mod.odeint = real_odeint
+
+
+# phase `f5`: one serve_f5_batch_bf16 batch (8 items, 16 estimator rows at CFG 2), prompts and generations in seconds
+F5_PROMPT_S = (3.0, 4.0, 5.0, 6.0, 6.5, 8.0, 10.0, 12.0)
+F5_GEN_S = (16.0, 2.0, 12.0, 8.0, 15.0, 5.0, 10.0, 9.0)
+F5_BYTES_PER_S = 14
+
+
+def phase_f5(dev, card: str) -> None:
+    """F5-TTS v1 Base on its serving path (`serve_f5_batch_bf16`'s shapes):
+    #1 in F5-TTS's form (C 1024, 16 heads, F 2048, one tap with GELU tanh,
+    RoPE on each whole head, eps 1e-6) at the batch's 16 rows x 2,068 frames
+    with ragged lengths in bf16 and at 2 rows in f32, and the ISTFT head at
+    the 24 kHz Vocos's n_fft 1024 / hop 256 at the batch's 8 x 1,500 frames
+    with ragged lengths, each against its plain version at the kernel's bar;
+    then one bf16 batch at the published widths (random weights) through
+    `synthesise` (32 sway-sampled Euler steps, CFG 2) and `Vocos(mel,
+    lengths)`, after one warm step, with the launch counts of that batch:
+    704 of #1 (22 blocks x 32 steps, both CFG branches in one call), the
+    vocoder's 8 ConvNeXt blocks and one ISTFT head, no other serving kernel."""
+    from stabletts_torch.config import F5Config, MelConfig, VocosConfig
+    from stabletts_torch.models.f5tts import F5TTS, total_frames
+    from stabletts_torch.models.sampler import cast_model, synthesise
+    from stabletts_torch.models.vocos import Vocos
+
+    rng = np.random.default_rng(23)
+    f32, bf = torch.float32, torch.bfloat16
+    rows = [check_dit(rng, b=16, t=2068, dtype=bf, dev=dev, form="f5tts"),
+            check_dit(rng, b=2, t=2068, dtype=f32, dev=dev, form="f5tts")]
+    rows += [check_istft(rng, b=8, t=1500, dtype=dt, dev=dev, with_lengths=True, n_fft=1024, hop=256)
+             for dt in (bf, f32)]
+    for row in rows:
+        emit({"phase": "kernel_check", **with_core(row)})
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        fail(f"f5: {len(bad)} kernel check(s) over their bar: {bad}")
+
+    cfg = F5Config()
+    torch.manual_seed(23)
+    model = cast_model(F5TTS(cfg, device=dev), bf)
+    mel_cfg = MelConfig(sample_rate=24000, n_fft=1024, win_length=1024, hop_length=256, n_mels=cfg.mel_dim,
+                        mel_scale="htk")
+    vocos = cast_model(Vocos(VocosConfig(input_channels=cfg.mel_dim), mel_cfg, device=dev), bf)
+    fps = mel_cfg.sample_rate / mel_cfg.hop_length
+    refs = [int(p * fps) for p in F5_PROMPT_S]
+    ref_bytes = [round(F5_BYTES_PER_S * p) for p in F5_PROMPT_S]
+    gen_bytes = [round(F5_BYTES_PER_S * g) for g in F5_GEN_S]
+    n = [rb + gb for rb, gb in zip(ref_bytes, gen_bytes)]
+    totals = [total_frames(r, rb, gb, k) for r, rb, gb, k in zip(refs, ref_bytes, gen_bytes, n)]
+    b = len(refs)
+    g = torch.Generator(device=dev).manual_seed(23)
+    x = torch.randint(0, cfg.text_num_embeds, (b, max(n)), generator=g, device=dev)
+    ref_mask = (torch.arange(max(refs), device=dev)[None, :] < torch.tensor(refs, device=dev)[:, None]).float()
+    y_ref = (torch.randn(b, max(refs), cfg.mel_dim, generator=g, device=dev) * 2.0 - 5.0) * ref_mask[..., None]
+    noise = torch.randn(b, max(totals), cfg.mel_dim, generator=g, device=dev)
+
+    def batch(steps):
+        out = synthesise(model, x, torch.tensor(n, device=dev), noise, y_ref, n_timesteps=steps, cfg=2.0,
+                         max_mel_len=cfg.max_duration, compute_dtype=bf, y_ref_mask=ref_mask, device=dev,
+                         x_ref_lengths=torch.tensor(ref_bytes, device=dev))
+        return out, vocos(out["decoder_outputs"].to(bf), out["y_lengths"])
+
+    batch(1)  # warm: the allocator, cuDNN's plans for the grouped convs
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    out, wav = batch(32)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = read_counts()
+    expect = expected_counts(dit_block=cfg.depth * 32, convnext=8, istft=1)
+    gen = [t - r for t, r in zip(totals, refs)]
+    ok = (counts == expect and out["y_lengths"].tolist() == gen and tuple(wav.shape) == (b, max(gen) * 256)
+          and bool(torch.isfinite(wav).all()))
+    emit({"phase": "f5_batch_bf16", "B": b, "totals": totals, "generated_frames": gen, "steps": 32, "cfg": 2.0,
+          "wall_ms": wall * 1e3, "audio_s_per_s": sum(gen) / fps / wall, "launches": counts,
+          "expected_launches": expect, "card": card, "ok": ok})
+    if not ok:
+        fail(f"f5 batch: launches {counts} vs {expect}, generated frames {out['y_lengths'].tolist()} vs {gen}, "
+             "or bad output")
+    del model, vocos, out, wav
+    torch.cuda.empty_cache()
 
 
 def phase_serving_ffgan(dev, card: str) -> None:
@@ -3478,6 +3575,7 @@ def main() -> None:
     config_counts = phase_serving_configs(api, bench_pipeline, card)
     phase_serving_solvers(api, card)
     phase_serving_ffgan(dev, card)
+    phase_f5(dev, card)
     main_path_counts = [phase_serving_languages(api, card), phase_serving_ref_formats(api, card), phase_bench(card)]
     main_path_counts.append(phase_webui(api, card))
     ref = reference_wave(5)

@@ -53,6 +53,37 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class F5Config:
+    """F5-TTS v1 Base (SWivid/F5-TTS src/f5_tts/configs/F5TTS_v1_Base.yaml, the
+    DiT backbone's and the modules' defaults, and infer/utils_infer.py's
+    sampling defaults): a 336M DiT flow-matching model over [noisy mel,
+    masked prompt mel, text]. `text_num_embeds` is the published vocab's size
+    (its vocab.txt, which is not in this repository); `max_duration` is
+    cfm.py's cap on the total frames. The published sampling is 32 steps at
+    CFG 2 (`synthesise(..., n_timesteps=32, cfg=2.0)`) on the sway grid.
+    Its vocoder is charactr/vocos-mel-24khz (`MelConfig` at 24 kHz, 100 htk
+    mels, n_fft 1024, hop 256; `VocosConfig(input_channels=100)`). The
+    sampler takes the prompt's mel as given: the port's log-mel front end
+    computes slaney mels with "same" framing, not that vocoder's centred
+    frames."""
+
+    dim: int = 1024
+    depth: int = 22
+    heads: int = 16
+    dim_head: int = 64
+    ff_mult: int = 2
+    text_dim: int = 512
+    text_num_embeds: int = 2545
+    conv_layers: int = 4
+    mel_dim: int = 100
+    freq_embed_dim: int = 256
+    conv_pos_kernel: int = 31
+    conv_pos_groups: int = 16
+    sway_sampling_coef: float = -1.0
+    max_duration: int = 4096
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     """TTS training config: the JAX package's `TrainConfig`, field for field
     (reference StableTTS config.py:32-43 plus seed, buckets, text cap, compute

@@ -706,10 +706,14 @@ void launch_ln_mod(const Tin* x, const Tout* mods, int n_mods, int shift_idx, in
       x, mods, n_mods, shift_idx, scale_idx, mask, out, M, T, C, eps);
 }
 
-// ---- QKV projection epilogue: bias, q scale, rounding, partial RoPE -------
+// ---- QKV projection epilogue: bias, q scale, rounding, RoPE ----------------
 // The product is [M, 3C] (q | k | v); q and k rotate their first 2*half
 // features of each head as x*cos + neg_half(x)*sin, neg_half(x) =
-// [-x[half:2half], x[:half]], on the values already rounded to T.
+// [-x[half:2half], x[:half]], on the values already rounded to T. half is
+// D/4 for StableTTS's partial RoPE and D/2 for a rotation of the whole head
+// (F5-TTS, whose interleaved pairs are this form after a fixed permutation
+// of each head's q and k columns); 2*half <= D <= 64, so a partner column
+// lies in the same 64-column sub-tile.
 template <typename T>
 struct QkvEpi {
   const T* bias;
@@ -775,6 +779,23 @@ struct Conv1Epi {
     float v = tile[r * (GEMM_BN + 1) + c];
     float s = v / (1.f + expf(-v));
     y[(long long)m * N + n] = from_f<T>(s * mask[m]);
+  }
+};
+
+// ---- FFN conv1 epilogue, GELU form: y = gelu_tanh(acc + b1) * m ------------
+// GELU in its tanh approximation, 0.5 v (1 + tanh(sqrt(2/pi) (v + 0.044715 v^3))),
+// in f32 (F5-TTS's FFN: one tap, so the mask only zeroes padded rows).
+template <typename T>
+struct Conv1GeluEpi {
+  const T* bias;
+  const float* mask;
+  T* y;
+  int N;
+  __device__ float prep(int m, int n, float acc) const { return acc + to_f(bias[n]); }
+  __device__ void store(int m, int n, const float* tile, int r, int c) const {
+    float v = tile[r * (GEMM_BN + 1) + c];
+    float g = 0.5f * v * (1.f + tanhf(0.7978845608028654f * (v + 0.044715f * v * v * v)));
+    y[(long long)m * N + n] = from_f<T>(g * mask[m]);
   }
 };
 

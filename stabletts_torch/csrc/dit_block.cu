@@ -13,16 +13,18 @@
 //
 // Design: tile T. The block is a short sequence of launches on one stream:
 //   1. LN1 + modulate            (one warp per row)
-//   2. QKV projection + q scale + partial RoPE epilogue      (tap GEMM, 1 tap)
+//   2. QKV projection + q scale + RoPE epilogue (the first 2*rot_half
+//      features of each head; D/2 in StableTTS, D in F5-TTS) (tap GEMM, 1 tap)
 //   3. attention per (batch, head, query tile), online softmax in exp2
 //      over 64-key tiles, so no score tile larger than 64x64 exists (f32:
 //      only the key tiles that hold a valid key, and zeros for a query tile
 //      of padded rows, which step 4's `* m` removes)
 //   4. out-projection + gated residual x1 = x + gate*out*m, kept in f32
 //   5. LN2 + modulate + mask     (one warp per row)
-//   6. conv k=3 C->F + SiLU + mask (tap GEMM, 3 taps, rows shifted -1..+1,
-//      zero outside [0, T))
-//   7. conv k=3 F->C + mask + gated residual                 (tap GEMM, 3 taps)
+//   6. conv k=taps C->F + activation + mask (tap GEMM; taps = 3: rows
+//      shifted -1..+1, zero outside [0, T), SiLU (StableTTS); taps = 1: a
+//      dense layer, GELU tanh (F5-TTS))
+//   7. conv k=taps F->C + mask + gated residual           (tap GEMM, taps taps)
 // In bf16 every product runs on wgmma (the tap GEMMs of common.cuh, the
 // attention of attention.cuh), in f32 on fp32 FMA; bf16 values are rounded at
 // the TPU kernel's points. Any T works (ragged tiles are masked).
@@ -33,15 +35,16 @@ using namespace stts;
 namespace {
 
 // Steps 1 and 5 are common.cuh's ln_mod_kernel; the epilogues of steps 2, 4, 6
-// and 7 are its QkvEpi, OutProjEpi, Conv1Epi and Conv2Epi; step 3 is
-// attention.cuh's core on the pre-scaled q (score scale 1).
+// and 7 are its QkvEpi, OutProjEpi, Conv1Epi (act 0, SiLU) or Conv1GeluEpi
+// (act 1, GELU tanh) and Conv2Epi; step 3 is attention.cuh's core on the
+// pre-scaled q (score scale 1). Any head count H with C = 64 H.
 
 template <typename T>
 cudaError_t run_block(const T* x, const T* mods, const float* mask, const float* cos_t,
                       const float* sin_t, const T* wqkv, const T* bqkv, const T* wo, const T* bo,
                       const T* w1, const T* b1, const T* w2, const T* b2, T* h, T* q, T* k, T* v,
                       T* att, float* x1, T* h2, T* y, T* out, int B, int Tn, int C, int F, int H,
-                      float eps, cudaStream_t stream) {
+                      int taps, int act, int rot_half, float eps, cudaStream_t stream) {
   const int M = B * Tn, D = C / H;
 
   launch_ln_mod<T, T>(x, mods, 6, 0, 1, nullptr, h, M, Tn, C, eps, stream);
@@ -50,7 +53,7 @@ cudaError_t run_block(const T* x, const T* mods, const float* mask, const float*
   g.a0 = h; g.a1 = h; g.k_split = C; g.lda = C; g.t_in = Tn; g.t_out = Tn; g.k_in = C;
   g.taps = 1; g.shift0 = 0; g.shift_step = 0; g.row_len = nullptr;
   g.w = wqkv; g.w_tap_stride = 0; g.ldw = 3 * C; g.M = M; g.N = 3 * C;
-  QkvEpi<T> qe{bqkv, q, k, v, cos_t, sin_t, C, D, D / 4, Tn, kLog2e / sqrtf((float)D)};
+  QkvEpi<T> qe{bqkv, q, k, v, cos_t, sin_t, C, D, rot_half, Tn, kLog2e / sqrtf((float)D)};
   launch_tap_gemm<T>(g, qe, stream);
 
   launch_attention<T, false>(q, k, v, mask, att, B, Tn, H, 1.f, stream);
@@ -61,10 +64,15 @@ cudaError_t run_block(const T* x, const T* mods, const float* mask, const float*
 
   launch_ln_mod<float, T>(x1, mods, 6, 3, 4, mask, h2, M, Tn, C, eps, stream);
 
-  g.a0 = h2; g.a1 = h2; g.taps = 3; g.shift0 = -1; g.shift_step = 1;
+  g.a0 = h2; g.a1 = h2; g.taps = taps; g.shift0 = -(taps / 2); g.shift_step = 1;
   g.w = w1; g.w_tap_stride = (long long)C * F; g.ldw = F; g.N = F;
-  Conv1Epi<T> c1{b1, mask, y, F};
-  launch_tap_gemm<T>(g, c1, stream);
+  if (act == 1) {
+    Conv1GeluEpi<T> c1{b1, mask, y, F};
+    launch_tap_gemm<T>(g, c1, stream);
+  } else {
+    Conv1Epi<T> c1{b1, mask, y, F};
+    launch_tap_gemm<T>(g, c1, stream);
+  }
 
   g.a0 = y; g.a1 = y; g.k_split = F; g.lda = F; g.k_in = F;
   g.w = w2; g.w_tap_stride = (long long)F * C; g.ldw = C; g.N = C;
@@ -80,17 +88,19 @@ extern "C" int dit_block_forward(const void* x, const void* mods, const void* ma
                                  const void* bo, const void* w1, const void* b1, const void* w2,
                                  const void* b2, void* h, void* q, void* k, void* v, void* att, void* x1,
                                  void* h2, void* y, void* out, int B, int T, int C, int F, int H,
-                                 int is_bf16, float eps, void* stream) {
+                                 int taps, int act, int rot_half, int is_bf16, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* mk = static_cast<const float*>(mask);
   const float* cs = static_cast<const float*>(cos_t);
   const float* sn = static_cast<const float*>(sin_t);
   float* x1f = static_cast<float*>(x1);
-  if (C / H != ATT_D) return (int)cudaErrorInvalidValue;
+  if (C / H != ATT_D || (taps != 1 && taps != 3) || (act != 0 && act != 1) || rot_half < 1 ||
+      2 * rot_half > ATT_D)
+    return (int)cudaErrorInvalidValue;
 #define STTS_ARGS(TY)                                                                              \
   (const TY*)x, (const TY*)mods, mk, cs, sn, (const TY*)wqkv, (const TY*)bqkv, (const TY*)wo,       \
       (const TY*)bo, (const TY*)w1, (const TY*)b1, (const TY*)w2, (const TY*)b2, (TY*)h, (TY*)q,    \
-      (TY*)k, (TY*)v, (TY*)att, x1f, (TY*)h2, (TY*)y, (TY*)out, B, T, C, F, H, eps, s
+      (TY*)k, (TY*)v, (TY*)att, x1f, (TY*)h2, (TY*)y, (TY*)out, B, T, C, F, H, taps, act, rot_half, eps, s
   cudaError_t err = is_bf16 ? run_block<bf16>(STTS_ARGS(bf16)) : run_block<float>(STTS_ARGS(float));
 #undef STTS_ARGS
   return (int)err;

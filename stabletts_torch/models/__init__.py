@@ -1,4 +1,4 @@
-"""Model package: StableTTS acoustic model, Vocos vocoder, sampler."""
+"""Model package: StableTTS acoustic model, F5-TTS (`f5tts.py`), Vocos vocoder, sampler."""
 
 from __future__ import annotations
 

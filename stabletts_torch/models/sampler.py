@@ -3,9 +3,15 @@
 
 `synthesise` is `prepare` (the text side and the durations at a mel cap)
 then `sample` (the flow), so a caller that settles its cap from the predicted
-lengths (the API's regrow) runs the flow once. The estimator's t-independent
-mu prenet runs once per synthesis, and CFG runs the conditional and
-unconditional branches as one [2B] batch.
+lengths (the API's regrow) runs the flow once. Both run any acoustic model
+that has the methods they call: `prepare_synthesis` (the conditioning and
+the lengths), `flow_condition` (what every ODE step shares), `time_grid`,
+`flow_velocity` (CFG's branches as one packed batch) and `flow_output`.
+StableTTS (`models/stabletts.py`): durations from its predictor, the mu
+prenet once per synthesis, a linear grid, uncond + s (cond - uncond).
+F5-TTS (`models/f5tts.py`): the byte-ratio rule's durations, the prompt's
+mel kept as a condition, the text embedded once a `prepare`, the sway grid,
+v + s (v - v_null), and the generated frames alone returned.
 """
 
 from __future__ import annotations
@@ -49,23 +55,31 @@ def _on_device(model: StableTTS, device, compute_dtype) -> tuple:
 def synthesise(model: StableTTS, x, x_lengths, noise, y_ref, n_timesteps: int = 10,
                temperature: float = 1.0, length_scale: float = 1.0, solver: str = "euler",
                cfg: float = 1.0, max_mel_len: int = 1000, compute_dtype=None, y_ref_mask=None,
-               device=None) -> dict:
+               device=None, x_ref_lengths=None) -> dict:
     """x [B, Tx] phoneme ids; noise [B, max_mel_len, n_mels] standard normal;
     y_ref [B, Tref, n_mels] reference mel. Returns decoder_outputs
     [B, max_mel_len, n_mels] (float32), y_lengths and y_clamped.
+
+    F5-TTS (`models/f5tts.py`): x holds the prompt's text then the text to
+    speak, x_ref_lengths the ids of the prompt's text, y_ref the prompt's
+    mel with its frames marked by y_ref_mask, max_mel_len the cap on the
+    total frames; noise covers at least the longest total (the first frames
+    of each row are used); decoder_outputs are the generated frames
+    [B, longest generation, n_mels] and y_lengths their counts.
 
     Runs on `device` (the GPU unless the caller passes "cpu"), where the
     model's parameters must already be. compute_dtype=torch.bfloat16 runs the
     network in bf16 (on a bf16 copy of the model, unless it is one).
     `prepare`, then `sample`."""
     model, device = _on_device(model, device, compute_dtype)
-    prep = prepare(model, x, x_lengths, y_ref, max_mel_len, length_scale, compute_dtype, y_ref_mask, device)
+    prep = prepare(model, x, x_lengths, y_ref, max_mel_len, length_scale, compute_dtype, y_ref_mask, device,
+                   x_ref_lengths)
     return sample(model, prep, noise, n_timesteps, temperature, solver, cfg, compute_dtype, device)
 
 
 @torch.no_grad()
 def prepare(model: StableTTS, x, x_lengths, y_ref, max_mel_len: int = 1000, length_scale: float = 1.0,
-            compute_dtype=None, y_ref_mask=None, device=None) -> dict:
+            compute_dtype=None, y_ref_mask=None, device=None, x_ref_lengths=None) -> dict:
     """The flow's conditioning at the mel cap max_mel_len (arguments as
     `synthesise`'s): `prepare_synthesis`'s dict plus "cap", with the lengths
     clipped at the cap. Its y_clamped is final here: the durations do not
@@ -79,11 +93,12 @@ def prepare(model: StableTTS, x, x_lengths, y_ref, max_mel_len: int = 1000, leng
         y_ref = y_ref.to(compute_dtype)
         if y_ref_mask is not None:
             y_ref_mask = y_ref_mask.to(compute_dtype)
+    extra = {} if x_ref_lengths is None else {"x_ref_lengths": _as_tensor(x_ref_lengths, device, torch.long)}
     # compute at a multiple of 256 frames and trim back: every conv and
     # attention boundary masks by y_mask, so the extra frames are inert
     with span("sampler.prepare"):
         prep = model.prepare_synthesis(x, x_lengths, y_ref, -(-max_mel_len // 256) * 256, length_scale,
-                                       y_ref_mask, max_mel_len)
+                                       y_ref_mask, max_mel_len, **extra)
     prep["cap"] = max_mel_len
     return prep
 
@@ -91,31 +106,32 @@ def prepare(model: StableTTS, x, x_lengths, y_ref, max_mel_len: int = 1000, leng
 @torch.no_grad()
 def sample(model: StableTTS, prep: dict, noise, n_timesteps: int = 10, temperature: float = 1.0,
            solver: str = "euler", cfg: float = 1.0, compute_dtype=None, device=None) -> dict:
-    """The flow from `prepare`'s output: the mu prenet, then the ODE from
-    noise [B, prep["cap"], n_mels]. Returns `synthesise`'s dict."""
+    """The flow from `prepare`'s output: the model's conditioning
+    (`flow_condition`), then the ODE from noise [B, prep["cap"], n_mels]
+    (padded or cut to the frames the model computes) over its `time_grid`
+    with its `flow_velocity`. Returns the model's `flow_output`:
+    `synthesise`'s dict."""
     model, device = _on_device(model, device, compute_dtype)
     noise = _as_tensor(noise, device, torch.float32)
     if compute_dtype is not None:
         noise = noise.to(compute_dtype)
-    mu_y, c, y_mask = prep["mu_y"], prep["c"], prep["y_mask"]
-    requested_len, max_mel_len = prep["cap"], mu_y.shape[1]
-    if max_mel_len != requested_len:
-        noise = F.pad(noise, (0, 0, 0, max_mel_len - requested_len))
+    # the frames the model computes, and of them those asked for: StableTTS
+    # computes the cap rounded up to 256, F5-TTS its longest total (<= cap)
+    max_mel_len = prep["y_mask"].shape[1]
+    requested_len = min(prep["cap"], max_mel_len)
+    if noise.shape[1] < max_mel_len:
+        noise = F.pad(noise, (0, 0, 0, max_mel_len - noise.shape[1]))
+    elif noise.shape[1] > max_mel_len:
+        noise = noise[:, :max_mel_len]
     # each item's frames (clipped at the requested length), and the rows times the frames the estimator runs
     count("sampler.frames_valid", prep["y_lengths"])
     count("sampler.frames_computed", noise.shape[0] * max_mel_len)
-    h_mu = model.precompute_mu(mu_y)
-    cfg_on = cfg != 1.0
-    if cfg_on:
-        fake_h_mu = model.precompute_fake_mu(mu_y.shape[0], mu_y.shape[1], requested_len)
+    cond = model.flow_condition(prep, cfg)
 
     def f(t, xt):
-        tb = t.expand(xt.shape[0]).to(xt.dtype)
-        if cfg_on:
-            return model.cfg_velocity(tb, xt, y_mask, h_mu, c, cfg, fake_h_mu, True)
-        return model.velocity(tb, xt, y_mask, h_mu, c, True)
+        return model.flow_velocity(cond, t, xt, cfg)
 
-    t_span = torch.linspace(0.0, 1.0, n_timesteps + 1, dtype=torch.float32, device=device).to(noise.dtype)
+    t_span = model.time_grid(n_timesteps, device).to(noise.dtype)
     ode_kwargs = {}
     if solver in ADAPTIVE_SOLVERS:
         # the adaptive error norm covers the requested frames only: the frames
@@ -124,11 +140,4 @@ def sample(model: StableTTS, prep: dict, noise, n_timesteps: int = 10, temperatu
         ode_kwargs = dict(err_weight=frame_valid, err_count=noise.shape[0] * requested_len * noise.shape[2])
     with span("sampler.ode"):
         mel = odeint(f, noise * temperature, t_span, method=solver, **ode_kwargs)
-    return {
-        "encoder_outputs": mu_y[:, :requested_len].float(),
-        "decoder_outputs": mel[:, :requested_len].float(),
-        "attn": prep["attn"][:, :, :requested_len].float(),
-        "y_lengths": prep["y_lengths"],
-        "y_clamped": prep["y_clamped"],
-        "y_mask": y_mask[:, :requested_len].float(),
-    }
+    return model.flow_output(prep, mel)

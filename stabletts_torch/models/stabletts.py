@@ -84,6 +84,37 @@ class StableTTS(nn.Module):
         return {"mu_y": mu_y, "c": c, "y_mask": y_mask, "y_lengths": y_lengths,
                 "y_clamped": y_clamped, "attn": attn}
 
+    # ---- the sampler's interface (models/sampler.py: `sample`)
+    def flow_condition(self, prep: dict, cfg: float) -> dict:
+        """The mu prenet over mu_y, and under CFG (cfg != 1) over the
+        unconditional content: once a synthesis."""
+        mu_y = prep["mu_y"]
+        fake = None
+        h_mu = self.precompute_mu(mu_y)
+        if cfg != 1.0:
+            fake = self.precompute_fake_mu(mu_y.shape[0], mu_y.shape[1], prep["cap"])
+        return {"h_mu": h_mu, "fake_h_mu": fake, "c": prep["c"], "y_mask": prep["y_mask"]}
+
+    def time_grid(self, n_steps: int, device) -> torch.Tensor:
+        return torch.linspace(0.0, 1.0, n_steps + 1, dtype=torch.float32, device=device)
+
+    def flow_velocity(self, cond: dict, t, xt, cfg: float):
+        tb = t.expand(xt.shape[0]).to(xt.dtype)
+        if cond["fake_h_mu"] is not None:
+            return self.cfg_velocity(tb, xt, cond["y_mask"], cond["h_mu"], cond["c"], cfg, cond["fake_h_mu"], True)
+        return self.velocity(tb, xt, cond["y_mask"], cond["h_mu"], cond["c"], True)
+
+    def flow_output(self, prep: dict, mel) -> dict:
+        n = prep["cap"]
+        return {
+            "encoder_outputs": prep["mu_y"][:, :n].float(),
+            "decoder_outputs": mel[:, :n].float(),
+            "attn": prep["attn"][:, :, :n].float(),
+            "y_lengths": prep["y_lengths"],
+            "y_clamped": prep["y_clamped"],
+            "y_mask": prep["y_mask"][:, :n].float(),
+        }
+
     def velocity(self, t, xt, y_mask, mu, c, mu_is_precomputed: bool = False):
         return self.decoder(t, xt, y_mask, mu, c, mu_is_precomputed)
 

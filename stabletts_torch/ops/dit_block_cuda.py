@@ -2,16 +2,22 @@
 plain PyTorch version.
 
     x1 = x + gate_msa * out_proj(attn(rope(qkv(mod(LN(x)))))) * mask
-    y  = x1 + gate_mlp * conv2(silu(conv1(mod(LN(x1)) * mask)) * mask) * mask
+    y  = x1 + gate_mlp * conv2(act(conv1(mod(LN(x1)) * mask)) * mask) * mask
 
 Replaces the JAX package's TPU kernel `ops/dit_block_pallas.py::fused_dit_block`
 and keeps its numerics: LayerNorm without affine and with f32 statistics;
-log2(e)/sqrt(D) folded into q before partial RoPE (rotary dim D/2, the
-concatenated-halves form); softmax in exp2 with the key bias -0.7*f32max on
-padded keys only (padded query rows are garbage that `* mask` removes); k=3
-convs with zero padding at both ends; x1 kept in f32. In bf16 the values are
-rounded to bf16 at the same points as the TPU kernel; every product
-accumulates in f32.
+log2(e)/sqrt(D) folded into q before RoPE (the concatenated-halves form);
+softmax in exp2 with the key bias -0.7*f32max on padded keys only (padded
+query rows are garbage that `* mask` removes); convs with zero padding at
+both ends; x1 kept in f32. In bf16 the values are rounded to bf16 at the
+same points as the TPU kernel; every product accumulates in f32.
+
+Two models run this one block. StableTTS: RoPE on the first half of each
+head (`rot` = D/2), an FFN of two k=3 convs with SiLU, eps 1e-5 (the
+defaults). F5-TTS: RoPE on the whole head (`rot` = D; its interleaved pairs
+after a fixed permutation of each head's q and k columns, made once by
+the model), an FFN of two dense layers (w1 [1, C, F]) with GELU in its tanh
+form (`act="gelu_tanh"`), eps 1e-6. The FFN's taps are w1's first size.
 
 `dit_block` dispatches on the tensor's device: a CPU tensor takes the plain
 version, a CUDA tensor the kernel (or an error). `dit_block.launches` counts
@@ -38,23 +44,24 @@ class DiTWeights(NamedTuple):
     bqkv: torch.Tensor  # [3C]
     wo: torch.Tensor    # [C, C]
     bo: torch.Tensor    # [C]
-    w1: torch.Tensor    # [3, C, F] conv taps
+    w1: torch.Tensor    # [taps, C, F] conv taps (3, or 1: a dense layer)
     b1: torch.Tensor    # [F]
-    w2: torch.Tensor    # [3, F, C]
+    w2: torch.Tensor    # [taps, F, C]
     b2: torch.Tensor    # [C]
 
 
 _rope_cache: dict = {}
 
 
-def rope_tables(t: int, head_dim: int, device) -> tuple:
-    """cos/sin [T, rot/2] f32 for partial RoPE with rot = head_dim/2:
+def rope_tables(t: int, head_dim: int, device, rot: int | None = None) -> tuple:
+    """cos/sin [T, rot/2] f32 for RoPE over the first `rot` features of a
+    head (default head_dim/2, StableTTS's partial RoPE):
     theta_i = 10000^(-2i/rot), entry (t, i) = cos/sin(t * theta_i)."""
-    key = (t, head_dim, str(device))
+    rot = head_dim // 2 if rot is None else rot
+    key = (t, head_dim, rot, str(device))
     if key not in _rope_cache:
         if len(_rope_cache) > 32:
             _rope_cache.clear()
-        rot = head_dim // 2
         half = rot // 2
         theta = 1.0 / (10_000.0 ** (torch.arange(half, dtype=torch.float32) * 2.0 / rot))
         idx = torch.arange(t, dtype=torch.float32)[:, None] * theta[None, :]
@@ -95,6 +102,17 @@ def layer_norm(x: torch.Tensor, eps: float) -> torch.Tensor:
     return (x - mu) * torch.rsqrt(var + eps)
 
 
+def conv_taps(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The FFN's conv over rows in f32: `conv3` for w [3, Cin, Cout], a
+    dense layer for w [1, Cin, Cout]."""
+    if w.shape[0] == 1:
+        return h.float() @ w[0].float() + b.float()
+    return conv3(h, w, b)
+
+
+_ACTS = {"silu": F.silu, "gelu_tanh": lambda z: F.gelu(z, approximate="tanh")}
+
+
 def conv3(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """k=3 conv over rows with zero padding at both ends, in f32:
     h [B, T, Cin], w [3, Cin, Cout], b [Cout]."""
@@ -104,10 +122,12 @@ def conv3(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return h @ w[1] + down @ w[0] + up @ w[2] + b.float()
 
 
-def attention_half_plain(x, mods, mask, wqkv, bqkv, wo, bo, n_heads: int, eps: float = 1e-5) -> torch.Tensor:
+def attention_half_plain(x, mods, mask, wqkv, bqkv, wo, bo, n_heads: int, eps: float = 1e-5,
+                         rot: int | None = None) -> torch.Tensor:
     """The block's attention half, x + gate * out_proj(attention) * mask, as
     f32 (the whole block keeps it so; the half alone rounds it to x's dtype).
-    x [B, T, C]; mods [B, 3, C] (shift, scale, gate); mask [B, T]."""
+    x [B, T, C]; mods [B, 3, C] (shift, scale, gate); mask [B, T]; RoPE on
+    the first `rot` features of each head (default D/2)."""
     dt = x.dtype
     b, t, c = x.shape
     d = c // n_heads
@@ -118,7 +138,7 @@ def attention_half_plain(x, mods, mask, wqkv, bqkv, wo, bo, n_heads: int, eps: f
     q = (qkv[..., :c] * (_LOG2E / math.sqrt(d))).to(dt).view(b, t, n_heads, d)
     k = qkv[..., c:2 * c].to(dt).view(b, t, n_heads, d)
     v = qkv[..., 2 * c:].to(dt).view(b, t, n_heads, d)
-    cos, sin = rope_tables(t, d, x.device)
+    cos, sin = rope_tables(t, d, x.device, rot)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     att = attention_exp2(q, k, v, mask).reshape(b, t, c).to(dt)
@@ -126,27 +146,29 @@ def attention_half_plain(x, mods, mask, wqkv, bqkv, wo, bo, n_heads: int, eps: f
     return xf + out * mo[:, 2:3] * mask.float()[..., None]
 
 
-def ffn_half_plain(x, mods, mask, w1, b1, w2, b2, dtype, eps: float = 1e-5) -> torch.Tensor:
-    """The block's FFN half, x + gate * conv2(silu(conv1(mod(LN(x)) * m)) * m) * m,
+def ffn_half_plain(x, mods, mask, w1, b1, w2, b2, dtype, eps: float = 1e-5, act: str = "silu") -> torch.Tensor:
+    """The block's FFN half, x + gate * conv2(act(conv1(mod(LN(x)) * m)) * m) * m,
     with the activations rounded to `dtype`. x [B, T, C] in f32 or `dtype`;
-    mods [B, 3, C] (shift, scale, gate); w1 [3, C, F], w2 [3, F, C]."""
+    mods [B, 3, C] (shift, scale, gate); w1 [taps, C, F], w2 [taps, F, C];
+    act "silu" or "gelu_tanh"."""
     m = mask.float()[..., None]
     mo = mods.float()
     xf = x.float()
     h = ((layer_norm(xf, eps) * (1.0 + mo[:, 1:2]) + mo[:, 0:1]) * m).to(dtype)
-    y = (F.silu(conv3(h, w1, b1)) * m).to(dtype)
-    z = conv3(y, w2, b2) * m
+    y = (_ACTS[act](conv_taps(h, w1, b1)) * m).to(dtype)
+    z = conv_taps(y, w2, b2) * m
     return (xf + mo[:, 2:3] * z).to(dtype)
 
 
-def dit_block_plain(x, mods, mask, w: DiTWeights, n_heads: int, eps: float = 1e-5):
+def dit_block_plain(x, mods, mask, w: DiTWeights, n_heads: int, eps: float = 1e-5, rot: int | None = None,
+                    act: str = "silu"):
     """x [B, T, C] (pre-masked); mods [B, 6, C] (shift/scale/gate msa, then
     mlp); mask [B, T]. Returns [B, T, C] in x's dtype."""
-    x1 = attention_half_plain(x, mods[:, :3], mask, w.wqkv, w.bqkv, w.wo, w.bo, n_heads, eps)
-    return ffn_half_plain(x1, mods[:, 3:], mask, w.w1, w.b1, w.w2, w.b2, x.dtype, eps)
+    x1 = attention_half_plain(x, mods[:, :3], mask, w.wqkv, w.bqkv, w.wo, w.bo, n_heads, eps, rot)
+    return ffn_half_plain(x1, mods[:, 3:], mask, w.w1, w.b1, w.w2, w.b2, x.dtype, eps, act)
 
 
-def _dit_block_cuda(x, mods, mask, w: DiTWeights, n_heads: int, eps: float):
+def _dit_block_cuda(x, mods, mask, w: DiTWeights, n_heads: int, eps: float, rot: int | None, act: str):
     from stabletts_torch.ops import _build
 
     b, t, c = x.shape
@@ -156,28 +178,33 @@ def _dit_block_cuda(x, mods, mask, w: DiTWeights, n_heads: int, eps: float):
         raise TypeError(f"dit_block kernel takes float32 or bfloat16, got {x.dtype}")
     if d != 64 or c % 64 or f % 64 or c != n_heads * d:
         raise ValueError(f"dit_block kernel needs head_dim 64 and C, F multiples of 64 (C={c}, F={f}, heads={n_heads})")
+    rot = d // 2 if rot is None else rot
+    taps = w.w1.shape[0]
+    if taps not in (1, 3) or rot % 2 or not 2 <= rot <= d or act not in _ACTS:
+        raise ValueError(f"dit_block kernel takes 1 or 3 taps, an even rotary width up to {d} and act in "
+                         f"{sorted(_ACTS)} (taps={taps}, rot={rot}, act={act!r})")
     tensors = (x, mods, *w)
     for ten in tensors:
         if ten.device != x.device or ten.dtype != x.dtype or not ten.is_contiguous():
             raise ValueError("dit_block kernel: every input must be a contiguous tensor of x's device and dtype")
-    if mods.shape != (b, 6, c) or w.wqkv.shape != (c, 3 * c) or w.w1.shape != (3, c, f) or w.w2.shape != (3, f, c):
+    if mods.shape != (b, 6, c) or w.wqkv.shape != (c, 3 * c) or w.w1.shape != (taps, c, f) or w.w2.shape != (taps, f, c):
         raise ValueError("dit_block kernel: unexpected shapes")
     maskf = mask.float().contiguous()
     if maskf.shape != (b, t) or maskf.device != x.device:
         raise ValueError("dit_block kernel: mask must be [B, T] on x's device")
-    cos, sin = rope_tables(t, d, x.device)
+    cos, sin = rope_tables(t, d, x.device, rot)
 
     empty = lambda *s, dtype=x.dtype: torch.empty(s, device=x.device, dtype=dtype)
     h, q, k, v, att, h2, out = (empty(b, t, c) for _ in range(7))
     x1 = empty(b, t, c, dtype=torch.float32)
     y = empty(b, t, f)
-    fn = _build.load("dit_block", "dit_block_forward", 22, 6, 1)
+    fn = _build.load("dit_block", "dit_block_forward", 22, 9, 1)
     err = fn(
         x.data_ptr(), mods.data_ptr(), maskf.data_ptr(), cos.data_ptr(), sin.data_ptr(),
         *(ten.data_ptr() for ten in w),
         h.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), att.data_ptr(),
         x1.data_ptr(), h2.data_ptr(), y.data_ptr(), out.data_ptr(),
-        b, t, c, f, n_heads, int(x.dtype == torch.bfloat16), eps,
+        b, t, c, f, n_heads, taps, int(act == "gelu_tanh"), rot // 2, int(x.dtype == torch.bfloat16), eps,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "dit_block")
@@ -185,14 +212,16 @@ def _dit_block_cuda(x, mods, mask, w: DiTWeights, n_heads: int, eps: float):
     return out
 
 
-def dit_block(x, mods, mask, w: DiTWeights, n_heads: int, eps: float = 1e-5):
+def dit_block(x, mods, mask, w: DiTWeights, n_heads: int, eps: float = 1e-5, rot: int | None = None,
+              act: str = "silu"):
     """The DiT block on x's device: plain PyTorch on the CPU, the CUDA kernel
-    on the GPU."""
+    on the GPU. `rot`: the rotary width of a head (default D/2); `act`: the
+    FFN's activation, "silu" or "gelu_tanh"."""
     if x.device.type == "cpu":
-        return dit_block_plain(x, mods, mask, w, n_heads, eps)
+        return dit_block_plain(x, mods, mask, w, n_heads, eps, rot, act)
     if x.device.type != "cuda":
         raise ValueError(f"dit_block runs on cpu or cuda, not {x.device}")
-    return _dit_block_cuda(x, mods, mask, w, n_heads, eps)
+    return _dit_block_cuda(x, mods, mask, w, n_heads, eps, rot, act)
 
 
 dit_block.launches = 0

@@ -180,6 +180,28 @@ def test_dit_block_key_masks_f32(dev, t_len, kind):
     assert _rel(got, dit_block_plain(x, mods, mask, w, heads)) <= 5e-3
 
 
+@pytest.mark.parametrize("dtype,bar", [(torch.float32, 5e-3), (BF16, 2e-2)])
+def test_dit_block_kernel_f5_widths(dev, dtype, bar):
+    """F5-TTS's form of the one block at its published widths: C 1024, 16 heads,
+    F 2048, one tap with GELU tanh, RoPE on each whole head, eps 1e-6, at the
+    serving cell's longest T with ragged lengths, against its plain version at
+    the block's bars."""
+    from stabletts_torch.ops.dit_block_cuda import DiTWeights, dit_block, dit_block_plain
+
+    rng = np.random.default_rng(23)
+    b, t_len, c, f, heads = 2, 2068, 1024, 2048, 16
+    w = DiTWeights(*(_rand(rng, dev, dtype, *s, scale=0.03) for s in
+                     [(c, 3 * c), (3 * c,), (c, c), (c,), (1, c, f), (f,), (1, f, c), (c,)]))
+    mask = (torch.arange(t_len, device=dev)[None, :] < torch.tensor([[t_len], [1401]], device=dev)).float()
+    x = _rand(rng, dev, dtype, b, t_len, c) * mask[..., None].to(dtype)
+    mods = _rand(rng, dev, dtype, b, 6, c, scale=0.1)
+    kw = dict(eps=1e-6, rot=64, act="gelu_tanh")
+    before = dit_block.launches
+    got = dit_block(x, mods, mask, w, heads, **kw)
+    assert dit_block.launches == before + 1 and torch.isfinite(got).all()
+    assert _rel(got, dit_block_plain(x, mods, mask, w, heads, **kw)) <= bar
+
+
 def test_kernels_raise_on_what_they_do_not_take(dev):
     from stabletts_torch.ops.attention_packed_cuda import attention_packed
 
@@ -465,6 +487,23 @@ def test_istft_kernel(dev, dtype, bar, lengths):
     got = istft_head(re, im, 2048, 512, md, None if lens is None else lens.to(dev))
     ref = istft_head(re.cpu(), im.cpu(), 2048, 512, md, lens)
     assert _rel(got.cpu(), ref) <= bar
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float32, 1e-4), (BF16, 1e-3)])
+@pytest.mark.parametrize("lengths", [None, [29, 11]])
+def test_istft_kernel_at_24k(dev, dtype, bar, lengths):
+    """The ISTFT head at the 24 kHz Vocos's n_fft 1024 / hop 256 (F5-TTS's
+    vocoder) against `istft_same_real` at the ISTFT bars."""
+    from stabletts_torch.ops.istft import istft_same_real
+    from stabletts_torch.ops.istft_cuda import frame_mask_of, istft_head
+
+    rng = np.random.default_rng(4)
+    re, im = (_rand(rng, dev, torch.float32, 2, 29, 513) for _ in range(2))
+    md = None if dtype == torch.float32 else dtype
+    lens = None if lengths is None else torch.tensor(lengths)
+    got = istft_head(re, im, 1024, 256, md, None if lens is None else lens.to(dev))
+    ref = istft_same_real(re.cpu(), im.cpu(), 1024, 256, 1024, md, frame_mask_of(lens, 29, "cpu"))
+    assert got.shape == (2, 29 * 256) and _rel(got.cpu(), ref) <= bar
 
 
 def _logits(rng, dev, dtype, b, t_len, nf=1025):
