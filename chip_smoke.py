@@ -761,18 +761,21 @@ def check_istft_spectrum(rng, b, t, dtype, dev, lengths=None):
 
 # the tap GEMM's products on the bench batch's DiT block: (taps, K, N)
 TAP_GEMM_SHAPES = {"qkv": (1, 256, 768), "out_proj": (1, 256, 256), "conv1": (3, 256, 1024), "conv2": (3, 1024, 256)}
+# and F5-TTS's QKV product (one tap, C = 1024 -> 3C)
+F5_TAP_GEMM_SHAPES = {"f5_qkv": (1, 1024, 3072)}
 
 
 def check_tap_gemm(rng, b, t, dtype, dev, product):
     """The bare tap GEMM (csrc/tap_gemm.cu, plain store epilogue) at one of
-    the DiT block's products, a "same" conv along T for 3 taps, against
-    `tap_gemm_plain`; the library yardstick is one torch.matmul (1 tap) or
-    F.conv1d (3 taps) call in the same dtype."""
+    the DiT block's products (TAP_GEMM_SHAPES, F5_TAP_GEMM_SHAPES), a "same"
+    conv along T for 3 taps, against `tap_gemm_plain`, with its TFLOP/s; the
+    library yardstick is one torch.matmul (1 tap) or F.conv1d (3 taps) call
+    in the same dtype."""
     import torch.nn.functional as F
 
     from stabletts_torch.ops.tap_gemm_cuda import tap_gemm, tap_gemm_plain, tap_gemm_tile
 
-    taps, k, n = TAP_GEMM_SHAPES[product]
+    taps, k, n = {**TAP_GEMM_SHAPES, **F5_TAP_GEMM_SHAPES}[product]
     a = torch.from_numpy(rng.standard_normal((b * t, k)).astype(np.float32)).to(dev, dtype)
     w = torch.from_numpy((rng.standard_normal((taps, k, n)) * (taps * k) ** -0.5).astype(np.float32)).to(dev, dtype)
     kw = dict(t_in=t, t_out=t, taps=taps, shift0=-(taps // 2), shift_step=1)
@@ -785,6 +788,7 @@ def check_tap_gemm(rng, b, t, dtype, dev, product):
                   lambda: tap_gemm(a, w, **kw), lambda: tap_gemm_plain(a, w, **kw), 2 * b * t * k * n * taps,
                   nbytes(a, w) + b * t * n * a.element_size(), library=library)
     row["tile"] = tap_gemm_tile(b * t, n, dtype)
+    row["tflops"] = 2 * b * t * k * n * taps / row["ms"] / 1e9
     return row
 
 
@@ -881,6 +885,8 @@ def phase_kernels(dev) -> dict:
     cases += [(check_dit, dict(b=192, t=1024, dtype=bf)), (check_convnext, dict(b=192, t=1000, dtype=bf)),
               (check_istft, dict(b=192, t=1000, dtype=bf)), (check_istft_spectrum, dict(b=192, t=1000, dtype=bf))]
     cases += [(check_tap_gemm, dict(b=16, t=1024, dtype=dt, product=p)) for p in TAP_GEMM_SHAPES for dt in (f32, bf)]
+    # bf16 at F5-TTS's QKV product on its batch (16 x 2068 rows)
+    cases += [(check_tap_gemm, dict(b=16, t=2068, dtype=bf, product=p)) for p in F5_TAP_GEMM_SHAPES]
     # f32 also at a request's shape (2B = 2, the mel cap) and the training step's (B = 32, T = 1000)
     cases += [(check_tap_gemm, dict(b=b, t=t, dtype=f32, product=p)) for b, t in ((2, 1024), (32, 1000))
               for p in TAP_GEMM_SHAPES]

@@ -10,17 +10,21 @@
 // The tap GEMM has two kernels behind one launch. f32 goes to the fp32-FMA
 // `tap_gemm_f32_kernel` (true-f32 products on the FP32 pipes; a register-
 // blocked 128 x 128 or 64 x 64 tile chosen by the shape; see its note below).
-// bf16 goes to `tap_gemm_wgmma_kernel` (tensor cores, f32 sums). Both stage
-// the finished tile in shared memory, so an epilogue can read neighbouring
+// bf16 goes to `tap_gemm_wgmma_kernel` (tensor cores, f32 sums; persistent
+// and warp-specialised, fed by TMA and an mbarrier ring). Both stage the
+// finished tile in shared memory, so an epilogue can read neighbouring
 // columns (RoPE). The weight-gradient GEMM likewise: f32 goes to the FMA
 // `wgrad_f32_kernel`, bf16 to `wgrad_wgmma_kernel`.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <type_traits>
+#include <utility>
 
 #include "wgmma.cuh"
 
@@ -75,6 +79,29 @@ struct TapGemm {
 // Epi must provide
 //   float prep(int m, int n, float acc)                 -> value staged in the tile
 //   void store(int m, int n, const float* tile, int r, int c)  (tile row stride GEMM_BN + 1)
+// and, for the bf16 kernel, may provide
+//   void store8(int m, int n, const float* tile, int r, int c): store for the
+//   8 columns n .. n + 7 (staged at c .. c + 7; n and c multiples of 8, n + 7
+//   < N), each value by store's own arithmetic, so the bits are store's (the
+//   kernel then gives each thread 8 columns)
+//   void prep_row(int m, int n, const float (&acc)[16], float (&val)[16]):
+//   the staged values of a thread's 16 sums in row m of a 64-column sub-tile,
+//   columns n + 8 j + e in [2 j + e] (n - 2 (lane % 4) is the sub-tile's
+//   first column, below N; values of columns at or past N are dropped, so
+//   nothing may be read for them): prep's, or values of the epilogue's own
+//   that its store then reads (the RoPE of QkvEpi, whose partners are in the
+//   same thread)
+template <typename E, typename = void>
+struct HasStore8 : std::false_type {};
+template <typename E>
+struct HasStore8<E, decltype(std::declval<const E&>().store8(0, 0, static_cast<const float*>(nullptr), 0, 0))>
+    : std::true_type {};
+template <typename E, typename = void>
+struct HasPrepRow : std::false_type {};
+template <typename E>
+struct HasPrepRow<E, decltype(std::declval<const E&>().prep_row(0, 0, std::declval<const float (&)[16]>(),
+                                                                  std::declval<float (&)[16]>()))>
+    : std::true_type {};
 
 // A "same"-padded k-tap conv along time (taps = 1: a dense layer) of a [M =
 // B*Tn, k_in] activation with w [taps, k_in, n_out]: tap j reads row
@@ -95,39 +122,68 @@ inline TapGemm conv_gemm(const void* a, int k_in, const void* w, int n_out, int 
 }
 
 // ---- the bf16 tap GEMM on wgmma ------------------------------------------
-// Replaces, for bf16, the FMA kernel above under the same contract (TapGemm,
-// Epi). What bounds it on the H100: its products, 2*M*N*K*taps FLOPs against
-// activations and weights read about once and the output written once (the
-// DiT block's convs ~600 FLOPs a byte, above the card's ~295 for bf16; its
-// projections 130-190, below it).
+// Replaces, for bf16, the FMA kernel below under the same contract (TapGemm,
+// Epi). What bounds it on the H100: its products, 2*M*N*K*taps FLOPs at 989
+// TFLOP/s, against activations and weights read about once and the output
+// written once. F5-TTS's block products (M = 33k rows, K = 1,024-2,048) and
+// StableTTS's convs (K = 256 x 3 taps) sit at 550-1,100 FLOPs a byte, above
+// the card's ~295; StableTTS's projections (K = 256, one tap) at 130-190
+// below it. So the limit is how much of the time the tensor cores are fed: a
+// kernel whose every thread copied, met a block barrier each k step and then
+// stored its tile while nothing multiplied (two 128 x 128 CTAs an SM, a 3-deep
+// cp.async ring) ran these products at 13-21% of the peak (PERF.md).
 //
-// Design: a 128 x 128 CTA tile, two consumer warpgroups of 64 rows each
-// issuing wgmma m64n128k16 (A and B from shared memory), and a 64-deep k
-// step; tap `tap` is just more k steps whose A rows are shifted by shift0 +
-// tap * shift_step. Each stage of a 3-deep ring holds A as two swizzled
-// 64 x 64 tiles (K-major) and B as two (MN-major for W[k, n], K-major for
-// w_trans); every thread of the CTA fills it by cp.async one k step ahead,
-// and each warpgroup keeps one product group in flight (wgmma.wait_group 1),
-// so a stage is refilled only after both warpgroups' products on it are done.
-// 97 KB of shared memory and at most 128 registers a thread let two CTAs
-// share an SM, so one's copies and epilogue overlap the other's products
-// (measured against a 4-deep ring at one CTA an SM and against no product in
-// flight: PERF.md). A row outside [0, min(t_in, row_len[b])) and a column
-// past k_in or N read nothing: cp.async zero-fills them. Where lda or ldw is
-// not a multiple of 8, a pointer is not 16-byte aligned, or a 16-byte chunk
-// would straddle k_split, the copies are element by element (an odd lda or
-// k_split such as 1025; no kernel of the port's paths takes them): right,
-// not fast. The epilogue stages each warpgroup's 64 x 128 sums as two 64 x 64
-// sub-tiles of row stride GEMM_BN + 1 in the ring's memory and calls the
-// unchanged prep and store, so a store reads neighbours within its 64 columns
-// as on FMA.
-constexpr int TG_BM = 128, TG_BN = 128, TG_BK = 64, TG_STAGES = 3, TG_THREADS = 256;
-constexpr int TG_INFLIGHT = 1;  // product groups a warpgroup keeps in flight across a k step
-constexpr int TG_CTAS_PER_SM = 2;
-constexpr int TG_STAGE_BYTES = 4 * WG_TILE_BYTES;        // A: 2 tiles of 64 rows; B: 2 tiles of 64 columns
-constexpr int TG_SMEM = TG_STAGES * TG_STAGE_BYTES + 1024;  // + alignment slack
-constexpr int TG_SUB = GEMM_BM * (GEMM_BN + 1);           // floats of one staged 64 x 64 sub-tile
-static_assert(4 * TG_SUB * 4 <= TG_STAGES * TG_STAGE_BYTES, "the epilogue's sub-tiles fit in the ring");
+// Design: one persistent CTA an SM walks the output tiles in order, n
+// fastest, so the CTAs in flight share A's row panels while W (6 MB at most
+// in the port) stays in L2. Three warpgroups: warpgroup 0 produces and gives
+// up its registers (setmaxnreg); warpgroups 1 and 2 consume, 64 rows each of
+// a 128 x BN tile, by wgmma m64nBNk16 (BN = 256 where N > 128 and the grid
+// is not left short of tiles, else 128: tap_gemm_bn). A ring of stages (4 at BN = 256, 6 at 128; 192 KB) is handed
+// over by mbarriers: a stage's full barrier completes when its bytes have
+// landed, its empty barrier when every consumer warp has arrived after its
+// products on it are done (one product group stays in flight), so no block
+// barrier runs in the main loop, and the producer runs a ring ahead across
+// tiles: the next tile's first stages load while the consumers run this
+// tile's epilogue. A stage holds A (128 rows x 64 k, K-major, two swizzled
+// 64 x 64 tiles) and W (BN x 64: 64-column MN-major atoms for W[k, n],
+// K-major rows for w_trans), all in the 128-byte swizzle. How they get there,
+// the path (tap_gemm_path):
+//   TMA            A is a plain [M, lda] matrix (one tap, no shift, stride or
+//                  row_len, k_split >= k_in): one thread loads A and W by TMA
+//                  (tensor maps made at each launch; reads out of bounds give
+//                  zeros)
+//   producer_copy  shifted, strided, ragged or split A: the producer
+//                  warpgroup copies A's rows by 16-byte cp.async (zero-filled
+//                  outside [0, min(t_in, row_len[b])) and past k_in), which
+//                  arrive on the full barrier as they land; W by TMA
+//   fallback       lda, ldw, w_tap_stride or k_split not a multiple of 8, or a
+//                  pointer not 16-byte aligned (the ISTFT's k_split = 1025):
+//                  the producer copies both operands element by element.
+//                  Right, not fast.
+// Each output's f32 sum runs through the wgmma k slices in a fixed order
+// (taps outer, 64-deep k steps, 16-deep slices), whatever the path or BN. The
+// epilogue stages each consumer's 64 x BN sums as 64 x 64 sub-tiles of row
+// stride GEMM_BN + 1 in a buffer of its own, by prep (or prep_row: a row's 16
+// sums of a thread at once), then calls store (or store8: 8 columns a thread,
+// neighbouring threads on neighbouring 16-byte chunks), so a store reads
+// neighbours within its 64 columns (RoPE). The epilogue does not overlap the
+// tensor cores' work, and with an epilogue that reads and computes per
+// element it is the larger part of a tile's time (PERF.md).
+constexpr int TP_BM = 128, TP_BK = 64, TP_THREADS = 3 * WG_THREADS;
+constexpr int TP_RING_BYTES = 4 * (TP_BM + 256) * TP_BK * 2;  // 192 KB
+constexpr int TG_SUB = GEMM_BM * (GEMM_BN + 1);                // floats of one staged 64 x 64 sub-tile
+// the ring, 1024-byte aligned, then each consumer's staged sub-tile, then the barriers
+constexpr int TP_SMEM = 1024 + TP_RING_BYTES + 2 * TG_SUB * 4 + 128;
+constexpr int TP_PRODUCER_REGS = 56, TP_CONSUMER_REGS = 224;  // 128 x 56 + 256 x 224 = 384 x 168
+enum TapPath { TAP_TMA = 0, TAP_PRODUCER_COPY = 1, TAP_FALLBACK = 2 };
+
+template <int BN>
+struct TpStage {
+  static constexpr int A_BYTES = TP_BM * TP_BK * 2, B_BYTES = BN * TP_BK * 2, BYTES = A_BYTES + B_BYTES;
+  static constexpr int STAGES = TP_RING_BYTES / BYTES;
+};
+static_assert(TpStage<256>::STAGES == 4 && TpStage<128>::STAGES == 6, "the ring holds 4 or 6 stages");
+static_assert(2 * 8 * TpStage<128>::STAGES <= 128, "the barriers fit");
 
 // 16 bytes (8 values) into chunk c8 of row r of a swizzled tile
 __device__ __forceinline__ void st_chunk(uint8_t* tile, int r, int c8, uint4 v) {
@@ -145,8 +201,8 @@ __device__ __forceinline__ uint4 pack8(const bf16 (&v)[8]) {
 
 // The A rows a thread copies, fixed across the k loop: output row m = b *
 // t_out + i reads item b's row row_stride * i + shift where 0 <= row_stride *
-// i + shift < lim (lim = -1 past M). The vector copies take four rows,
-// (tid / 8) + 32 j; the element copies one, tid / 2.
+// i + shift < lim (lim = -1 past M). The f32 kernel's copies take one or two
+// rows a thread; the bf16 producer's eight, (lt / 8) + 16 j, in two of these.
 struct TapRows {
   long long base[4];  // b * t_in
   int i[4];           // row_stride * i
@@ -164,25 +220,22 @@ struct TapRows {
   }
 };
 
-// Stage `stage` of the ring <- the operands of k step `step`
-__device__ __forceinline__ void tap_gemm_load(const TapGemm& g, const TapRows& rows, uint8_t* ring, int stage,
-                                              int step, int ktiles, int n0, bool vec_a, bool vec_b) {
+// A's 128 rows x 64 k of one k step into `sa` (two swizzled 64 x 64 tiles):
+// chunk lt % 8 of rows lt / 8 + 16 j, j < 8, so eight threads copy a 128-byte
+// row; by 16-byte cp.async (zero-filled where a row or a chunk reads
+// nothing), or element by element
+__device__ __forceinline__ void tp_copy_a(const TapGemm& g, const TapRows (&rows)[2], uint8_t* sa, int shift,
+                                          int k0, int lt, bool vec) {
   const bf16* A0 = static_cast<const bf16*>(g.a0);
   const bf16* A1 = static_cast<const bf16*>(g.a1);
-  const int tid = threadIdx.x;
-  const int tap = step / ktiles, k0 = (step - tap * ktiles) * TG_BK;
-  const int shift = g.shift0 + tap * g.shift_step;
-  const bf16* W = static_cast<const bf16*>(g.w) + tap * g.w_tap_stride;
-  uint8_t* sa = ring + stage * TG_STAGE_BYTES;
-  uint8_t* sb = sa + 2 * WG_TILE_BYTES;
   const int ka = min(g.k_split, g.k_in);  // columns read from a0
-  if (vec_a) {
-    // 128 rows x 8 chunks: row (tid / 8) + 32 i, chunk tid % 8
-    const int c = tid & 7, k = k0 + c * 8;
+  const int c = lt & 7, k = k0 + c * 8;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = (tid >> 3) + 32 * i, rr = r & 63;
-      const long long row = k < g.k_in ? rows.row(i, shift) : -1;
+  for (int j = 0; j < 8; ++j) {
+    const int r = (lt >> 3) + 16 * j;
+    const long long row = k < g.k_in ? rows[j >> 2].row(j & 3, shift) : -1;
+    uint8_t* tile = sa + (r >> 6) * WG_TILE_BYTES;
+    if (vec) {
       const bf16* src = A0;
       int n = 0;
       if (row >= 0) {
@@ -194,166 +247,239 @@ __device__ __forceinline__ void tap_gemm_load(const TapGemm& g, const TapRows& r
           n = min(g.k_in - k, 8);
         }
       }
-      cp_async16(smem_addr(sa + (r >> 6) * WG_TILE_BYTES) + rr * 128 + (((c ^ rr) & 7) << 4), src, n * 2);
-    }
-  } else {
-    // row tid / 2, 32 columns from (tid % 2) * 32
-    const int r = tid >> 1, rr = r & 63, c0 = (tid & 1) * 32;
-    const long long row = rows.row(0, shift);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
+      cp_async16(smem_addr(tile) + (r & 63) * 128 + (((c ^ r) & 7) << 4), src, n * 2);
+    } else {
       bf16 v[8];
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
-        const int k = k0 + c0 + q * 8 + e;
+        const int kk = k + e;
         v[e] = __ushort_as_bfloat16(0);
-        if (row >= 0 && k < g.k_in) v[e] = k < ka ? A0[row * g.lda + k] : A1[row * g.lda + (k - g.k_split)];
+        if (row >= 0 && kk < g.k_in) v[e] = kk < ka ? A0[row * g.lda + kk] : A1[row * g.lda + (kk - g.k_split)];
       }
-      st_chunk(sa + (r >> 6) * WG_TILE_BYTES, rr, (c0 >> 3) + q, pack8(v));
+      st_chunk(tile, r & 63, c, pack8(v));
     }
   }
+}
+
+// W's BN x 64 of one k step into `sb`, element by element (the fallback)
+template <int BN>
+__device__ __forceinline__ void tp_copy_w(const TapGemm& g, const bf16* W, uint8_t* sb, int n0, int k0, int lt) {
+  const bf16 zero = __ushort_as_bfloat16(0);
   if (!g.w_trans) {
-    // W[k, n]: 64 k rows x 16 chunks of n; tile h holds columns 64 h .. 64 h + 63
-    if (vec_b) {
-      const int cb = tid & 15, n = n0 + cb * 8;
+    // W[k, n]: 64 k rows x BN / 8 chunks; atom h holds columns 64 h .. 64 h + 63
+    for (int e = lt; e < 64 * (BN / 8); e += WG_THREADS) {
+      const int kr = e / (BN / 8), cb = e % (BN / 8), k = k0 + kr, n = n0 + 8 * cb;
+      bf16 v[8];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kr = (tid >> 4) + 16 * i, k = k0 + kr;
-        const int nb = (k < g.k_in && n < g.N) ? min(g.N - n, 8) : 0;
-        const bf16* src = nb ? W + (long long)k * g.ldw + n : W;
-        cp_async16(smem_addr(sb + (cb >> 3) * WG_TILE_BYTES) + kr * 128 + ((((cb & 7) ^ kr) & 7) << 4), src,
-                   nb * 2);
-      }
-    } else {
-      const int kr = tid >> 2, k = k0 + kr, c0 = (tid & 3) * 32;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        bf16 v[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const int n = n0 + c0 + q * 8 + e;
-          v[e] = (k < g.k_in && n < g.N) ? W[(long long)k * g.ldw + n] : __ushort_as_bfloat16(0);
-        }
-        const int c = c0 + q * 8;
-        st_chunk(sb + (c >> 6) * WG_TILE_BYTES, kr, (c & 63) >> 3, pack8(v));
-      }
+      for (int q = 0; q < 8; ++q) v[q] = (k < g.k_in && n + q < g.N) ? W[(long long)k * g.ldw + n + q] : zero;
+      st_chunk(sb + (cb >> 3) * WG_TILE_BYTES, kr, cb & 7, pack8(v));
     }
   } else {
-    // W[n, k]: 128 n rows x 8 chunks of k; tile h holds rows 64 h .. 64 h + 63
-    if (vec_b) {
-      const int c = tid & 7, k = k0 + c * 8;
+    // W[n, k]: BN n rows x 8 chunks of k
+    for (int e = lt; e < BN * 8; e += WG_THREADS) {
+      const int nr = e >> 3, c = e & 7, n = n0 + nr, k = k0 + 8 * c;
+      bf16 v[8];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int nr = (tid >> 3) + 32 * i, rr = nr & 63, n = n0 + nr;
-        const int nb = (n < g.N && k < g.k_in) ? min(g.k_in - k, 8) : 0;
-        const bf16* src = nb ? W + (long long)n * g.ldw + k : W;
-        cp_async16(smem_addr(sb + (nr >> 6) * WG_TILE_BYTES) + rr * 128 + (((c ^ rr) & 7) << 4), src, nb * 2);
-      }
-    } else {
-      const int nr = tid >> 1, rr = nr & 63, n = n0 + nr, c0 = (tid & 1) * 32;
+      for (int q = 0; q < 8; ++q) v[q] = (n < g.N && k + q < g.k_in) ? W[(long long)n * g.ldw + k + q] : zero;
+      st_chunk(sb + (nr >> 6) * WG_TILE_BYTES, nr & 63, c, pack8(v));
+    }
+  }
+}
+
+// fence_regs for the N accumulators of a wgmma product
+template <int N>
+__device__ __forceinline__ void tg_fence_acc(float (&d)[N]) {
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        bf16 v[8];
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// One stage's TMA loads (A where tma_a, and W), completing on `full`
+template <int BN>
+__device__ __forceinline__ void tp_tma_loads(const CUtensorMap& tma_a, const CUtensorMap& tma_w, const TapGemm& g,
+                                             bool load_a, uint8_t* sa, int m0, int n0, int k0, int tap,
+                                             uint32_t full) {
+  uint8_t* sb = sa + TpStage<BN>::A_BYTES;
+  if (load_a) tma_load_2d(smem_addr(sa), &tma_a, k0, m0, full);
+  if (g.w_trans) {
+    tma_load_3d(smem_addr(sb), &tma_w, k0, n0, tap, full);
+  } else {
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const int k = k0 + c0 + q * 8 + e;
-          v[e] = (n < g.N && k < g.k_in) ? W[(long long)n * g.ldw + k] : __ushort_as_bfloat16(0);
+    for (int h = 0; h < BN / 64; ++h) tma_load_3d(smem_addr(sb + h * WG_TILE_BYTES), &tma_w, n0 + 64 * h, k0, tap, full);
+  }
+}
+
+// The producer warpgroup: fills each stage of the ring once its empty
+// barrier has completed, tile after tile, in the consumers' order. On the
+// TMA path one thread does it all and the other warps leave.
+template <int BN>
+__device__ __forceinline__ void tp_produce(const CUtensorMap& tma_a, const CUtensorMap& tma_w, const TapGemm& g,
+                                           int path, uint8_t* ring, uint32_t full0, uint32_t empty0, int lt) {
+  using S = TpStage<BN>;
+  if (path == TAP_TMA && lt != 0) return;
+  const int n_tiles = (g.N + BN - 1) / BN, tiles = ((g.M + TP_BM - 1) / TP_BM) * n_tiles;
+  const int ktiles = (g.k_in + TP_BK - 1) / TP_BK, steps = g.taps * ktiles;
+  const uint32_t tx = (path == TAP_TMA ? S::A_BYTES : 0) + S::B_BYTES;
+  int stage = 0, phase = 0;
+  TapRows rows[2];
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = (tile / n_tiles) * TP_BM, n0 = (tile % n_tiles) * BN;
+    if (path != TAP_TMA) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) rows[j >> 2].set(g, j & 3, m0 + (lt >> 3) + 16 * j);
+    }
+    for (int step = 0; step < steps; ++step) {
+      const int tap = step / ktiles, k0 = (step - tap * ktiles) * TP_BK;
+      uint8_t* sa = ring + stage * S::BYTES;
+      uint8_t* sb = sa + S::A_BYTES;
+      const uint32_t full = full0 + 8 * stage;
+      mbar_wait(empty0 + 8 * stage, phase ^ 1);
+      if (path == TAP_FALLBACK) {
+        tp_copy_a(g, rows, sa, g.shift0 + tap * g.shift_step, k0, lt, false);
+        tp_copy_w<BN>(g, static_cast<const bf16*>(g.w) + tap * g.w_tap_stride, sb, n0, k0, lt);
+        fence_proxy_async();
+        mbar_arrive(full);
+        if (lt == 0) mbar_arrive(full);  // in place of the TMA arrival
+      } else {
+        if (lt == 0) {
+          mbar_arrive_expect_tx(full, tx);
+          tp_tma_loads<BN>(tma_a, tma_w, g, path == TAP_TMA, sa, m0, n0, k0, tap, full);
         }
-        st_chunk(sb + (nr >> 6) * WG_TILE_BYTES, rr, (c0 >> 3) + q, pack8(v));
+        if (path == TAP_PRODUCER_COPY) {
+          tp_copy_a(g, rows, sa, g.shift0 + tap * g.shift_step, k0, lt, true);
+          mbar_arrive_cp_async(full);
+        }
+      }
+      if (++stage == S::STAGES) {
+        stage = 0;
+        phase ^= 1;
       }
     }
   }
 }
 
-// fence_regs for the 64 accumulators of an m64n128 product
-__device__ __forceinline__ void tg_fence_acc(float (&d)[64]) {
+// A consumer warpgroup (cw = 0, 1): rows 64 cw .. 64 cw + 63 of each tile;
+// its products on each stage as it lands, then the epilogue through its own
+// staged sub-tile
+template <int BN, typename Epi>
+__device__ __forceinline__ void tp_consume(const TapGemm& g, const Epi& epi, int path, uint8_t* ring, float* sub,
+                                           uint32_t full0, uint32_t empty0, int cw, int lt) {
+  using S = TpStage<BN>;
+  const int n_tiles = (g.N + BN - 1) / BN, tiles = ((g.M + TP_BM - 1) / TP_BM) * n_tiles;
+  const int ktiles = (g.k_in + TP_BK - 1) / TP_BK, steps = g.taps * ktiles;
+  const int ld = GEMM_BN + 1, r0 = 16 * (lt / 32) + (lt % 32) / 4;
+  const bool release = (lt & 31) == 0;  // one arrival a warp on the empty barriers
+  int stage = 0, phase = 0;
+  float acc[BN / 2];
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = (tile / n_tiles) * TP_BM, n0 = (tile % n_tiles) * BN, mw = m0 + 64 * cw;
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-template <typename Epi>
-__global__ void __launch_bounds__(TG_THREADS, TG_CTAS_PER_SM)
-    tap_gemm_wgmma_kernel(TapGemm g, Epi epi, int vec_a, int vec_b) {
-  extern __shared__ uint8_t tg_smem[];
-  uint8_t* ring = align_1024(tg_smem);
-  const int tid = threadIdx.x, wg = tid / WG_THREADS, lt = tid % WG_THREADS;
-  const int m0 = blockIdx.y * TG_BM, n0 = blockIdx.x * TG_BN;
-  const int ktiles = (g.k_in + TG_BK - 1) / TG_BK, steps = g.taps * ktiles;
-  constexpr int AHEAD = TG_STAGES - 1 - TG_INFLIGHT;  // k steps loaded ahead of the one multiplied
-
-  TapRows rows;
-  if (vec_a) {
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    int prev = -1;  // the stage whose products are still in flight
+    for (int step = 0; step < steps; ++step) {
+      mbar_wait(full0 + 8 * stage, phase);
+      if (path != TAP_TMA) fence_proxy_async();  // the producer's cp.async and element writes
+      uint8_t* sa = ring + stage * S::BYTES;
+      const uint64_t da = make_desc<false>(smem_addr(sa + cw * WG_TILE_BYTES));
+      wgmma_fence();
+      if (g.w_trans) {
+        const uint64_t db = make_desc<false>(smem_addr(sa + S::A_BYTES));
 #pragma unroll
-    for (int j = 0; j < 4; ++j) rows.set(g, j, m0 + (tid >> 3) + 32 * j);
-  } else {
-    rows.set(g, 0, m0 + (tid >> 1));
-  }
-
-  float acc[64];
+        for (int kk = 0; kk < TP_BK / 16; ++kk) WgmmaSS<BN, 0, 0>::run(acc, desc_k<false>(da, kk), desc_k<false>(db, kk), 1);
+      } else {
+        const uint64_t db = make_desc_mn(smem_addr(sa + S::A_BYTES), WG_TILE_BYTES);
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < AHEAD; ++s) {
-    if (s < steps) tap_gemm_load(g, rows, ring, s, s, ktiles, n0, vec_a, vec_b);
-    cp_async_commit();
-  }
-  for (int step = 0; step < steps; ++step) {
-    // this step's copies have landed for every thread, and every warpgroup's
-    // products of step - 1 - TG_INFLIGHT (whose stage the load below
-    // refills) are done
-    cp_async_wait<AHEAD - 1>();
-    fence_proxy_async();
-    __syncthreads();
-    const int next = step + AHEAD;
-    if (next < steps) tap_gemm_load(g, rows, ring, next % TG_STAGES, next, ktiles, n0, vec_a, vec_b);
-    cp_async_commit();
-
-    uint8_t* sa = ring + (step % TG_STAGES) * TG_STAGE_BYTES;
-    const uint32_t a_tile = smem_addr(sa + wg * WG_TILE_BYTES), b_tile = smem_addr(sa + 2 * WG_TILE_BYTES);
-    const uint64_t da = make_desc<false>(a_tile);
-    wgmma_fence();
-    if (g.w_trans) {
-      const uint64_t db = make_desc<false>(b_tile);
-#pragma unroll
-      for (int kk = 0; kk < TG_BK / 16; ++kk)
-        WgmmaSS<128, 0, 0>::run(acc, desc_k<false>(da, kk), desc_k<false>(db, kk), 1);
-    } else {
-      const uint64_t db = make_desc_mn(b_tile, WG_TILE_BYTES);
-#pragma unroll
-      for (int kk = 0; kk < TG_BK / 16; ++kk)
-        WgmmaSS<128, 0, 1>::run(acc, desc_k<false>(da, kk), desc_k<true>(db, kk), 1);
+        for (int kk = 0; kk < TP_BK / 16; ++kk) WgmmaSS<BN, 0, 1>::run(acc, desc_k<false>(da, kk), desc_k<true>(db, kk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      tg_fence_acc(acc);
+      if (prev >= 0 && release) mbar_arrive(empty0 + 8 * prev);
+      prev = stage;
+      if (++stage == S::STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
     }
-    wgmma_commit();
-    wgmma_wait<TG_INFLIGHT>();
+    wgmma_wait<0>();
     tg_fence_acc(acc);
-  }
-  wgmma_wait<0>();
-  tg_fence_acc(acc);
-  cp_async_wait<0>();
-  __syncthreads();
+    if (prev >= 0 && release) mbar_arrive(empty0 + 8 * prev);
 
-  // epilogue: this warpgroup's rows m0 + 64 wg .. + 63 as two 64 x 64 sub-tiles
-  float* stage = reinterpret_cast<float*>(ring) + wg * 2 * TG_SUB;
-  const int ld = GEMM_BN + 1, r0 = 16 * (lt / 32) + (lt % 32) / 4, mw = m0 + wg * 64;
+    // epilogue: 64 x 64 sub-tile q holds columns n0 + 64 q ..
 #pragma unroll
-  for (int j = 0; j < 16; ++j)
+    for (int q = 0; q < BN / 64; ++q) {
+      named_barrier(1 + cw, WG_THREADS);  // the stores of the sub-tile before have read it
+      if constexpr (HasPrepRow<Epi>::value) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
+        for (int h = 0; h < 2; ++h) {
+          const int r = r0 + 8 * h, m = mw + r, nb = n0 + 64 * q + 2 * (lt % 4);
+          float a[16], v[16];
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int r = r0 + 8 * h, c = 8 * j + 2 * (lt % 4) + e;
-        const int m = mw + r, n = n0 + c;
-        stage[(c >> 6) * TG_SUB + r * ld + (c & 63)] =
-            (m < g.M && n < g.N) ? epi.prep(m, n, acc[4 * j + 2 * h + e]) : 0.f;
+          for (int i = 0; i < 16; ++i) a[i] = acc[4 * (8 * q + (i >> 1)) + 2 * h + (i & 1)];
+          if (m < g.M) epi.prep_row(m, nb, a, v);
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            const int c = 8 * (i >> 1) + 2 * (lt % 4) + (i & 1), n = nb + 8 * (i >> 1) + (i & 1);
+            sub[r * ld + c] = (m < g.M && n < g.N) ? v[i] : 0.f;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int r = r0 + 8 * h, c = 8 * j + 2 * (lt % 4) + e, m = mw + r, n = n0 + 64 * q + c;
+              sub[r * ld + c] = (m < g.M && n < g.N) ? epi.prep(m, n, acc[4 * (8 * q + j) + 2 * h + e]) : 0.f;
+            }
       }
-  __syncthreads();
+      named_barrier(1 + cw, WG_THREADS);
+      if constexpr (HasStore8<Epi>::value) {
+        // 8 columns a thread: neighbouring threads store neighbouring chunks
 #pragma unroll
-  for (int sub = 0; sub < 2; ++sub)
-    for (int e = lt; e < 64 * 64; e += WG_THREADS) {
-      const int r = e >> 6, c = e & 63, m = mw + r, n = n0 + sub * 64 + c;
-      if (m < g.M && n < g.N) epi.store(m, n, stage + sub * TG_SUB, r, c);
+        for (int e = lt; e < 64 * 8; e += WG_THREADS) {
+          const int r = e >> 3, c = (e & 7) * 8, m = mw + r, n = n0 + 64 * q + c;
+          if (m < g.M && n + 8 <= g.N) {
+            epi.store8(m, n, sub, r, c);
+          } else if (m < g.M) {
+            for (int i = 0; n + i < g.N; ++i) epi.store(m, n + i, sub, r, c + i);
+          }
+        }
+      } else {
+        for (int e = lt; e < 64 * 64; e += WG_THREADS) {
+          const int r = e >> 6, c = e & 63, m = mw + r, n = n0 + 64 * q + c;
+          if (m < g.M && n < g.N) epi.store(m, n, sub, r, c);
+        }
+      }
     }
+  }
+}
+
+template <int BN, typename Epi>
+__global__ void __launch_bounds__(TP_THREADS, 1)
+    tap_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a, const __grid_constant__ CUtensorMap tma_w,
+                          TapGemm g, Epi epi, int path) {
+  using S = TpStage<BN>;
+  extern __shared__ uint8_t tp_smem[];
+  uint8_t* ring = align_1024(tp_smem);
+  float* staged = reinterpret_cast<float*>(ring + TP_RING_BYTES);
+  const uint32_t full0 = smem_addr(staged + 2 * TG_SUB), empty0 = full0 + 8 * S::STAGES;
+  const int wg = threadIdx.x / WG_THREADS, lt = threadIdx.x % WG_THREADS;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S::STAGES; ++s) {
+      mbar_init(full0 + 8 * s, path == TAP_TMA ? 1 : 1 + WG_THREADS);  // the TMA thread, and each copying thread
+      mbar_init(empty0 + 8 * s, 2 * WG_THREADS / 32);                   // each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (wg == 0) {
+    setmaxnreg_dec<TP_PRODUCER_REGS>();
+    tp_produce<BN>(tma_a, tma_w, g, path, ring, full0, empty0, lt);
+  } else {
+    setmaxnreg_inc<TP_CONSUMER_REGS>();
+    tp_consume<BN>(g, epi, path, ring, staged + (wg - 1) * TG_SUB, full0, empty0, wg - 1, lt);
+  }
 }
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
@@ -632,17 +758,111 @@ void launch_tap_gemm_f32(const TapGemm& g, const Epi& epi, int vec_a, int vec_b,
   tap_gemm_f32_kernel<BM, BN, WT, Epi><<<grid, FG_THREADS, smem, stream>>>(g, epi, vec_a, vec_b);
 }
 
-// f32: the FMA kernel; bf16: the wgmma kernel. Errors surface through the
-// caller's cudaGetLastError.
+// ---- the bf16 tap GEMM's launch --------------------------------------------
+// The path (tap_gemm_wgmma_kernel's note) from the TapGemm alone.
+inline int tap_gemm_path(const TapGemm& g) {
+  const bool vec_a = g.lda % 8 == 0 && aligned16(g.a0) &&
+                     (g.k_split >= g.k_in || (g.k_split % 8 == 0 && aligned16(g.a1)));
+  const bool vec_b = g.ldw % 8 == 0 && g.w_tap_stride % 8 == 0 && aligned16(g.w);
+  if (!vec_a || !vec_b) return TAP_FALLBACK;
+  const bool plain_a = g.taps == 1 && g.shift0 == 0 && g.row_stride == 1 && g.t_out == g.t_in &&
+                       g.row_len == nullptr && g.k_split >= g.k_in;
+  return plain_a ? TAP_TMA : TAP_PRODUCER_COPY;
+}
+
+// The tile's width BN for an M x N output: 256 where N > 128 and the waves
+// of NUM_SMS tiles of 128 x 256 take at most 2/3 as many as those of 128 x
+// 128 (a 128 x 256 tile took 1.2-1.9 times as long as a 128 x 128 one at the
+// port's products, PERF.md), else 128: F5-TTS's and StableTTS's block
+// products at serving batches take 256, a request's M = 2048 at N = 1024 (64
+// tiles against 128) and N <= 128 take 128.
+inline int tap_gemm_bn(int M, int N) {
+  if (N <= 128) return 128;
+  const long long m_tiles = (M + TP_BM - 1) / TP_BM;
+  const long long w256 = (m_tiles * ((N + 255) / 256) + NUM_SMS - 1) / NUM_SMS;
+  const long long w128 = (m_tiles * ((N + 127) / 128) + NUM_SMS - 1) / NUM_SMS;
+  return 3 * w256 <= 2 * w128 ? 256 : 128;
+}
+
+// libcuda's cuTensorMapEncodeTiled, looked up through the runtime (no link to libcuda)
+typedef CUresult (*TensorMapEncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                         const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+                                         CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                         CUtensorMapFloatOOBfill);
+
+inline TensorMapEncodeTiled tensor_map_encoder() {
+  static TensorMapEncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<TensorMapEncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A bf16 tensor of `rank` dims (innermost first; strides in elements of the
+// dims above the first) read in boxes in the 128-byte swizzle, zeros out of bounds
+inline bool encode_tensor_map(CUtensorMap* map, const void* base, int rank, const long long* dims,
+                              const long long* strides, const int* box) {
+  const TensorMapEncodeTiled enc = tensor_map_encoder();
+  if (enc == nullptr) return false;
+  cuuint64_t d[3], s[2];
+  cuuint32_t b[3], e[3] = {1, 1, 1};
+  for (int i = 0; i < rank; ++i) {
+    d[i] = (cuuint64_t)dims[i];
+    b[i] = (cuuint32_t)box[i];
+    if (i + 1 < rank) s[i] = (cuuint64_t)strides[i] * 2;
+  }
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), d, s, b, e,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The path a launch takes at tile width bn, with the tensor maps it loads
+// by: W as [taps][rows][columns] in boxes of one tap, 64 k and 64 n (W[k, n])
+// or bn n (w_trans); A as [M][k_in] in boxes of 128 rows and 64 k. The
+// fallback where encoding a map fails (it has not on the H100).
+inline int tap_gemm_plan(const TapGemm& g, int bn, CUtensorMap* ta, CUtensorMap* tw) {
+  memset(ta, 0, sizeof(*ta));
+  memset(tw, 0, sizeof(*tw));
+  const int path = tap_gemm_path(g);
+  if (path == TAP_FALLBACK) return path;
+  const long long rows = g.w_trans ? g.N : g.k_in, cols = g.w_trans ? g.k_in : g.N;
+  const long long w_dims[3] = {cols, rows, g.taps};
+  const long long w_strides[2] = {g.ldw, g.taps > 1 ? g.w_tap_stride : rows * g.ldw};
+  const int w_box[3] = {64, g.w_trans ? bn : 64, 1};
+  bool ok = encode_tensor_map(tw, g.w, 3, w_dims, w_strides, w_box);
+  if (ok && path == TAP_TMA) {
+    const long long a_dims[2] = {g.k_in, g.M}, a_strides[1] = {g.lda};
+    const int a_box[2] = {TP_BK, TP_BM};
+    ok = encode_tensor_map(ta, g.a0, 2, a_dims, a_strides, a_box);
+  }
+  return ok ? path : TAP_FALLBACK;
+}
+
+template <int BN, typename Epi>
+void launch_tap_gemm_wgmma(const TapGemm& g, const Epi& epi, cudaStream_t stream) {
+  CUtensorMap ta, tw;
+  const int path = tap_gemm_plan(g, BN, &ta, &tw);
+  const int tiles = ((g.M + TP_BM - 1) / TP_BM) * ((g.N + BN - 1) / BN);
+  cudaFuncSetAttribute(tap_gemm_wgmma_kernel<BN, Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize, TP_SMEM);
+  tap_gemm_wgmma_kernel<BN, Epi><<<min(tiles, NUM_SMS), TP_THREADS, TP_SMEM, stream>>>(ta, tw, g, epi, path);
+}
+
+// f32: the FMA kernel; bf16: the wgmma kernel at the width tap_gemm_bn
+// names. Errors surface through the caller's cudaGetLastError.
 template <typename T, typename Epi>
 void launch_tap_gemm(const TapGemm& g, const Epi& epi, cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
-    const int vec_a = g.lda % 8 == 0 && aligned16(g.a0) &&
-                      (g.k_split >= g.k_in || (g.k_split % 8 == 0 && aligned16(g.a1)));
-    const int vec_b = g.ldw % 8 == 0 && g.w_tap_stride % 8 == 0 && aligned16(g.w);
-    cudaFuncSetAttribute(tap_gemm_wgmma_kernel<Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize, TG_SMEM);
-    dim3 grid((g.N + TG_BN - 1) / TG_BN, (g.M + TG_BM - 1) / TG_BM);
-    tap_gemm_wgmma_kernel<Epi><<<grid, TG_THREADS, TG_SMEM, stream>>>(g, epi, vec_a, vec_b);
+    if (tap_gemm_bn(g.M, g.N) == 256)
+      launch_tap_gemm_wgmma<256>(g, epi, stream);
+    else
+      launch_tap_gemm_wgmma<128>(g, epi, stream);
   } else {
     const int vec_a = g.lda % 4 == 0 && aligned16(g.a0) &&
                       (g.k_split >= g.k_in || (g.k_split % 4 == 0 && aligned16(g.a1)));
@@ -706,6 +926,38 @@ void launch_ln_mod(const Tin* x, const Tout* mods, int n_mods, int shift_idx, in
       x, mods, n_mods, shift_idx, scale_idx, mask, out, M, T, C, eps);
 }
 
+// 8 consecutive values as f32 (16 bytes of bf16 or 32 of f32, aligned; read
+// through the read-only path, so only data no thread of the kernel writes),
+// and back
+__device__ __forceinline__ void ld8(const float* p, float (&v)[8]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p)), b = __ldg(reinterpret_cast<const float4*>(p + 4));
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w; v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void ld8(const bf16* p, float (&v)[8]) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+  }
+}
+__device__ __forceinline__ void st8(float* p, const float (&v)[8]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void st8(bf16* p, const float (&v)[8]) {
+  bf16 b[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) b[i] = from_f<bf16>(v[i]);
+  *reinterpret_cast<uint4*>(p) = pack8(b);
+}
+// whether 8 values at p[i .. i + 7] of rows `ld` long may move as one chunk
+__device__ __forceinline__ bool chunk8(const void* p, long long ld) {
+  return (ld & 7) == 0 && (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+
 // ---- QKV projection epilogue: bias, q scale, rounding, RoPE ----------------
 // The product is [M, 3C] (q | k | v); q and k rotate their first 2*half
 // features of each head as x*cos + neg_half(x)*sin, neg_half(x) =
@@ -713,7 +965,7 @@ void launch_ln_mod(const Tin* x, const Tout* mods, int n_mods, int shift_idx, in
 // D/4 for StableTTS's partial RoPE and D/2 for a rotation of the whole head
 // (F5-TTS, whose interleaved pairs are this form after a fixed permutation
 // of each head's q and k columns); 2*half <= D <= 64, so a partner column
-// lies in the same 64-column sub-tile.
+// lies in the same 64-column sub-tile, and D is a multiple of 8.
 template <typename T>
 struct QkvEpi {
   const T* bias;
@@ -724,24 +976,106 @@ struct QkvEpi {
   const float* sin_t;
   int C, D, half, T_;
   float q_scale;
-  __device__ float prep(int m, int n, float acc) const {
-    float val = acc + to_f(bias[n]);
+  __device__ __forceinline__ float prep_b(int n, float acc, float b) const {
+    float val = acc + b;
     if (n < C) val *= q_scale;
     return round_to<T>(val);
   }
-  __device__ void store(int m, int n, const float* tile, int r, int c) const {
-    const int ld = GEMM_BN + 1;
-    int which = n / C, nn = n % C, jj = nn % D;
-    float x = tile[r * ld + c];
-    T* dst = which == 0 ? q : (which == 1 ? k : v);
-    if (which < 2 && jj < 2 * half) {
-      int t = m % T_;
-      int i = jj % half;
-      float cs = cos_t[t * half + i], sn = sin_t[t * half + i];
-      float partner = jj < half ? -tile[r * ld + c + half] : tile[r * ld + c - half];
-      x = x * cs + partner * sn;
+  __device__ float prep(int m, int n, float acc) const { return prep_b(n, acc, to_f(bias[n])); }
+  __device__ __forceinline__ float rope(float x, float partner, float cs, float sn) const {
+    return x * cs + partner * sn;
+  }
+  // In bf16 (the wgmma kernel, which calls prep_row) with D = 64 and half a
+  // multiple of 8, a feature and its partner lie in one thread's sums of a
+  // 64-column sub-tile: prep_row rotates them and store only rounds. Else
+  // store rotates the staged values.
+  __device__ __forceinline__ bool rotated_in_prep() const {
+    return std::is_same<T, bf16>::value && D == 64 && half % 8 == 0;
+  }
+  // val[i] is feature jj0 + 8 (i / 2) + i % 2 of a head (jj0 even, below 8),
+  // half = 8 H8: whether it rotates and with which partner is known from i
+  // alone, and val[i] and its partner val[i + 2 H8] share a cos and a sin
+  template <int H8>
+  __device__ __forceinline__ void rotate(int m, int jj0, float (&val)[16]) const {
+    const float* cr = cos_t + (m % T_) * half + jj0;
+    const float* sr = sin_t + (m % T_) * half + jj0;
+    float out[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) out[i] = val[i];
+#pragma unroll
+    for (int j = 0; j < H8; ++j) {
+      const float2 cs = __ldg(reinterpret_cast<const float2*>(cr + 8 * j));
+      const float2 sn = __ldg(reinterpret_cast<const float2*>(sr + 8 * j));
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 2 * j + e, p = i + 2 * H8;
+        const float c = e ? cs.y : cs.x, s = e ? sn.y : sn.x;
+        out[i] = rope(val[i], -val[p], c, s);
+        out[p] = rope(val[p], val[i], c, s);
+      }
     }
-    dst[(long long)m * C + nn] = from_f<T>(x);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) val[i] = out[i];
+  }
+  __device__ void prep_row(int m, int n, const float (&acc)[16], float (&val)[16]) const {
+    if (n >= 3 * C) return;  // a sub-tile past the product: nothing is staged from it
+    if (std::is_same<T, bf16>::value && (reinterpret_cast<uintptr_t>(bias + n) & 3) == 0) {
+      // the bias of columns n + 8 j and n + 8 j + 1 in one load
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const uint32_t b2 = __ldg(reinterpret_cast<const unsigned int*>(bias + n + 8 * j));
+        val[2 * j] = prep_b(n + 8 * j, acc[2 * j], __uint_as_float(b2 << 16));
+        val[2 * j + 1] = prep_b(n + 8 * j + 1, acc[2 * j + 1], __uint_as_float(b2 & 0xFFFF0000u));
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) val[i] = prep(m, n + 8 * (i >> 1) + (i & 1), acc[i]);
+    }
+    if (!rotated_in_prep() || n / C == 2) return;
+    const int jj0 = n % C % D;  // the feature of val[0] in its head: 2 (lane % 4)
+    switch (half) {
+      case 8: rotate<1>(m, jj0, val); break;
+      case 16: rotate<2>(m, jj0, val); break;
+      case 24: rotate<3>(m, jj0, val); break;
+      case 32: rotate<4>(m, jj0, val); break;
+    }
+  }
+  __device__ __forceinline__ float partner(const float* tile, int r, int c, int jj) const {
+    const int ld = GEMM_BN + 1;
+    return jj < half ? -tile[r * ld + c + half] : tile[r * ld + c - half];
+  }
+  // staged (r, c) of q | k | v `which`, feature jj of its head, at time t
+  __device__ __forceinline__ float value(const float* tile, int r, int c, int which, int jj, int t) const {
+    float x = tile[r * (GEMM_BN + 1) + c];
+    if (which < 2 && jj < 2 * half && !rotated_in_prep()) {
+      int i = jj % half;
+      x = rope(x, partner(tile, r, c, jj), cos_t[t * half + i], sin_t[t * half + i]);
+    }
+    return x;
+  }
+  __device__ void store(int m, int n, const float* tile, int r, int c) const {
+    int which = n / C, nn = n % C;
+    T* dst = which == 0 ? q : (which == 1 ? k : v);
+    dst[(long long)m * C + nn] = from_f<T>(value(tile, r, c, which, nn % D, m % T_));
+  }
+  __device__ void store8(int m, int n, const float* tile, int r, int c) const {
+    const int which = n / C, nn = n % C;
+    T* dst = (which == 0 ? q : (which == 1 ? k : v)) + (long long)m * C + nn;
+    float x[8];
+    if (rotated_in_prep()) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) x[i] = tile[r * (GEMM_BN + 1) + c + i];
+    } else {
+      const int jj = nn % D, t = m % T_;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) x[i] = value(tile, r, c + i, which, jj + i, t);
+    }
+    if (chunk8(dst, C)) {
+      st8(dst, x);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) dst[i] = from_f<T>(x[i]);
+    }
   }
 };
 
@@ -759,11 +1093,29 @@ struct OutProjEpi {
   Tout* out;
   int C, T_;
   __device__ float prep(int m, int n, float acc) const { return acc + to_f(bias[n]); }
+  __device__ __forceinline__ float value(float xv, float o, float gate, float mk) const { return xv + o * gate * mk; }
   __device__ void store(int m, int n, const float* tile, int r, int c) const {
     int b = m / T_;
     float gate = to_f(mods[((long long)b * n_mods + gate_idx) * C + n]);
     float o = tile[r * (GEMM_BN + 1) + c];
-    out[(long long)m * C + n] = from_f<Tout>(to_f(x[(long long)m * C + n]) + o * gate * mask[m]);
+    out[(long long)m * C + n] = from_f<Tout>(value(to_f(x[(long long)m * C + n]), o, gate, mask[m]));
+  }
+  __device__ void store8(int m, int n, const float* tile, int r, int c) const {
+    const T* xr = x + (long long)m * C + n;
+    const T* gr = mods + ((long long)(m / T_) * n_mods + gate_idx) * C + n;
+    Tout* dst = out + (long long)m * C + n;
+    if (!(chunk8(xr, C) && chunk8(gr, C) && chunk8(dst, C))) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) store(m, n + i, tile, r, c + i);
+      return;
+    }
+    float xv[8], gate[8], o[8];
+    ld8(xr, xv);
+    ld8(gr, gate);
+    const float mk = mask[m];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) o[i] = value(xv[i], tile[r * (GEMM_BN + 1) + c + i], gate[i], mk);
+    st8(dst, o);
   }
 };
 
@@ -775,10 +1127,25 @@ struct Conv1Epi {
   T* y;
   int N;
   __device__ float prep(int m, int n, float acc) const { return acc + to_f(bias[n]); }
-  __device__ void store(int m, int n, const float* tile, int r, int c) const {
-    float v = tile[r * (GEMM_BN + 1) + c];
+  __device__ __forceinline__ float value(float v, float mk) const {
     float s = v / (1.f + expf(-v));
-    y[(long long)m * N + n] = from_f<T>(s * mask[m]);
+    return s * mk;
+  }
+  __device__ void store(int m, int n, const float* tile, int r, int c) const {
+    y[(long long)m * N + n] = from_f<T>(value(tile[r * (GEMM_BN + 1) + c], mask[m]));
+  }
+  __device__ void store8(int m, int n, const float* tile, int r, int c) const {
+    T* dst = y + (long long)m * N + n;
+    const float mk = mask[m];
+    float o[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) o[i] = value(tile[r * (GEMM_BN + 1) + c + i], mk);
+    if (chunk8(dst, N)) {
+      st8(dst, o);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) dst[i] = from_f<T>(o[i]);
+    }
   }
 };
 
@@ -792,10 +1159,25 @@ struct Conv1GeluEpi {
   T* y;
   int N;
   __device__ float prep(int m, int n, float acc) const { return acc + to_f(bias[n]); }
-  __device__ void store(int m, int n, const float* tile, int r, int c) const {
-    float v = tile[r * (GEMM_BN + 1) + c];
+  __device__ __forceinline__ float value(float v, float mk) const {
     float g = 0.5f * v * (1.f + tanhf(0.7978845608028654f * (v + 0.044715f * v * v * v)));
-    y[(long long)m * N + n] = from_f<T>(g * mask[m]);
+    return g * mk;
+  }
+  __device__ void store(int m, int n, const float* tile, int r, int c) const {
+    y[(long long)m * N + n] = from_f<T>(value(tile[r * (GEMM_BN + 1) + c], mask[m]));
+  }
+  __device__ void store8(int m, int n, const float* tile, int r, int c) const {
+    T* dst = y + (long long)m * N + n;
+    const float mk = mask[m];
+    float o[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) o[i] = value(tile[r * (GEMM_BN + 1) + c + i], mk);
+    if (chunk8(dst, N)) {
+      st8(dst, o);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) dst[i] = from_f<T>(o[i]);
+    }
   }
 };
 
@@ -812,11 +1194,32 @@ struct Conv2Epi {
   T* out;
   int C, T_;
   __device__ float prep(int m, int n, float acc) const { return acc + to_f(bias[n]); }
+  __device__ __forceinline__ float value(float rv, float gate, float v, float mk) const {
+    float z = v * mk;
+    return rv + gate * z;
+  }
   __device__ void store(int m, int n, const float* tile, int r, int c) const {
     int b = m / T_;
     float gate = to_f(mods[((long long)b * n_mods + gate_idx) * C + n]);
-    float z = tile[r * (GEMM_BN + 1) + c] * mask[m];
-    out[(long long)m * C + n] = from_f<T>(to_f(res[(long long)m * C + n]) + gate * z);
+    out[(long long)m * C + n] =
+        from_f<T>(value(to_f(res[(long long)m * C + n]), gate, tile[r * (GEMM_BN + 1) + c], mask[m]));
+  }
+  __device__ void store8(int m, int n, const float* tile, int r, int c) const {
+    const Tres* rr = res + (long long)m * C + n;
+    const T* gr = mods + ((long long)(m / T_) * n_mods + gate_idx) * C + n;
+    T* dst = out + (long long)m * C + n;
+    if (!(chunk8(rr, C) && chunk8(gr, C) && chunk8(dst, C))) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) store(m, n + i, tile, r, c + i);
+      return;
+    }
+    float rv[8], gate[8], o[8];
+    ld8(rr, rv);
+    ld8(gr, gate);
+    const float mk = mask[m];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) o[i] = value(rv[i], gate[i], tile[r * (GEMM_BN + 1) + c + i], mk);
+    st8(dst, o);
   }
 };
 
@@ -1182,13 +1585,13 @@ __global__ void __launch_bounds__(FG_THREADS, FG_CTAS_PER_SM)
 // the FFN at B*T = 32000: 50.3 GFLOP, 0.051 ms at 989 TFLOP/s) against A and
 // G read about once per tap.
 //
-// Design: the wgmma tap GEMM above turned on its side, the reduction running
+// Design: a wgmma tap GEMM turned on its side, the reduction running
 // over rows. A 128 (m, over ka) x 128 (n) output tile, a 64-row k step, two
 // consumer warpgroups of 64 m each issuing m64n128k16 with both operands
 // MN-major: A's m and G's n are the contiguous axes of a row, so a k step's
 // 64 rows are copied as they lie (A as two 64 x 64 tiles under make_desc<true>,
 // G as two 64-wide atoms under make_desc_mn) and the transpose bits do the
-// rest. The same 3-deep cp.async ring (97 KB, two CTAs an SM). The tap's shift
+// rest. A 3-deep cp.async ring (97 KB, two CTAs an SM). The tap's shift
 // lands on the k axis: row r = b * t_len + t copies activation row r + shift
 // where t + shift lies in [0, t_len), else the 16-byte chunk is zero-filled;
 // so are chunks past ka, n and the chunk's last row. One tap per CTA (grid z
@@ -1196,6 +1599,11 @@ __global__ void __launch_bounds__(FG_THREADS, FG_CTAS_PER_SM)
 // (from L2). Where lda or ldg is not a multiple of 8 or a pointer is not
 // 16-byte aligned the copies are element by element: right, not fast. Each
 // CTA writes its 128 x 128 f32 partial straight from the accumulators.
+constexpr int WGR_BM = 128, WGR_BN = 128, WGR_BK = 64, WGR_STAGES = 3, WGR_THREADS = 256;
+constexpr int WGR_INFLIGHT = 1;  // product groups a warpgroup keeps in flight across a k step
+constexpr int WGR_CTAS_PER_SM = 2;
+constexpr int WGR_STAGE_BYTES = 4 * WG_TILE_BYTES;             // A: 2 tiles of 64 columns; G: 2 tiles of 64 columns
+constexpr int WGR_SMEM = WGR_STAGES * WGR_STAGE_BYTES + 1024;  // + alignment slack
 
 // Stage `stage` of the ring <- rows r0 .. r0 + 63 of the chunk (below r_end)
 __device__ __forceinline__ void wgrad_load(const WGrad& p, uint8_t* ring, int stage, int r0, int r_end, int shift,
@@ -1203,7 +1611,7 @@ __device__ __forceinline__ void wgrad_load(const WGrad& p, uint8_t* ring, int st
   const bf16* A = static_cast<const bf16*>(p.a);
   const bf16* G = static_cast<const bf16*>(p.g);
   const int tid = threadIdx.x;
-  uint8_t* sa = ring + stage * TG_STAGE_BYTES;
+  uint8_t* sa = ring + stage * WGR_STAGE_BYTES;
   uint8_t* sg = sa + 2 * WG_TILE_BYTES;
   // the activation row that row r reads at this shift, or -1 for zeros
   auto src_row = [&](int r) -> long long {
@@ -1259,18 +1667,18 @@ __device__ __forceinline__ void wgrad_load(const WGrad& p, uint8_t* ring, int st
 
 // (a template only so that it is compiled where a bf16 launch_wgrad is)
 template <typename T>
-__global__ void __launch_bounds__(TG_THREADS, TG_CTAS_PER_SM)
+__global__ void __launch_bounds__(WGR_THREADS, WGR_CTAS_PER_SM)
     wgrad_wgmma_kernel(WGrad p, int taps, int vec_a, int vec_g) {
   static_assert(std::is_same<T, bf16>::value, "the wgmma weight gradient takes bf16");
   extern __shared__ uint8_t wgr_smem[];
   uint8_t* ring = align_1024(wgr_smem);
   const int tid = threadIdx.x, wg = tid / WG_THREADS, lt = tid % WG_THREADS;
-  const int n0 = blockIdx.x * TG_BN, m0 = blockIdx.y * TG_BM;
+  const int n0 = blockIdx.x * WGR_BN, m0 = blockIdx.y * WGR_BM;
   const int tap = blockIdx.z % taps, chunk = blockIdx.z / taps;
   const int shift = p.shift0 + tap * p.shift_step;
   const int r_begin = chunk * p.row_chunk, r_end = min(p.rows, r_begin + p.row_chunk);
-  const int steps = max(0, (r_end - r_begin + TG_BK - 1) / TG_BK);
-  constexpr int AHEAD = TG_STAGES - 1 - TG_INFLIGHT;  // k steps loaded ahead of the one multiplied
+  const int steps = max(0, (r_end - r_begin + WGR_BK - 1) / WGR_BK);
+  constexpr int AHEAD = WGR_STAGES - 1 - WGR_INFLIGHT;  // k steps loaded ahead of the one multiplied
 
   float acc[64];
 #pragma unroll
@@ -1278,28 +1686,28 @@ __global__ void __launch_bounds__(TG_THREADS, TG_CTAS_PER_SM)
 
 #pragma unroll
   for (int s = 0; s < AHEAD; ++s) {
-    if (s < steps) wgrad_load(p, ring, s, r_begin + s * TG_BK, r_end, shift, m0, n0, vec_a, vec_g);
+    if (s < steps) wgrad_load(p, ring, s, r_begin + s * WGR_BK, r_end, shift, m0, n0, vec_a, vec_g);
     cp_async_commit();
   }
   for (int step = 0; step < steps; ++step) {
-    // as in tap_gemm_wgmma_kernel: this step's copies have landed, and both
-    // warpgroups' products on the stage refilled below are done
+    // this step's copies have landed for every thread, and both warpgroups'
+    // products on the stage refilled below are done
     cp_async_wait<AHEAD - 1>();
     fence_proxy_async();
     __syncthreads();
     const int next = step + AHEAD;
     if (next < steps)
-      wgrad_load(p, ring, next % TG_STAGES, r_begin + next * TG_BK, r_end, shift, m0, n0, vec_a, vec_g);
+      wgrad_load(p, ring, next % WGR_STAGES, r_begin + next * WGR_BK, r_end, shift, m0, n0, vec_a, vec_g);
     cp_async_commit();
 
-    uint8_t* sa = ring + (step % TG_STAGES) * TG_STAGE_BYTES;
+    uint8_t* sa = ring + (step % WGR_STAGES) * WGR_STAGE_BYTES;
     const uint64_t da = make_desc<true>(smem_addr(sa + wg * WG_TILE_BYTES));
     const uint64_t dg = make_desc_mn(smem_addr(sa + 2 * WG_TILE_BYTES), WG_TILE_BYTES);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < TG_BK / 16; ++kk) WgmmaSS<128, 1, 1>::run(acc, desc_k<true>(da, kk), desc_k<true>(dg, kk), 1);
+    for (int kk = 0; kk < WGR_BK / 16; ++kk) WgmmaSS<128, 1, 1>::run(acc, desc_k<true>(da, kk), desc_k<true>(dg, kk), 1);
     wgmma_commit();
-    wgmma_wait<TG_INFLIGHT>();
+    wgmma_wait<WGR_INFLIGHT>();
     tg_fence_acc(acc);
   }
   wgmma_wait<0>();
@@ -1348,7 +1756,7 @@ __global__ void sum_splits_kernel(const float* part, float* out, int splits, lon
 // 252 for dWqkv (21) and for dWo (63).
 constexpr int WGRAD_TARGET_CTAS = 1024;
 constexpr int WGRAD_MIN_CHUNK = 128;
-constexpr int WGRAD_WGMMA_CTAS = TG_CTAS_PER_SM * NUM_SMS;
+constexpr int WGRAD_WGMMA_CTAS = WGR_CTAS_PER_SM * NUM_SMS;
 constexpr int WGRAD_WGMMA_MIN_CHUNK = 256;
 
 // Splits the row reduction as above, as far as `ws` (ws_floats floats; may be
@@ -1357,7 +1765,7 @@ constexpr int WGRAD_WGMMA_MIN_CHUNK = 256;
 template <typename T>
 void launch_wgrad(WGrad p, int taps, float* ws, long long ws_floats, cudaStream_t stream) {
   constexpr bool tc = std::is_same<T, bf16>::value;
-  constexpr int bm = tc ? TG_BM : GEMM_BM, bn = tc ? TG_BN : GEMM_BN, bk = tc ? TG_BK : GEMM_BK;
+  constexpr int bm = tc ? WGR_BM : GEMM_BM, bn = tc ? WGR_BN : GEMM_BN, bk = tc ? WGR_BK : GEMM_BK;
   const long long size = (long long)taps * p.ka * p.n;
   const int tiles = ((p.n + bn - 1) / bn) * ((p.ka + bm - 1) / bm) * taps;
   long long splits;
@@ -1380,8 +1788,8 @@ void launch_wgrad(WGrad p, int taps, float* ws, long long ws_floats, cudaStream_
     dim3 grid((p.n + bn - 1) / bn, (p.ka + bm - 1) / bm, taps * (int)splits);
     const int vec_a = p.lda % 8 == 0 && aligned16(p.a);
     const int vec_g = p.ldg % 8 == 0 && aligned16(p.g);
-    cudaFuncSetAttribute(wgrad_wgmma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, TG_SMEM);
-    wgrad_wgmma_kernel<T><<<grid, TG_THREADS, TG_SMEM, stream>>>(p, taps, vec_a, vec_g);
+    cudaFuncSetAttribute(wgrad_wgmma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, WGR_SMEM);
+    wgrad_wgmma_kernel<T><<<grid, WGR_THREADS, WGR_SMEM, stream>>>(p, taps, vec_a, vec_g);
   } else {
     dim3 grid((p.n + FW_BN - 1) / FW_BN, (p.ka + FW_BM - 1) / FW_BM, taps * (int)splits);
     const int vec_a = p.lda % 4 == 0 && aligned16(p.a);

@@ -86,6 +86,18 @@ struct GeluEpi {
   __device__ void store(int m, int n, const float* tile, int r, int c) const {
     y[(long long)m * F + n] = from_f<T>(gelu<sizeof(T) == 2>(tile[r * (GEMM_BN + 1) + c]));
   }
+  __device__ void store8(int m, int n, const float* tile, int r, int c) const {
+    T* dst = y + (long long)m * F + n;
+    float v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = gelu<sizeof(T) == 2>(tile[r * (GEMM_BN + 1) + c + i]);
+    if (chunk8(dst, F)) {
+      st8(dst, v);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) dst[i] = from_f<T>(v[i]);
+    }
+  }
 };
 
 // out = x + gamma * (acc + b2)
@@ -100,6 +112,20 @@ struct ResidualEpi {
   __device__ void store(int m, int n, const float* tile, int r, int c) const {
     const long long i = (long long)m * C + n;
     out[i] = from_f<T>(to_f(x[i]) + tile[r * (GEMM_BN + 1) + c] * to_f(gamma[n]));
+  }
+  __device__ void store8(int m, int n, const float* tile, int r, int c) const {
+    const long long i0 = (long long)m * C + n;
+    if (!(chunk8(x + i0, C) && chunk8(gamma + n, C) && chunk8(out + i0, C))) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) store(m, n + i, tile, r, c + i);
+      return;
+    }
+    float xv[8], gv[8], o[8];
+    ld8(x + i0, xv);
+    ld8(gamma + n, gv);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) o[i] = xv[i] + tile[r * (GEMM_BN + 1) + c + i] * gv[i];
+    st8(out + i0, o);
   }
 };
 

@@ -3,9 +3,9 @@
 //
 // One warpgroup (4 consecutive warps, 128 threads) issues each product
 // together: D[64 x N] (+)= A[64 x 16] * B[16 x N] in f32, bf16 operands, N =
-// 64 (the attention cores) or 128 (the tap GEMM of common.cuh). B always
-// comes from shared memory through a 64-bit matrix descriptor; A from a
-// descriptor or from registers.
+// 64 (the attention cores), 128 or 256 (the tap GEMM of common.cuh; 256 also
+// the ISTFT head). B always comes from shared memory through a 64-bit matrix
+// descriptor; A from a descriptor or from registers.
 //
 // Shared-memory tiles here are always 64 rows of 64 bf16 (128 bytes a row) in
 // the 128-byte swizzle: the 16-byte chunk c of row r is stored at chunk
@@ -18,7 +18,8 @@
 // Below the products: the tile helpers the wgmma attention cores share (the
 // serving core of attention.cuh and the training core of attention_train.cuh):
 // element access, cp.async copies of a 64 x 64 tile from device memory and
-// its store back, bf16 packing of A fragments, and register fences.
+// its store back, bf16 packing of A fragments, and register fences; then the
+// mbarrier, TMA and register-sharing primitives of the tap GEMM's pipeline.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -291,6 +292,71 @@ __device__ __forceinline__ void fence_regs(float (&d)[32]) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---- mbarriers, TMA and warp specialisation (the tap GEMM of common.cuh) --
+// An mbarrier is 8 bytes of shared memory; `bar` below is its shared-memory
+// address. A phase completes when `count` arrivals (set at init) and every
+// byte announced by expect_tx have come; waiters name the parity of the phase
+// they wait for.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+// makes the inits visible to the async proxy (TMA) and the other threads; then a block barrier
+__device__ __forceinline__ void mbar_fence_init() { asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory"); }
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// one arrival that also announces `bytes` to come by TMA
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+// one arrival, made when every cp.async this thread started so far has landed
+__device__ __forceinline__ void mbar_arrive_cp_async(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+// (the spin stays inside the asm, so the warp leaves it converged for the
+// .aligned wgmma instructions that follow)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// TMA: the box at coordinates (c0 innermost, c1, c2) of the tensor map at
+// `map` (a __grid_constant__ kernel parameter) into shared memory at `dst`,
+// completing `bytes` (the whole box, zeros out of bounds included) on `bar`
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map, int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map, int c0, int c1, int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::
+          "r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// a warpgroup gives up registers down to N a thread, or takes them up to N
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// a barrier of `threads` threads (whole warps) under id 1-15; id 0 is __syncthreads
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 }  // namespace stts

@@ -32,7 +32,7 @@ extern "C" int wgrad_forward(const void* a, const void* g, void* out, void* ws, 
 }
 
 // BM (= BN) of the CTA tile (over ka x n) that launch_wgrad runs
-extern "C" int wgrad_tile(int is_bf16) { return is_bf16 ? TG_BM : FW_BM; }
+extern "C" int wgrad_tile(int is_bf16) { return is_bf16 ? WGR_BM : FW_BM; }
 
 extern "C" int colsum_forward(const void* x, void* out, void* ws, int groups, int rows, int N, int ws_floats,
                               int is_bf16, void* stream) {

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from stabletts_torch.ops.dit_block_cuda import ffn_half_plain
+from stabletts_torch.ops.tap_gemm_cuda import count_conv_paths
 
 
 def adaln_ffn_plain(x, mods, mask, w1, b1, w2, b2, eps: float = 1e-5):
@@ -52,6 +53,8 @@ def _adaln_ffn_cuda(x, mods, mask, w1, b1, w2, b2, eps: float):
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "adaln_ffn")
     adaln_ffn.launches += 1
+    if x.dtype == torch.bfloat16:
+        count_conv_paths((h, w1, c, f, t, 3), (y, w2, f, c, t, 3))
     return out
 
 

@@ -23,6 +23,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from stabletts_torch.ops.tap_gemm_cuda import count_conv_paths
+
 
 class ConvNeXtWeights(NamedTuple):
     """Kernel-layout weights of one block (see `models.vocos.ConvNeXtBlock`)."""
@@ -91,6 +93,8 @@ def _convnext_cuda(x: torch.Tensor, w: ConvNeXtWeights, eps: float) -> torch.Ten
     )
     _build.check(err, "convnext")
     convnext_block.launches += 1
+    if x.dtype == torch.bfloat16:
+        count_conv_paths((h, w.w1, c, f, t), (y, w.w2, f, c, t))
     return out
 
 

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from stabletts_torch.ops.dit_block_cuda import attention_half_plain, rope_tables
+from stabletts_torch.ops.tap_gemm_cuda import count_conv_paths
 
 
 def dit_attention_plain(x, mods, mask, wqkv, bqkv, wo, bo, n_heads: int, eps: float = 1e-5):
@@ -58,6 +59,8 @@ def _dit_attention_cuda(x, mods, mask, wqkv, bqkv, wo, bo, n_heads: int, eps: fl
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "dit_attention")
     dit_attention.launches += 1
+    if x.dtype == torch.bfloat16:
+        count_conv_paths((h, wqkv, c, 3 * c, t), (att, wo, c, c, t))
     return out
 
 

@@ -32,6 +32,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from stabletts_torch.ops.tap_gemm_cuda import count_conv_paths
+
 _NEG = -0.7 * torch.finfo(torch.float32).max
 _LOG2E = math.log2(math.e)
 
@@ -209,6 +211,9 @@ def _dit_block_cuda(x, mods, mask, w: DiTWeights, n_heads: int, eps: float, rot:
     )
     _build.check(err, "dit_block")
     dit_block.launches += 1
+    if x.dtype == torch.bfloat16:
+        count_conv_paths((h, w.wqkv, c, 3 * c, t), (att, w.wo, c, c, t), (h2, w.w1, c, f, t, taps),
+                         (y, w.w2, f, c, t, taps))
     return out
 
 

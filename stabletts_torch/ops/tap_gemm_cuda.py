@@ -19,6 +19,17 @@ names.
 the kernel on the GPU. `tap_gemm.launches` counts launches. The output is in
 the activations' dtype (the sums are f32).
 
+The bf16 kernel feeds its ring one of three ways, the path, and runs a 128 x
+BN tile; `tap_gemm_path` and `tap_gemm_bn` state the rule (the C functions of
+the same names in csrc/common.cuh, which `tap_gemm_route` reports from the
+built library): "tma" where A is a plain [M, lda] matrix (one tap, no shift,
+stride or row_len, k_split >= k_in), "producer_copy" for other A, "fallback"
+where lda, ldw, w_tap_stride or k_split is not a multiple of 8 or a pointer
+not 16-byte aligned; BN = 256 where N > 128 and the waves of the card's 132
+SMs that the 128 x 256 tiles take are at most 2/3 of those of the 128 x 128
+ones, else 128. While a profiler records, the bf16 wrappers count each tap
+GEMM launch under `tap_gemm.<path>` (`count_conv_paths`).
+
 The weight gradient of such a product, the backward product of #11, #12 and
 #13 (the `WGrad` contract):
 
@@ -38,6 +49,12 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.autograd import _profiler_enabled
+
+from stabletts_torch.utils.metrics import count
+
+NUM_SMS = 132  # the H100 SXM's, as csrc/common.cuh has it
+TAP_PATHS = ("tma", "producer_copy", "fallback")  # csrc/common.cuh TapPath, in order
 
 
 class TapGemmShape(NamedTuple):
@@ -101,6 +118,47 @@ def tap_gemm_plain(a0, w, *, t_in: int, t_out: int, taps: int = 1, shift0: int =
     return out.to(a0.dtype)
 
 
+def tap_gemm_path(*, lda: int, k_in: int, k_split: int, ldw: int, w_tap_stride: int, t_in: int, t_out: int,
+                  taps: int = 1, shift0: int = 0, row_stride: int = 1, row_len: bool = False,
+                  ptrs: tuple = (0, 0, 0)) -> str:
+    """The bf16 kernel's path for a launch with these TapGemm fields;
+    `ptrs` are the data pointers of a0, a1 and w (16-byte alignment counts)."""
+    a0, a1, w = (p % 16 == 0 for p in ptrs)
+    vec_a = lda % 8 == 0 and a0 and (k_split >= k_in or (k_split % 8 == 0 and a1))
+    vec_b = ldw % 8 == 0 and w_tap_stride % 8 == 0 and w
+    if not (vec_a and vec_b):
+        return "fallback"
+    plain = taps == 1 and shift0 == 0 and row_stride == 1 and t_out == t_in and not row_len and k_split >= k_in
+    return "tma" if plain else "producer_copy"
+
+
+def tap_gemm_bn(m: int, n: int) -> int:
+    """The width BN of the bf16 kernel's 128 x BN tile for an [m, n] output."""
+    if n <= 128:
+        return 128
+    m_tiles = -(-m // 128)
+    waves = lambda bn: -(-m_tiles * -(-n // bn) // NUM_SMS)
+    return 256 if 3 * waves(256) <= 2 * waves(128) else 128
+
+
+def conv_path(a: torch.Tensor, w: torch.Tensor, k_in: int, n_out: int, t: int, taps: int = 1,
+              transposed: bool = False) -> str:
+    """tap_gemm_path of csrc/common.cuh's conv_gemm(a, k_in, w, n_out, ., t,
+    taps, transposed): a "same" conv along t, or a dense layer at one tap."""
+    half = (taps - 1) // 2
+    return tap_gemm_path(lda=k_in, k_in=k_in, k_split=k_in, ldw=k_in if transposed else n_out,
+                         w_tap_stride=k_in * n_out, t_in=t, t_out=t, taps=taps, shift0=half if transposed else -half,
+                         ptrs=(a.data_ptr(), a.data_ptr(), w.data_ptr()))
+
+
+def count_conv_paths(*convs) -> None:
+    """While a profiler records, adds one to `tap_gemm.<path>` for each bf16
+    tap GEMM launch given as conv_path's arguments (a tuple each)."""
+    if _profiler_enabled():
+        for conv in convs:
+            count("tap_gemm." + conv_path(*conv))
+
+
 def _tap_gemm_cuda(a0, w, t_in, t_out, taps, shift0, shift_step, a1, k_split, k_in, row_len, w_trans, n_out, ldw,
                    w_tap_stride, row_stride) -> torch.Tensor:
     from stabletts_torch.ops import _build
@@ -129,7 +187,30 @@ def _tap_gemm_cuda(a0, w, t_in, t_out, taps, shift0, shift_step, a1, k_split, k_
     )
     _build.check(err, "tap_gemm")
     tap_gemm.launches += 1
+    if a0.dtype == torch.bfloat16 and _profiler_enabled():
+        count("tap_gemm." + tap_gemm_path(lda=s.lda, k_in=s.k_in, k_split=s.k_split, ldw=s.ldw,
+                                          w_tap_stride=s.w_tap_stride, t_in=t_in, t_out=t_out, taps=taps,
+                                          shift0=shift0, row_stride=row_stride, row_len=row_len is not None,
+                                          ptrs=(a0.data_ptr(), a1.data_ptr(), w.data_ptr())))
     return out
+
+
+def tap_gemm_route(a0, w, *, t_in: int, t_out: int, taps: int = 1, shift0: int = 0, shift_step: int = 0, a1=None,
+                   k_split=None, k_in=None, row_len=None, w_trans: bool = False, n_out=None, ldw=None,
+                   w_tap_stride=None, row_stride: int = 1) -> tuple:
+    """(path, BN) that the built library's bf16 kernel takes for `tap_gemm`'s
+    arguments, tensor maps made as a launch makes them (a CUDA build is
+    needed; nothing is launched)."""
+    from stabletts_torch.ops import _build
+
+    s = _shape(a0, w, t_in, taps, a1, k_split, k_in, w_trans, n_out, ldw, w_tap_stride)
+    a1 = a0 if a1 is None else a1
+    lens = None if row_len is None else row_len.to(device=a0.device, dtype=torch.int32).contiguous()
+    fn = _build.load("tap_gemm", "tap_gemm_route", 4, 14, stream=False)
+    r = fn(a0.data_ptr(), a1.data_ptr(), 0 if lens is None else lens.data_ptr(), w.data_ptr(), s.k_split, s.lda,
+           t_in, t_out, s.k_in, taps, shift0, shift_step, s.ldw, s.b * t_out, s.n, int(w_trans), s.w_tap_stride,
+           row_stride)
+    return TAP_PATHS[r % 10], r // 10
 
 
 def tap_gemm(a0, w, *, t_in: int, t_out: int, taps: int = 1, shift0: int = 0, shift_step: int = 0, a1=None,
@@ -157,7 +238,7 @@ def tap_gemm_tile(m: int, n: int, dtype) -> str:
     from stabletts_torch.ops import _build
 
     t = _build.load("tap_gemm", "tap_gemm_tile", 0, 3, stream=False)(m, n, int(dtype == torch.bfloat16))
-    return f"{t}x{t}"
+    return f"128x{t}" if dtype == torch.bfloat16 else f"{t}x{t}"
 
 
 def _wgrad_shape(a, g, t_len, ka, n_out):

@@ -1,45 +1,47 @@
 """Where the tap GEMM's time goes, on one GPU.
 
     python -m stabletts_torch.tools.tap_gemm_probe [--iters 50]
+    python -m stabletts_torch.tools.tap_gemm_probe --shapes f5
     python -m stabletts_torch.tools.tap_gemm_probe --dtype float32 [--b 2 --t 1024]
     python -m stabletts_torch.tools.tap_gemm_probe --dtype float32 --shapes convnext --b 1 --t 1000
 
 Builds `csrc/tap_gemm.cu` (the tap GEMM of `csrc/common.cuh` with a plain
 store epilogue) several times, each from a copy of the sources with one
-change to `common.cuh`, and times each build at the bench batch's four DiT
-products (M = 16 * 1024 rows; QKV, out-projection, conv1, conv2) in bf16,
-mean of `--iters` back-to-back calls between two CUDA events, two rounds in
-opposite orders. The builds:
+change to `common.cuh`, and times each build at four products in bf16, mean
+of `--iters` back-to-back calls between two CUDA events, two rounds in
+opposite orders. `--shapes dit` (the default): StableTTS's DiT block
+products (QKV, out-projection, conv1, conv2 at 3 taps) at `--b` x `--t` rows
+(default the bench batch's 16 x 1024); `--shapes f5`: F5-TTS's (QKV, out-
+projection and the FFN's two dense layers, K 1024-2048) at 16 x 2068 rows
+unless `--b` / `--t` say otherwise; `--shapes convnext`: the ConvNeXt
+block's two products (Vocos's C = 512 -> F = 1536 and back). The bf16
+builds:
 
-  as_built            the kernel as it is
-  ring4_1cta          a 4-deep ring at one CTA an SM (AHEAD 2 k steps)
-  ring3_no_inflight   no product group in flight across a k step (AHEAD 2)
-  ring4_1cta_no_inflight
-  no_copies           no cp.async at all: the products run on whatever the
-                      ring holds (its result is meaningless), so this is the
-                      main loop's products, barriers and epilogue alone
-  no_epilogue         the sums are not staged or stored (one conditional
+  as_built            the kernel as it is (128 x 128 or 128 x 256 tiles by
+                      the shape, tap_gemm_bn)
+  tile_128, tile_256  the 128 x 128 or the 128 x 256 tile at every N > 128
+  no_epilogue         the sums are neither staged nor stored (one conditional
                       store keeps the main loop alive)
-  no_copies_no_epilogue
+  no_loads            the producer starts no TMA load: the products run on
+                      whatever the ring holds (their result is meaningless),
+                      so this is the main loop's products, hand-overs and
+                      epilogue alone (the producer's cp.async copies of
+                      shifted A still run)
 
-In float32 (the FMA kernel `tap_gemm_f32_kernel`) at `--b` x `--t` rows
-(default the bench batch's 16 x 1024):
+In float32 (the FMA kernel `tap_gemm_f32_kernel`):
 
   as_built            the kernel as it is (its tile chosen by the shape)
   one_cta_an_sm       __launch_bounds__ for one CTA an SM: no 128-register cap
   ring_3              a 3-deep ring: the copies two k steps ahead, not three
   tile_64, tile_128   the 64 x 64 or the 128 x 128 tile at every shape
 
-`--shapes convnext` times the ConvNeXt block's two products instead (Vocos's
-C = 512 -> F = 1536 and back, one tap each) at `--b` x `--t` rows.
-
-The builds that compute the product are checked against `tap_gemm_plain`. It prints one JSON line
-per build and product (ms of each round, TFLOP/s of the best, and for
-`as_built` and `no_epilogue` the rate at which the copies fill shared memory
-from L2: the A and B tiles of every k step of every CTA), then the card line.
-The host issues a call every ~40 us (shape checks, allocation, ctypes), so
-products shorter than that (QKV, out-projection) read the host, not the
-kernel. Nothing of the port calls it.
+The builds that compute the product are checked against `tap_gemm_plain`. It
+prints one JSON line per build and product (ms of each round, TFLOP/s of the
+best, the bf16 path and tile, and for the bf16 `as_built` and `no_epilogue`
+the rate at which the ring is filled: the A and W tiles of every k step of
+every tile, most of them from L2), then the card line. The host launches a call
+every ~40 us (shape checks, allocation, ctypes), so products shorter than
+that read the host, not the kernel. Nothing of the port calls it.
 """
 
 from __future__ import annotations
@@ -56,8 +58,10 @@ import torch
 
 SHAPES = {"qkv": (1, 256, 768), "out_proj": (1, 256, 256), "conv1": (3, 256, 1024), "conv2": (3, 1024, 256)}
 CONVNEXT_SHAPES = {"convnext_w1": (1, 512, 1536), "convnext_w2": (1, 1536, 512)}
-B, T = 16, 1024
-TILE, BK = 128, 64  # the bf16 kernel's CTA tile (M and N) and k step
+F5_SHAPES = {"f5_qkv": (1, 1024, 3072), "f5_out_proj": (1, 1024, 1024), "f5_ffn1": (1, 1024, 2048),
+             "f5_ffn2": (1, 2048, 1024)}
+DEFAULT_ROWS = {"dit": (16, 1024), "convnext": (16, 1024), "f5": (16, 2068)}
+BM, BK = 128, 64  # the bf16 kernel's tile rows and k step
 
 
 def _variants(src: str, dtype: str) -> dict:
@@ -73,19 +77,14 @@ def _variants(src: str, dtype: str) -> dict:
         return {"as_built": src, "one_cta_an_sm": sub(src, [("FG_CTAS_PER_SM = 2;", "FG_CTAS_PER_SM = 1;")]),
                 "ring_3": sub(src, [("FG_STAGES = 4;", "FG_STAGES = 3;")]),
                 "tile_64": sub(src, [(tile, "return 64;")]), "tile_128": sub(src, [(tile, "return 128;")])}
-    ring4 = [("TG_STAGES = 3", "TG_STAGES = 4"), ("TG_CTAS_PER_SM = 2", "TG_CTAS_PER_SM = 1")]
-    no_inflight = [("TG_INFLIGHT = 1;", "TG_INFLIGHT = 0;")]
-    no_copies = [("if (s < steps) tap_gemm_load(", "if (false) tap_gemm_load("),
-                 ("if (next < steps) tap_gemm_load(", "if (false) tap_gemm_load(")]
-    e0, e1 = src.index("  // epilogue: this warpgroup's rows"), src.index("inline bool aligned16")
-    no_epi = src[:e0] + (
-        "  float sum = 0.f;\n"
-        "  for (int i = 0; i < 64; ++i) sum += acc[i];\n"
-        "  if (sum == 1234.5f) epi.store(m0, n0, reinterpret_cast<float*>(ring), 0, 0);\n"
-        "}\n\n") + src[e1:]
-    return {"as_built": src, "ring4_1cta": sub(src, ring4), "ring3_no_inflight": sub(src, no_inflight),
-            "ring4_1cta_no_inflight": sub(src, ring4 + no_inflight), "no_copies": sub(src, no_copies),
-            "no_epilogue": no_epi, "no_copies_no_epilogue": sub(no_epi, no_copies)}
+    width = "return 3 * w256 <= 2 * w128 ? 256 : 128;"
+    epilogue = "    // epilogue: 64 x 64 sub-tile q holds columns n0 + 64 q .."
+    no_epi = [(epilogue, "    if (acc[0] == 1234.5f) epi.store(m0, n0, sub, 0, 0);\n    continue;\n" + epilogue)]
+    no_loads = [("const uint32_t tx = (path == TAP_TMA ? S::A_BYTES : 0) + S::B_BYTES;", "const uint32_t tx = 0;"),
+                ("          tp_tma_loads<BN>(", "          if (tx) tp_tma_loads<BN>(")]
+    return {"as_built": src, "tile_128": sub(src, [(width, "return 128;")]),
+            "tile_256": sub(src, [(width, "return 256;")]), "no_epilogue": sub(src, no_epi),
+            "no_loads": sub(src, no_loads)}
 
 
 def _build_variants(_build, dtype: str) -> dict:
@@ -126,16 +125,18 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
-    ap.add_argument("--b", type=int, default=B)
-    ap.add_argument("--t", type=int, default=T)
-    ap.add_argument("--shapes", choices=("dit", "convnext"), default="dit")
+    ap.add_argument("--b", type=int)
+    ap.add_argument("--t", type=int)
+    ap.add_argument("--shapes", choices=("dit", "convnext", "f5"), default="dit")
     args = ap.parse_args()
-    shapes = CONVNEXT_SHAPES if args.shapes == "convnext" else SHAPES
-    dtype, b, t = getattr(torch, args.dtype), args.b, args.t
+    shapes = {"dit": SHAPES, "convnext": CONVNEXT_SHAPES, "f5": F5_SHAPES}[args.shapes]
+    b = args.b or DEFAULT_ROWS[args.shapes][0]
+    t = args.t or DEFAULT_ROWS[args.shapes][1]
+    dtype = getattr(torch, args.dtype)
     if not torch.cuda.is_available():
         raise SystemExit("tap_gemm_probe measures the kernel on a GPU; none is present")
     from stabletts_torch.ops import _build
-    from stabletts_torch.ops.tap_gemm_cuda import tap_gemm, tap_gemm_plain
+    from stabletts_torch.ops.tap_gemm_cuda import tap_gemm, tap_gemm_plain, tap_gemm_route, tap_gemm_tile
 
     _build.build_all()
     libs = _build_variants(_build, args.dtype)
@@ -155,6 +156,10 @@ def main() -> None:
                 row = rows.setdefault((name, prod), {"build": name, "dtype": args.dtype, "B": b, "T": t,
                                                      "product": prod, "ms": []})
                 row["ms"].append(_loop_ms(lambda: tap_gemm(a, w, **kw), args.iters))
+                if "tile" not in row:
+                    row["tile"] = tap_gemm_tile(b * t, w.shape[2], dtype)
+                    if dtype == torch.bfloat16:
+                        row["path"] = tap_gemm_route(a, w, **kw)[0]
                 if "rel_err" not in row and not name.startswith("no_"):
                     got, want = tap_gemm(a, w, **kw).float(), tap_gemm_plain(a, w, **kw).float()
                     row["rel_err"] = ((got - want).abs().max() / want.abs().max()).item()
@@ -163,9 +168,10 @@ def main() -> None:
         best = min(row["ms"])
         row["tflops"] = 2 * b * t * k * n * taps / best / 1e9
         if name in ("no_epilogue", "as_built") and dtype == torch.bfloat16:
-            ctas = -(-b * t // TILE) * -(-n // TILE)
-            ring_bytes = ctas * taps * -(-k // BK) * 2 * TILE * BK * 2  # A and B tiles of every k step
-            row["copied_GB_per_s"] = ring_bytes / best / 1e6
+            bn = int(row["tile"].split("x")[1])
+            tiles = -(-b * t // BM) * -(-n // bn)
+            ring_bytes = tiles * taps * -(-k // BK) * (BM + bn) * BK * 2  # A and W tiles of every k step
+            row["ring_fill_GB_per_s"] = ring_bytes / best / 1e6
         print(json.dumps(row), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=False).stdout.strip()

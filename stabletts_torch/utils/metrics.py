@@ -38,6 +38,11 @@ Spans the program opens (and the counters beside them):
   train.step (new unit; train.steps), train.forward, train.backward,
   train.update                                        train/train_tts.py
   data.wait (the consumer's wait for the next item)       data/prefetch.py
+
+Counters without a span: tap_gemm.tma, tap_gemm.producer_copy and
+tap_gemm.fallback, one a bf16 tap GEMM launch by the path that its kernel
+feeds its ring by (ops/tap_gemm_cuda.py; counted by the wrappers of
+dit_block, convnext_block, dit_attention, adaln_ffn and tap_gemm).
 """
 
 from __future__ import annotations

@@ -255,6 +255,22 @@ TAP_CASES = {
     "large_ragged_m_n": (3, 4999, 256, 3, -1, 1, 200, False, None, None),
     "large_w_trans": (4, 4000, 256, 3, 1, -1, 1024, True, None, None),
     "large_k_split_1025": (8, 1000, 1025, 4, 0, -1, 512, False, None, "istft"),
+    # F5-TTS's four block products at 2 x 2068 rows (one tap: the TMA path, 128 x 256 tiles)
+    "f5_qkv": (2, 2068, 1024, 1, 0, 0, 3072, False, None, None),
+    "f5_out_proj": (2, 2068, 1024, 1, 0, 0, 1024, False, None, None),
+    "f5_ffn1": (2, 2068, 1024, 1, 0, 0, 2048, False, None, None),
+    "f5_ffn2": (2, 2068, 2048, 1, 0, 0, 1024, False, None, None),
+    # 64 tiles of 128 x 128 on 132 SMs; 252 tiles of 128 x 256, a last wave of 120
+    "grid_below_sms": (2, 500, 256, 1, 0, 0, 1024, False, None, None),
+    "ragged_last_wave": (4, 2000, 256, 1, 0, 0, 1024, False, None, None),
+    # N = 768 and N = 200 under the 128 x 256 tile (one tap, so by TMA)
+    "n_768_bn256": (16, 1024, 256, 1, 0, 0, 768, False, None, None),
+    "n_200_bn256": (3, 4999, 256, 1, 0, 0, 200, False, None, None),
+    # items that end inside a tile, at 3 taps and 128 x 256 tiles
+    "row_len_bn256": (16, 1000, 256, 3, -1, 1, 1024, False,
+                      [1000, 613, 1, 999, 500, 77, 1000, 128, 129, 0, 640, 1000, 257, 300, 64, 999], None),
+    # W^T (K-major W by TMA) at one tap and 128 x 256 tiles
+    "w_trans_bn256": (16, 1024, 256, 1, 0, 0, 768, True, None, None),
 }
 F32_TILES = {"request_conv2_2x1024": "64x64", "large_ragged_m_n": "128x128", "large_w_trans": "128x128",
              "large_k_split_1025": "128x128"}
@@ -304,6 +320,82 @@ def test_tap_gemm_f32_same_bits_twice(dev, case):
 
     a0, w, kw, _, _ = _tap_case(case, dev, torch.float32)
     assert torch.equal(tap_gemm(a0, w, **kw), tap_gemm(a0, w, **kw))
+
+
+@pytest.mark.parametrize("case", ["f5_qkv", "n_768_bn256", "row_len_bn256", "large_w_trans", "w_trans_qkv",
+                                  "unaligned_lda_257"])
+def test_tap_gemm_bf16_same_bits_twice(dev, case):
+    """The bf16 tap GEMM sums each output through the same wgmma k slices in
+    one order on every path and tile: two launches give equal bits."""
+    from stabletts_torch.ops.tap_gemm_cuda import tap_gemm
+
+    a0, w, kw, _, _ = _tap_case(case, dev, BF16)
+    assert torch.equal(tap_gemm(a0, w, **kw), tap_gemm(a0, w, **kw))
+
+
+# the bf16 kernel's (path, BN) of some cases, as ops/tap_gemm_cuda.py states the rule
+TAP_ROUTES = {"f5_qkv": ("tma", 256), "f5_ffn2": ("tma", 256), "grid_below_sms": ("tma", 128),
+              "ragged_last_wave": ("tma", 256), "n_200_bn256": ("tma", 256), "w_trans_bn256": ("tma", 256),
+              "row_len": ("producer_copy", 128), "row_len_bn256": ("producer_copy", 256),
+              "large_w_trans": ("producer_copy", 256), "w_trans_qkv": ("tma", 128),
+              "k_split_1025": ("fallback", 128), "unaligned_lda_257": ("fallback", 128),
+              "n_77_unaligned_ldw": ("fallback", 128)}
+
+
+@pytest.mark.parametrize("case", sorted(TAP_CASES))
+def test_tap_gemm_route_is_the_rule(dev, case):
+    """The built library's plan (tensor maps made as at a launch) is the path
+    and tile width that tap_gemm_path and tap_gemm_bn state."""
+    from stabletts_torch.ops.tap_gemm_cuda import tap_gemm_bn, tap_gemm_path, tap_gemm_route
+
+    a0, w, kw, m, n_out = _tap_case(case, dev, BF16)
+    a1 = kw.get("a1", a0)
+    got = tap_gemm_route(a0, w, **kw)
+    k_in = kw.get("k_in", a0.shape[1])
+    ldw, w_tap_stride = (kw["ldw"], kw["w_tap_stride"]) if "ldw" in kw else (w.shape[2], w.shape[1] * w.shape[2])
+    rule = tap_gemm_path(lda=a0.shape[1], k_in=k_in, k_split=kw.get("k_split", k_in), ldw=ldw,
+                         w_tap_stride=w_tap_stride, t_in=kw["t_in"], t_out=kw["t_out"], taps=kw["taps"],
+                         shift0=kw["shift0"], row_len="row_len" in kw,
+                         ptrs=(a0.data_ptr(), a1.data_ptr(), w.data_ptr()))
+    assert got == (rule, tap_gemm_bn(m, n_out))
+    if case in TAP_ROUTES:
+        assert got == TAP_ROUTES[case]
+
+
+def test_tap_gemm_paths_counted_in_traced_blocks(dev):
+    """Under a profiler, each bf16 tap GEMM launch of a DiT block (StableTTS's
+    and F5-TTS's forms) and of a ConvNeXt block counts under its path: the
+    one-tap products by TMA, the 3-tap convs by the producer's copies, none
+    on the fallback."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from stabletts_torch.ops.convnext_cuda import ConvNeXtWeights, convnext_block
+    from stabletts_torch.ops.dit_block_cuda import DiTWeights, dit_block
+    from stabletts_torch.utils import metrics
+
+    rng = np.random.default_rng(3)
+    b, t = 2, 77
+    mask = (torch.arange(t, device=dev)[None, :] < torch.tensor([[t], [t - 9]], device=dev)).float()
+    for c, f, heads, taps, kw, paths in ((256, 1024, 4, 3, {}, ("tma", "tma", "producer_copy", "producer_copy")),
+                                         (1024, 2048, 16, 1, {"rot": 64, "act": "gelu_tanh"}, ("tma",) * 4)):
+        w = DiTWeights(*(_rand(rng, dev, BF16, *s, scale=0.05) for s in
+                         [(c, 3 * c), (3 * c,), (c, c), (c,), (taps, c, f), (f,), (taps, f, c), (c,)]))
+        x = _rand(rng, dev, BF16, b, t, c) * mask[..., None].to(BF16)
+        mods = _rand(rng, dev, BF16, b, 6, c, scale=0.1)
+        with profile(activities=[ProfilerActivity.CPU]):
+            metrics.reset()
+            dit_block(x, mods, mask, w, heads, **kw)
+            got = metrics.snapshot()["counters"]
+        want = {f"tap_gemm.{p}": paths.count(p) for p in set(paths)}
+        assert {k: v for k, v in got.items() if k.startswith("tap_gemm.")} == want
+    c, f = 512, 1536
+    cw = ConvNeXtWeights(*(_rand(rng, dev, BF16, *s, scale=0.05) for s in
+                           [(7, c), (c,), (c,), (c,), (c, f), (f,), (f, c), (c,), (c,)]))
+    with profile(activities=[ProfilerActivity.CPU]):
+        metrics.reset()
+        convnext_block(_rand(rng, dev, BF16, b, t, c), cw)
+        got = metrics.snapshot()["counters"]
+    assert {k: v for k, v in got.items() if k.startswith("tap_gemm.")} == {"tap_gemm.tma": 2}
 
 
 # The bare weight-gradient GEMM (csrc/wgrad.cu: bf16 on wgmma, f32 on FMA)

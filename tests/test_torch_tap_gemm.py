@@ -203,3 +203,93 @@ def test_wgrad_and_colsum_wrappers_take_the_plain_versions_on_the_cpu():
         wgrad(a, g, t_len=5)
     with pytest.raises(ValueError):
         colsum(g, 5)
+
+
+# The bf16 kernel's path and tile width (csrc/common.cuh tap_gemm_path and
+# tap_gemm_bn, stated in ops/tap_gemm_cuda.py; the card test
+# test_tap_gemm_route_is_the_rule holds the built library to them). Each
+# case: TapGemm fields, M, N and the expected (path, BN).
+_DENSE = dict(taps=1, shift0=0)
+PATH_CASES = {
+    # StableTTS's DiT block at the serving batch, 192 x 1024 rows
+    "stabletts_qkv": (dict(lda=256, k_in=256, k_split=256, ldw=768, w_tap_stride=0, **_DENSE), 196608, 768,
+                      ("tma", 256)),
+    "stabletts_out_proj": (dict(lda=256, k_in=256, k_split=256, ldw=256, w_tap_stride=0, **_DENSE), 196608, 256,
+                           ("tma", 256)),
+    "stabletts_conv1": (dict(lda=256, k_in=256, k_split=256, ldw=1024, w_tap_stride=256 * 1024, taps=3, shift0=-1),
+                        196608, 1024, ("producer_copy", 256)),
+    "stabletts_conv2": (dict(lda=1024, k_in=1024, k_split=1024, ldw=256, w_tap_stride=1024 * 256, taps=3,
+                             shift0=-1), 196608, 256, ("producer_copy", 256)),
+    # F5-TTS's block at its batch, 16 x 2068 rows
+    "f5_qkv": (dict(lda=1024, k_in=1024, k_split=1024, ldw=3072, w_tap_stride=0, **_DENSE), 33088, 3072,
+               ("tma", 256)),
+    "f5_out_proj": (dict(lda=1024, k_in=1024, k_split=1024, ldw=1024, w_tap_stride=0, **_DENSE), 33088, 1024,
+                    ("tma", 256)),
+    "f5_ffn1": (dict(lda=1024, k_in=1024, k_split=1024, ldw=2048, w_tap_stride=1024 * 2048, **_DENSE), 33088, 2048,
+                ("tma", 256)),
+    "f5_ffn2": (dict(lda=2048, k_in=2048, k_split=2048, ldw=1024, w_tap_stride=2048 * 1024, **_DENSE), 33088, 1024,
+                ("tma", 256)),
+    # Vocos's ConvNeXt products at 192 x 1000 rows
+    "convnext_w1": (dict(lda=512, k_in=512, k_split=512, ldw=1536, w_tap_stride=512 * 1536, **_DENSE), 192000, 1536,
+                    ("tma", 256)),
+    # a request's conv1: 64 tiles of 128 x 256 would leave half the SMs idle
+    "request_conv1": (dict(lda=256, k_in=256, k_split=256, ldw=1024, w_tap_stride=256 * 1024, taps=3, shift0=-1),
+                      2048, 1024, ("producer_copy", 128)),
+    # the ISTFT's form: k_split = 1025 reads two blocks of rows, 4 taps
+    "istft_k_split_1025": (dict(lda=1025, k_in=2050, k_split=1025, ldw=2048, w_tap_stride=512, taps=4, shift0=0,
+                                t_out=1003), 8024, 512, ("fallback", 256)),
+    "unaligned_lda_257": (dict(lda=257, k_in=257, k_split=257, ldw=256, w_tap_stride=257 * 256, taps=3, shift0=-1),
+                          194, 256, ("fallback", 128)),
+    "unaligned_ldw_77": (dict(lda=256, k_in=256, k_split=256, ldw=77, w_tap_stride=256 * 77, **_DENSE), 194, 77,
+                         ("fallback", 128)),
+    "misaligned_a0": (dict(lda=256, k_in=256, k_split=256, ldw=256, w_tap_stride=0, ptrs=(8, 8, 0), **_DENSE), 194,
+                      256, ("fallback", 128)),
+    "row_len": (dict(lda=256, k_in=256, k_split=256, ldw=256, w_tap_stride=0, row_len=True, **_DENSE), 194, 256,
+                ("producer_copy", 128)),
+    "row_stride_3": (dict(lda=256, k_in=256, k_split=256, ldw=256, w_tap_stride=0, row_stride=3, t_out=333, **_DENSE),
+                     666, 256, ("producer_copy", 128)),
+    "k_split_two_blocks": (dict(lda=256, k_in=512, k_split=256, ldw=256, w_tap_stride=0, **_DENSE), 194, 256,
+                           ("producer_copy", 128)),
+    "w_trans_input_gradient": (dict(lda=1024, k_in=1024, k_split=1024, ldw=1024, w_tap_stride=256 * 1024, taps=3,
+                                    shift0=1), 32000, 256, ("producer_copy", 256)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PATH_CASES))
+def test_tap_gemm_path_and_tile_follow_the_rule(case):
+    from stabletts_torch.ops.tap_gemm_cuda import tap_gemm_bn, tap_gemm_path
+
+    fields, m, n, want = PATH_CASES[case]
+    kw = {"t_in": 1000, "t_out": 1000, **fields}
+    assert (tap_gemm_path(**kw), tap_gemm_bn(m, n)) == want
+
+
+@pytest.mark.parametrize("m,n,bn", [(33088, 3072, 256), (31104, 3072, 256), (2048, 1024, 128), (1000, 1024, 128),
+                                    (8000, 1024, 256), (14997, 200, 256), (196608, 128, 128), (154, 768, 128)])
+def test_tap_gemm_tile_width_by_waves(m, n, bn):
+    """128 x 256 where N > 128 and its waves of 132 tiles are at most 2/3 of
+    the 128 x 128 tiles' (31104 rows: 23 waves against 45)."""
+    from stabletts_torch.ops.tap_gemm_cuda import tap_gemm_bn
+
+    assert tap_gemm_bn(m, n) == bn
+
+
+def test_conv_paths_are_counted_only_while_a_profiler_records():
+    """count_conv_paths adds one to tap_gemm.<path> per launch under a
+    profiler (the program's tracing) and nothing otherwise."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from stabletts_torch.ops.tap_gemm_cuda import conv_path, count_conv_paths
+    from stabletts_torch.utils import metrics
+
+    h, w1, w2 = torch.zeros(64, 256), torch.zeros(3, 256, 1024), torch.zeros(3, 1024, 256)
+    convs = ((h, w1[0], 256, 1024, 32), (h, w1, 256, 1024, 32, 3), (torch.zeros(64, 1024), w2, 1024, 256, 32, 3))
+    assert [conv_path(*c) for c in convs] == ["tma", "producer_copy", "producer_copy"]
+    metrics.reset()
+    count_conv_paths(*convs)
+    assert metrics.snapshot()["counters"] == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        metrics.reset()
+        count_conv_paths(*convs)
+        got = metrics.snapshot()["counters"]
+    assert got == {"tap_gemm.tma": 1, "tap_gemm.producer_copy": 2}
