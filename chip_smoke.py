@@ -56,11 +56,7 @@ Phases, one JSON line each; any failure exits nonzero:
   4. serving: StableTTSAPI at the flagship config (random weights from a
      numpy seed, adaLN randomised): English requests, one batch request and
      a bf16 synthesise + Vocos batch at the bench shape (B=8, 1000 frames),
-     with the launch counts of each kernel on that path; then the same
-     request under each block configuration (the STABLETTS_* variables: two
-     kernels, composed attention in both layouts and through the flash
-     adapter, the all-library block), each against the default's mel with
-     its exact launch counts, and the bench batch under two of them; one
+     with the launch counts of each kernel on that path; one
      request per ODE solver with its estimator calls; one request through
      the FireflyGAN vocoder, and that vocoder on the GPU against the CPU;
      one request each in Japanese, Chinese (from pinned phoneme ids: the
@@ -89,15 +85,11 @@ Phases, one JSON line each; any failure exits nonzero:
      bf16; one step at
      B=2 on the GPU against the CPU path, same weights and draws, and the
      same step in bf16 against f32 on the GPU (`train_bf16_vs_f32`)
-  8. the opt-in training kernels against their plain versions (packed
-     attention with dropout beside one scaled_dot_product_attention call,
-     forward and backward; the mu prenet; the MPD period stack, five
-     periods), then `train_config`: one trainer batch under each training
-     configuration (the STABLETTS_ATTN_TRAIN / STABLETTS_PRENET_TRAIN
-     variables) with its exact launch counts, its losses and gradients
-     against the default's with dropout off, wall ms and peak memory; and
-     `train_bf16`: `train()` with compute_dtype="bfloat16", then two bf16
-     steps under STABLETTS_ATTN_TRAIN=xla (packed attention's bf16 kernels)
+  8. the training kernels that only their ops reach, and the MPD stack,
+     against their plain versions (packed attention with dropout beside one
+     scaled_dot_product_attention call, forward and backward; the mu prenet;
+     the MPD period stack, five periods; the ISTFT head's gradient); and
+     `train_bf16`: `train()` with compute_dtype="bfloat16"
   9. Vocos GAN training: `train_vocos()` at the flagship Vocos on WAV files
      written from a seed (B=16, segment 20480, f32), a checkpoint and a
      resume; one bf16 step; device time by kernel over one step; `mpd_stack`
@@ -127,12 +119,13 @@ Phases, one JSON line each; any failure exits nonzero:
      scaling measurement
  10. the `kernels` line (launches: over the main paths' runs, the
      `inference`, language and reference-format requests and the bench's
-     timed iterations of phase 4, the requests of phase 4's block
-     configurations that run the kernel, the `train_steps` run of phase 7,
-     the `train_config` runs that run the kernel, the `mpd_in_gan` run, and
-     the training workflow's runs of phase 9b (the benches' timed steps and
-     the CLI's `train`, the web UI's requests, and each rank of `ddp_train` and
-     `ddp_nccl_world1`);
+     timed iterations of phase 4, the `train_steps` run of phase 7, the
+     `mpd_in_gan` run, and the training workflow's runs of phase 9b (the
+     benches' timed steps and the CLI's `train`, the web UI's requests, and
+     each rank of `ddp_train` and `ddp_nccl_world1`); the kernels that no
+     model path runs (`OP_ONLY_KERNELS`: reached through their ops alone)
+     show 0 there, held to it over the same runs, and the launches of their
+     kernel checks under `check_launches`;
      times: the bf16 bench shape for serving kernels; the decoder's shape in
      the trainer, f32 at B=32, T=1000, dropout 0.1, for the training kernels,
      and the same shape in bf16 for the training attention core ("_bf16",
@@ -147,7 +140,6 @@ from __future__ import annotations
 
 import collections
 import contextlib
-import copy
 import dataclasses
 import io
 import json
@@ -247,6 +239,11 @@ KERNEL_INFO = {
     "attention_decompose_bf16": ("stabletts_torch/csrc/attention_variants.cu", "tools/attn_exp2.py:104"),
 }
 # the experiments that run as adapters onto a kernel of the line, by that kernel
+# the kernels that no path of the flagship models runs, each reached through its op alone: the main paths must launch
+# none of them, and the kernels line gives the launches of their kernel checks apart
+OP_ONLY_KERNELS = ("dit_attention", "adaln_ffn", "attention_packed", "attention_packed_t", "attention_train_fwd",
+                   "attention_train_bwd", "attention_train_fwd_bf16", "attention_train_bwd_bf16", "prenet_train_fwd",
+                   "prenet_train_bwd")
 ADAPTERS = {"attention_packed_v2": [("attention_head_pair", "tools/attn_exp.py:94"),
                                     ("attention_flash_chunks", "tools/attn_exp3.py:86")],
             "attention_packed": [("attention_batch_pair", "tools/attn_exp5.py:103")]}
@@ -651,21 +648,21 @@ def check_attention_packed(rng, b, t, dtype, dev, masked, tminor, mask_kind="rag
     return row
 
 
-def check_flash_adapter(rng, b, t, dev) -> dict:
-    """`masked_attention(impl="flash")`, the adapter onto the packed-head
-    kernel, against the plain `xla` path after masking the padded rows."""
-    from stabletts_torch.ops.attention import masked_attention
+def check_masked_attention(rng, b, t, dev) -> dict:
+    """`masked_attention` on CUDA tensors with a key mask: one launch of the
+    packed-head kernel, against the plain path after masking the padded rows."""
+    from stabletts_torch.ops.attention import attn_bias_from_mask, masked_attention, xla_attention
     from stabletts_torch.ops.attention_packed_cuda import attention_packed
 
     g = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
     q, k, v = g(b, t, 4, 64), g(b, t, 4, 64), g(b, t, 4, 64)
     mask = _ragged_mask(b, t, dev)
     before = attention_packed.launches
-    got = masked_attention(q, k, v, mask=mask, impl="flash") * mask[:, :, None, None]
+    got = masked_attention(q, k, v, mask=mask) * mask[:, :, None, None]
     launched = attention_packed.launches - before
-    want = masked_attention(q, k, v, mask=mask, impl="xla") * mask[:, :, None, None]
+    want = xla_attention(q, k, v, attn_bias_from_mask(mask)) * mask[:, :, None, None]
     rel, ab = rel_err(got, want)
-    return {"kernel": "flash_adapter", "dtype": "float32", "B": b, "T": t, "rel_err": rel, "max_abs_err": ab,
+    return {"kernel": "masked_attention", "dtype": "float32", "B": b, "T": t, "rel_err": rel, "max_abs_err": ab,
             "bar": 5e-3, "launches_of_attention_packed": launched, "ok": rel <= 5e-3 and launched == 1}
 
 
@@ -901,7 +898,7 @@ def phase_kernels(dev) -> dict:
         if (kw["dtype"] == bf and at_bench and kw.get("masked", True) and "mask_kind" not in kw
                 and not kw.get("with_lengths") and row["kernel"] not in ("tap_gemm", "wgrad", "colsum")):
             bench_rows[row["kernel"]] = row
-    rows.append(check_flash_adapter(rng, 2, 1000, dev))
+    rows.append(check_masked_attention(rng, 2, 1000, dev))
     emit({"phase": "kernel_check", **with_core(rows[-1])})
     bad = [r for r in rows if not r["ok"]]
     if bad:
@@ -1538,35 +1535,46 @@ def check_mpd_stack(x, folded, period, disc=None) -> dict:
             "by_kernel": by_kernel, "gflop": mpd_flops(b, t, period) / 1e9}
 
 
-def phase_opt_in_train_kernels(dev) -> dict:
-    """The kernels of the opt-in training paths and of GAN training at the
-    trainers' shapes and one small odd shape each: `attention_train` and
+def phase_op_only_train_kernels(dev) -> tuple:
+    """The training kernels that only their ops reach and those of GAN
+    training at the trainers' shapes and one small odd shape each:
+    `attention_train` and
     `prenet_train` at (32, 1000), (32, 1024) and (2, 97), f32 and bf16
     (`attention_train` also at (32, 512), the encoder blocks' shape, and at
     (32, 1000) with dropout 0, which leaves out the Philox work, and in f32
     at (32, 512) with dropout 0);
     `mpd_stack` at [16, 20480] and [2, 8190] for the five periods; the ISTFT
-    head's gradient. Returns the rows of the kernels line."""
+    head's gradient. Returns the rows of the kernels line and the launches of
+    `attention_train` (by type) and `prenet_train` over their checks."""
     from stabletts_torch.models.discriminators import DiscriminatorP
+    from stabletts_torch.ops import attention_train_cuda as A
+    from stabletts_torch.ops import prenet_train_cuda as P
 
-    rows, line_rows = [], {}
+    rows, line_rows, launches = [], {}, collections.Counter()
     f32, bf = torch.float32, torch.bfloat16
     for b, t, dt, rate in [(32, 1000, f32, 0.1), (32, 1000, bf, 0.1), (32, 1024, f32, 0.1), (32, 1024, bf, 0.1),
                            (32, 512, f32, 0.1), (32, 512, bf, 0.1), (32, 1000, f32, 0.0), (32, 1000, bf, 0.0),
                            (32, 512, f32, 0.0),
                            (2, 97, f32, 0.1), (2, 97, bf, 0.1), (4, 200, bf, 0.1), (4, 200, f32, 0.1)]:
         # the last two: keys and values with a common mean (see check_attention_train)
+        before = A.attention_train_fwd.launches, A.attention_train_bwd.launches
         for row in check_attention_train(b, t, dt, rate, dev, offset=2.0 if (b, t) == (4, 200) else 0.0):
             rows.append(row)
             if (b, t, rate) == (32, 1000, 0.1):
                 line_rows[row["kernel"] + ("_bf16" if dt == bf else "")] = row
+        suffix = "_bf16" if dt == bf else ""
+        launches["attention_train_fwd" + suffix] += A.attention_train_fwd.launches - before[0]
+        launches["attention_train_bwd" + suffix] += A.attention_train_bwd.launches - before[1]
         torch.cuda.empty_cache()
+    before = P.prenet_train_fwd.launches, P.prenet_train_bwd.launches
     for b, t, dt in [(32, 1000, f32), (32, 1000, bf), (32, 1024, f32), (32, 1024, bf), (2, 97, f32), (2, 97, bf)]:
         for row in check_prenet_train(b, t, dt, dev):
             rows.append(row)
             if (b, t, dt) == (32, 1000, f32):
                 line_rows[row["kernel"]] = row
         torch.cuda.empty_cache()
+    launches["prenet_train_fwd"] = P.prenet_train_fwd.launches - before[0]
+    launches["prenet_train_bwd"] = P.prenet_train_bwd.launches - before[1]
     for b, t in ((16, 20480), (2, 8190)):
         x = torch.from_numpy((np.random.default_rng(t).standard_normal((b, t)) * 0.3).astype(np.float32)).to(dev)
         for period in (2, 3, 5, 7, 11):
@@ -1586,8 +1594,8 @@ def phase_opt_in_train_kernels(dev) -> dict:
         emit({"phase": "kernel_check", **with_core(row)})
     bad = [r for r in rows if not r["ok"]]
     if bad:
-        fail(f"{len(bad)} opt-in training kernel check(s) over their bar: {bad}")
-    return line_rows
+        fail(f"{len(bad)} training kernel check(s) over their bar: {bad}")
+    return line_rows, dict(launches)
 
 
 # ---------------------------------------------------------------- serving --
@@ -1611,6 +1619,16 @@ def expected_counts(**nonzero) -> dict:
     launches, its spectrum pass with each product, unless given apart."""
     nonzero.setdefault("istft_spectrum", nonzero.get("istft", 0))
     return {**{name: 0 for name in counters()}, **nonzero}
+
+
+def op_only_train_counters() -> dict:
+    """The launch counters of the op-only training kernels (one counter
+    holds a kernel's f32 and bf16 launches)."""
+    from stabletts_torch.ops import attention_train_cuda as A
+    from stabletts_torch.ops import prenet_train_cuda as P
+
+    return {"attention_train_fwd": A.attention_train_fwd, "attention_train_bwd": A.attention_train_bwd,
+            "prenet_train_fwd": P.prenet_train_fwd, "prenet_train_bwd": P.prenet_train_bwd}
 
 
 def reset_counts():
@@ -1929,97 +1947,6 @@ def phase_bench(card: str) -> dict:
     if not ok:
         fail(f"bench: {result}")
     torch.cuda.empty_cache()
-    return total
-
-
-BLOCK_VARIABLES = ("STABLETTS_DIT_BLOCK", "STABLETTS_DIT_FUSED", "STABLETTS_FFN_IMPL", "STABLETTS_ATTN_IMPL",
-                   "STABLETTS_ATTN_LAYOUT")
-# the DiT block's serving configurations and the kernels each launches, per block
-BLOCK_CONFIGS = {
-    "a_default": ({}, ("dit_block",)),
-    "b_two_kernels": ({"STABLETTS_DIT_BLOCK": "0"}, ("dit_attention", "adaln_ffn")),
-    "c_composed_attention": ({"STABLETTS_DIT_FUSED": "0"}, ("attention_packed", "adaln_ffn")),
-    "d_composed_attention_tminor": ({"STABLETTS_DIT_FUSED": "0", "STABLETTS_ATTN_LAYOUT": "tminor"},
-                                    ("attention_packed_t", "adaln_ffn")),
-    "e_composed_attention_flash": ({"STABLETTS_DIT_FUSED": "0", "STABLETTS_ATTN_IMPL": "flash"},
-                                   ("attention_packed", "adaln_ffn")),
-    "f_all_library": ({"STABLETTS_DIT_FUSED": "0", "STABLETTS_FFN_IMPL": "xla", "STABLETTS_ATTN_IMPL": "xla"}, ()),
-}
-
-
-@contextlib.contextmanager
-def block_config(name: str):
-    """The environment of one block configuration, restored on exit."""
-    saved = {v: os.environ.pop(v, None) for v in BLOCK_VARIABLES}
-    os.environ.update(BLOCK_CONFIGS[name][0])
-    try:
-        yield
-    finally:
-        for v, old in saved.items():
-            os.environ.pop(v, None)
-            if old is not None:
-                os.environ[v] = old
-
-
-def phase_serving_configs(api, bench_pipeline, card: str) -> dict:
-    """The same English request (f32, 10 Euler steps, CFG 3, mel cap 1024,
-    the same noise) under each block configuration: its mel within 5e-3 of
-    the default's, exactly 63 launches of each kernel of the configuration
-    and none of the others, wall ms as the median of 5. Then the bf16 bench
-    batch under the two-kernel and the all-library configurations. Returns
-    the launches of every DiT kernel summed over the measured requests."""
-    ref = reference_wave(3)
-    sr, hop = api.mel_config.sample_rate, api.mel_config.hop_length
-    request = lambda: api.inference(SENTENCES[0], ref, "english", step=10, cfg=3.0, seed=0)
-    total = expected_counts()
-    base_mel = None
-    for name, (env, kernels) in BLOCK_CONFIGS.items():
-        with block_config(name):
-            request()  # warm: cuDNN plans of the composed paths
-            torch.cuda.synchronize()
-            walls, ok = [], True
-            expect = expected_counts(convnext=8, istft=1, **{k: 63 for k in kernels})
-            for _ in range(5):
-                reset_counts()
-                t0 = time.time()
-                wav, mel = request()
-                walls.append(time.time() - t0)
-                counts = read_counts()
-                ok = ok and counts == expect
-                for k, v in counts.items():
-                    total[k] += v
-        if base_mel is None:
-            base_mel = mel
-        same_shape = mel.shape == base_mel.shape
-        rel = float(np.abs(mel - base_mel).max() / np.abs(base_mel).max()) if same_shape else math.inf
-        ok = bool(ok and rel <= 5e-3 and np.isfinite(wav).all() and wav.shape[1] == mel.shape[2] * hop)
-        wall = statistics.median(walls)
-        emit({"phase": "serving_config", "config": name, "env": env, "frames": int(mel.shape[2]),
-              "wall_ms": wall * 1e3, "wall_ms_all": [w * 1e3 for w in walls],
-              "audio_s_per_s": wav.shape[1] / sr / wall, "mel_rel_err_vs_default": rel, "bar": 5e-3,
-              "launches": counts, "expected_launches": expect, "card": card, "ok": ok})
-        if not ok:
-            fail(f"serving_config {name}: launches {counts} vs {expect}, mel rel err {rel}, or bad output")
-
-    b, frames, iters = 8, 1000, 2
-    for name in ("b_two_kernels", "f_all_library"):
-        with block_config(name):
-            bench_pipeline()
-            torch.cuda.synchronize()
-            reset_counts()
-            t0 = time.time()
-            for _ in range(iters):
-                wav = bench_pipeline()
-            torch.cuda.synchronize()
-            wall = (time.time() - t0) / iters
-            counts = read_counts()
-        expect = expected_counts(convnext=8 * iters, istft=iters, **{k: 63 * iters for k in BLOCK_CONFIGS[name][1]})
-        ok = counts == expect and tuple(wav.shape) == (b, frames * hop) and bool(torch.isfinite(wav).all())
-        emit({"phase": "serving_bench_bf16_config", "config": name, "B": b, "frames": frames, "steps": 10, "cfg": 3.0,
-              "wall_ms": wall * 1e3, "audio_s_per_s": b * frames * hop / sr / wall, "launches": counts,
-              "expected_launches": expect, "card": card, "ok": ok})
-        if not ok:
-            fail(f"bf16 bench batch under {name}: launches {counts} vs {expect}, or bad output")
     return total
 
 
@@ -2360,7 +2287,8 @@ def phase_train_overfit(dev, card: str, root: str):
 # (max-abs-err over the f32 tensor's max-abs) is bf16 rounding noise over its own size where the true sum cancels, so
 # the kernels' path on the GPU is held, tensor by tensor, to a multiple of what the plain bf16 path on the CPU shows
 # against f32: grad_gpu <= grad_ratio_to_cpu * (grad_cpu + grad_floor)
-# Seen: loss 1.7e-3, gradient norm 5.9e-4, worst ratio 1.05 (1.14 under STABLETTS_ATTN_TRAIN=xla).
+# Seen: loss 1.7e-3, gradient norm 5.9e-4, worst ratio 1.05 (1.14 with the attention half composed around
+# attention_train).
 BF16_STEP_BARS = {"loss": 5e-3, "grad_norm": 5e-3, "grad_ratio_to_cpu": 3.0, "grad_floor": 0.02}
 
 
@@ -2476,130 +2404,7 @@ def phase_train_gpu_vs_cpu(dev) -> None:
         fail(f"training step, bf16 vs f32: {row}")
 
 
-# ----------------------------------------- training configurations, bf16 --
-
-
-def opt_in_counters():
-    from stabletts_torch.ops import attention_train_cuda as A
-    from stabletts_torch.ops import prenet_train_cuda as P
-
-    return {**train_counters(), "attention_train_fwd": A.attention_train_fwd,
-            "attention_train_bwd": A.attention_train_bwd, "prenet_train_fwd": P.prenet_train_fwd,
-            "prenet_train_bwd": P.prenet_train_bwd}
-
-
-TRAIN_VARIABLES = ("STABLETTS_ATTN_TRAIN", "STABLETTS_FFN_TRAIN", "STABLETTS_PRENET_TRAIN", "STABLETTS_ATTN_IMPL")
-_NEW_ZERO = {"attention_train_fwd": 0, "attention_train_bwd": 0, "prenet_train_fwd": 0, "prenet_train_bwd": 0}
-# the TTS trainer's configurations and the launches of one step under each
-TRAIN_CONFIGS = {
-    "default": ({}, {**TRAIN_LAUNCHES_PER_STEP, **_NEW_ZERO}),
-    "attn_xla": ({"STABLETTS_ATTN_TRAIN": "xla"},
-                 {**TRAIN_LAUNCHES_PER_STEP, **_NEW_ZERO, "dit_attention_train_fwd": 0, "dit_attention_train_bwd": 0,
-                  "attention_train_fwd": 9, "attention_train_bwd": 9}),
-    "prenet_fused": ({"STABLETTS_PRENET_TRAIN": "fused"},
-                     {**TRAIN_LAUNCHES_PER_STEP, **_NEW_ZERO, "prenet_train_fwd": 1, "prenet_train_bwd": 1}),
-    "attn_xla_prenet_fused": ({"STABLETTS_ATTN_TRAIN": "xla", "STABLETTS_PRENET_TRAIN": "fused"},
-                              {**TRAIN_LAUNCHES_PER_STEP, "dit_attention_train_fwd": 0, "dit_attention_train_bwd": 0,
-                               "attention_train_fwd": 9, "attention_train_bwd": 9, "prenet_train_fwd": 1,
-                               "prenet_train_bwd": 1}),
-}
-
-
-@contextlib.contextmanager
-def train_config(name: str):
-    """The environment of one training configuration, restored on exit."""
-    saved = {v: os.environ.pop(v, None) for v in TRAIN_VARIABLES}
-    os.environ.update(TRAIN_CONFIGS[name][0])
-    try:
-        yield
-    finally:
-        for v, old in saved.items():
-            os.environ.pop(v, None)
-            if old is not None:
-                os.environ[v] = old
-
-
-def phase_train_configs(dev, card: str, root: str) -> dict:
-    """One trainer batch (B=32, mels padded to 1000, f32) under each training
-    configuration, from the same weights (seeded, adaLN randomised so every
-    block matters). With dropout off and the same CFG mask, t and noise: the
-    three losses within 1e-3 (rel) and every gradient within 2e-2
-    (max-abs-err / max-abs) of the default configuration's. With dropout 0.1:
-    three optimizer steps on a copy of the model, the launches of each
-    training kernel per step held to the configuration's exact counts, the
-    wall ms (median of the last two) and the peak memory. Returns the
-    launches summed over the timed steps of all configurations."""
-    from stabletts_torch.config import TrainConfig
-    from stabletts_torch.models import build_stabletts
-    from stabletts_torch.train.scheduler import make_scheduler
-    from stabletts_torch.train.train_tts import make_optimizer, model_losses, train_step
-
-    batch = _train_batch(os.path.join(root, "filelist.jsonl"), dev)
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(0)
-        model = build_stabletts(device=dev)
-    randomise(model, seed=9)
-    model.train()
-    rng = np.random.default_rng(31)
-    b, ty = batch[2].shape[0], batch[2].shape[1]
-    draws = {"cfg_mask": torch.from_numpy((rng.uniform(size=(b, 1)) > 0.2).astype(np.float32)).to(dev),
-             "t_rand": torch.from_numpy(rng.uniform(size=b).astype(np.float32)).to(dev),
-             "noise": torch.from_numpy(rng.standard_normal((b, ty, 128)).astype(np.float32)).to(dev)}
-    audio_s = b * ty * 512 / 44100
-    total = {k: 0 for k in opt_in_counters()}
-    base = None
-    for name, (env, expect) in TRAIN_CONFIGS.items():
-        with train_config(name):
-            model.zero_grad(set_to_none=True)
-            dur, diff, prior, attn = model_losses(model, batch, None, None, **draws)
-            (dur + diff + prior).backward()
-            losses = [float(v.detach()) for v in (dur, diff, prior)]
-            grads = {k: p.grad.detach().clone() for k, p in model.named_parameters() if p.grad is not None}
-            model.zero_grad(set_to_none=True)
-            if base is None:
-                base = (losses, grads, attn)
-            loss_rel = max(abs(u - v) / abs(v) for u, v in zip(losses, base[0]))
-            grad_rel = {k: float((g - base[1][k]).abs().max()) / max(float(base[1][k].abs().max()), 1e-30)
-                        for k, g in grads.items()}
-            worst = max(grad_rel, key=grad_rel.get)
-            cells = int((attn != base[2]).sum())
-            del grads
-
-            trained = copy.deepcopy(model)
-            cfg = TrainConfig(learning_rate=1e-4, warmup_steps=2)
-            opt = make_optimizer(trained, cfg)
-            sched = make_scheduler(opt, cfg.learning_rate, cfg.warmup_steps, 100)
-            gen = torch.Generator(device=dev)
-            walls, counts_ok, counts, finite = [], True, {}, True
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            for step in range(3):
-                for fn in opt_in_counters().values():
-                    fn.launches = 0
-                gen.manual_seed(100 + step)
-                t0 = time.time()
-                metrics = {k: float(v) for k, v in train_step(trained, opt, sched, batch, gen).items()}
-                walls.append(time.time() - t0)
-                counts = {k: fn.launches for k, fn in opt_in_counters().items()}
-                counts_ok = counts_ok and counts == expect
-                finite = finite and all(math.isfinite(v) for v in metrics.values())
-                for k, v in counts.items():
-                    total[k] += v
-            mem = torch.cuda.max_memory_allocated()
-            del trained, opt, sched
-            torch.cuda.empty_cache()
-        wall = statistics.median(walls[1:])
-        ok = bool(counts_ok and finite and loss_rel <= 1e-3 and grad_rel[worst] <= 2e-2)
-        emit({"phase": "train_config", "config": name, "env": env, "B": b, "frames": ty, "wall_ms": wall * 1e3,
-              "wall_ms_all": [w * 1e3 for w in walls], "audio_s_per_s": audio_s / wall,
-              "max_memory_allocated_GB": mem / 1e9, "launches": counts, "expected_launches": expect,
-              "losses_dropout_off": losses, "loss_rel_err_vs_default": loss_rel, "grad_rel_err_vs_default": grad_rel[worst],
-              "worst_grad": worst, "path_cells_differing": cells, "bars": {"loss": 1e-3, "grad": 2e-2}, "loss": metrics["loss"],
-              "card": card, "ok": ok})
-        if not ok:
-            fail(f"train_config {name}: launches {counts} vs {expect}, loss rel {loss_rel}, grad rel "
-                 f"{grad_rel[worst]} at {worst}, or a loss that is not finite")
-    return total
+# ------------------------------------------------------ training in bf16 --
 
 
 def phase_train_bf16(dev, card: str, root: str, f32_step0_loss: float, f32_wall_ms: float) -> dict:
@@ -2607,21 +2412,18 @@ def phase_train_bf16(dev, card: str, root: str, f32_step0_loss: float, f32_wall_
     as `train_steps`: one epoch of 3 steps at B=32, the default configuration's
     launches per step, finite losses, f32 master parameters. The first
     step's loss is held to 0.1 (rel) of the f32 run's first step: the data
-    and the weights are the same, the draws (made in bf16) are not. Then two
-    bf16 steps of the trained model on one batch under
-    STABLETTS_ATTN_TRAIN=xla, with that configuration's launches. Returns
-    the launches of the training attention core's bf16 kernels over both
-    runs ("_bf16" names)."""
+    and the weights are the same, the draws (made in bf16) are not. Returns
+    the launches of the training attention core's bf16 kernels ("_bf16"
+    names)."""
     from stabletts_torch.config import TrainConfig
-    from stabletts_torch.train.scheduler import make_scheduler
-    from stabletts_torch.train.train_tts import make_optimizer, train, train_step
+    from stabletts_torch.train.train_tts import train
 
     cfg = TrainConfig(train_dataset_path=os.path.join(root, "filelist.jsonl"), batch_size=32, num_epochs=1,
                       model_save_path=os.path.join(root, "ckpt_bf16"), log_interval=1, save_interval=1,
                       loader_workers=2, compute_dtype="bfloat16")
     audio_s = cfg.batch_size * 1000 * 512 / 44100
     rows, last = [], [0.0]
-    launches = {f"{k}_bf16": 0 for k in TRAIN_CORE_KERNELS}
+    launches = {f"{k}_bf16": 0 for k in ("dit_attention_train_fwd", "dit_attention_train_bwd")}
 
     def log_fn(step, metrics):
         now = time.time()
@@ -2651,32 +2453,6 @@ def phase_train_bf16(dev, card: str, root: str, f32_step0_loss: float, f32_wall_
     if not ok:
         fail(f"train_bf16: {rows}, first loss rel err {loss_rel}")
 
-    batch = _train_batch(cfg.train_dataset_path, dev)
-    opt = make_optimizer(state.model, cfg)
-    sched = make_scheduler(opt, cfg.learning_rate, cfg.warmup_steps, 100)
-    gen = torch.Generator(device=dev)
-    expect = TRAIN_CONFIGS["attn_xla"][1]
-    xla_rows = []
-    with train_config("attn_xla"):
-        for step in range(2):
-            for fn in opt_in_counters().values():
-                fn.launches = 0
-            gen.manual_seed(200 + step)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.time()
-            metrics = {k: float(v) for k, v in train_step(state.model, opt, sched, batch, gen, torch.bfloat16).items()}
-            counts = {k: fn.launches for k, fn in opt_in_counters().items()}
-            xla_rows.append({"step": step, **metrics, "wall_ms": (time.time() - t0) * 1e3,
-                             "max_memory_allocated_GB": torch.cuda.max_memory_allocated() / 1e9, "launches": counts,
-                             "ok": counts == expect and all(math.isfinite(v) for v in metrics.values())})
-            for k in ("attention_train_fwd", "attention_train_bwd"):
-                launches[f"{k}_bf16"] += counts[k]
-    ok = all(r["ok"] for r in xla_rows)
-    emit({"phase": "train_bf16_attn_xla", "env": TRAIN_CONFIGS["attn_xla"][0], "steps": xla_rows,
-          "expected_launches": expect, "card": card, "ok": ok})
-    if not ok:
-        fail(f"train_bf16_attn_xla: {xla_rows}")
     return launches
 
 
@@ -2704,8 +2480,7 @@ def phase_gan(dev, card: str, root: str):
     segment 20480, f32, on 48 one-second WAV files: one epoch of 3 steps with
     a checkpoint, then a resume for a second epoch (it must start at epoch 1,
     step 3). Per step: the 11 metrics (all finite), wall ms, segments/s,
-    audio-s/s and the peak memory. Then one step in bf16 on the resumed state, and one
-    f32 step with STABLETTS_ISTFT_IMPL=fused (one `istft_head` launch).
+    audio-s/s and the peak memory. Then one step in bf16 on the resumed state.
     Returns (the state, a real batch, the config) for the phases that follow."""
     from stabletts_torch.config import MelConfig, VocosTrainConfig
     from stabletts_torch.train.train_vocos import train_vocos, vocos_train_step
@@ -2765,24 +2540,6 @@ def phase_gan(dev, card: str, root: str):
     if not ok:
         fail(f"gan_step_bf16: {m}")
 
-    # one f32 step whose generator goes through the ISTFT kernel and its transposed backward
-    from stabletts_torch.ops.istft_cuda import istft_head
-
-    saved = os.environ.get("STABLETTS_ISTFT_IMPL")
-    os.environ["STABLETTS_ISTFT_IMPL"] = "fused"
-    try:
-        istft_head.launches = 0
-        m = {k: float(v) for k, v in vocos_train_step(resumed, audio, MelConfig(), cfg.mel_loss_coeff,
-                                                      cfg.grad_clip).items()}
-        launched = istft_head.launches
-    finally:
-        os.environ.pop("STABLETTS_ISTFT_IMPL")
-        if saved is not None:
-            os.environ["STABLETTS_ISTFT_IMPL"] = saved
-    ok = launched == 1 and all(math.isfinite(v) for v in m.values())
-    emit({"phase": "gan_step_istft_fused", **m, "launches_of_istft_head": launched, "card": card, "ok": ok})
-    if not ok:
-        fail(f"gan_step_istft_fused: {launched} istft_head launches, {m}")
     return resumed, audio, cfg
 
 
@@ -3570,15 +3327,22 @@ def main() -> None:
     phase_sass()
     phase_ptxas()
 
+    reset_counts()
     bench = phase_kernels(dev)
+    check_counts = read_counts()
     variant_rows, variant_launches = phase_attention_variants(dev)
     train_rows = phase_train_kernels(dev)
-    train_rows.update(phase_opt_in_train_kernels(dev))
+    op_only_rows, op_only_train_counts = phase_op_only_train_kernels(dev)
+    train_rows.update(op_only_rows)
     phase_row_offset(dev)
+    # the main paths run from here on: the serving phases count each request's launches, and the op-only training
+    # kernels' counters start from 0
+    op_only_train = op_only_train_counters()
+    for fn in op_only_train.values():
+        fn.launches = 0
     api, counts, bench_pipeline = phase_serving(dev, card)
     # the host-clock phases come before the profiler's: once torch.profiler has
     # traced, every later launch costs the host more
-    config_counts = phase_serving_configs(api, bench_pipeline, card)
     phase_serving_solvers(api, card)
     phase_serving_ffgan(dev, card)
     phase_f5(dev, card)
@@ -3588,19 +3352,16 @@ def main() -> None:
     phase_profile("request_f32", lambda: api.inference(SENTENCES[2], ref, "english", step=10, cfg=3.0), card)
     phase_profile("bench_bf16", bench_pipeline, card)
     phase_gpu_vs_cpu(api, reference_wave(3))
-    # the default path's launches from its `inference` requests and the language,
-    # reference-format and bench phases, the other DiT kernels' from the requests
-    # of the configurations that run them
-    counts = {k: (v + sum(c[k] for c in main_path_counts) if k in ("dit_block", "convnext", "istft", "istft_spectrum")
-                  else config_counts[k]) for k, v in counts.items()}
-    missing = [k for k, v in counts.items() if v == 0]
+    # every serving kernel's launches over the `inference` requests and the language, reference-format, bench and
+    # web UI phases
+    counts = {k: v + sum(c[k] for c in main_path_counts) for k, v in counts.items()}
+    missing = [k for k, v in counts.items() if v == 0 and k not in OP_ONLY_KERNELS]
     if missing:
         fail(f"kernels never launched on the serving paths: {missing}")
 
     # host-clock training phases first, then the profiler's (see above)
     with tempfile.TemporaryDirectory() as root:
         train_counts, f32_first_loss, f32_wall_ms = phase_train_steps(dev, card, root)
-        config_train_counts = phase_train_configs(dev, card, root)
         bf16_counts = phase_train_bf16(dev, card, root, f32_first_loss, f32_wall_ms)
         step_fn, step_fn_bf16 = phase_train_overfit(dev, card, root)
         gan_state, gan_audio, gan_cfg = phase_gan(dev, card, root)
@@ -3618,15 +3379,18 @@ def main() -> None:
     phase_profile("gan_step", lambda: vocos_step_for_profile(gan_state, gan_audio, gan_cfg), card)
     phase_train_gpu_vs_cpu(dev)
     phase_gan_gpu_vs_cpu(gan_state, gan_audio, gan_cfg)
-    # the opt-in kernels' launches come from the `train_config` runs that run them
-    train_counts.update({k: v for k, v in config_train_counts.items() if k not in train_counts})
     train_counts.update(bf16_counts)
     for counts_of_run in workflow_counts:
         for k, v in counts_of_run.items():
             train_counts[k] += v
-    missing = [k for k, v in train_counts.items() if v == 0]
+    missing = [k for k, v in train_counts.items() if v == 0 and k not in OP_ONLY_KERNELS]
     if missing:
         fail(f"kernels never launched on the training paths: {missing}")
+    on_main_paths = {**{k: counts[k] for k in OP_ONLY_KERNELS if k in counts},
+                     **{k: fn.launches for k, fn in op_only_train.items()}}
+    if any(on_main_paths.values()):
+        fail(f"op-only kernels launched on the main paths: {on_main_paths}")
+    check_launches = {**{k: check_counts[k] for k in OP_ONLY_KERNELS if k in check_counts}, **op_only_train_counts}
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -3634,11 +3398,13 @@ def main() -> None:
         shape = {k: r[k] for k in ("B", "T", "Ty", "Tx", "dropout", "masked", "period") if k in r}
         step_name = name.removesuffix("_bf16")
         per_step = {"launches_per_step": TRAIN_LAUNCHES_PER_STEP[step_name]} if step_name in TRAIN_LAUNCHES_PER_STEP else {}
-        if step_name in _NEW_ZERO:  # under the configuration that runs the kernel
-            per_step = {"launches_per_step": TRAIN_CONFIGS["attn_xla_prenet_fused"][1][step_name]}
+        if name in OP_ONLY_KERNELS:
+            per_step["check_launches"] = check_launches[name]
         if name in variant_launches and name != "attention_packed":
             per_step = {"launches_per_tool_run": variant_launches[name]}
             launched = sum(variant_launches[name].values())
+        elif name in OP_ONLY_KERNELS:
+            launched = on_main_paths[name.removesuffix("_bf16")]
         else:
             launched = counts[name] if name in counts else train_counts[name]
         if name in ADAPTERS:

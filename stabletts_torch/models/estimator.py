@@ -3,8 +3,6 @@ conditioning and long skip connections (reference: models/estimator.py:8-137).""
 
 from __future__ import annotations
 
-import os
-
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -17,7 +15,6 @@ from stabletts_torch.nn.blocks import (
     conv1d_same,
     sinusoidal_pos_emb,
 )
-from stabletts_torch.ops.prenet_train_cuda import prenet_train
 from stabletts_torch.parallel import mesh
 
 
@@ -75,7 +72,6 @@ class Decoder(nn.Module):
             raise ValueError(f"n_layers must be even for the U-Net skips (got {n_layers})")
         pad = kernel_size // 2
         self.hidden_channels = hidden_channels
-        self.kernel_size = kernel_size
         self.remat = remat
         self.time_mlp = TimestepEmbedding(hidden_channels, hidden_channels, filter_channels)
         self.cond_proj = nn.Sequential(
@@ -96,16 +92,11 @@ class Decoder(nn.Module):
         )
 
     def precompute_mu(self, mu):
-        """3x (conv k=3) with SiLU between, unmasked, on [B, T, cond]. In
-        training with STABLETTS_PRENET_TRAIN=fused (default `xla`, read at
-        every call, as in the JAX package) and 3 taps the chain is
-        `ops.prenet_train_cuda.prenet_train`, the port of the TPU kernel
-        fused_prenet_train; otherwise three library convs. The JAX gates on
-        the TPU platform and `T % 8 == 0` have no counterpart here."""
+        """3x (conv k=3) with SiLU between, unmasked, on [B, T, cond]: three
+        library convs in inference and in training (the port of the TPU
+        kernel fused_prenet_train, `ops.prenet_train_cuda.prenet_train`, takes
+        longer in its backward than these convs)."""
         c0, _, c2, _, c4 = self.cond_proj
-        if self.training and os.environ.get("STABLETTS_PRENET_TRAIN", "xla") == "fused" and self.kernel_size == 3:
-            taps = lambda conv: conv.weight.permute(2, 1, 0)
-            return prenet_train(mu, taps(c0), c0.bias, taps(c2), c2.bias, taps(c4), c4.bias)
         h = F.silu(conv1d_same(mu, c0))
         h = F.silu(conv1d_same(h, c2))
         return conv1d_same(h, c4)

@@ -39,7 +39,7 @@ import torch.nn.functional as F
 
 from stabletts_torch.config import F5Config
 from stabletts_torch.nn.blocks import sinusoidal_pos_emb
-from stabletts_torch.ops.dit_block_cuda import DiTWeights, dit_block
+from stabletts_torch.ops.dit_block_cuda import DiTWeights, dit_block, packed_weights
 from stabletts_torch.utils.device import resolve_device
 from stabletts_torch.utils.metrics import count, span
 
@@ -212,28 +212,17 @@ class DiTBlock(nn.Module):
         self._packed = None
 
     def kernel_weights(self) -> DiTWeights:
-        """Kernel-layout copies (q and k's columns in `rope_permutation`'s
-        order), rebuilt only when a parameter changed."""
+        """Kernel-layout copies, q and k's columns in `rope_permutation`'s
+        order (see `packed_weights`)."""
         a, lin1, lin2 = self.attn, self.ff.ff[0][0], self.ff.ff[2]
-        params = (a.to_q.weight, a.to_q.bias, a.to_k.weight, a.to_k.bias, a.to_v.weight, a.to_v.bias,
-                  a.to_out[0].weight, a.to_out[0].bias, lin1.weight, lin1.bias, lin2.weight, lin2.bias)
-        key = tuple((p.data_ptr(), p._version, p.dtype, p.device) for p in params)
-        if self._packed is None or self._packed[0] != key:
-            with torch.no_grad():
-                perm = rope_permutation(self.heads, self.dim_head).to(a.to_q.weight.device)
-                w = DiTWeights(
-                    wqkv=torch.cat([a.to_q.weight[perm].t(), a.to_k.weight[perm].t(), a.to_v.weight.t()],
-                                   dim=1).contiguous(),
-                    bqkv=torch.cat([a.to_q.bias[perm], a.to_k.bias[perm], a.to_v.bias]).contiguous(),
-                    wo=a.to_out[0].weight.t().contiguous(),
-                    bo=a.to_out[0].bias.detach().clone(),
-                    w1=lin1.weight.t()[None].contiguous(),
-                    b1=lin1.bias.detach().clone(),
-                    w2=lin2.weight.t()[None].contiguous(),
-                    b2=lin2.bias.detach().clone(),
-                )
-            self._packed = (key, w)
-        return self._packed[1]
+
+        def pack():
+            perm = rope_permutation(self.heads, self.dim_head).to(a.to_q.weight.device)
+            return (torch.cat([a.to_q.weight[perm].t(), a.to_k.weight[perm].t(), a.to_v.weight.t()], dim=1),
+                    torch.cat([a.to_q.bias[perm], a.to_k.bias[perm], a.to_v.bias]), a.to_out[0].weight.t(),
+                    a.to_out[0].bias, lin1.weight.t()[None], lin1.bias, lin2.weight.t()[None], lin2.bias)
+
+        return packed_weights(self, (a.to_q, a.to_k, a.to_v, a.to_out[0], lin1, lin2), pack)
 
     def forward(self, x, t, mask):
         """x [B, T, C] (zero on padded rows, which the block keeps so); t [B, C]

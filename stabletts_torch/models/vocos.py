@@ -9,15 +9,11 @@ product: two CUDA kernels on the GPU; the span "vocoder.istft_head" of
 `utils.metrics` inside the forward's span "vocoder"), under
 `torch.no_grad()`. In train mode it is the differentiable composed path GAN
 training needs, as the JAX generator trains through `model.apply`: library
-convs and linears in the blocks and the plain linear ISTFT (or, with
-STABLETTS_ISTFT_IMPL=fused, `istft_head_diff`: the kernel forward with the
-transpose of the plain ISTFT as its backward).
+convs and linears in the blocks and the plain linear ISTFT `istft_same_real`.
 Layout: mel [B, T, n_mels] -> waveform [B, T * hop].
 """
 
 from __future__ import annotations
-
-import os
 
 import torch
 import torch.nn as nn
@@ -27,7 +23,7 @@ from stabletts_torch.config import MelConfig, VocosConfig
 from stabletts_torch.nn.blocks import conv1d_same
 from stabletts_torch.ops.convnext_cuda import ConvNeXtWeights, convnext_block
 from stabletts_torch.ops.istft import istft_same_real, spectrum_from_logits
-from stabletts_torch.ops.istft_cuda import istft_head_diff, istft_head_from_logits
+from stabletts_torch.ops.istft_cuda import istft_head_from_logits
 from stabletts_torch.utils.device import resolve_device
 from stabletts_torch.utils.metrics import span
 
@@ -95,7 +91,8 @@ class VocosBackbone(nn.Module):
 
 
 class ISTFTHead(nn.Module):
-    """Linear -> (log-magnitude, phase) -> complex spectrum -> ISTFT."""
+    """Linear -> (log-magnitude, phase) -> complex spectrum -> ISTFT: the
+    kernels in eval, the plain differentiable ISTFT in training."""
 
     def __init__(self, dim: int, n_fft: int, hop_length: int):
         super().__init__()
@@ -112,8 +109,6 @@ class ISTFTHead(nn.Module):
         re, im = spectrum_from_logits(logits)
         if lengths is not None:
             raise ValueError("Vocos: the fixed-shape `lengths` mode is a serving mode (eval)")
-        if os.environ.get("STABLETTS_ISTFT_IMPL", "auto") == "fused":
-            return istft_head_diff(re, im, self.n_fft, self.hop_length, matmul_dtype)
         return istft_same_real(re, im, self.n_fft, self.hop_length, self.n_fft, matmul_dtype)
 
 

@@ -15,7 +15,6 @@ rank's rows of the global batch): every dropout draws from it, and
 from __future__ import annotations
 
 import math
-import os
 from typing import Optional
 
 import torch
@@ -24,13 +23,10 @@ import torch.nn.functional as F
 
 from stabletts_torch.ops import philox
 from stabletts_torch.parallel import mesh
-from stabletts_torch.ops.adaln_ffn_cuda import adaln_ffn
-from stabletts_torch.ops.attention import attn_bias_from_mask, masked_attention, resolve_impl
-from stabletts_torch.ops.attention_packed_cuda import attention_packed_t
-from stabletts_torch.ops.attention_train_cuda import attention_train
+from stabletts_torch.ops.attention import attn_bias_from_mask, masked_attention
 from stabletts_torch.ops.dit_attention_cuda import dit_attention
 from stabletts_torch.ops.dit_attention_train_cuda import dit_attention_train
-from stabletts_torch.ops.dit_block_cuda import DiTWeights, apply_rope, dit_block, rope_tables
+from stabletts_torch.ops.dit_block_cuda import DiTWeights, apply_rope, dit_block, packed_weights, rope_tables
 from stabletts_torch.ops.ffn_train_cuda import ffn_train
 
 
@@ -94,13 +90,10 @@ class MultiHeadAttention(nn.Module):
     """Self-attention with 1x1-conv projections and partial RoPE (rotary dim
     = head_dim / 2). The fused kernels (`dit_block`, `dit_attention`,
     `dit_attention_train`) read the weights and do this math themselves;
-    `forward` is the composed path in plain PyTorch around the attention core.
-    Inference: `ops.attention.masked_attention` (the packed-head kernel on the
-    GPU) or, with STABLETTS_ATTN_LAYOUT=tminor, `attention_packed_t` on
-    channel-major [B, C, T] operands. Training (`train=True`): the
-    differentiable `ops.attention_train_cuda.attention_train` with dropout on
-    the softmax weights when `ops.attention.resolve_impl` says `fused`, else
-    einsum, softmax and dropout in plain PyTorch, as in the JAX package."""
+    `forward` is the composed reference in plain PyTorch around the attention
+    core: `ops.attention.masked_attention` in inference; in training
+    (`train=True`) einsum, softmax and dropout on the softmax weights in
+    plain PyTorch on any device."""
 
     def __init__(self, channels: int, out_channels: int, n_heads: int):
         super().__init__()
@@ -110,33 +103,29 @@ class MultiHeadAttention(nn.Module):
         self.conv_v = nn.Conv1d(channels, channels, 1)
         self.conv_o = nn.Conv1d(channels, out_channels, 1)
 
-    def forward(self, x, mask: Optional[torch.Tensor] = None, train: bool = False, p_dropout: float = 0.0,
-                gen: Optional[torch.Generator] = None):
-        """x [B, T, C], mask [B, T] (keys only) -> [B, T, out_channels].
-        `train` takes the differentiable core; its dropout `p_dropout` draws
-        from `gen` (none when gen is None)."""
+    def qkv(self, x):
+        """x [B, T, C] -> q, k, v [B, T, H, D], q and k rotated."""
         b, t, c = x.shape
         d = c // self.n_heads
         heads = lambda z: z.reshape(b, t, self.n_heads, d)
         cos, sin = rope_tables(t, d, x.device)
         q = apply_rope(heads(conv1d_same(x, self.conv_q)), cos, sin)
         k = apply_rope(heads(conv1d_same(x, self.conv_k)), cos, sin)
-        v = heads(conv1d_same(x, self.conv_v))
+        return q, k, heads(conv1d_same(x, self.conv_v))
+
+    def forward(self, x, mask: Optional[torch.Tensor] = None, train: bool = False, p_dropout: float = 0.0,
+                gen: Optional[torch.Generator] = None):
+        """x [B, T, C], mask [B, T] (keys only) -> [B, T, out_channels].
+        `train` takes the differentiable core; its dropout `p_dropout` draws
+        from `gen` (none when gen is None)."""
+        b, t, c = x.shape
+        q, k, v = self.qkv(x)
         if train:
-            rate = p_dropout if gen is not None else 0.0
-            if resolve_impl(None, x.device) == "fused":
-                seed = philox.draw_seed(mesh.generator_of(gen), x.device) if rate > 0.0 else None
-                out = attention_train(q.reshape(b, t, c), k.reshape(b, t, c), v.reshape(b, t, c), mask, rate, seed,
-                                      self.n_heads, mesh.row0_of(gen))
-            else:
-                logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(d))
-                if mask is not None:
-                    logits = logits + attn_bias_from_mask(mask.to(x.dtype), dtype=x.dtype)
-                weights = dropout(torch.softmax(logits, dim=-1), rate, gen)
-                out = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(b, t, c)
-        elif os.environ.get("STABLETTS_ATTN_LAYOUT") == "tminor":
-            to_t = lambda z: z.reshape(b, t, c).transpose(1, 2).contiguous()
-            out = attention_packed_t(to_t(q), to_t(k), to_t(v), mask, n_heads=self.n_heads).transpose(1, 2)
+            logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(q.shape[-1]))
+            if mask is not None:
+                logits = logits + attn_bias_from_mask(mask.to(x.dtype), dtype=x.dtype)
+            weights = dropout(torch.softmax(logits, dim=-1), p_dropout, gen)
+            out = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(b, t, c)
         else:
             out = masked_attention(q, k, v, mask=mask).reshape(b, t, c)
         return conv1d_same(out, self.conv_o)
@@ -168,47 +157,16 @@ def _modulate(x, shift, scale):
 class DiTConVBlock(nn.Module):
     """DiT block with adaLN-Zero conditioning and a conv FFN.
 
-    In training (`self.training`) the block takes one of the JAX package's
-    training configurations, chosen by the same variables with the same values,
-    defaults and precedence, read at every call; attention-weight and FFN
-    dropout `p_dropout` draw from `gen`:
-
-      default                     the attention half `dit_attention_train`
-                                  (the port of fused_dit_attention_train) then
-                                  the FFN half `ffn_train` (the port of
-                                  fused_adaln_ffn_train), each a differentiable
-                                  pair of CUDA kernels on the GPU
-      STABLETTS_ATTN_TRAIN=xla    the attention half composed in plain PyTorch
-                                  around `attention_train` (the port of
-                                  fused_attention_train; with
-                                  STABLETTS_ATTN_IMPL=xla or flash, or on the
-                                  CPU under auto, einsum + softmax + dropout)
-      STABLETTS_FFN_TRAIN=xla     the FFN half composed in plain PyTorch convs
-                                  with dropout (also for a kernel size other
-                                  than 3: the FFN kernels have 3 taps)
-
-    The gate is `self.training` alone, as the JAX gate is `deterministic`
-    alone: a forward in train mode under `torch.no_grad()` (a validation pass
-    that keeps dropout on) takes the training path and its dropout, not the
-    inference kernels. The JAX gates `_on_tpu()` and `T % 8 == 0` exist for
-    the TPU kernels' tiles and have no counterpart here.
-
-    In eval mode the block takes one of the JAX package's inference
-    configurations, chosen by the same environment variables with the same
-    values and precedence, read at every call:
-
-      default                  one `dit_block` call (the whole-block kernel)
-      STABLETTS_DIT_BLOCK=0    `dit_attention` then `adaln_ffn` (two kernels)
-      STABLETTS_DIT_FUSED=0    the attention half composed in plain PyTorch
-                               around `masked_attention` (STABLETTS_ATTN_IMPL
-                               = auto | fused | flash | xla picks its core;
-                               STABLETTS_ATTN_LAYOUT=tminor takes
-                               `attention_packed_t`), then the FFN half
-      STABLETTS_FFN_IMPL=xla   the FFN half composed in plain PyTorch convs
-
-    A kernel size other than 3 takes the composed FFN (the FFN kernels have 3
-    taps). Every wrapper runs its plain version on a CPU tensor. Any T works
-    on every path."""
+    One path each way, chosen by the module's mode and kernel size alone.
+    Eval: one `dit_block` call (the whole-block kernel) for 3 taps; for
+    another kernel size `dit_attention`, then the composed FFN (the FFN
+    kernels have 3 taps). Train (`self.training`, also under
+    `torch.no_grad()`: a validation pass keeps its dropout): the
+    differentiable `dit_attention_train`, then `ffn_train` for 3 taps, else
+    the composed FFN; attention-weight and FFN dropout `p_dropout` draw from
+    `gen`. `MultiHeadAttention.forward` and `FFN.forward` are the composed
+    references the kernels are held to. Every wrapper runs its plain version
+    on a CPU tensor; any T works."""
 
     def __init__(self, hidden_channels: int, filter_channels: int, num_heads: int,
                  kernel_size: int = 3, gin_channels: int = 0, p_dropout: float = 0.0):
@@ -226,52 +184,28 @@ class DiTConVBlock(nn.Module):
         self._packed = None
 
     def kernel_weights(self) -> DiTWeights:
-        """Kernel-layout copies of the weights, rebuilt only when a parameter
-        was replaced, moved, cast or written in place (load_state_dict)."""
-        params = (self.attn.conv_q.weight, self.attn.conv_q.bias, self.attn.conv_k.weight,
-                  self.attn.conv_k.bias, self.attn.conv_v.weight, self.attn.conv_v.bias,
-                  self.attn.conv_o.weight, self.attn.conv_o.bias, self.mlp.conv_1.weight,
-                  self.mlp.conv_1.bias, self.mlp.conv_2.weight, self.mlp.conv_2.bias)
-        key = tuple((p.data_ptr(), p._version, p.dtype, p.device) for p in params)
-        if self._packed is None or self._packed[0] != key:
-            with torch.no_grad():
-                a = self.attn
-                dense = lambda conv: conv.weight[..., 0].t()
-                w = DiTWeights(
-                    wqkv=torch.cat([dense(a.conv_q), dense(a.conv_k), dense(a.conv_v)], dim=1).contiguous(),
-                    bqkv=torch.cat([a.conv_q.bias, a.conv_k.bias, a.conv_v.bias]).contiguous(),
-                    wo=dense(a.conv_o).contiguous(),
-                    bo=a.conv_o.bias.detach().clone(),
-                    w1=self.mlp.conv_1.weight.permute(2, 1, 0).contiguous(),
-                    b1=self.mlp.conv_1.bias.detach().clone(),
-                    w2=self.mlp.conv_2.weight.permute(2, 1, 0).contiguous(),
-                    b2=self.mlp.conv_2.bias.detach().clone(),
-                )
-            self._packed = (key, w)
-        return self._packed[1]
+        """Kernel-layout copies of the weights (see `packed_weights`)."""
+        a, m = self.attn, self.mlp
+        dense = lambda conv: conv.weight[..., 0].t()
+        taps = lambda conv: conv.weight.permute(2, 1, 0)
+        pack = lambda: (torch.cat([dense(a.conv_q), dense(a.conv_k), dense(a.conv_v)], dim=1),
+                        torch.cat([a.conv_q.bias, a.conv_k.bias, a.conv_v.bias]), dense(a.conv_o), a.conv_o.bias,
+                        taps(m.conv_1), m.conv_1.bias, taps(m.conv_2), m.conv_2.bias)
+        return packed_weights(self, (a.conv_q, a.conv_k, a.conv_v, a.conv_o, m.conv_1, m.conv_2), pack)
 
     def _inference(self, x, mods, mask):
-        """x [B, T, C] (masked), mods [B, 6, C] -> [B, T, C] under the
-        configuration the environment names (see the class docstring)."""
-        env = os.environ.get
-        ch = x.shape[-1]
-        fuse_halves = env("STABLETTS_DIT_FUSED", "1") == "1"
-        three_taps = self.kernel_size == 3
-        if fuse_halves and env("STABLETTS_DIT_BLOCK", "1") == "1" and three_taps:
-            return dit_block(x, mods, mask, self.kernel_weights(), self.num_heads)
-        m = mask.to(x.dtype)[..., None]
-        shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mods[:, :, None, :].unbind(1)
-        if fuse_halves:
-            w = self.kernel_weights()
-            x = dit_attention(x, mods[:, :3].contiguous(), mask, w.wqkv, w.bqkv, w.wo, w.bo, self.num_heads)
-        else:
-            h = _modulate(F.layer_norm(x, (ch,), eps=1e-5), shift_msa, scale_msa)
-            x = x + gate_msa * self.attn(h, mask) * m
-        if env("STABLETTS_FFN_IMPL", "fused") == "fused" and three_taps:
-            w = self.kernel_weights()
-            return adaln_ffn(x, mods[:, 3:].contiguous(), mask, w.w1, w.b1, w.w2, w.b2)
-        h = _modulate(F.layer_norm(x, (ch,), eps=1e-5), shift_mlp, scale_mlp)
-        return x + gate_mlp * self.mlp(h, mask)
+        """x [B, T, C] (masked), mods [B, 6, C] -> [B, T, C]."""
+        w = self.kernel_weights()
+        if self.kernel_size == 3:
+            return dit_block(x, mods, mask, w, self.num_heads)
+        x = dit_attention(x, mods[:, :3].contiguous(), mask, w.wqkv, w.bqkv, w.wo, w.bo, self.num_heads)
+        return self._composed_ffn(x, mods, mask)
+
+    def _composed_ffn(self, x, mods, mask, p_dropout: float = 0.0, gen=None):
+        """The FFN half around `FFN.forward`, for a kernel size other than 3."""
+        shift, scale, gate = mods[:, 3:, None, :].unbind(1)
+        h = _modulate(F.layer_norm(x, (x.shape[-1],), eps=1e-5), shift, scale)
+        return x + gate * self.mlp(h, mask, p_dropout, gen)
 
     def forward(self, x, c, mask, gen: Optional[torch.Generator] = None):
         """x [B, T, C], c [B, gin], mask [B, T] -> [B, T, C]."""
@@ -280,22 +214,15 @@ class DiTConVBlock(nn.Module):
         mods = self.adaLN_modulation(c).view(b, 6, ch)
         if not self.training:
             return self._inference(x.contiguous(), mods.contiguous(), mask)
-        env = os.environ.get
         rate = self.p_dropout if gen is not None else 0.0
         seed = lambda: philox.draw_seed(mesh.generator_of(gen), x.device) if rate > 0.0 else None
         row0 = mesh.row0_of(gen)
-        shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mods[:, :, None, :].unbind(1)
-        if env("STABLETTS_ATTN_TRAIN", "fused") == "fused":
-            dense = lambda conv: conv.weight[..., 0].t()
-            a = self.attn
-            x = dit_attention_train(x, mods[:, :3], mask, dense(a.conv_q), a.conv_q.bias, dense(a.conv_k),
-                                    a.conv_k.bias, dense(a.conv_v), a.conv_v.bias, dense(a.conv_o), a.conv_o.bias,
-                                    self.num_heads, rate, seed(), row0=row0)
-        else:
-            h = _modulate(F.layer_norm(x, (ch,), eps=1e-5), shift_msa, scale_msa)
-            x = x + gate_msa * self.attn(h, mask, True, self.p_dropout, gen) * mask.to(x.dtype)[..., None]
-        if env("STABLETTS_FFN_TRAIN", "fused") == "fused" and self.kernel_size == 3:
-            return ffn_train(x, mods[:, 3:], mask, self.mlp.conv_1.weight.permute(2, 1, 0), self.mlp.conv_1.bias,
-                             self.mlp.conv_2.weight.permute(2, 1, 0), self.mlp.conv_2.bias, rate, seed(), row0=row0)
-        h = _modulate(F.layer_norm(x, (ch,), eps=1e-5), shift_mlp, scale_mlp)
-        return x + gate_mlp * self.mlp(h, mask, self.p_dropout, gen)
+        dense = lambda conv: conv.weight[..., 0].t()
+        a, m = self.attn, self.mlp
+        x = dit_attention_train(x, mods[:, :3], mask, dense(a.conv_q), a.conv_q.bias, dense(a.conv_k), a.conv_k.bias,
+                                dense(a.conv_v), a.conv_v.bias, dense(a.conv_o), a.conv_o.bias, self.num_heads, rate,
+                                seed(), row0=row0)
+        if self.kernel_size == 3:
+            return ffn_train(x, mods[:, 3:], mask, m.conv_1.weight.permute(2, 1, 0), m.conv_1.bias,
+                             m.conv_2.weight.permute(2, 1, 0), m.conv_2.bias, rate, seed(), row0=row0)
+        return self._composed_ffn(x, mods, mask, self.p_dropout, gen)

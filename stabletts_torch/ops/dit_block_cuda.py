@@ -39,8 +39,8 @@ _LOG2E = math.log2(math.e)
 
 
 class DiTWeights(NamedTuple):
-    """Kernel-layout weights of one block (made once per model, see
-    `nn.blocks.DiTConVBlock.kernel_weights`)."""
+    """Kernel-layout weights of one block (made once per model by
+    `packed_weights`)."""
 
     wqkv: torch.Tensor  # [C, 3C]: q | k | v projections
     bqkv: torch.Tensor  # [3C]
@@ -50,6 +50,22 @@ class DiTWeights(NamedTuple):
     b1: torch.Tensor    # [F]
     w2: torch.Tensor    # [taps, F, C]
     b2: torch.Tensor    # [C]
+
+
+def packed_weights(owner, layers, pack) -> DiTWeights:
+    """The kernel-layout weights of the block `owner`, kept in `owner._packed`
+    and rebuilt only when a weight or bias of `layers` (the block's q, k, v,
+    output, FFN-in and FFN-out layers) was replaced, moved, cast or written
+    in place (`load_state_dict`, `.to`, an optimiser step). `pack()` gives the
+    eight tensors of `DiTWeights` in the block's own layout; each is copied
+    contiguous."""
+    params = [p for layer in layers for p in (layer.weight, layer.bias)]
+    key = tuple((p.data_ptr(), p._version, p.dtype, p.device) for p in params)
+    if owner._packed is None or owner._packed[0] != key:
+        with torch.no_grad():
+            w = DiTWeights(*(t.detach().clone(memory_format=torch.contiguous_format) for t in pack()))
+        owner._packed = (key, w)
+    return owner._packed[1]
 
 
 _rope_cache: dict = {}

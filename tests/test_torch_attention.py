@@ -161,17 +161,28 @@ def test_attention_packed_plain_rounds_weights_to_v_dtype():
     assert 0 < err < 2e-2
 
 
-@pytest.mark.parametrize("impl", ["xla", "fused", "flash", "auto", None])
-@pytest.mark.parametrize("lengths", [None, [45, 17]])
+# the two paths of `masked_attention` called directly, and the dispatch itself
+IMPLS = {
+    "plain": lambda q, k, v, mask: tattn.xla_attention(
+        q, k, v, None if mask is None else tattn.attn_bias_from_mask(mask)),
+    "packed": attention,
+    "masked_attention": lambda q, k, v, mask: tattn.masked_attention(q, k, v, mask=mask),
+}
+
+
+@pytest.mark.parametrize("impl", list(IMPLS))
+@pytest.mark.parametrize("lengths", [None, [45, 17], [45, 1], [1, 45]])
 def test_masked_attention_matches_jax_for_each_impl(impl, lengths):
-    """Every implementation against the JAX einsum path. With a mask only the
-    valid query rows are compared: padded rows are garbage on every path (the
-    JAX flash path, which `flash` stands in for, fills them differently)."""
+    """Each path against the JAX einsum path, also where an item has one
+    valid key. With a mask only the valid query rows are compared: padded rows
+    are garbage on every path."""
     b, t_len, heads = 2, 45, 2
     q, k, v, mask = _qkv(b, t_len, heads, seed=21, lengths=lengths)
     sh = lambda a: a.reshape(b, t_len, heads, 64)
     want = np.asarray(jattn.masked_attention(_j(sh(q)), _j(sh(k)), _j(sh(v)), mask=_j(mask), impl="xla"))
-    got = n(tattn.masked_attention(t(sh(q)), t(sh(k)), t(sh(v)), mask=None if mask is None else t(mask), impl=impl))
+    before = attention_packed.launches
+    got = n(IMPLS[impl](t(sh(q)), t(sh(k)), t(sh(v)), None if mask is None else t(mask)))
+    assert attention_packed.launches == before  # a CPU tensor takes the plain version
     rows = np.ones((b, t_len), bool) if mask is None else mask > 0
     np.testing.assert_allclose(got[rows], want[rows], **TOL)
     assert np.isfinite(got).all()
@@ -183,10 +194,12 @@ def test_masked_attention_full_bias_and_cross_lengths_take_the_plain_path():
     kv = rng.standard_normal((2, 13, 2, 16)).astype(np.float32)
     bias = rng.standard_normal((2, 1, 9, 13)).astype(np.float32)
     want = np.asarray(jattn.masked_attention(_j(q), _j(kv), _j(kv), bias=_j(bias), impl="xla"))
-    got = n(tattn.masked_attention(t(q), t(kv), t(kv), bias=t(bias), impl="fused"))  # head width 16: not the kernel's
+    got = n(tattn.masked_attention(t(q), t(kv), t(kv), bias=t(bias)))  # head width 16: not the kernel's
     np.testing.assert_allclose(got, want, **TOL)
     want = np.asarray(jattn.masked_attention(_j(q), _j(kv), _j(kv), impl="xla"))
-    np.testing.assert_allclose(n(tattn.masked_attention(t(q), t(kv), t(kv), impl="flash")), want, **TOL)
+    np.testing.assert_allclose(n(tattn.masked_attention(t(q), t(kv), t(kv))), want, **TOL)
+    cuda = torch.device("cuda")
+    assert tattn.route(cuda, True, 9, 13) == tattn.route(cuda, False, 9, 13) == "plain"
 
 
 def test_attn_bias_from_mask_matches_jax():
@@ -196,25 +209,35 @@ def test_attn_bias_from_mask_matches_jax():
     np.testing.assert_array_equal(n(tattn.attn_bias_from_mask(t(mask))), np.asarray(attn_bias_from_mask(_j(mask))))
 
 
-def test_resolve_impl_precedence(monkeypatch):
-    cpu = torch.device("cpu")
-    monkeypatch.delenv("STABLETTS_ATTN_IMPL", raising=False)
-    assert tattn.resolve_impl(None, cpu) == "xla"
-    assert tattn.resolve_impl(None, torch.device("cuda")) == "fused"
-    monkeypatch.setenv("STABLETTS_ATTN_IMPL", "flash")  # read at call time
-    assert tattn.resolve_impl(None, cpu) == "flash"
-    assert tattn.resolve_impl("xla", cpu) == "xla"  # the argument wins
-    try:
-        tattn.set_default_impl("fused")  # then the process default, then the variable
-        assert tattn.resolve_impl(None, cpu) == "fused"
-    finally:
-        tattn.set_default_impl(None)
-    assert tattn.resolve_impl(None, cpu) == "flash"
-    with pytest.raises(ValueError):
-        tattn.set_default_impl("cudnn")
-    monkeypatch.setenv("STABLETTS_ATTN_IMPL", "sdpa")
-    with pytest.raises(ValueError):
-        tattn.resolve_impl(None, cpu)
+@pytest.mark.parametrize("device,call,path", [("cpu", "mask", "plain"), ("cpu", "none", "plain"),
+                                               ("cuda", "mask", "packed"), ("cuda", "none", "packed"),
+                                               ("cuda", "bias", "plain"), ("cuda", "cross", "plain")])
+def test_masked_attention_routes_by_device_bias_and_lengths(device, call, path):
+    """`masked_attention` picks its path from the call alone: the packed-head
+    kernel for a CUDA tensor with no full bias and q and k of one length,
+    else the plain path. Where the device is here, the call runs: one
+    `attention_packed` launch on the packed path, none on the plain one, and
+    the output within the bar of the plain path on the valid rows; a CUDA
+    case on a machine without one checks `route` alone."""
+    b, tq, heads = 2, 40, 2
+    tk = 24 if call == "cross" else tq
+    rng = np.random.default_rng(13)
+    q = rng.standard_normal((b, tq, heads, 64)).astype(np.float32)
+    k, v = (rng.standard_normal((b, tk, heads, 64)).astype(np.float32) for _ in range(2))
+    mask = (np.arange(tq)[None, :] < np.asarray([tq, 29])[:, None]).astype(np.float32) if call == "mask" else None
+    bias = rng.standard_normal((b, 1, tq, tk)).astype(np.float32) if call == "bias" else None
+    assert tattn.route(torch.device(device), bias is not None, tq, tk) == path
+    if device == "cuda" and not torch.cuda.is_available():
+        return
+    dev = lambda a: None if a is None else t(a).to(device)
+    before = attention_packed.launches
+    got = tattn.masked_attention(dev(q), dev(k), dev(v), mask=dev(mask), bias=dev(bias))
+    assert attention_packed.launches - before == (path == "packed")
+    plain_bias = t(bias) if bias is not None else None if mask is None else tattn.attn_bias_from_mask(t(mask))
+    want = n(tattn.xla_attention(t(q), t(k), t(v), plain_bias))
+    rows = np.ones((b, tq), bool) if mask is None else mask > 0
+    tol = 2e-3 if path == "packed" else 0.0  # the kernel's f32 sums run in another order
+    np.testing.assert_allclose(n(got.cpu())[rows], want[rows], rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("lengths", [None, [30, 19]])

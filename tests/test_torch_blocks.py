@@ -113,3 +113,46 @@ def test_dit_block_plain_bf16_rounds_like_f32_within_bf16():
     assert got.dtype == torch.bfloat16
     err = (got.float() - ref).abs().max() / ref.abs().max()
     assert err < 2e-2
+
+
+def _cache_block(kind):
+    from stabletts_torch.models.f5tts import DiTBlock
+
+    torch.manual_seed(0)
+    return tb.DiTConVBlock(128, 96, 2, 3, 64) if kind == "stabletts" else DiTBlock(128, 2, 64, 2)
+
+
+def _out_bias(block):
+    return block.attn.conv_o.bias if isinstance(block, tb.DiTConVBlock) else block.attn.to_out[0].bias
+
+
+@pytest.mark.parametrize("kind", ["stabletts", "f5tts"])
+def test_kernel_weights_are_cached_and_rebuilt_when_a_weight_changes(kind):
+    """Both blocks' kernel-layout weights (`ops.dit_block_cuda.packed_weights`)
+    survive a second call, and are rebuilt, equal to a fresh block's packing
+    of the same state, after `load_state_dict`, after `.to(bfloat16)` and
+    after an in-place write to one parameter."""
+    block = _cache_block(kind)
+
+    def fresh():
+        other = _cache_block(kind).to(_out_bias(block).dtype)
+        other.load_state_dict(block.state_dict())
+        return other.kernel_weights()
+
+    def rebuilt(old):
+        new = block.kernel_weights()
+        assert new is not old and all(torch.equal(a, b) for a, b in zip(new, fresh()))
+        assert all(a.is_contiguous() and a.dtype == _out_bias(block).dtype for a in new)
+        return new
+
+    w = block.kernel_weights()
+    assert block.kernel_weights() is w
+    block.load_state_dict({k: v + 0.5 for k, v in block.state_dict().items()})
+    w = rebuilt(w)
+    assert block.kernel_weights() is w
+    block.to(torch.bfloat16)
+    w = rebuilt(w)
+    with torch.no_grad():
+        _out_bias(block).add_(1.0)
+    w = rebuilt(w)
+    assert torch.equal(w.bo, _out_bias(block).detach())

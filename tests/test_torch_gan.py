@@ -307,23 +307,29 @@ def test_gan_step_bf16_runs_close_to_f32(jax_gan_steps, jax_gan_step_bf16):
     assert max(errs.values()) <= BF16_BAR, errs
 
 
-def test_generator_trains_through_the_istft_gradient(monkeypatch):
-    """STABLETTS_ISTFT_IMPL=fused takes `istft_head_diff` (the kernel forward,
-    here its plain version, with the transpose of the plain ISTFT as its
-    backward): the same waveform and parameter gradients as the plain path."""
+def test_generator_trains_through_the_istft_gradient():
+    """`istft_head_diff` (the kernel forward, here its plain version, with the
+    transpose of the plain ISTFT as its backward) on the head's own spectrum
+    gives the same waveform and parameter gradients as the generator's own
+    training path, `istft_same_real`."""
     from stabletts_torch.models.vocos import Vocos
+    from stabletts_torch.ops.istft import istft_same_real, spectrum_from_logits
+    from stabletts_torch.ops.istft_cuda import istft_head_diff
 
     torch.manual_seed(0)
     gen = Vocos(VOCOS, MEL, device="cpu").train()
+    head = gen.head
     mel = t(np.random.default_rng(15).standard_normal((2, 24, 20)).astype(np.float32))
     cot = t(_audio(2, 24 * 64, seed=16))
+    istfts = {"xla": lambda re, im: istft_same_real(re, im, head.n_fft, head.hop_length, head.n_fft),
+              "fused": lambda re, im: istft_head_diff(re, im, head.n_fft, head.hop_length)}
     runs = {}
-    for impl in ("xla", "fused"):
-        monkeypatch.setenv("STABLETTS_ISTFT_IMPL", impl)
+    for impl, istft in istfts.items():
         gen.zero_grad()
-        wav = gen(mel)
+        wav = istft(*spectrum_from_logits(head.out(gen.backbone(mel))))
         (wav * cot).sum().backward()
         runs[impl] = (wav.detach(), {k: p.grad.clone() for k, p in gen.named_parameters()})
+    assert torch.equal(gen(mel).detach(), runs["xla"][0])  # the generator's own path is the plain ISTFT
     np.testing.assert_allclose(n(runs["fused"][0]), n(runs["xla"][0]), rtol=1e-5, atol=1e-5)
     for k, g in runs["xla"][1].items():
         np.testing.assert_allclose(n(runs["fused"][1][k]), n(g), rtol=1e-4, atol=1e-5 * float(g.abs().max()) + 1e-8)

@@ -1,19 +1,21 @@
 """The DiT block's two halves (stabletts_torch/ops/dit_attention_cuda.py and
 adaln_ffn_cuda.py) against the JAX package's Pallas kernels run with
-interpret=True, and `DiTConVBlock` under every inference configuration (the
-STABLETTS_* variables, read at call time) against the JAX composed block on the
-CPU. Same numpy inputs and weights into both. Bars: f32 rtol = atol = 2e-4;
-bf16 2e-2 of the largest value."""
+interpret=True, and `DiTConVBlock` and the compositions of its halves that the
+JAX package's inference configurations name (each half a kernel's op or the
+composed reference, `CONFIGS`) against the JAX composed block on the CPU. Same
+numpy inputs and weights into both. Bars: f32 rtol = atol = 2e-4; bf16 2e-2 of
+the largest value."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from stabletts_torch.nn import blocks as tb
 from stabletts_torch.ops.adaln_ffn_cuda import adaln_ffn
-from stabletts_torch.ops.attention_packed_cuda import attention_packed, attention_packed_t
+from stabletts_torch.ops.attention_packed_cuda import attention, attention_packed, attention_packed_t
 from stabletts_torch.ops.dit_attention_cuda import dit_attention
 from stabletts_torch.ops.dit_block_cuda import DiTWeights, dit_block, dit_block_plain
 from stabletts_torch.utils.convert import _export_dit_block
@@ -25,25 +27,54 @@ from torch_port_utils import TOL, n, randomise_tree, t
 torch.set_num_threads(2)
 
 BF16 = torch.bfloat16
-VARIABLES = ("STABLETTS_DIT_BLOCK", "STABLETTS_DIT_FUSED", "STABLETTS_FFN_IMPL", "STABLETTS_ATTN_IMPL",
-             "STABLETTS_ATTN_LAYOUT")
+# configuration -> (attention half, FFN half); "default" is the block itself. Attention: "kernel" the op
+# `dit_attention`, else the composed half around MultiHeadAttention's projections with the core "plain" (its
+# own forward), "packed" (`attention`) or "tminor" (`attention_packed_t` on [B, C, T]); FFN: "kernel" the op
+# `adaln_ffn`, "composed" the block's composed half (every FFN at a kernel size other than 3)
 CONFIGS = {
-    "default": {},
-    "two_kernels": {"STABLETTS_DIT_BLOCK": "0"},
-    "composed_attention": {"STABLETTS_DIT_FUSED": "0"},
-    "composed_attention_fused_core": {"STABLETTS_DIT_FUSED": "0", "STABLETTS_ATTN_IMPL": "fused"},
-    "composed_attention_tminor": {"STABLETTS_DIT_FUSED": "0", "STABLETTS_ATTN_LAYOUT": "tminor"},
-    "composed_attention_flash": {"STABLETTS_DIT_FUSED": "0", "STABLETTS_ATTN_IMPL": "flash"},
-    "all_library": {"STABLETTS_DIT_FUSED": "0", "STABLETTS_FFN_IMPL": "xla", "STABLETTS_ATTN_IMPL": "xla"},
-    "attention_kernel_composed_ffn": {"STABLETTS_DIT_BLOCK": "0", "STABLETTS_FFN_IMPL": "xla"},
+    "default": None,
+    "two_kernels": ("kernel", "kernel"),
+    "composed_attention": ("plain", "kernel"),
+    "composed_attention_fused_core": ("packed", "kernel"),
+    "composed_attention_tminor": ("tminor", "kernel"),
+    "all_library": ("plain", "composed"),
+    "attention_kernel_composed_ffn": ("kernel", "composed"),
 }
 
 
-def _set(monkeypatch, config):
-    for name in VARIABLES:
-        monkeypatch.delenv(name, raising=False)
-    for name, value in config.items():
-        monkeypatch.setenv(name, value)
+def _attend(attn, h, mask, core):
+    """MultiHeadAttention's inference output with the attention core `core`."""
+    if core == "plain":
+        return attn(h, mask)
+    b, t, c = h.shape
+    q, k, v = attn.qkv(h)
+    if core == "packed":
+        out = attention(q, k, v, mask).reshape(b, t, c)
+    else:
+        to_t = lambda z: z.reshape(b, t, c).transpose(1, 2).contiguous()
+        out = attention_packed_t(to_t(q), to_t(k), to_t(v), mask, n_heads=attn.n_heads).transpose(1, 2)
+    return tb.conv1d_same(out, attn.conv_o)
+
+
+def _run(block, config, x, cond, mask):
+    """The eval-mode block under `config` (see CONFIGS)."""
+    if CONFIGS[config] is None:
+        return block(x, cond, mask)
+    attn_half, ffn_half = CONFIGS[config]
+    b, _, ch = x.shape
+    m = mask.to(x.dtype)[..., None]
+    x = (x * m).contiguous()
+    mods = block.adaLN_modulation(cond).view(b, 6, ch).contiguous()
+    w = block.kernel_weights()
+    if attn_half == "kernel":
+        x = dit_attention(x, mods[:, :3].contiguous(), mask, w.wqkv, w.bqkv, w.wo, w.bo, block.num_heads)
+    else:
+        shift, scale, gate = mods[:, :3, None, :].unbind(1)
+        h = tb._modulate(F.layer_norm(x, (ch,), eps=1e-5), shift, scale)
+        x = x + gate * _attend(block.attn, h, mask, attn_half) * m
+    if ffn_half == "kernel" and block.kernel_size == 3:
+        return adaln_ffn(x, mods[:, 3:].contiguous(), mask, w.w1, w.b1, w.w2, w.b2)
+    return block._composed_ffn(x, mods, mask)
 
 
 def _inputs(b, t_len, c, lengths, seed=0):
@@ -139,15 +170,14 @@ def _port_block(pv, c, f, heads, kernel_size, gin):
 
 @pytest.mark.parametrize("config", list(CONFIGS))
 @pytest.mark.parametrize("t_len,heads,gin", [(64, 2, 128), (37, 2, 48)])
-def test_dit_block_configurations_match_flax_composed(monkeypatch, config, t_len, heads, gin):
-    """Every configuration of the port's block computes the JAX composed
-    block (which the JAX package runs on the CPU whatever the variables say)."""
+def test_dit_block_configurations_match_flax_composed(config, t_len, heads, gin):
+    """Every composition of the port's block computes the JAX composed
+    block (which the JAX package runs on the CPU whatever its variables say)."""
     c, f = heads * 64, 96
     x, mask = _inputs(2, t_len, c, [t_len, t_len - 11], seed=4)
     cond = np.random.default_rng(5).standard_normal((2, gin)).astype(np.float32)
     pv, want = _flax_block(x, cond, mask, c, f, heads, 3, gin, seed=4)
-    _set(monkeypatch, CONFIGS[config])
-    got = n(_port_block(pv, c, f, heads, 3, gin)(t(x), t(cond), t(mask)))
+    got = n(_run(_port_block(pv, c, f, heads, 3, gin), config, t(x), t(cond), t(mask)))
     valid = mask > 0
     np.testing.assert_allclose(got[valid], want[valid], **TOL)
     assert np.isfinite(got).all()
@@ -156,19 +186,18 @@ def test_dit_block_configurations_match_flax_composed(monkeypatch, config, t_len
 
 
 @pytest.mark.parametrize("config", ["default", "two_kernels", "all_library"])
-def test_dit_block_kernel_size_5_takes_the_composed_ffn(monkeypatch, config):
+def test_dit_block_kernel_size_5_takes_the_composed_ffn(config):
     c, f, heads, gin, t_len = 128, 64, 2, 128, 41
     x, mask = _inputs(2, t_len, c, [41, 30], seed=6)
     cond = np.random.default_rng(7).standard_normal((2, gin)).astype(np.float32)
     pv, want = _flax_block(x, cond, mask, c, f, heads, 5, gin, seed=6)
-    _set(monkeypatch, CONFIGS[config])
-    got = n(_port_block(pv, c, f, heads, 5, gin)(t(x), t(cond), t(mask)))
+    got = n(_run(_port_block(pv, c, f, heads, 5, gin), config, t(x), t(cond), t(mask)))
     valid = mask > 0
     np.testing.assert_allclose(got[valid], want[valid], **TOL)
 
 
 @pytest.mark.parametrize("config", ["two_kernels", "composed_attention", "composed_attention_tminor", "all_library"])
-def test_dit_block_configurations_bf16_within_bf16_of_f32_and_of_flax(monkeypatch, config):
+def test_dit_block_configurations_bf16_within_bf16_of_f32_and_of_flax(config):
     """bf16: the composed path rotates q and k in f32 and rounds once where
     the JAX package multiplies in bf16, and the kernels' plain versions round
     at the TPU kernels' points, so the bar is 2e-2 of the largest value, both
@@ -182,10 +211,9 @@ def test_dit_block_configurations_bf16_within_bf16_of_f32_and_of_flax(monkeypatc
     want16 = jb.DiTConVBlock(c, f, heads, 3, 0.0, gin).apply(
         {"params": jax.tree_util.tree_map(j16, pv)}, j16(x), j16(cond), jnp.asarray(mask), deterministic=True)
     want16 = t(np.asarray(want16.astype(jnp.float32)))
-    _set(monkeypatch, CONFIGS[config])
     block = _port_block(pv, c, f, heads, 3, gin)
-    ref = block(t(x), t(cond), t(mask))
-    got = block.to(BF16)(t(x).to(BF16), t(cond).to(BF16), t(mask))
+    ref = _run(block, config, t(x), t(cond), t(mask))
+    got = _run(block.to(BF16), config, t(x).to(BF16), t(cond).to(BF16), t(mask))
     assert got.dtype == BF16
     valid = t(mask) > 0
     assert (got.float() - ref)[valid].abs().max() <= 2e-2 * ref[valid].abs().max()

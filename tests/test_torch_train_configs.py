@@ -1,16 +1,16 @@
-"""The port's opt-in TTS training paths against the JAX package on the CPU:
+"""The port's TTS training kernels and paths against the JAX package on the CPU:
 
   * `attention_train`'s plain version against the Pallas kernel
     fused_attention_train (interpret mode) at dropout 0, values and dq, dk, dv
     on the valid rows, and its dropout contract at rate 0.1;
   * `prenet_train`'s plain version against fused_prenet_train (interpret
     mode), forward and all seven gradients;
-  * every training configuration of the DiT block (the STABLETTS_ATTN_TRAIN /
-    STABLETTS_FFN_TRAIN / STABLETTS_ATTN_IMPL variables, kernel size 5)
+  * the DiT block in train mode and the compositions of its training halves
+    that the JAX package's training configurations name (each half a
+    kernel's op or the composed reference, `BLOCK_CONFIGS`; kernel size 5)
     against the flax block's training forward, values and gradients;
-  * a whole TTS step under each configuration (also
-    STABLETTS_PRENET_TRAIN=fused) against the JAX package's composed training
-    forward: losses and every parameter gradient at 1e-3, dropout off;
+  * a whole TTS step against the JAX package's composed training forward:
+    losses and every parameter gradient at 1e-3, dropout off;
   * a bf16 step (`compute_dtype=torch.bfloat16`) against the JAX package's
     bf16 cast of the same forward.
 """
@@ -22,11 +22,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from stabletts_torch.nn import blocks as tb
 from stabletts_torch.ops import attention_train_cuda as A
 from stabletts_torch.ops import philox
 from stabletts_torch.ops import prenet_train_cuda as P
+from stabletts_torch.ops.dit_attention_train_cuda import dit_attention_train
+from stabletts_torch.ops.ffn_train_cuda import ffn_train
 from stabletts_torch.train.train_tts import model_losses
 from stabletts_torch.utils.convert import _export_dit_block, state_dict_from_jax_stabletts
 from stabletts_tpu.nn import blocks as jb
@@ -35,26 +38,6 @@ from test_torch_train import (TINY, TINY_MEL, _jax_apply, _jax_loss_and_grads, _
 from torch_port_utils import n, randomise_tree, t
 
 torch.set_num_threads(2)
-
-TRAIN_VARIABLES = ("STABLETTS_ATTN_TRAIN", "STABLETTS_FFN_TRAIN", "STABLETTS_ATTN_IMPL", "STABLETTS_PRENET_TRAIN")
-# name -> the environment of a training configuration
-CONFIGS = {
-    "default": {},
-    "attn_xla": {"STABLETTS_ATTN_TRAIN": "xla"},
-    "attn_xla_fused_core": {"STABLETTS_ATTN_TRAIN": "xla", "STABLETTS_ATTN_IMPL": "fused"},
-    "ffn_xla": {"STABLETTS_FFN_TRAIN": "xla"},
-    "both_xla": {"STABLETTS_ATTN_TRAIN": "xla", "STABLETTS_FFN_TRAIN": "xla", "STABLETTS_ATTN_IMPL": "fused"},
-    "prenet_fused": {"STABLETTS_PRENET_TRAIN": "fused"},
-    "all_opt_in": {"STABLETTS_ATTN_TRAIN": "xla", "STABLETTS_ATTN_IMPL": "fused", "STABLETTS_PRENET_TRAIN": "fused"},
-}
-
-
-def _set_env(monkeypatch, env):
-    for v in TRAIN_VARIABLES:
-        monkeypatch.delenv(v, raising=False)
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-
 
 # ---- attention_train ----------------------------------------------------------
 
@@ -147,8 +130,47 @@ def test_prenet_train_plain_matches_pallas_interpret(t_len, cin, f, cout):
 
 # ---- the block's training configurations -----------------------------------------------
 
-BLOCK_CASES = [(name, 3) for name in ("default", "attn_xla", "attn_xla_fused_core", "ffn_xla", "both_xla")] \
-    + [("default", 5), ("attn_xla", 5)]
+# configuration -> (attention half, FFN half) of the train-mode block, dropout off; "default" is the block itself.
+# Attention: "kernel" the op `dit_attention_train`, else the composed half around MultiHeadAttention's projections
+# with the core "plain" (its own training forward: einsum on the CPU) or "packed" (`attention_train`); FFN: "kernel"
+# the op `ffn_train`, "composed" the block's composed half (every FFN at a kernel size other than 3)
+BLOCK_CONFIGS = {
+    "default": None,
+    "attn_xla": ("plain", "kernel"),
+    "attn_xla_fused_core": ("packed", "kernel"),
+    "ffn_xla": ("kernel", "composed"),
+    "both_xla": ("packed", "composed"),
+}
+BLOCK_CASES = [(name, 3) for name in BLOCK_CONFIGS] + [("default", 5), ("attn_xla", 5)]
+
+
+def _run_train(block, config, x, cond, mask):
+    """The train-mode block under `config` (see BLOCK_CONFIGS), dropout off."""
+    if BLOCK_CONFIGS[config] is None:
+        return block(x, cond, mask, None)
+    attn_half, ffn_half = BLOCK_CONFIGS[config]
+    b, t_len, ch = x.shape
+    m = mask.to(x.dtype)[..., None]
+    x = x * m
+    mods = block.adaLN_modulation(cond).view(b, 6, ch)
+    a, f = block.attn, block.mlp
+    dense = lambda conv: conv.weight[..., 0].t()
+    if attn_half == "kernel":
+        x = dit_attention_train(x, mods[:, :3], mask, dense(a.conv_q), a.conv_q.bias, dense(a.conv_k), a.conv_k.bias,
+                                dense(a.conv_v), a.conv_v.bias, dense(a.conv_o), a.conv_o.bias, block.num_heads)
+    else:
+        shift, scale, gate = mods[:, :3, None, :].unbind(1)
+        h = tb._modulate(F.layer_norm(x, (ch,), eps=1e-5), shift, scale)
+        if attn_half == "plain":
+            out = a(h, mask, True, block.p_dropout, None)
+        else:
+            q, k, v = (z.reshape(b, t_len, ch) for z in a.qkv(h))
+            out = tb.conv1d_same(A.attention_train(q, k, v, mask, 0.0, None, a.n_heads), a.conv_o)
+        x = x + gate * out * m
+    if ffn_half == "kernel" and block.kernel_size == 3:
+        return ffn_train(x, mods[:, 3:], mask, f.conv_1.weight.permute(2, 1, 0), f.conv_1.bias,
+                         f.conv_2.weight.permute(2, 1, 0), f.conv_2.bias)
+    return block._composed_ffn(x, mods, mask, block.p_dropout, None)
 
 
 @pytest.fixture(scope="module")
@@ -174,13 +196,12 @@ def flax_block_runs():
 
 
 @pytest.mark.parametrize("config,ksize", BLOCK_CASES)
-def test_block_training_configuration_matches_flax(flax_block_runs, monkeypatch, config, ksize):
+def test_block_training_configuration_matches_flax(flax_block_runs, config, ksize):
     """Output, dx and every parameter gradient of the port's block in train
     mode under `config` against the flax block, 2e-4 on values and 1e-3
     (max-abs-err / max-abs-ref) on gradients."""
     (b, t_len, c, f, heads), (x, cond, mask, cot), runs = flax_block_runs
     pv, want, want_gp, want_gx = runs[ksize]
-    _set_env(monkeypatch, CONFIGS[config])
     sd, gsd = {}, {}
     _export_dit_block(sd, "b", pv)
     _export_dit_block(gsd, "b", want_gp)
@@ -188,7 +209,7 @@ def test_block_training_configuration_matches_flax(flax_block_runs, monkeypatch,
     block.load_state_dict({k[2:]: torch.from_numpy(np.asarray(v, np.float32)) for k, v in sd.items()})
     block.train()
     xt = t(x).requires_grad_()
-    got = block(xt, t(cond), t(mask), None)
+    got = _run_train(block, config, xt, t(cond), t(mask))
     (got * t(cot)).sum().backward()
     valid = mask > 0
     np.testing.assert_allclose(n(got)[valid], want[valid], rtol=2e-4, atol=2e-4)
@@ -197,7 +218,7 @@ def test_block_training_configuration_matches_flax(flax_block_runs, monkeypatch,
         assert _rel(n(p.grad), np.asarray(gsd["b." + name], np.float32)) <= 1e-3, name
 
 
-# ---- a whole TTS step under each configuration ----------------------------------------------
+# ---- a whole TTS step ------------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
 def jax_step(setup):  # noqa: F811
@@ -208,19 +229,17 @@ def jax_step(setup):  # noqa: F811
     return (float(jdur), float(jdiff), float(jprior)), np.asarray(jattn), want
 
 
-@pytest.mark.parametrize("config", list(CONFIGS))
-def test_tts_step_under_configuration_matches_jax(setup, jax_step, monkeypatch, config):  # noqa: F811
+def test_tts_step_under_configuration_matches_jax(setup, jax_step):  # noqa: F811
     """The three losses (rel 1e-3), the MAS path (exact) and every parameter
     gradient (1e-3 of the tensor's largest entry) of one training step with
-    dropout off, under each training configuration."""
+    dropout off, on the model's one training path."""
     _, params, batch, draws = setup
     jlosses, jattn, want = jax_step
-    _set_env(monkeypatch, CONFIGS[config])
     model = _port(params)
     dur, diff, prior, attn = model(*_torch_batch(batch), None, **_torch_draws(draws))
     np.testing.assert_array_equal(attn.numpy(), jattn)
     for got, ref in zip((dur, diff, prior), jlosses):
-        assert abs(float(got.detach()) - ref) <= 1e-3 * abs(ref), (config, float(got.detach()), ref)
+        assert abs(float(got.detach()) - ref) <= 1e-3 * abs(ref), (float(got.detach()), ref)
     (dur + diff + prior).backward()
     worst = {name: _rel(p.grad.numpy(), want[name].numpy()) for name, p in model.named_parameters()}
     assert max(worst.values()) <= 1e-3, sorted(worst.items(), key=lambda kv: -kv[1])[:5]
