@@ -1742,16 +1742,18 @@ def phase_serving(dev, card: str) -> tuple:
     torch.cuda.synchronize()
     reset_counts()
     iters = 3
-    t0 = time.time()
-    for _ in range(iters):
-        wav = pipeline()
-    torch.cuda.synchronize()
-    wall = (time.time() - t0) / iters
+    with counting_passes() as n_passes:
+        t0 = time.time()
+        for _ in range(iters):
+            wav = pipeline()
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) / iters
     counts = read_counts()
-    expect = expected_counts(dit_block=63 * iters, convnext=8 * iters, istft=iters)
+    expect = expected_counts(dit_block=3 * iters + 60 * n_passes["odeint"], convnext=8 * iters, istft=iters)
     ok = counts == expect and tuple(wav.shape) == (b, frames * hop) and bool(torch.isfinite(wav).all())
     emit({"phase": "serving_bench_bf16", "B": b, "frames": frames, "steps": 10, "cfg": 3.0,
-          "wall_ms": wall * 1e3, "audio_s_per_s": b * frames * hop / sr / wall, "launches": counts,
+          "ode_passes": n_passes["odeint"] // iters, "wall_ms": wall * 1e3,
+          "audio_s_per_s": b * frames * hop / sr / wall, "launches": counts,
           "expected_launches": expect, "card": card, "ok": ok})
     if not ok:
         fail(f"bf16 bench batch: launches {counts} vs {expect}, or bad output")
@@ -1761,10 +1763,13 @@ def phase_serving(dev, card: str) -> tuple:
 @contextlib.contextmanager
 def counting_passes():
     """Counts the API's `prepare` calls (one more a doubling of the mel cap)
-    and `sample` calls (one ODE pass a request) in the yielded Counter."""
+    and the sampler's `odeint` calls (one ODE pass a length group of a
+    `sample`) in the yielded Counter."""
     import stabletts_torch.api as api_mod
+    import stabletts_torch.models.sampler as sampler_mod
 
-    real, n_passes = {k: getattr(api_mod, k) for k in ("prepare", "sample")}, collections.Counter()
+    mods, n_passes = {"prepare": api_mod, "odeint": sampler_mod}, collections.Counter()
+    real = {k: getattr(m, k) for k, m in mods.items()}
 
     def counting(name):
         def call(*a, **k):
@@ -1772,19 +1777,19 @@ def counting_passes():
             return real[name](*a, **k)
         return call
 
-    for name in real:
-        setattr(api_mod, name, counting(name))
+    for name, m in mods.items():
+        setattr(m, name, counting(name))
     try:
         yield n_passes
     finally:
         for name, fn in real.items():
-            setattr(api_mod, name, fn)
+            setattr(mods[name], name, fn)
 
 
 def api_dit_blocks(n_passes) -> int:
     """DiT block launches of the API's counted passes at 10 Euler steps: the
-    text encoder's 3 a `prepare`, the estimator's 6 a step a `sample`."""
-    return 3 * n_passes["prepare"] + 60 * n_passes["sample"]
+    text encoder's 3 a `prepare`, the estimator's 6 a step an ODE pass."""
+    return 3 * n_passes["prepare"] + 60 * n_passes["odeint"]
 
 
 def phase_serving_languages(api, card: str) -> dict:
@@ -1920,30 +1925,48 @@ def phase_bench(card: str) -> dict:
     """The port's serving bench (stabletts_torch/tools/bench.py) at its
     defaults with the gate on: its JSON line, then a record of it with the
     peak device memory over the bench. The
-    launches of its timed iterations (the headline's and CFG 3's) must be 63
-    DiT blocks, 8 ConvNeXt blocks and 1 ISTFT an iteration; they are
+    launches of its timed iterations (the headline's and CFG 3's) must be 3
+    DiT blocks a `prepare` and 60 a length group's ODE pass (3 + 60 n for
+    the n groups that `length_groups` gave that batch, the same n on every
+    call at one batch), 8 ConvNeXt blocks and 1 ISTFT an iteration; they are
     returned, summed."""
+    import stabletts_torch.models.sampler as sampler_mod
     from stabletts_torch.tools import bench as bench_mod
 
     args = bench_mod.parse_args([])
+    real, groups = sampler_mod.length_groups, collections.defaultdict(set)
+
+    def recording(lengths, *a):  # the groups of each `sample` call, by its batch
+        out = real(lengths, *a)
+        groups[len(lengths)].add(len(out))
+        return out
+
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    result = bench_mod.main([])
+    sampler_mod.length_groups = recording
+    try:
+        result = bench_mod.main([])
+    finally:
+        sampler_mod.length_groups = real
     seconds = time.time() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9  # with the earlier phases' models still resident
     d = result["detail"]
-    iters = {"dit_block": 63 * args.iters, "convnext": 8 * args.iters, "istft": args.iters,
-             "istft_spectrum": args.iters}
+    timed = ((d["launches"], d["batch"]), (d["cfg3"]["launches"], d["cfg3"]["batch"]))
+    passes = {b: min(groups[b]) for _, b in timed if len(groups[b]) == 1}
+    iters = {b: {"dit_block": (3 + 60 * passes.get(b, 0)) * args.iters, "convnext": 8 * args.iters,
+                 "istft": args.iters, "istft_spectrum": args.iters} for _, b in timed}
     total = expected_counts()
-    for launches in (d["launches"], d["cfg3"]["launches"]):
+    for launches, _ in timed:
         for k, v in launches.items():
             total[k] += v
-    ok = bool(d["kernel_selftest"] == "pass" and d["platform"] == "gpu" and d["launches"] == iters
-              and d["cfg3"]["launches"] == iters and d["cfg3"]["batch"] == 96 and math.isfinite(result["value"])
+    ok = bool(d["kernel_selftest"] == "pass" and d["platform"] == "gpu" and len(passes) == len(timed)
+              and all(launches == iters[b] for launches, b in timed)
+              and d["cfg3"]["batch"] == 96 and math.isfinite(result["value"])
               and result["value"] > 0 and d["b1"]["latency_ms"] > 0)
     emit({"phase": "bench", "iters": args.iters, "seconds": seconds, "peak_memory_gb": peak_gb,
           "audio_s_per_s": result["value"], "cfg3_audio_s_per_s": d["cfg3"]["audio_s_per_s"],
-          "b1_latency_ms": d["b1"]["latency_ms"], "expected_launches_per_measurement": iters, "card": card, "ok": ok})
+          "b1_latency_ms": d["b1"]["latency_ms"], "ode_passes": {b: sorted(g) for b, g in groups.items()},
+          "expected_launches_per_measurement": iters, "card": card, "ok": ok})
     if not ok:
         fail(f"bench: {result}")
     torch.cuda.empty_cache()
@@ -2050,17 +2073,19 @@ def phase_f5(dev, card: str) -> None:
     batch(1)  # warm: the allocator, cuDNN's plans for the grouped convs
     torch.cuda.synchronize()
     reset_counts()
-    t0 = time.time()
-    out, wav = batch(32)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
+    with counting_passes() as n_passes:
+        t0 = time.time()
+        out, wav = batch(32)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
     counts = read_counts()
-    expect = expected_counts(dit_block=cfg.depth * 32, convnext=8, istft=1)
+    expect = expected_counts(dit_block=cfg.depth * 32 * n_passes["odeint"], convnext=8, istft=1)
     gen = [t - r for t, r in zip(totals, refs)]
     ok = (counts == expect and out["y_lengths"].tolist() == gen and tuple(wav.shape) == (b, max(gen) * 256)
           and bool(torch.isfinite(wav).all()))
     emit({"phase": "f5_batch_bf16", "B": b, "totals": totals, "generated_frames": gen, "steps": 32, "cfg": 2.0,
-          "wall_ms": wall * 1e3, "audio_s_per_s": sum(gen) / fps / wall, "launches": counts,
+          "ode_passes": n_passes["odeint"], "wall_ms": wall * 1e3, "audio_s_per_s": sum(gen) / fps / wall,
+          "launches": counts,
           "expected_launches": expect, "card": card, "ok": ok})
     if not ok:
         fail(f"f5 batch: launches {counts} vs {expect}, generated frames {out['y_lengths'].tolist()} vs {gen}, "

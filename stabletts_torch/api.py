@@ -182,7 +182,10 @@ class StableTTSAPI:
                ref_buckets: Sequence[int] = (512,), step: int = 10, solver: str = "euler",
                cfg: float = 3.0) -> float:
         """Runs the pipeline once at every ladder shape (kernel build, cuDNN
-        plans, allocator pools). Returns wall seconds."""
+        plans, allocator pools), then the estimator once at every length a
+        request's flow may run at: its length plus one frame rounded up to
+        the model's `frame_quantum` (`models/sampler.py`: `length_groups`),
+        up to the largest cap. Returns wall seconds."""
         self._shape_ladder = True
         t0 = time.time()
         for tref in ref_buckets:
@@ -198,6 +201,14 @@ class StableTTSAPI:
                         y_ref_mask=ref_mask, device=self.device,
                     )
                     self._vocode(out["decoder_outputs"], out["y_lengths"])
+        model, row = self.tts_model, torch.zeros(1, dtype=torch.long, device=self.device)
+        with torch.no_grad():
+            cond = model.flow_condition(prepare(model, x, x_lengths, ref_mel, max(lengths), y_ref_mask=ref_mask,
+                                                device=self.device), cfg)
+            t = torch.tensor(0.5, device=self.device)
+            for frames in range(model.frame_quantum, cond["y_mask"].shape[1] + 1, model.frame_quantum):
+                xt = torch.zeros((1, frames, self.mel_config.n_mels), device=self.device)
+                model.flow_velocity(model.flow_rows(cond, row, frames), t, xt, cfg)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return time.time() - t0

@@ -267,7 +267,8 @@ class DiT(nn.Module):
 class F5TTS(nn.Module):
     """cfm.py's CFM around the DiT, for the port's sampler
     (`models/sampler.py`: `prepare` calls `prepare_synthesis`, `sample` calls
-    `flow_condition`, `time_grid`, `flow_velocity` and `flow_output`)."""
+    `flow_condition`, `flow_rows`, `time_grid`, `flow_velocity`
+    and `flow_output`)."""
 
     def __init__(self, cfg: F5Config | None = None, device=None):
         super().__init__()
@@ -326,6 +327,17 @@ class F5TTS(nn.Module):
         else:
             text = text[:b]
         return {"cond": cond, "text": text, "mask": mask, "m": mask[..., None], "cfg_on": cfg >= 1e-5}
+
+    frame_quantum = 1  # the frames run at each batch's longest total, to the frame
+
+    def flow_rows(self, cond: dict, rows, frames: int) -> dict:
+        """`flow_condition`'s output for the items `rows` (an index tensor)
+        over their first `frames` frames: rows r and B + r of the packed
+        CFG branches."""
+        branches = 2 if cond["cfg_on"] else 1
+        b = cond["mask"].shape[0] // branches
+        packed = torch.cat([rows + i * b for i in range(branches)])
+        return {**{k: cond[k][packed, :frames] for k in ("cond", "text", "mask", "m")}, "cfg_on": cond["cfg_on"]}
 
     def time_grid(self, n_steps: int, device) -> torch.Tensor:
         return sway_grid(n_steps, self.cfg.sway_sampling_coef, device)

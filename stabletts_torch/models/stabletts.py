@@ -85,15 +85,24 @@ class StableTTS(nn.Module):
                 "y_clamped": y_clamped, "attn": attn}
 
     # ---- the sampler's interface (models/sampler.py: `sample`)
+    frame_quantum = 256  # the multiple of frames `prepare` computes at, and a length group's
+
     def flow_condition(self, prep: dict, cfg: float) -> dict:
         """The mu prenet over mu_y, and under CFG (cfg != 1) over the
-        unconditional content: once a synthesis."""
+        unconditional content: once a synthesis, at the model's frames."""
         mu_y = prep["mu_y"]
         fake = None
         h_mu = self.precompute_mu(mu_y)
         if cfg != 1.0:
             fake = self.precompute_fake_mu(mu_y.shape[0], mu_y.shape[1], prep["cap"])
         return {"h_mu": h_mu, "fake_h_mu": fake, "c": prep["c"], "y_mask": prep["y_mask"]}
+
+    def flow_rows(self, cond: dict, rows, frames: int) -> dict:
+        """`flow_condition`'s output for the items `rows` (an index tensor)
+        over their first `frames` frames."""
+        cut = lambda a: None if a is None else a[rows, :frames]
+        return {"h_mu": cut(cond["h_mu"]), "fake_h_mu": cut(cond["fake_h_mu"]), "c": cond["c"][rows],
+                "y_mask": cut(cond["y_mask"])}
 
     def time_grid(self, n_steps: int, device) -> torch.Tensor:
         return torch.linspace(0.0, 1.0, n_steps + 1, dtype=torch.float32, device=device)

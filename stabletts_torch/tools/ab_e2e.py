@@ -15,17 +15,22 @@ ms by the tree's kernel families and the largest kernels); and
 `phase_train_bf16` (the same in bf16) and `phase_profile` of one f32 step of
 `phase_train_overfit`'s model (device busy ms, the idle share, the largest
 kernels and the training attention core's device ms by kernel). It prints one
-JSON line: the wall ms of each request and batch, the profiles' numbers and
-the training steps' steady medians. The phases' own lines are not printed.
+JSON line: the wall ms of each request and batch, the profiles' numbers, the
+training steps' steady medians, and sha256 prefixes of the serving outputs
+(equal hashes = equal bits): the request's mel, each item's waveform of an
+f32 `batch_inference` of the phase's sentences, and each item's waveform of
+the bf16 bench batch. The phases' own lines are not printed.
 """
 
 import argparse
+import hashlib
 import json
 import os
 import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 
@@ -57,6 +62,11 @@ def main() -> None:
             if isinstance(out, torch.Tensor):
                 out.cpu()
             walls[name].append((time.time() - t0) * 1e3)
+    sha = lambda a: hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+    hashes = {"request_f32_mel": sha(request()[1]),
+              "batch_f32_wav": [sha(w) for w in api.batch_inference([(s, "english") for s in cs.SENTENCES], ref,
+                                                                     step=10, cfg=3.0)],
+              "bench_bf16_wav": [sha(w.float().cpu().numpy()) for w in pipeline()]}
     cs.phase_profile("request_f32", request, card)
     with tempfile.TemporaryDirectory() as root:
         _, f32_loss, f32_wall = cs.phase_train_steps(dev, card, root)
@@ -81,7 +91,7 @@ def main() -> None:
                fam: sum(e["device_ms"] for e in by_phase["profile_train_step"][0]["top"] if fam in e["name"])
                for fam in ("attn_fwd_kernel", "attn_bwd_dkv_kernel", "attn_bwd_dq_kernel", "rowdot_kernel")},
            "train_f32_steady_ms": by_phase["train_steps"][0]["steady_wall_ms_median"],
-           "train_bf16_steady_ms": by_phase["train_bf16"][0]["steady_wall_ms_median"], "card": card}
+           "train_bf16_steady_ms": by_phase["train_bf16"][0]["steady_wall_ms_median"], "sha": hashes, "card": card}
     print(json.dumps(out), flush=True)
 
 

@@ -148,6 +148,24 @@ def test_shape_ladder_pads_and_keeps_lengths(apis):
     assert dataclasses.asdict(ladder.mel_config) == dataclasses.asdict(MEL_CFG)
 
 
+def test_warmup_runs_the_estimator_at_each_group_length(apis, monkeypatch):
+    """`warmup` runs the estimator at every multiple of the frame quantum up
+    to its largest cap: the lengths a request's one length group may take."""
+    _, ours = apis
+    api = StableTTSAPI(model_config=MODEL_CFG, mel_config=MEL_CFG, vocos_config=VOCOS_CFG, max_mel_len=256,
+                       device="cpu")
+    api.tts_model.load_state_dict(ours.tts_model.state_dict())
+    frames, real = set(), api.tts_model.flow_velocity
+
+    def recording(cond, t, xt, cfg):
+        frames.add(xt.shape[1])
+        return real(cond, t, xt, cfg)
+
+    monkeypatch.setattr(api.tts_model, "flow_velocity", recording)
+    api.warmup(lengths=(256, 768), text_buckets=(16,), ref_buckets=(64,), step=1, cfg=3.0)
+    assert {256, 512, 768} <= frames and max(frames) == 768
+
+
 @pytest.fixture(scope="module")
 def ffgan_checkpoint(tmp_path_factory):
     from torch_port_utils import ffgan_reference_state_dict

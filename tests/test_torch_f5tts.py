@@ -277,8 +277,9 @@ def test_vocoder_at_24k_matches_reference(weights):
 def test_spans_and_counters_of_a_batch(model):
     """A traced batch of two at CFG 2 and 3 steps opens one `sampler.prepare`
     with one `f5.text_embed` inside it, one `sampler.ode` with 3 `ode.step`
-    and one `f5.input_embed` a step, and counts each item's total frames,
-    the rows times the frames computed and the prompts' frames once."""
+    a length group and one `f5.input_embed` a step, and counts each item's
+    total frames, the groups, the items times the frames each group computes
+    and the prompts' frames once."""
     items = [_item(21, 30, 6, 10), _item(22, 44, 9, 12)]
     untraced = _synth(model, items, steps=3)
     metrics.reset()
@@ -286,10 +287,14 @@ def test_spans_and_counters_of_a_batch(model):
         traced = _synth(model, items, steps=3)
     assert torch.equal(traced["decoder_outputs"], untraced["decoder_outputs"])  # tracing changes no result
     snap = metrics.snapshot()
-    calls = {k: v["calls"] for k, v in snap["spans"].items()}
-    assert calls == {"sampler.prepare": 1, "f5.text_embed": 1, "sampler.ode": 1, "ode.step": 3, "f5.input_embed": 3}
     totals = [i["total"] for i in items]
-    assert snap["counters"] == {"sampler.frames_valid": sum(totals), "sampler.frames_computed": 2 * max(totals),
+    groups = sampler.length_groups(totals, 1, max(totals))
+    assert groups == [([0, 1], max(totals))]  # two short items: one group at the longest total
+    calls = {k: v["calls"] for k, v in snap["spans"].items()}
+    assert calls == {"sampler.prepare": 1, "f5.text_embed": 1, "sampler.ode": 1, "ode.step": 3 * len(groups),
+                     "f5.input_embed": 3 * len(groups)}
+    assert snap["counters"] == {"sampler.frames_valid": sum(totals), "sampler.groups": len(groups),
+                                "sampler.frames_computed": sum(len(rows) * frames for rows, frames in groups),
                                 "f5.prompt_frames": 30 + 44}
     parents = {r[0]: metrics.records()[r[3]][0] for r in metrics.records() if r[3] >= 0}
     assert parents["f5.text_embed"] == "sampler.prepare" and parents["f5.input_embed"] == "ode.step"

@@ -16,6 +16,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from stabletts_torch.api import StableTTSAPI
+from stabletts_torch.models import sampler
 from stabletts_torch.utils import metrics
 from torch_port_utils import MEL_CFG, MODEL_CFG, VOCOS_CFG
 
@@ -137,7 +138,7 @@ def test_a_regrown_request_shows_both_passes(api, caplog):
     snap = metrics.snapshot()
     spans, counters = snap["spans"], snap["counters"]
     assert counters["api.requests"] == 1
-    assert set(counters) == {"api.requests", "sampler.frames_valid", "sampler.frames_computed"}
+    assert set(counters) == {"api.requests", "sampler.frames_valid", "sampler.groups", "sampler.frames_computed"}
     # api.synthesise is the whole regrow loop: one a request
     once = ("api.request", "api.g2p", "api.ref_mel", "api.synthesise", "sampler.ode", "api.vocode", "api.to_host",
             "vocoder", "vocoder.istft_head")
@@ -146,7 +147,9 @@ def test_a_regrown_request_shows_both_passes(api, caplog):
         assert spans[name]["calls"] == 2, name
     assert spans["ode.step"]["calls"] == steps
     round_up = lambda n: -(-n // 256) * 256
-    assert counters["sampler.frames_computed"] == round_up(2 * cap)  # the ODE's pass alone
+    assert counters["sampler.groups"] == 1  # one item: one group at its own frames
+    # the ODE's pass alone: the item and the frame past it, rounded up
+    assert counters["sampler.frames_computed"] == min(round_up(frames + 1), round_up(2 * cap))
     assert counters["sampler.frames_valid"] == frames
     recs = metrics.records()
     assert {r[4] for r in recs} == {0}  # every span belongs to the one request
@@ -223,8 +226,10 @@ def test_the_cap_is_settled_before_the_one_ode_pass(api, caplog, case, regrows):
     snap = metrics.snapshot()
     spans = {k: v["calls"] for k, v in snap["spans"].items()}
     assert spans["sampler.prepare"] == spans["text_encoder"] == 1 + regrows
-    assert spans["sampler.ode"] == spans["api.synthesise"] == 1 and spans["ode.step"] == kw["step"]
-    assert snap["counters"]["sampler.frames_computed"] == len(frames) * -(-final // 256) * 256
+    groups = sampler.length_groups(frames, 256, -(-final // 256) * 256)
+    assert spans["sampler.ode"] == spans["api.synthesise"] == 1 and spans["ode.step"] == kw["step"] * len(groups)
+    assert snap["counters"]["sampler.groups"] == len(groups)
+    assert snap["counters"]["sampler.frames_computed"] == sum(len(rows) * n for rows, n in groups)
     assert snap["counters"]["sampler.frames_valid"] == sum(frames)
 
 
