@@ -94,9 +94,10 @@ class StableTTSAPI:
             else:
                 self.vocoder_model = get_vocoder(vocoder_model_path, vocoder_name, "cpu", self._vocos_config,
                                                  self.mel_config)
-        # Vocos takes per-item lengths (the fixed-shape serving mode);
-        # FireflyGAN callers trim the mel instead
-        self._vocoder_supports_lengths = isinstance(self.vocoder_model, Vocos)
+        # both vocoders take per-item lengths (the fixed-shape serving mode);
+        # a request vocodes its whole cap with them only through Vocos, and
+        # trims the mel for FireflyGAN, whose work a frame is 25 times Vocos's
+        self._vocode_request_at_cap = isinstance(self.vocoder_model, Vocos)
         if tts_model_path is not None:
             self.tts_model.load_state_dict(load_torch_state_dict(tts_model_path))
         self.tts_model.to(self.device)
@@ -171,12 +172,10 @@ class StableTTSAPI:
                 logger.warning("predicted length exceeded the mel cap; regrowing to %d", max_mel_len)
 
     def _vocode(self, mel: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-        """The whole padded mel through the vocoder, with the per-item lengths
-        where the vocoder takes them."""
+        """The whole padded mel through the vocoder with the per-item lengths:
+        each item as its trimmed mel vocoded alone, zero past its length."""
         with span("api.vocode"):
-            if self._vocoder_supports_lengths:
-                return self.vocoder_model(mel, lengths)
-            return self.vocoder_model(mel)
+            return self.vocoder_model(mel, lengths)
 
     def warmup(self, lengths: Sequence[int] = (1024, 2048), text_buckets: Sequence[int] = (64, 128),
                ref_buckets: Sequence[int] = (512,), step: int = 10, solver: str = "euler",
@@ -233,7 +232,7 @@ class StableTTSAPI:
             )
             y_len = int(lengths[0])
             with span("api.vocode"):
-                if self._shape_ladder and self._vocoder_supports_lengths:
+                if self._shape_ladder and self._vocode_request_at_cap:
                     # fixed shape: the full cap with a length mask (exact, see Vocos)
                     audio = self.vocoder_model(out["decoder_outputs"], out["y_lengths"])
                     audio = audio[:, : y_len * self.mel_config.hop_length]

@@ -35,6 +35,8 @@ Spans the program opens (and the counters beside them):
   (sampler.frames_valid, sampler.frames_computed)      models/sampler.py
   ode.step (one a solver step or attempt)                       ops/ode.py
   vocoder, vocoder.istft_head                              models/vocos.py
+  vocoder, ffgan.backbone, ffgan.head (vocoder.frames_valid,
+  vocoder.frames_computed)                                 models/ffgan.py
   train.step (new unit; train.steps), train.forward, train.backward,
   train.update                                        train/train_tts.py
   data.wait (the consumer's wait for the next item)       data/prefetch.py

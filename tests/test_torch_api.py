@@ -192,7 +192,8 @@ def test_vocoder_choice_matches_jax(ffgan_checkpoint, name, with_path):
     ours = StableTTSAPI(model_config=MODEL_CFG, vocos_config=VOCOS_CFG, max_mel_len=256, device="cpu", **kw)
     assert type(ours.vocoder_model).__name__ == type(japi.vocoder_model).__name__
     assert type(ours.vocoder_model).__name__ == ("FireflyGANBase" if with_path else "Vocos")
-    assert ours._vocoder_supports_lengths == japi._vocoder_supports_lengths
+    # the JAX API's flag is the request path's choice: at the cap with lengths (Vocos) or trimmed
+    assert ours._vocode_request_at_cap == japi._vocoder_supports_lengths
     if with_path:
         mel = np.random.default_rng(4).standard_normal((1, 12, 128)).astype(np.float32)
         want = np.asarray(japi.vocoder_model.apply(japi.vocoder_variables, jnp.asarray(mel)))

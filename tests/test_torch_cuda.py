@@ -1152,3 +1152,70 @@ def test_train_kernels_row0_zero_is_the_call_without_it(dev, kind, dtype):
     full, explicit, _ = _row_offset_calls(dev, kind, dtype, 2, 97, slice(None), {"row0": 0})
     for a, b in zip(full, explicit):
         assert torch.equal(a, b)
+
+
+def _ffgan_cell_case(dev, dtype):
+    """FireflyGAN in `dtype` with the benchmark cell's weight rule (seeded),
+    8 mels at the cell's cap of 1024 frames with lengths from its pool (the
+    text-id quantiles at 3.3 frames an id: 185-855 frames), noise past each."""
+    import json
+    import math
+    import os
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if repo not in sys.path:
+        sys.path.insert(0, repo)
+    from perfbench.lib import core
+    from perfbench.lib.weights import make_weights
+    from perfbench.reference import ffgan_ref
+    from perfbench.traffic.phoneme_batches import lognormal_quantiles
+    from stabletts_torch.models.ffgan import FireflyGANBase
+    from stabletts_torch.models.sampler import cast_model
+
+    cfg = json.load(open(os.path.join(repo, "perfbench", "configs", "stabletts-v1.1-ffgan44k-serve.json")))
+    entry = core.load_module(os.path.join(repo, "perfbench", "entries", "synthesise_ffgan.py"), "pb_entry_ffgan_card")
+    rule = {"vocoder": cfg["vocoder"], "weights": {"velocity_gain": 1.0, "ups_gain": cfg["weights"]["ups_gain"]}}
+    w = make_weights(ffgan_ref.parameter_shapes(cfg["vocoder"]), rule, 2700000011, dev)
+    entry.scale_upsamplers(w, rule, prefix="")
+    model = FireflyGANBase(device=dev)
+    model.load_state_dict(w)
+    model = cast_model(model.eval(), dtype)
+    ids = lognormal_quantiles(768, 120, 0.5, 24, 280)[48::96]
+    lengths = torch.tensor([min(1024, math.ceil(3.3 * n)) for n in ids], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    mel = torch.randn(8, 1024, 128, generator=gen, device=dev).to(dtype)
+    return model, w, cfg["vocoder"], mel, lengths
+
+
+@pytest.mark.parametrize("dtype,alone_bar,ref_bar", [(torch.float32, 1e-5, 1e-5), (BF16, 3e-2, 3e-2)])
+def test_ffgan_lengths_mode_at_the_cell_shape(dev, dtype, alone_bar, ref_bar):
+    """Each item of a batch with lengths against the item vocoded alone and
+    against the float32 reference on the same (rounded) mel, as relative L2
+    errors over the item and over its last 8 frames (4096 samples, where a
+    neighbour's frames or the noise past the item would land); and zeros past
+    each item. Bars: float32 with TF32 off, a batch and a lone item differ
+    only where cuDNN picks another algorithm for another shape, and the
+    reference sums channels-first: both read 9.9e-7 on an H100, so 1e-5;
+    bf16 rounds every activation to 8 bits through 100 convs: 0.0082
+    against the item alone and 0.0118 against the reference on the H100,
+    so 3e-2, where a lost mask reads O(1) in the last frames."""
+    from perfbench.reference import ffgan_ref
+
+    model, w, v, mel, lengths = _ffgan_cell_case(dev, dtype)
+    with torch.no_grad():
+        got = model(mel, lengths).float()
+        readings = []
+        for i, n in enumerate(lengths.tolist()):
+            alone = model(mel[i:i + 1, :n])[0].float()
+            want = ffgan_ref.vocode(w, mel[i, :n].float(), v)
+            item, tail = slice(0, n * 512), slice(max(0, n - 8) * 512, n * 512)
+            rel = lambda a, b: float((a - b).norm() / b.norm())
+            readings.append((rel(got[i, item], alone), rel(got[i, tail], alone[tail]),
+                             rel(got[i, item], want), rel(got[i, tail], want[tail])))
+            assert torch.equal(got[i, n * 512:], torch.zeros_like(got[i, n * 512:])), i
+    print(f"ffgan lengths mode {dtype}: worst alone {max(r[0] for r in readings):.3g} "
+          f"(last frames {max(r[1] for r in readings):.3g}), worst ref {max(r[2] for r in readings):.3g} "
+          f"(last frames {max(r[3] for r in readings):.3g})")
+    assert max(max(r[:2]) for r in readings) <= alone_bar
+    assert max(max(r[2:]) for r in readings) <= ref_bar

@@ -233,6 +233,59 @@ def test_the_cap_is_settled_before_the_one_ode_pass(api, caplog, case, regrows):
     assert snap["counters"]["sampler.frames_valid"] == sum(frames)
 
 
+@pytest.mark.parametrize("lengths", [None, (7, 2)])
+def test_one_ffgan_vocode_opens_three_spans(lengths):
+    """FireflyGAN opens `vocoder` with `ffgan.backbone` and `ffgan.head`
+    inside it and none inside those (the benchmark's module ranges are the
+    innermost), and counts the valid and the computed frames once; with no
+    profiler nothing is kept."""
+    from stabletts_torch.models.ffgan import FireflyGANBase
+
+    model = FireflyGANBase(device="cpu").eval()
+    mel = torch.randn(2, 7, 128)
+    args = () if lengths is None else (torch.tensor(lengths),)
+    metrics.reset()
+    model(mel, *args)
+    assert metrics.snapshot() == {"spans": {}, "counters": {}, "dropped": 0}
+    with _profiled():
+        model(mel, *args)
+    snap = metrics.snapshot()
+    assert {k: v["calls"] for k, v in snap["spans"].items()} == {"vocoder": 1, "ffgan.backbone": 1, "ffgan.head": 1}
+    assert snap["counters"] == {"vocoder.frames_valid": 14 if lengths is None else 9, "vocoder.frames_computed": 14}
+    recs = metrics.records()
+    assert [(r[0], recs[r[3]][0] if r[3] >= 0 else None) for r in recs] == [
+        ("vocoder", None), ("ffgan.backbone", "vocoder"), ("ffgan.head", "vocoder")]
+
+
+def test_one_api_batch_with_ffgan(tmp_path):
+    """An API batch through FireflyGAN (3 items, 2 steps, cap 64 that none
+    reaches): 15 + 2 g spans for g length groups (a `api.g2p` an item, an
+    `ode.step` a step of each group), the vocoder's three among them under
+    `api.vocode`, and the vocoder's counters at the batch's lengths and its
+    cap."""
+    from stabletts_torch.models.ffgan import FireflyGANBase
+
+    path = str(tmp_path / "ffgan.pt")
+    torch.save(FireflyGANBase(device="cpu").state_dict(), path)
+    api = StableTTSAPI(vocoder_model_path=path, vocoder_name="ffgan", model_config=MODEL_CFG, max_mel_len=64,
+                       device="cpu")
+    items = [("Hi.", "english"), ("Good day.", "english"), ("Yes.", "english")]
+    metrics.reset()
+    with _profiled():
+        wavs = api.batch_inference(items, _wave(0.5), step=2, cfg=1.0)
+    snap = metrics.snapshot()
+    frames = [len(w) // 512 for w in wavs]
+    groups = len(sampler.length_groups(frames, 256, 256))
+    once = ("api.request", "api.ref_mel", "api.synthesise", "sampler.prepare", "text_encoder", "duration_predictor",
+            "sampler.ode", "api.vocode", "vocoder", "ffgan.backbone", "ffgan.head", "api.to_host")
+    assert {k: v["calls"] for k, v in snap["spans"].items()} == {**dict.fromkeys(once, 1), "api.g2p": 3,
+                                                                 "ode.step": 2 * groups}
+    assert snap["counters"]["vocoder.frames_valid"] == sum(frames) and max(frames) < 64
+    assert snap["counters"]["vocoder.frames_computed"] == 3 * 64
+    recs = metrics.records()
+    assert {recs[r[3]][0] for r in recs if r[0] == "vocoder"} == {"api.vocode"}
+
+
 @pytest.fixture(scope="module")
 def bench_root(tmp_path_factory):
     return pb_helpers.tiny_copy(tmp_path_factory.mktemp("tracing"), pb_helpers.TINY_TRAFFIC)
